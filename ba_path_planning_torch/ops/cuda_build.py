@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``ba_path_planning_torch/csrc/`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/kernels/`` at the root of the checkout, named by a hash
-of the sources and flags, and loaded with ``ctypes``.  A later call with the
-same sources loads the library that is already there.
+At first use each is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library under
+``build/kernels/`` at the root of the checkout, named by a hash of the
+sources and flags, and loaded with ``ctypes``.  A later call with the same
+sources loads the library that is already there.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ns_chain.cu", "group_solve_x.cu")
+SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_info: dict = {}
@@ -48,17 +49,32 @@ def _build() -> Path:
         build_info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / name) for name in SOURCES]]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    tmp = _BUILD / f"{tag}.so.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(_CSRC / name)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    logs = [f"{name}:\n{proc.communicate()[0]}"
+            for name, proc in zip(SOURCES, procs)]
+    try:
+        failed = [log for log, proc in zip(logs, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
+                      log="\n".join(logs))
     return out
 
 
@@ -69,14 +85,14 @@ def load_kernels() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(_build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ns_chain_ld.argtypes = [i]
-    lib.ns_chain_ld.restype = i
-    lib.ns_chain_t_in_smem.argtypes = [i]
-    lib.ns_chain_t_in_smem.restype = i
-    lib.ns_chain_interior_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.ns_chain_scratch_floats.argtypes = [i]
+    lib.ns_chain_scratch_floats.restype = i
+    lib.ns_chain_interior_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.ns_chain_interior_f32.restype = i
     lib.group_solve_x_f32.argtypes = [p, p, p, p, i, i, i, p]
     lib.group_solve_x_f32.restype = i
+    lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 4 + [p]
+    lib.admm_fused_x_f32.restype = i
     _lib = lib
     return lib
 

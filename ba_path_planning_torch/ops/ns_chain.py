@@ -5,7 +5,8 @@
 :func:`factorize_X_chain_batched` equals
 ``banded.factorize_X(D, C, ns_iters=j, ns_anchor=0)``.  On the card the
 exact anchors at k = 0, 1, 2 and K-1 run in PyTorch (Cholesky inverses) and
-the interior k = 3..K-2 runs in the kernel.
+the interior k = 3..K-2 runs in the kernel, which keeps its matrices in
+shared memory up to N = 28 and in a per-scenario global scratch beyond.
 """
 
 from __future__ import annotations
@@ -50,15 +51,13 @@ def factorize_X_chain_batched(D, C, *, ns_iters: int):
     X[:, 1] = exact(X[:, 0], D[:, 1], C[0])
     X[:, 2] = exact(X[:, 1], D[:, 2], C[1])
     lib = load_kernels()
-    ld = lib.ns_chain_ld(n)
-    scratch = torch.empty((B, ld, ld), dtype=D.dtype, device=D.device)
-    tscratch = (None if lib.ns_chain_t_in_smem(n)
-                else torch.empty((B, ld, ld), dtype=D.dtype, device=D.device))
+    scratch = torch.empty((B, lib.ns_chain_scratch_floats(n)), dtype=D.dtype,
+                          device=D.device)
     with torch.cuda.device(D.device):
         err = lib.ns_chain_interior_f32(
-            D.data_ptr(), C.data_ptr(), X.data_ptr(), scratch.data_ptr(),
-            0 if tscratch is None else tscratch.data_ptr(), B, K, n, 3,
-            K - 1, ns_iters, torch.cuda.current_stream(D.device).cuda_stream)
+            D.data_ptr(), C.data_ptr(), X.data_ptr(), scratch.data_ptr(), B,
+            K, n, 3, K - 1, ns_iters,
+            torch.cuda.current_stream(D.device).cuda_stream)
     check(err, "factorize_X_chain_batched")
     factorize_X_chain_batched.launches += 1
     X[:, K - 1] = exact(X[:, K - 2], D[:, K - 1], C[K - 2])

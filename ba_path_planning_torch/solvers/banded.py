@@ -13,7 +13,8 @@ package vmapped a per-scenario function; the scenario axis is explicit and
 comes first.  :func:`solve_qp_state` ports the production form only: a fixed
 budget of one check interval, no adaptive rho and no polish, the shared
 per-channel factorization for the collision-free QP and the X-form factors
-with the sweep kernel for every QP with collision rows.
+for every QP with collision rows, with either the sweep kernel per ADMM
+iteration or the fused kernel for the whole interval (:func:`qp_route`).
 """
 
 from __future__ import annotations
@@ -526,8 +527,11 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
              dtype, col_enabled: bool) -> str:
     """The x-update route the JAX router (``banded.py:1210-1259``) takes for
     these options: "channel" for the collision-free QP, "grouped_X" for the
-    X-form sweep kernel.  Raises NotImplementedError for every route the
-    port does not have yet, naming its ROADMAP item."""
+    X-form sweep kernel, "fused_X" for the X-form kernel that runs the whole
+    check interval (where the fused option is on, the factors fit the TPU's
+    VMEM budget and the auto group is starved: N >= 22 in float32).  Raises
+    NotImplementedError for every route the port does not have yet, naming
+    its ROADMAP item."""
     if static.adaptive_rho:
         raise NotImplementedError(
             "adaptive rho is not ported yet (ROADMAP Queue 1 item 7)")
@@ -548,16 +552,19 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
     else:
         group_n = 0
     if static.factor_form != "X":
+        factor_bytes = 2 * K * (6 * N) ** 2 * isz
+        if (static.fused and group_n == 0
+                and factor_bytes <= 12 * 1024 * 1024):
+            raise NotImplementedError(
+                "the L-form fused ADMM-interval kernel is not ported yet "
+                "(ROADMAP Queue 1 item 7, Queue 2 kernel 5)")
         raise NotImplementedError(
             "L-form factors are not ported yet (ROADMAP Queue 1 item 7, "
             "Queue 2 kernel 6)")
     nr8 = -(-6 * N // 8) * 8
     fused_ok = K * nr8 * np_ * isz <= 96 * 1024 * 1024
     if static.fused and fused_ok and (group_n == 0 or group_n < 16):
-        raise NotImplementedError(
-            "the fused ADMM-interval kernel, which the router picks when the "
-            "auto group is below 16 (N >= 22 in float32), is not ported yet "
-            "(ROADMAP Queue 2 kernels 3/4)")
+        return "fused_X"
     if group_n == 0:
         raise NotImplementedError(
             "the dense (Linv, Eb) route is not ported yet (ROADMAP Queue 1 "
@@ -580,7 +587,10 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
 
     Production form only: the budget is one check interval
     (``max_iter == check_interval``), so every lane runs exactly that many
-    iterations and the residuals are checked once, at the end.
+    iterations and the residuals are checked once, at the end.  The fused
+    route keeps the batch-independent rho of :func:`rho_pattern_masks` on
+    every collision row, as the JAX router does; the other routes give rows
+    disabled by a -inf lower bound the loose rho.
     """
     dtype = x_init.a.dtype
     N = n_vehicles
@@ -605,49 +615,67 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     rho_b = rho_pattern_masks(scaling, static, params.rho,
                               params.col_rho_boost, n_steps=K, n_pairs=P,
                               col_enabled=col_enabled, dtype=dtype)
+    step = dict(h=h, sigma=sigma, alpha=alpha, lam=params.col_penalty,
+                n_iters=int(params.check_interval))
     if route == "channel":
         L, Eb = factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
+        x, z, y = admm_iterations(
+            x, z, y, lambda sb: solve_factorized_channel(
+                L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))
+            ).reshape(sb.shape), eta, E, lower, upper, rho_b, **step)
     else:
-        # rows disabled by a -inf bound take the loose rho
-        rho_b = rho_b._replace(col=torch.where(
-            torch.isinf(lower.col), torch.full_like(lower.col, _LOOSE_RHO),
-            rho_b.col))
+        if route == "grouped_X":
+            # rows disabled by a -inf bound take the loose rho
+            rho_b = rho_b._replace(col=torch.where(
+                torch.isinf(lower.col), torch.full_like(lower.col, _LOOSE_RHO),
+                rho_b.col))
         D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N)
         Xf = _factorize_X_routed(D, C, static)
         del D
-        from ..ops.group_solve import solve_factorized_grouped_X
-
-    lam = params.col_penalty
-    for _ in range(int(params.check_interval)):
-        rzy = tree_map(lambda zz, yy, rr: rr * zz - yy, z, y, rho_b)
-        b_sv = apply_AT(rzy, eta, E, h)
-        b_sv = tree_map(lambda bb, xx: bb + sigma * xx, b_sv, x)
-        sb = to_stacked(b_sv)
-        if route == "channel":
-            xs = solve_factorized_channel(
-                L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))).reshape(sb.shape)
+        if route == "fused_X":
+            from ..ops.admm_fused import admm_interval_fused_X
+            x, z, y = admm_interval_fused_X(Xf, C, eta, E, lower, upper, x, z,
+                                            y, rho_b, **step)
         else:
-            xs = solve_factorized_grouped_X(Xf, C, sb)
-        x_t = from_stacked(xs, N)
-        x = tree_map(lambda xt, xx: alpha * xt + (1 - alpha) * xx, x_t, x)
-        Ax_t = apply_A(x_t, eta, E, h)
-        z_rel = tree_map(lambda az, zz: alpha * az + (1 - alpha) * zz, Ax_t, z)
-        z_new = tree_map(lambda zr, yy, rr, lo, up: torch.clamp(zr + yy / rr,
-                                                             lo, up),
-                      z_rel, y, rho_b, lower, upper)
-        # exact-penalty soft prox on the collision rows
-        w_col = z_rel.col + y.col / rho_b.col
-        z_col = torch.where(w_col >= lower.col, w_col,
-                            torch.minimum(w_col + lam / rho_b.col, lower.col))
-        z = z_new._replace(col=z_col)
-        y = tree_map(lambda yy, zr, zn, rr: yy + rr * (zr - zn), y, z_rel, z,
-                  rho_b)
+            from ..ops.group_solve import solve_factorized_grouped_X
+            x, z, y = admm_iterations(
+                x, z, y, lambda sb: solve_factorized_grouped_X(Xf, C, sb),
+                eta, E, lower, upper, rho_b, **step)
 
     prim, dual, done = _residuals(x, z, y, eta, E, h, scaling, params, nb)
     iters = torch.full(prim.shape, int(params.check_interval),
                        dtype=torch.int32, device=prim.device)
     return StateQPResult(x=x, y=y, iters=iters, prim_res=prim, dual_res=dual,
                          converged=done)
+
+
+def admm_iterations(x: StateVars, z: RowVals, y: RowVals, solve, eta, E,
+                    lower: RowVals, upper: RowVals, rho: RowVals, *, h: float,
+                    sigma, alpha, lam, n_iters: int):
+    """``n_iters`` ADMM iterations from (x, z, y): the loop body of the JAX
+    ``solve_qp_state`` (``admm_iter``).  ``solve`` maps a stacked right-hand
+    side (..., K, 6N) to the solution of the normal equations.  Returns the
+    new (x, z, y)."""
+    N = x.a.shape[-3]
+    for _ in range(n_iters):
+        rzy = tree_map(lambda zz, yy, rr: rr * zz - yy, z, y, rho)
+        b_sv = apply_AT(rzy, eta, E, h)
+        b_sv = tree_map(lambda bb, xx: bb + sigma * xx, b_sv, x)
+        x_t = from_stacked(solve(to_stacked(b_sv)), N)
+        x = tree_map(lambda xt, xx: alpha * xt + (1 - alpha) * xx, x_t, x)
+        Ax_t = apply_A(x_t, eta, E, h)
+        z_rel = tree_map(lambda az, zz: alpha * az + (1 - alpha) * zz, Ax_t, z)
+        z_new = tree_map(lambda zr, yy, rr, lo, up: torch.clamp(zr + yy / rr,
+                                                             lo, up),
+                         z_rel, y, rho, lower, upper)
+        # exact-penalty soft prox on the collision rows
+        w_col = z_rel.col + y.col / rho.col
+        z_col = torch.where(w_col >= lower.col, w_col,
+                            torch.minimum(w_col + lam / rho.col, lower.col))
+        z = z_new._replace(col=z_col)
+        y = tree_map(lambda yy, zr, zn, rr: yy + rr * (zr - zn), y, z_rel, z,
+                     rho)
+    return x, z, y
 
 
 def _residuals(x, z, y, eta, E, h, scaling, params, nb):

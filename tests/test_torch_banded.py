@@ -271,22 +271,28 @@ def test_scp_iteration_qp_matches_jax():
 @pytest.mark.parametrize("N,change,message", [
     (20, dict(), None),
     (21, dict(), None),
-    (22, dict(), "fused ADMM-interval kernel"),
+    (22, dict(), None),
     (20, dict(adaptive_rho=True), "adaptive rho"),
     (20, dict(factor_form="L"), "L-form"),
     (20, dict(kernels=False, fused=False), r"dense \(Linv, Eb\) route"),
     (20, dict(factor_dtype="bf16"), "bf16"),
+    (30, dict(), None),
+    (40, dict(), None),
+    (4, dict(factor_form="L", kernels=False), "L-form fused"),
 ])
 def test_qp_route_matches_the_jax_router_or_raises(N, change, message):
     """The grouped X route where the JAX router takes the grouped sweep
-    kernel (banded.py:1210-1259); every route not ported raises, naming its
-    ROADMAP item, instead of running another route."""
+    kernel and the fused X route where it takes the fused ADMM-interval
+    kernel, N >= 22 in float32 (banded.py:1210-1259); every route not
+    ported raises, naming its ROADMAP item, instead of running another
+    route."""
     from ba_path_planning_torch.utils.config import SolverConfig
     static = SolverConfig.production().replace(**change).static_part()
     kw = dict(n_vehicles=N, n_steps=50, dtype=torch.float32)
     if message is None:
         assert tb.qp_route(static, col_enabled=False, **kw) == "channel"
-        assert tb.qp_route(static, col_enabled=True, **kw) == "grouped_X"
+        assert tb.qp_route(static, col_enabled=True, **kw) == (
+            "fused_X" if N >= 22 else "grouped_X")
     else:
         with pytest.raises(NotImplementedError, match=message):
             tb.qp_route(static, col_enabled=True, **kw)

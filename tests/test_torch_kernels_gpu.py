@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from ba_path_planning_torch.ops import group_solve, ns_chain
-from ba_path_planning_torch.ops.collisions import make_pair_index
+from ba_path_planning_torch.ops import admm_fused, group_solve, ns_chain
+from ba_path_planning_torch.ops.collisions import (make_pair_index,
+                                                   pairwise_diffs)
 from ba_path_planning_torch.solvers import banded as tb
-from ba_path_planning_torch.utils.config import SolverConfig
+from ba_path_planning_torch.solvers.scp import _warm_state
+from ba_path_planning_torch.utils.config import (ProblemConfig, SolverConfig,
+                                                 make_solver_params)
 
 
 @pytest.fixture
@@ -65,10 +68,13 @@ def _block_rel(got, want, block_dims):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,K,N", [(3, 10, 3), (4, 12, 4), (8, 50, 20),
-                                   (2, 9, 23)])
+                                   (2, 9, 23), (2, 50, 28), (2, 50, 29),
+                                   (2, 50, 30), (2, 50, 40)])
 def test_ns_chain_kernel_matches_plain(cuda, B, K, N):
     """Relative 1e-4 in every (b, k) block: the kernel sums its FP32
-    products in another order than cuBLAS."""
+    products in another order than cuBLAS.  N <= 28 keeps the matrices in
+    shared memory; from N = 29 two 6N x 6N tiles no longer fit there and
+    the kernel works out of a global scratch."""
     D, C = _assembled(B, K, N, seed=N)
     D, C = D.float().to(cuda), C.float().to(cuda)
     before = ns_chain.factorize_X_chain_batched.launches
@@ -115,3 +121,117 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda):
     static = SolverConfig.production().static_part()
     with pytest.raises(TypeError):          # the JAX router's f64 XLA chain
         tb._factorize_X_routed(D, C.double(), static)
+
+
+def _to64(args):
+    """float64 copies of interval arguments (a tuple, or a dict of keyword
+    arguments whose tensors are converted)."""
+    if isinstance(args, dict):
+        return {k: v.double() if isinstance(v, torch.Tensor) else v
+                for k, v in args.items()}
+    return tuple(tb.tree_map(lambda t: t.double(), a) if isinstance(a, tuple)
+                 else a.double() for a in args)
+
+
+def _interval_case(B, K, N, seed, device):
+    """Inputs of one fused ADMM interval at main-path shapes, float32:
+    bounds of random start and goal positions, collision rows of random
+    unit directions about the start positions (row 0 vacuous), the
+    production rho pattern and X-form factors from the NS route.  The state
+    (x, z, y) is warm, as an SCP iteration finds it: one float64 plain
+    interval from x at rest, z = clip(A x, l, u) and y = 0.  Returns the
+    positional and keyword arguments of ``admm_interval_fused_X``."""
+    rng = np.random.default_rng(seed)
+    f32, h = torch.float32, 0.2
+    P = N * (N - 1) // 2
+    problem = ProblemConfig(n_vehicles=N, time_horizon=K * h, time_step=h,
+                            min_distance=0.8)
+    solver = SolverConfig.production(problem=problem)
+    prm = make_solver_params(solver, f32, device)
+    p0, pf = (torch.as_tensor(rng.uniform(2.0, 18.0, (B, N, 2)), dtype=f32,
+                              device=device) for _ in range(2))
+    v0 = torch.zeros_like(p0)
+    pairs = make_pair_index(N, f32, device)
+    lower, upper = tb.build_bounds(p0, v0, pf, v0, n_vehicles=N, n_steps=K,
+                                   h=h, limits=problem.limits, n_pairs=P)
+    eta = torch.as_tensor(rng.normal(size=(B, K, P, 2)), dtype=f32,
+                          device=device)
+    eta = eta / torch.linalg.vector_norm(eta, dim=-1, keepdim=True)
+    x = _warm_state(torch.zeros((B, N, K, 2), dtype=f32, device=device), p0,
+                    v0, h)
+    prev = p0[..., None, :].expand(B, N, K, 2).contiguous()
+    dist = torch.linalg.vector_norm(pairwise_diffs(prev, pairs), dim=-1)
+    lower = lower._replace(col=tb.collision_lower_bounds_state(
+        eta, dist, prev, pairs, min_distance=0.93))
+    rho = tb.rho_pattern_masks(
+        tb.row_scaling_state(K, h, dtype=f32, device=device),
+        solver.static_part(), prm.rho, prm.col_rho_boost, n_steps=K,
+        n_pairs=P, col_enabled=True, dtype=f32)
+    D, C = tb.assemble_D(rho, eta, pairs.E, h=h, sigma=prm.sigma,
+                         n_vehicles=N)
+    X = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2)
+    z = tb.tree_map(torch.clamp, tb.apply_A(x, eta, pairs.E, h), lower, upper)
+    y = tb.tree_map(torch.zeros_like, z)
+    args = (X, C, eta, pairs.E, lower, upper, x, z, y, rho)
+    kw = dict(h=h, sigma=prm.sigma, alpha=prm.alpha, lam=prm.col_penalty)
+    warm = admm_fused.admm_interval_fused_X_plain(*_to64(args), n_iters=25,
+                                                  **_to64(kw))
+    state = tuple(tb.tree_map(lambda t: t.float(), v) for v in warm)
+    return args[:6] + state + args[9:], kw
+
+
+def _interval_rows(out, K):
+    """(B, K, .) rows of an interval's (x, z, y): x stacked, and z and y as
+    their static plane and collision rows side by side."""
+    x, z, y = out
+
+    def rows(rv):
+        return torch.cat([admm_fused.static_plane(rv, K).flatten(-2), rv.col],
+                         dim=-1)
+    return tb.to_stacked(x), rows(z), rows(y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,K,N", [(3, 10, 4), (4, 50, 30), (2, 50, 40),
+                                   (2, 330, 30)])
+def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
+    """Every (b, k) row block of x and z within 2e-4 (relative to the
+    block's largest entry) of the plain version after one iteration; at
+    K = 330 the sweep plane no longer fits in shared memory.  The
+    duals y = y + rho (zr - z) multiply the rounding of zr by rho (up to
+    ~5e3 on the equality rows), and 25 iterations amplify rounding further
+    (alpha = 1.9), so the y blocks, and every block after 25 iterations,
+    may be off float64 by at most 4x the plain FP32 version's error."""
+    args, kw = _interval_case(B, K, N, seed=N, device=cuda)
+    before = admm_fused.admm_interval_fused_X.launches
+    got = admm_fused.admm_interval_fused_X(*args, n_iters=n_iters, **kw)
+    assert admm_fused.admm_interval_fused_X.launches == before + 1
+    want = admm_fused.admm_interval_fused_X_plain(*args, n_iters=n_iters,
+                                                  **kw)
+    ref = _interval_rows(admm_fused.admm_interval_fused_X_plain(
+        *_to64(args), n_iters=n_iters, **_to64(kw)), K)
+    torch.cuda.synchronize()
+    got_r, want_r = _interval_rows(got, K), _interval_rows(want, K)
+    errs = [_block_rel(g, w, 1) for g, w in zip(got_r, want_r)]
+    if n_iters == 1:
+        assert max(errs[:2]) < 2e-4, errs
+    checked = slice(2, 3) if n_iters == 1 else slice(0, 3)
+    for g, w, r in list(zip(got_r, want_r, ref))[checked]:
+        kernel_err = _block_rel(g.double(), r, 1)
+        plain_err = _block_rel(w.double(), r, 1)
+        assert kernel_err <= 4.0 * plain_err, (kernel_err, plain_err, errs)
+
+
+@pytest.mark.gpu
+def test_admm_fused_wrapper_raises_on_unsupported_cuda_input(cuda):
+    args, kw = _interval_case(2, 10, 3, seed=1, device=cuda)
+    X = args[0]
+    with pytest.raises(TypeError):
+        admm_fused.admm_interval_fused_X(*_to64(args), n_iters=1,
+                                         **_to64(kw))
+    with pytest.raises(ValueError):
+        admm_fused.admm_interval_fused_X(X.mT, *args[1:], n_iters=1, **kw)
+    with pytest.raises(ValueError):
+        admm_fused.admm_interval_fused_X(X[:, :-1], *args[1:], n_iters=1,
+                                         **kw)
