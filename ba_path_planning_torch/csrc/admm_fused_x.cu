@@ -37,17 +37,13 @@
 //     per-scenario global scratch instead, which stays in L2.
 //   * x, z, y, the bounds and eta stay in global memory (about 1 MB per
 //     scenario at N = 40, L2 and HBM); every element is read and written by
-//     one thread per phase, and a block barrier separates the phases.
-//   * Pair coupling by index, not by the TPU's dense incidence products:
-//     A's collision row (k, p) is eta_kp . (p_i - p_j) at step k - 1, and
-//     A^T's column (vehicle v, axis c) is the signed sum of the N - 1 pair
-//     rows v belongs to, summed in a fixed order (no atomics, so the result
-//     is deterministic).
-//   * Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p,
-//     dyn_v, jerk, acc, vbox, pbox (the jerk block's row K-1 is unused),
-//     collision rows (K, P).  Plain FP32.
+//     one thread per phase, and a block barrier separates the phases.  The
+//     elementwise phases and the row-plane layout are those of
+//     admm_rows.cuh, shared with admm_fused_l.cu.  Plain FP32.
 
 #include <cuda_runtime.h>
+
+#include "admm_rows.cuh"
 
 namespace {
 
@@ -87,11 +83,6 @@ __device__ __forceinline__ void matvec_rows(const float* __restrict__ Xk,
   }
 }
 
-// Index of pair (i, j), i < j, in triu_indices order.
-__device__ __forceinline__ int pair_base(int i, int N) {
-  return i * (2 * N - i - 1) / 2;
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 admm_fused_x_kernel(const float* __restrict__ fpar,
                     const float* __restrict__ C9,
@@ -118,58 +109,15 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
   const float* Xb = X + static_cast<size_t>(b) * K * nsq;
   const size_t so = static_cast<size_t>(b) * K * 6 * n2;
   const size_t co = static_cast<size_t>(b) * K * P;
-  const float* eb = eta + 2 * co;
-  const float *lsb = l_s + so, *usb = u_s + so, *lcb = l_c + co;
-  float *zsb = zs + so, *ysb = ys + so, *zcb = zc + co, *ycb = yc + co;
-  float* xb = x + static_cast<size_t>(b) * K * n;
-  const float h = fpar[0], sigma = fpar[1], alpha = fpar[2], lam = fpar[3];
-  const float hh = 0.5f * h * h;
+  const admm_rows::Scenario sc{
+      eta + 2 * co, l_s + so, u_s + so, l_c + co, rho_s, rho_c,
+      x + static_cast<size_t>(b) * K * n, zs + so, ys + so, zc + co, yc + co,
+      fpar[0], fpar[1], fpar[2], fpar[3], K, N};
 
-  for (int i = tid; i < N; i += nthr)
-    for (int j = i + 1; j < N; ++j) {
-      const int p = pair_base(i, N) + j - i - 1;
-      pi[p] = static_cast<unsigned short>(i);
-      pj[p] = static_cast<unsigned short>(j);
-    }
+  admm_rows::fill_pair_table(pi, pj, N);
 
   for (int it = 0; it < n_iters; ++it) {
-    // ---- b = A^T (rho z - y) + sigma x into the sweep plane
-    for (int idx = tid; idx < K * n2; idx += nthr) {
-      const int k = idx / n2, q = idx % n2;
-      auto rz = [&](int kk, int s) {
-        const size_t o = (static_cast<size_t>(kk) * 6 + s) * n2 + q;
-        return rho_s[kk * 6 + s] * zsb[o] - ysb[o];
-      };
-      const bool last = k == K - 1;
-      const float dp = rz(k, 0), dv = rz(k, 1);
-      const float jr = last ? 0.f : rz(k, 2);
-      const float jr_prev = k > 0 ? rz(k - 1, 2) : 0.f;
-      const float dp_next = last ? 0.f : rz(k + 1, 0);
-      const float dv_next = last ? 0.f : rz(k + 1, 1);
-      float col = 0.f;
-      if (!last) {
-        // collision rows at k + 1 on vehicle v, axis c: pairs (u, v) with
-        // u < v enter with sign -1, pairs (v, u) with u > v with sign +1
-        const int v = q >> 1, c = q & 1;
-        const size_t kp = static_cast<size_t>(k + 1) * P;
-        for (int u = 0; u < v; ++u) {
-          const size_t o = kp + pair_base(u, N) + v - u - 1;
-          col -= (rho_c[o] * zcb[o] - ycb[o]) * eb[2 * o + c];
-        }
-        const size_t ov = kp + pair_base(v, N) - v - 1;
-        for (int u = v + 1; u < N; ++u) {
-          const size_t o = ov + u;
-          col += (rho_c[o] * zcb[o] - ycb[o]) * eb[2 * o + c];
-        }
-      }
-      const float* xk = xb + static_cast<size_t>(k) * n;
-      float* bk = xt + k * n;
-      bk[q] = -hh * dp - h * dv + (jr_prev - jr) / h + rz(k, 3)
-              + sigma * xk[q];
-      bk[n2 + q] = dp - dp_next + rz(k, 5) + col + sigma * xk[n2 + q];
-      bk[2 * n2 + q] = -h * dp_next + dv - dv_next + rz(k, 4)
-                       + sigma * xk[2 * n2 + q];
-    }
+    admm_rows::build_rhs(sc, xt);
     __syncthreads();
 
     // ---- forward sweep: w_k = X_k (b_k - B_k w_{k-1}), over b_k
@@ -221,53 +169,7 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
       __syncthreads();
     }
 
-    // ---- relaxation, A xt on the static rows, z / y updates
-    for (int idx = tid; idx < K * n2; idx += nthr) {
-      const int k = idx / n2, q = idx % n2;
-      const float* t = xt + k * n;
-      const float at = t[q], pt = t[n2 + q], vt = t[2 * n2 + q];
-      const float pp = k > 0 ? t[n2 + q - n] : 0.f;
-      const float vp = k > 0 ? t[2 * n2 + q - n] : 0.f;
-      float ax[6];
-      ax[0] = pt - pp - h * vp - hh * at;
-      ax[1] = vt - vp - h * at;
-      ax[2] = k < K - 1 ? (t[n + q] - at) / h : 0.f;
-      ax[3] = at;
-      ax[4] = vt;
-      ax[5] = pt;
-#pragma unroll
-      for (int s = 0; s < 6; ++s) {
-        if (s == 2 && k == K - 1) continue;     // no jerk row at K-1
-        const size_t o = (static_cast<size_t>(k) * 6 + s) * n2 + q;
-        const float rho = rho_s[k * 6 + s];
-        const float zr = alpha * ax[s] + (1.f - alpha) * zsb[o];
-        const float zn = fminf(fmaxf(zr + ysb[o] / rho, lsb[o]), usb[o]);
-        ysb[o] = ysb[o] + rho * (zr - zn);
-        zsb[o] = zn;
-      }
-      float* xk = xb + static_cast<size_t>(k) * n;
-      xk[q] = alpha * at + (1.f - alpha) * xk[q];
-      xk[n2 + q] = alpha * pt + (1.f - alpha) * xk[n2 + q];
-      xk[2 * n2 + q] = alpha * vt + (1.f - alpha) * xk[2 * n2 + q];
-    }
-    // ---- collision rows: A xt, then the exact-penalty soft prox
-    for (int idx = tid; idx < K * P; idx += nthr) {
-      const int k = idx / P, p = idx % P;
-      float colv = 0.f;
-      if (k > 0) {
-        const float* pos = xt + (k - 1) * n + n2;
-        const int i = pi[p], j = pj[p];
-        colv = eb[2 * idx] * (pos[2 * i] - pos[2 * j])
-               + eb[2 * idx + 1] * (pos[2 * i + 1] - pos[2 * j + 1]);
-      }
-      const float rho = rho_c[idx];
-      const float zr = alpha * colv + (1.f - alpha) * zcb[idx];
-      const float w = zr + ycb[idx] / rho;
-      const float lo = lcb[idx];
-      const float zn = w >= lo ? w : fminf(w + lam / rho, lo);
-      ycb[idx] = ycb[idx] + rho * (zr - zn);
-      zcb[idx] = zn;
-    }
+    admm_rows::update_rows(sc, xt, pi, pj);
     __syncthreads();
   }
 }
@@ -295,7 +197,7 @@ int admm_fused_x_f32(const float* fpar, const float* C9, const float* X,
   const long n = 6L * N, P = static_cast<long>(N) * (N - 1) / 2;
   const long plane_bytes = K * n * static_cast<long>(sizeof(float));
   long smem = n * static_cast<long>(sizeof(float))
-              + 2 * P * static_cast<long>(sizeof(unsigned short));
+              + admm_rows::pair_table_bytes(P);
   if (smem + plane_bytes <= kMaxSmemBytes) {
     smem += plane_bytes;
     plane = nullptr;

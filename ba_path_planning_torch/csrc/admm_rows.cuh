@@ -1,0 +1,174 @@
+// The elementwise stages of one ADMM iteration on row planes, shared by the
+// fused ADMM-interval kernels (admm_fused_x.cu, admm_fused_l.cu): the
+// right-hand side b = A^T (rho z - y) + sigma x before the sweeps, and the
+// relaxation, A xt, the clip / exact-penalty prox and the dual update after
+// them.  Every function is called by all threads of the block and leaves the
+// barrier after it to the caller.
+//
+// Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p, dyn_v,
+// jerk, acc, vbox, pbox (the jerk block's row K-1 is unused), collision rows
+// (K, P).  Pair coupling goes by index, not by the TPU kernels' dense
+// incidence products: A's collision row (k, p) is eta_kp . (p_i - p_j) at
+// step k - 1, and A^T's column (vehicle v, axis c) is the signed sum of the
+// N - 1 pair rows v belongs to, summed in a fixed order (no atomics, so the
+// result is deterministic).
+//
+// Infinite values: a disabled collision row has the lower bound -inf, and
+// hard collision rows have the penalty weight lam = +inf.  The prox
+// w >= l ? w : min(w + lam / rho, l) then gives w on a disabled row and l
+// on a violated hard row; no stage forms inf - inf or 0 * inf as long as
+// the state is finite.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace admm_rows {
+
+// One scenario's row planes and state, and the solver scalars.
+struct Scenario {
+  const float* __restrict__ eb;       // eta (K, P, 2)
+  const float* __restrict__ lsb;      // static lower bounds (K, 6, 2N)
+  const float* __restrict__ usb;      // static upper bounds
+  const float* __restrict__ lcb;      // collision lower bounds (K, P)
+  const float* __restrict__ rho_s;    // (K, 6) batch-shared
+  const float* __restrict__ rho_c;    // (K, P) batch-shared
+  float* xb;             // x (K, 6N)
+  float* zsb;            // z, y static rows (K, 6, 2N)
+  float* ysb;
+  float* zcb;            // z, y collision rows (K, P)
+  float* ycb;
+  float h, sigma, alpha, lam;
+  int K, N;
+};
+
+// Index of pair (i, j), i < j, in triu_indices order.
+__device__ __forceinline__ int pair_base(int i, int N) {
+  return i * (2 * N - i - 1) / 2;
+}
+
+// Bytes of shared memory the pair table takes.
+__host__ __device__ inline long pair_table_bytes(long P) {
+  return 2 * P * static_cast<long>(sizeof(unsigned short));
+}
+
+// pi[p], pj[p] = the vehicles of pair p.
+__device__ __forceinline__ void fill_pair_table(unsigned short* pi,
+                                                unsigned short* pj, int N) {
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    for (int j = i + 1; j < N; ++j) {
+      const int p = pair_base(i, N) + j - i - 1;
+      pi[p] = static_cast<unsigned short>(i);
+      pj[p] = static_cast<unsigned short>(j);
+    }
+}
+
+// b = A^T (rho z - y) + sigma x into the sweep plane xt (K, 6N).
+__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt) {
+  const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const float h = sc.h, sigma = sc.sigma, hh = 0.5f * h * h;
+  const float *rho_s = sc.rho_s, *rho_c = sc.rho_c, *eb = sc.eb;
+  const float *zsb = sc.zsb, *ysb = sc.ysb, *zcb = sc.zcb, *ycb = sc.ycb;
+  const float* xb = sc.xb;
+  for (int idx = tid; idx < K * n2; idx += nthr) {
+    const int k = idx / n2, q = idx % n2;
+    auto rz = [&](int kk, int s) {
+      const size_t o = (static_cast<size_t>(kk) * 6 + s) * n2 + q;
+      return rho_s[kk * 6 + s] * zsb[o] - ysb[o];
+    };
+    const bool last = k == K - 1;
+    const float dp = rz(k, 0), dv = rz(k, 1);
+    const float jr = last ? 0.f : rz(k, 2);
+    const float jr_prev = k > 0 ? rz(k - 1, 2) : 0.f;
+    const float dp_next = last ? 0.f : rz(k + 1, 0);
+    const float dv_next = last ? 0.f : rz(k + 1, 1);
+    float col = 0.f;
+    if (!last) {
+      // collision rows at k + 1 on vehicle v, axis c: pairs (u, v) with
+      // u < v enter with sign -1, pairs (v, u) with u > v with sign +1
+      const int v = q >> 1, c = q & 1;
+      const size_t kp = static_cast<size_t>(k + 1) * P;
+      for (int u = 0; u < v; ++u) {
+        const size_t o = kp + pair_base(u, N) + v - u - 1;
+        col -= (rho_c[o] * zcb[o] - ycb[o]) * eb[2 * o + c];
+      }
+      const size_t ov = kp + pair_base(v, N) - v - 1;
+      for (int u = v + 1; u < N; ++u) {
+        const size_t o = ov + u;
+        col += (rho_c[o] * zcb[o] - ycb[o]) * eb[2 * o + c];
+      }
+    }
+    const float* xk = xb + static_cast<size_t>(k) * n;
+    float* bk = xt + k * n;
+    bk[q] = -hh * dp - h * dv + (jr_prev - jr) / h + rz(k, 3)
+            + sigma * xk[q];
+    bk[n2 + q] = dp - dp_next + rz(k, 5) + col + sigma * xk[n2 + q];
+    bk[2 * n2 + q] = -h * dp_next + dv - dv_next + rz(k, 4)
+                     + sigma * xk[2 * n2 + q];
+  }
+}
+
+// Relaxation of x, A xt, the z update (clip on the static rows, the
+// exact-penalty soft prox on the collision rows) and the dual update, from
+// the sweep plane xt (K, 6N) = the solution of the x-update.
+__device__ __forceinline__ void update_rows(const Scenario& sc,
+                                            const float* xt,
+                                            const unsigned short* pi,
+                                            const unsigned short* pj) {
+  const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const float h = sc.h, alpha = sc.alpha, lam = sc.lam, hh = 0.5f * h * h;
+  const float *rho_s = sc.rho_s, *rho_c = sc.rho_c, *eb = sc.eb;
+  const float *lsb = sc.lsb, *usb = sc.usb, *lcb = sc.lcb;
+  float *zsb = sc.zsb, *ysb = sc.ysb, *zcb = sc.zcb, *ycb = sc.ycb;
+  float* xb = sc.xb;
+  for (int idx = tid; idx < K * n2; idx += nthr) {
+    const int k = idx / n2, q = idx % n2;
+    const float* t = xt + k * n;
+    const float at = t[q], pt = t[n2 + q], vt = t[2 * n2 + q];
+    const float pp = k > 0 ? t[n2 + q - n] : 0.f;
+    const float vp = k > 0 ? t[2 * n2 + q - n] : 0.f;
+    float ax[6];
+    ax[0] = pt - pp - h * vp - hh * at;
+    ax[1] = vt - vp - h * at;
+    ax[2] = k < K - 1 ? (t[n + q] - at) / h : 0.f;
+    ax[3] = at;
+    ax[4] = vt;
+    ax[5] = pt;
+#pragma unroll
+    for (int s = 0; s < 6; ++s) {
+      if (s == 2 && k == K - 1) continue;     // no jerk row at K-1
+      const size_t o = (static_cast<size_t>(k) * 6 + s) * n2 + q;
+      const float rho = rho_s[k * 6 + s];
+      const float zr = alpha * ax[s] + (1.f - alpha) * zsb[o];
+      const float zn = fminf(fmaxf(zr + ysb[o] / rho, lsb[o]), usb[o]);
+      ysb[o] = ysb[o] + rho * (zr - zn);
+      zsb[o] = zn;
+    }
+    float* xk = xb + static_cast<size_t>(k) * n;
+    xk[q] = alpha * at + (1.f - alpha) * xk[q];
+    xk[n2 + q] = alpha * pt + (1.f - alpha) * xk[n2 + q];
+    xk[2 * n2 + q] = alpha * vt + (1.f - alpha) * xk[2 * n2 + q];
+  }
+  // ---- collision rows: A xt, then the exact-penalty soft prox
+  for (int idx = tid; idx < K * P; idx += nthr) {
+    const int k = idx / P, p = idx % P;
+    float colv = 0.f;
+    if (k > 0) {
+      const float* pos = xt + (k - 1) * n + n2;
+      const int i = pi[p], j = pj[p];
+      colv = eb[2 * idx] * (pos[2 * i] - pos[2 * j])
+             + eb[2 * idx + 1] * (pos[2 * i + 1] - pos[2 * j + 1]);
+    }
+    const float rho = rho_c[idx];
+    const float zr = alpha * colv + (1.f - alpha) * zcb[idx];
+    const float w = zr + ycb[idx] / rho;
+    const float lo = lcb[idx];
+    const float zn = w >= lo ? w : fminf(w + lam / rho, lo);
+    ycb[idx] = ycb[idx] + rho * (zr - zn);
+    zcb[idx] = zn;
+  }
+}
+
+}  // namespace admm_rows

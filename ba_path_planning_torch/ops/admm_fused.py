@@ -1,13 +1,14 @@
-"""One whole ADMM check interval with X-form factors: the CUDA kernel
-``csrc/admm_fused_x.cu``, its launcher, and its plain PyTorch version
-(counterpart of ``admm_interval_fused_X`` in
-``ba_path_planning_tpu/ops/pallas/admm_fused.py``, whose Pallas bodies
-``_admm_kernel_XG`` and ``_admm_kernel_X`` the one CUDA kernel replaces).
+"""One whole ADMM check interval in one launch (counterpart of
+``ba_path_planning_tpu/ops/pallas/admm_fused.py``): with X-form factors the
+CUDA kernel ``csrc/admm_fused_x.cu`` (:func:`admm_interval_fused_X`, for the
+Pallas bodies ``_admm_kernel_XG`` and ``_admm_kernel_X``), with dense
+(Linv, Eb) factors ``csrc/admm_fused_l.cu`` (:func:`admm_interval_fused`, for
+``_admm_kernel``), each with its launcher and its plain PyTorch version.
 
-The kernel takes the rows as planes: the six static row blocks as
+The kernels take the rows as planes: the six static row blocks as
 (B, K, 6, 2N) in the slot order :data:`SLOTS` (:func:`static_plane`; the
 jerk block's row K-1 is padding), the collision rows as (B, K, P), the state
-stacked as (B, K, 6N).  The TPU kernel's lane padding, jerk dummy bounds and
+stacked as (B, K, 6N).  The TPU kernels' lane padding, jerk dummy bounds and
 dense pair maps were rules of its VMEM tiling and are not carried over.
 """
 
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..solvers.banded import (RowVals, StateVars, admm_iterations,
-                              from_stacked, solve_factorized_X, to_stacked)
+                              from_stacked, solve_factorized,
+                              solve_factorized_X, to_stacked)
 from .cuda_build import check, load_kernels, require_f32_cuda
 
 SLOTS = ("dyn_p", "dyn_v", "jerk", "acc", "vbox", "pbox")
@@ -54,12 +56,63 @@ def rho_planes(rho: RowVals, n_steps: int, n_pairs: int):
         leaf = getattr(rho, name)
         if leaf.dim() != 2 or leaf.shape[-1] != 1:
             raise ValueError(
-                "admm_interval_fused_X needs batch-shared (K', 1) rho leaves "
+                "the fused ADMM kernels need batch-shared (K', 1) rho leaves "
                 "(banded.rho_pattern_masks)")
         cols.append(F.pad(leaf, (0, 0, 0, n_steps - leaf.shape[0]),
                           value=1.0))
     rho_c = rho.col.expand(n_steps, n_pairs).contiguous()
     return torch.cat(cols, dim=-1).contiguous(), rho_c
+
+
+def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
+            upper: RowVals, x: StateVars, z: RowVals, y: RowVals,
+            rho: RowVals, *, h: float, sigma, alpha, lam, n_iters: int):
+    """Lay the rows out as planes, launch ``entry`` of the kernel library
+    on the two factor tensors (their shapes checked by the caller) and
+    count the launch on ``wrapper``.  The inputs are not modified."""
+    what = wrapper.__name__
+    B, K = eta.shape[:2]
+    N, P = E.shape
+    n = 6 * N
+    # fresh contiguous copies of the state: the kernel updates them in place
+    zs, ys = static_plane(z, K), static_plane(y, K)
+    zc, yc = (t.clone(memory_format=torch.contiguous_format)
+              for t in (z.col, y.col))
+    xs = to_stacked(x)
+    rho_s, rho_c = rho_planes(rho, K, P)
+    fpar = torch.stack([torch.as_tensor(v, dtype=eta.dtype, device=eta.device)
+                        .reshape(()) for v in (h, sigma, alpha, lam)])
+    tensors = dict(fpar=fpar, **factors, eta=eta,
+                   l_s=static_plane(lower, K), u_s=static_plane(upper, K),
+                   l_c=lower.col.contiguous(), rho_s=rho_s, rho_c=rho_c, x=xs,
+                   zs=zs, ys=ys, zc=zc, yc=yc)
+    require_f32_cuda(what, **tensors)
+    sp, cp = (B, K, 6, 2 * N), (B, K, P)
+    for name, want in dict(l_s=sp, u_s=sp, l_c=cp, x=(B, K, n), zs=sp, ys=sp,
+                           zc=cp, yc=cp).items():
+        if tensors[name].shape != want:
+            raise ValueError(f"{what}: {name} is "
+                             f"{tuple(tensors[name].shape)}, not {want}")
+    # the kernel's sweep plane, used where it does not fit in shared memory
+    plane = torch.empty((B, K, n), dtype=eta.dtype, device=eta.device)
+    lib = load_kernels()
+    with torch.cuda.device(eta.device):
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in tensors.values()), plane.data_ptr(), B, K,
+            N, int(n_iters), torch.cuda.current_stream(eta.device).cuda_stream)
+    check(err, what)
+    wrapper.launches += 1
+    return (from_stacked(xs, N), planes_to_rows(zs, zc, N),
+            planes_to_rows(ys, yc, N))
+
+
+def _on_cpu(what: str, t) -> bool:
+    """True for a CPU tensor, False for a CUDA one; raises for any other."""
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
 
 
 def admm_interval_fused_X_plain(X, C, eta, E, lower: RowVals, upper: RowVals,
@@ -76,25 +129,22 @@ def admm_interval_fused_X_plain(X, C, eta, E, lower: RowVals, upper: RowVals,
 
 def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
                           x: StateVars, z: RowVals, y: RowVals, rho: RowVals,
-                          *, h: float, sigma, alpha, lam, n_iters: int):
+                          **step):
     """``n_iters`` ADMM iterations for a batch, returning the new (x, z, y).
 
     X (B, K, 6N, 6N) symmetric block inverses and C (K-1, 3, 3) shared slot
     scalars from ``banded.factorize_X``; eta (B, K, P, 2) and E (N, P) the
     collision directions and the pair incidence (``triu_indices`` order);
     lower/upper the row bounds (``upper.col`` is not read: the collision
-    rows have the exact-penalty prox with weight ``lam``); x, z, y the ADMM
-    state; rho the batch-shared rho of ``banded.rho_pattern_masks``.  CUDA
-    tensors launch the kernel (float32, X, C and eta contiguous; anything
-    else raises); CPU tensors run the plain version.  The inputs are not
-    modified."""
-    if not X.is_cuda:
-        if X.device.type != "cpu":
-            raise ValueError(
-                f"admm_interval_fused_X: unsupported device {X.device}")
-        return admm_interval_fused_X_plain(
-            X, C, eta, E, lower, upper, x, z, y, rho, h=h, sigma=sigma,
-            alpha=alpha, lam=lam, n_iters=n_iters)
+    rows have the exact-penalty prox with weight ``lam``, which may be
+    +inf for hard rows); x, z, y the ADMM state; rho the batch-shared rho of
+    ``banded.rho_pattern_masks``; ``step`` the keywords h, sigma, alpha, lam
+    and n_iters.  CUDA tensors launch the kernel (float32, X, C and eta
+    contiguous; anything else raises); CPU tensors run the plain version.
+    The inputs are not modified."""
+    if _on_cpu("admm_interval_fused_X", X):
+        return admm_interval_fused_X_plain(X, C, eta, E, lower, upper, x, z,
+                                           y, rho, **step)
     B, K, n = X.shape[:3]
     N, P = E.shape
     if (X.shape != (B, K, n, n) or n != 6 * N or C.shape != (K - 1, 3, 3)
@@ -102,36 +152,47 @@ def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
         raise ValueError(
             f"admm_interval_fused_X: unsupported shapes X {tuple(X.shape)}, "
             f"C {tuple(C.shape)}, eta {tuple(eta.shape)}, E {tuple(E.shape)}")
-    require_f32_cuda("admm_interval_fused_X", X=X, C=C, eta=eta)
-    # fresh contiguous copies of the state: the kernel updates them in place
-    zs, ys = static_plane(z, K), static_plane(y, K)
-    zc, yc = (t.clone(memory_format=torch.contiguous_format)
-              for t in (z.col, y.col))
-    xs = to_stacked(x)
-    rho_s, rho_c = rho_planes(rho, K, P)
-    fpar = torch.stack([torch.as_tensor(v, dtype=X.dtype, device=X.device)
-                        .reshape(()) for v in (h, sigma, alpha, lam)])
-    tensors = dict(fpar=fpar, C=C, X=X, eta=eta, l_s=static_plane(lower, K),
-                   u_s=static_plane(upper, K), l_c=lower.col.contiguous(),
-                   rho_s=rho_s, rho_c=rho_c, x=xs, zs=zs, ys=ys, zc=zc, yc=yc)
-    require_f32_cuda("admm_interval_fused_X", **tensors)
-    sp, cp = (B, K, 6, 2 * N), (B, K, P)
-    for name, want in dict(l_s=sp, u_s=sp, l_c=cp, x=(B, K, n), zs=sp, ys=sp,
-                           zc=cp, yc=cp).items():
-        if tensors[name].shape != want:
-            raise ValueError(f"admm_interval_fused_X: {name} is "
-                             f"{tuple(tensors[name].shape)}, not {want}")
-    # the kernel's sweep plane, used where it does not fit in shared memory
-    plane = torch.empty((B, K, n), dtype=X.dtype, device=X.device)
-    lib = load_kernels()
-    with torch.cuda.device(X.device):
-        err = lib.admm_fused_x_f32(
-            *(t.data_ptr() for t in tensors.values()), plane.data_ptr(), B, K,
-            N, int(n_iters), torch.cuda.current_stream(X.device).cuda_stream)
-    check(err, "admm_interval_fused_X")
-    admm_interval_fused_X.launches += 1
-    return (from_stacked(xs, N), planes_to_rows(zs, zc, N),
-            planes_to_rows(ys, yc, N))
+    return _launch(admm_interval_fused_X, "admm_fused_x_f32", dict(C=C, X=X),
+                   eta, E,
+                   lower, upper, x, z, y, rho, **step)
 
 
 admm_interval_fused_X.launches = 0
+
+
+def admm_interval_fused_plain(Linv, Eb, eta, E, lower: RowVals,
+                              upper: RowVals, x: StateVars, z: RowVals,
+                              y: RowVals, rho: RowVals, *, h: float, sigma,
+                              alpha, lam, n_iters: int):
+    """Plain version of the kernel: ``n_iters`` iterations of
+    :func:`banded.admm_iterations` with the dense sweeps of
+    ``banded.solve_factorized``."""
+    return admm_iterations(x, z, y,
+                           lambda sb: solve_factorized(Linv, Eb, sb), eta, E,
+                           lower, upper, rho, h=h, sigma=sigma, alpha=alpha,
+                           lam=lam, n_iters=n_iters)
+
+
+def admm_interval_fused(Linv, Eb, eta, E, lower: RowVals, upper: RowVals,
+                        x: StateVars, z: RowVals, y: RowVals, rho: RowVals,
+                        **step):
+    """As :func:`admm_interval_fused_X`, on the dense factors
+    Linv (B, K, 6N, 6N) and Eb (B, K-1, 6N, 6N) of ``banded.factorize``."""
+    if _on_cpu("admm_interval_fused", Linv):
+        return admm_interval_fused_plain(Linv, Eb, eta, E, lower, upper, x,
+                                         z, y, rho, **step)
+    B, K, n = Linv.shape[:3]
+    N, P = E.shape
+    if (K < 2 or Linv.shape != (B, K, n, n) or n != 6 * N
+            or Eb.shape != (B, K - 1, n, n) or eta.shape != (B, K, P, 2)
+            or P != N * (N - 1) // 2):
+        raise ValueError(
+            f"admm_interval_fused: unsupported shapes Linv "
+            f"{tuple(Linv.shape)}, Eb {tuple(Eb.shape)}, eta "
+            f"{tuple(eta.shape)}, E {tuple(E.shape)}")
+    return _launch(admm_interval_fused, "admm_fused_l_f32",
+                   dict(Linv=Linv, Eb=Eb), eta, E,
+                   lower, upper, x, z, y, rho, **step)
+
+
+admm_interval_fused.launches = 0

@@ -22,7 +22,9 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu")
+SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu",
+           "group_solve_l.cu", "banded_solve.cu", "admm_fused_l.cu")
+HEADERS = ("sweeps.cuh", "admm_rows.cuh")   # included by the sources above
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,7 +44,7 @@ def _nvcc() -> str:
 
 def _build() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((_CSRC / name).read_bytes())
     out = _BUILD / f"libbapp_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -89,10 +91,13 @@ def load_kernels() -> ctypes.CDLL:
     lib.ns_chain_scratch_floats.restype = i
     lib.ns_chain_interior_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.ns_chain_interior_f32.restype = i
-    lib.group_solve_x_f32.argtypes = [p, p, p, p, i, i, i, p]
-    lib.group_solve_x_f32.restype = i
-    lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 4 + [p]
-    lib.admm_fused_x_f32.restype = i
+    for sweep in (lib.group_solve_x_f32, lib.group_solve_l_f32,
+                  lib.banded_solve_f32):
+        sweep.argtypes = [p, p, p, p, i, i, i, p]
+        sweep.restype = i
+    for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32):
+        fused.argtypes = [p] * 15 + [i] * 4 + [p]
+        fused.restype = i
     _lib = lib
     return lib
 

@@ -17,7 +17,7 @@ from ..utils.config import ProblemConfig, SolverConfig
 
 
 class ShardedSCPSolver:
-    """Batch SCP solver on one device."""
+    """Batch SCP solver on one device (``device=None``: the card)."""
 
     def __init__(self, problem: ProblemConfig,
                  solver: SolverConfig | None = None, dtype=torch.float32,

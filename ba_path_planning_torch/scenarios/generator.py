@@ -28,6 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.config import resolve_device
+
 BOX_SIZE = 20.0
 CIRCLE_RADIUS = 2.5
 DIAMOND_SIDE = 6.0
@@ -102,7 +104,9 @@ def generate_scenario_batch(seed: int, batch: int, *, n_vehicles: int,
                             min_distance: float = 0.4,
                             max_attempts: int = 1000, dtype=torch.float32,
                             device=None) -> Scenario:
-    """(B, N, 2) initial and final positions from one seed."""
+    """(B, N, 2) initial and final positions from one seed, drawn on the
+    host and moved to ``device`` (None: the card)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     init, ok_i = _fill_positions(gen, _circle_points, batch, n_vehicles,
                                  min_distance, max_attempts)

@@ -10,11 +10,12 @@ size 6N.  Super-block u_k = (a_k, p_{k+1}, v_{k+1}) has the flat layout
 
 Every function takes tensors with leading batch axes (``...``) where the JAX
 package vmapped a per-scenario function; the scenario axis is explicit and
-comes first.  :func:`solve_qp_state` ports the production form only: a fixed
-budget of one check interval, no adaptive rho and no polish, the shared
-per-channel factorization for the collision-free QP and the X-form factors
-for every QP with collision rows, with either the sweep kernel per ADMM
-iteration or the fused kernel for the whole interval (:func:`qp_route`).
+comes first.  :func:`solve_qp_state` runs check intervals until every lane
+has converged or spent its budget, without adaptive rho and without polish:
+the shared per-channel factorization for the collision-free QP and, for
+every QP with collision rows, X-form, L-only or dense (Linv, Eb) factors with
+either a sweep kernel per ADMM iteration or a fused kernel for the whole
+interval (:func:`qp_route`).
 """
 
 from __future__ import annotations
@@ -66,6 +67,11 @@ def tree_map(f, *ts):
     """Apply ``f`` leafwise to (nested) NamedTuples of one structure."""
     return type(ts[0])(*[tree_map(f, *vs) if isinstance(vs[0], tuple)
                          else f(*vs) for vs in zip(*ts)])
+
+
+def lane_mask(mask, t):
+    """A per-lane mask (B,), shaped to broadcast against ``t`` (B, ...)."""
+    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
 
 
 def _inf_norm(t, batch_dims: int = 0) -> torch.Tensor:
@@ -291,22 +297,53 @@ def assemble_channel(rho: RowVals, *, h: float, sigma):
 
 def factorize(D, B):
     """Block Cholesky of the SPD block-tridiagonal [D_k; B_k], in inverted
-    factor form (Linv (K, n, n), Eb (K-1, n, n)):
+    factor form (Linv (..., K, n, n), Eb (..., K-1, n, n)):
 
         L_0 L_0^T = D_0,  E_k = B_k L_{k-1}^{-T},  L_k L_k^T = D_k - E_k E_k^T
-    """
-    K, n = D.shape[0], D.shape[-1]
-    L = [torch.linalg.cholesky(D[0])]
+
+    D (..., K, n, n); B (K-1, n, n) shared, or with D's batch axes."""
+    K, n = D.shape[-3], D.shape[-1]
+    L = [torch.linalg.cholesky(D[..., 0, :, :])]
     Es = []
     for k in range(1, K):
-        Ek = torch.linalg.solve_triangular(L[-1].mT, B[k - 1], upper=True,
-                                           left=False)
-        L.append(torch.linalg.cholesky(D[k] - Ek @ Ek.mT))
+        Ek = torch.linalg.solve_triangular(L[-1].mT, B[..., k - 1, :, :],
+                                           upper=True, left=False)
+        L.append(torch.linalg.cholesky(D[..., k, :, :] - Ek @ Ek.mT))
         Es.append(Ek)
-    L = torch.stack(L)
-    eye = torch.eye(n, dtype=D.dtype, device=D.device).expand(K, n, n)
-    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    return Linv, torch.stack(Es)
+    L = torch.stack(L, dim=-3)
+    eye = torch.eye(n, dtype=D.dtype, device=D.device).expand(L.shape)
+    # the solve returns column-major blocks; the kernels take row-major
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False).contiguous()
+    return Linv, torch.stack(Es, dim=-3)
+
+
+def _mv(M, t):
+    """M t for stacked matrices (..., n, n) and vectors (..., n)."""
+    return (M @ t[..., None])[..., 0]
+
+
+def _mv_t(M, t):
+    """M^T t for stacked matrices (..., n, n) and vectors (..., n)."""
+    return (t[..., None, :] @ M)[..., 0, :]
+
+
+def solve_factorized(Linv, Eb, b):
+    """Solve M x = b from the dense inverted factors Linv (..., K, n, n) and
+    Eb (..., K-1, n, n); b (..., K, n).
+
+        y_k = Linv_k (b_k - E_k y_{k-1});  x_k = Linv_k^T (y_k - E_{k+1}^T x_{k+1})
+    """
+    K = Linv.shape[-3]
+    y = [_mv(Linv[..., 0, :, :], b[..., 0, :])]
+    for k in range(1, K):
+        y.append(_mv(Linv[..., k, :, :],
+                     b[..., k, :] - _mv(Eb[..., k - 1, :, :], y[-1])))
+    x = [None] * K
+    x[K - 1] = _mv_t(Linv[..., K - 1, :, :], y[K - 1])
+    for k in range(K - 2, -1, -1):
+        x[k] = _mv_t(Linv[..., k, :, :],
+                     y[k] - _mv_t(Eb[..., k, :, :], x[k + 1]))
+    return torch.stack(x, dim=-2)
 
 
 def solve_factorized_channel(Linv, Eb, b):
@@ -406,6 +443,22 @@ def assemble_D(rho: RowVals, eta, E, *, h: float, sigma, n_vehicles: int):
     return D, b_slot_mats(s)
 
 
+def slot_dense(C, n2: int) -> torch.Tensor:
+    """Slot scalars C (K-1, 3, 3) as the dense blocks C_k (x) I_n2,
+    (K-1, 3 n2, 3 n2)."""
+    eye = torch.eye(n2, dtype=C.dtype, device=C.device)
+    return torch.einsum('kst,ij->ksitj', C, eye).reshape(-1, 3 * n2, 3 * n2)
+
+
+def assemble_blocks(rho: RowVals, eta, E, *, h: float, sigma,
+                    n_vehicles: int):
+    """Diagonal blocks D (..., K, 6N, 6N) and the dense off-diagonal blocks
+    B_k = C_k (x) I_2N as (K-1, 6N, 6N), shared by every scenario (the
+    collision rows touch only D)."""
+    D, C = assemble_D(rho, eta, E, h=h, sigma=sigma, n_vehicles=n_vehicles)
+    return D, slot_dense(C, 2 * n_vehicles)
+
+
 def slot_apply(C3, M):
     """(C (x) I) @ M for M (..., n, cols) and a shared (3, 3) C: rows of slot
     s are sum_t C[s, t] * (rows of slot t)."""
@@ -481,18 +534,49 @@ def solve_factorized_X(X, C, b):
         x_{K-1} = w_{K-1};   x_k = w_k - X_k (B_{k+1}^T x_{k+1})
     """
     K = X.shape[-3]
-
-    def mv(M, t):
-        return (M @ t[..., None])[..., 0]
-
-    w = [mv(X[..., 0, :, :], b[..., 0, :])]
+    w = [_mv(X[..., 0, :, :], b[..., 0, :])]
     for k in range(1, K):
-        w.append(mv(X[..., k, :, :],
-                    b[..., k, :] - slot_apply_vec(C[k - 1], w[-1])))
+        w.append(_mv(X[..., k, :, :],
+                     b[..., k, :] - slot_apply_vec(C[k - 1], w[-1])))
     x = [None] * K
     x[K - 1] = w[K - 1]
     for k in range(K - 2, -1, -1):
-        x[k] = w[k] - mv(X[..., k, :, :], slot_apply_vec(C[k].mT, x[k + 1]))
+        x[k] = w[k] - _mv(X[..., k, :, :], slot_apply_vec(C[k].mT, x[k + 1]))
+    return torch.stack(x, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# L-only factorization: the dense E_k are never stored
+# ---------------------------------------------------------------------------
+
+def factorize_L(D, C):
+    """Block Cholesky of [D_k; B_k = C_k (x) I] keeping only the inverted
+    diagonal factors Linv (..., K, n, n): half the bytes of the (Linv, Eb)
+    form to store and to stream at every ADMM iteration."""
+    return factorize(D, slot_dense(C, D.shape[-1] // 3))[0]
+
+
+def solve_factorized_L(Linv, C, b):
+    """Solve M x = b from the L-only factors Linv (..., K, n, n) and the
+    shared slot scalars C (K-1, 3, 3); b (..., K, n).  The forward sweep
+    keeps w_k = Linv_k^T y_k, so the E-apply is the slot recombination
+    B_k w_{k-1}:
+
+        y_k = Linv_k (b_k - B_k w_{k-1}),   w_k = Linv_k^T y_k
+        x_{K-1} = w_{K-1};   x_k = w_k - Linv_k^T (Linv_k (B_{k+1}^T x_{k+1}))
+    """
+    K = Linv.shape[-3]
+    L0 = Linv[..., 0, :, :]
+    w = [_mv_t(L0, _mv(L0, b[..., 0, :]))]
+    for k in range(1, K):
+        Lk = Linv[..., k, :, :]
+        w.append(_mv_t(Lk, _mv(Lk, b[..., k, :]
+                               - slot_apply_vec(C[k - 1], w[-1]))))
+    x = [None] * K
+    x[K - 1] = w[K - 1]
+    for k in range(K - 2, -1, -1):
+        Lk = Linv[..., k, :, :]
+        x[k] = w[k] - _mv_t(Lk, _mv(Lk, slot_apply_vec(C[k].mT, x[k + 1])))
     return torch.stack(x, dim=-2)
 
 
@@ -525,13 +609,25 @@ def _factorize_X_routed(D, C, static: SolverStatic):
 
 def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
              dtype, col_enabled: bool) -> str:
-    """The x-update route the JAX router (``banded.py:1210-1259``) takes for
-    these options: "channel" for the collision-free QP, "grouped_X" for the
-    X-form sweep kernel, "fused_X" for the X-form kernel that runs the whole
-    check interval (where the fused option is on, the factors fit the TPU's
-    VMEM budget and the auto group is starved: N >= 22 in float32).  Raises
-    NotImplementedError for every route the port does not have yet, naming
-    its ROADMAP item."""
+    """The x-update route the JAX router (``banded.py:1210-1259`` and
+    ``1292-1339``) takes for these options:
+
+    * "channel": the collision-free QP, shared per-channel factors;
+    * "fused_X" / "fused_L": a kernel runs the whole check interval, on
+      X-form factors (the fused option is on, the factors fit and the auto
+      group is starved: N >= 22 in float32) or on dense (Linv, Eb) factors
+      (fused, no group, N <= 29 at K = 50 in float32);
+    * "grouped_X" / "grouped_L": a sweep kernel per ADMM iteration on the
+      X-form or the L-only factors (a group size is set, or kernels with the
+      auto group);
+    * "resident": the dense (Linv, Eb) sweep kernel per iteration (kernels,
+      ``group=-1``, N <= 20 at K = 50 in float32);
+    * "dense": plain :func:`solve_factorized`, no kernel, in either form.
+
+    The gates are the JAX router's as they stand: its 12 MiB and 96 MiB are
+    byte budgets of the TPU's VMEM, kept so that the port routes where JAX
+    routes.  Adaptive rho and bf16 factor storage raise NotImplementedError,
+    naming their ROADMAP item."""
     if static.adaptive_rho:
         raise NotImplementedError(
             "adaptive rho is not ported yet (ROADMAP Queue 1 item 7)")
@@ -551,25 +647,64 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
         group_n = auto_g
     else:
         group_n = 0
-    if static.factor_form != "X":
-        factor_bytes = 2 * K * (6 * N) ** 2 * isz
-        if (static.fused and group_n == 0
-                and factor_bytes <= 12 * 1024 * 1024):
-            raise NotImplementedError(
-                "the L-form fused ADMM-interval kernel is not ported yet "
-                "(ROADMAP Queue 1 item 7, Queue 2 kernel 5)")
-        raise NotImplementedError(
-            "L-form factors are not ported yet (ROADMAP Queue 1 item 7, "
-            "Queue 2 kernel 6)")
-    nr8 = -(-6 * N // 8) * 8
-    fused_ok = K * nr8 * np_ * isz <= 96 * 1024 * 1024
-    if static.fused and fused_ok and (group_n == 0 or group_n < 16):
-        return "fused_X"
-    if group_n == 0:
-        raise NotImplementedError(
-            "the dense (Linv, Eb) route is not ported yet (ROADMAP Queue 1 "
-            "item 7, Queue 2 kernel 9)")
-    return "grouped_X"
+    factor_bytes = 2 * K * (6 * N) ** 2 * isz
+    form = static.factor_form
+    if form == "X":
+        nr8 = -(-6 * N // 8) * 8
+        fused_ok = K * nr8 * np_ * isz <= 96 * 1024 * 1024
+        use_fused = static.fused and fused_ok and (group_n == 0
+                                                   or group_n < 16)
+    else:
+        use_fused = (static.fused and group_n == 0
+                     and factor_bytes <= 12 * 1024 * 1024)
+    if use_fused:
+        return "fused_X" if form == "X" else "fused_L"
+    if group_n:
+        return "grouped_X" if form == "X" else "grouped_L"
+    if static.kernels and 2 * factor_bytes <= 12 * 1024 * 1024:
+        return "resident"
+    return "dense"
+
+
+def _interval_fn(route: str, rho_b: RowVals, lower: RowVals, upper: RowVals,
+                 eta, E, static: SolverStatic, n_vehicles: int, step: dict):
+    """The function (x, z, y) -> (x, z, y) that runs one check interval on
+    ``route``, its factors computed here once."""
+    N, h, sigma = n_vehicles, step["h"], step["sigma"]
+
+    def per_iteration(solve):
+        return lambda x, z, y: admm_iterations(x, z, y, solve, eta, E, lower,
+                                               upper, rho_b, **step)
+
+    if route == "channel":
+        L, Eb = factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
+        return per_iteration(lambda sb: solve_factorized_channel(
+            L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))).reshape(sb.shape))
+    if route in ("fused_X", "grouped_X", "grouped_L"):
+        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N)
+        if route == "grouped_L":
+            from ..ops.group_solve import solve_factorized_grouped_L
+            Linv = factorize_L(D, C)
+            return per_iteration(
+                lambda sb: solve_factorized_grouped_L(Linv, C, sb))
+        Xf = _factorize_X_routed(D, C, static)
+        del D
+        if route == "fused_X":
+            from ..ops.admm_fused import admm_interval_fused_X
+            return lambda x, z, y: admm_interval_fused_X(
+                Xf, C, eta, E, lower, upper, x, z, y, rho_b, **step)
+        from ..ops.group_solve import solve_factorized_grouped_X
+        return per_iteration(lambda sb: solve_factorized_grouped_X(Xf, C, sb))
+    Linv, Eb = factorize(*assemble_blocks(rho_b, eta, E, h=h, sigma=sigma,
+                                          n_vehicles=N))
+    if route == "fused_L":
+        from ..ops.admm_fused import admm_interval_fused
+        return lambda x, z, y: admm_interval_fused(
+            Linv, Eb, eta, E, lower, upper, x, z, y, rho_b, **step)
+    if route == "resident":
+        from ..ops.banded_solve import solve_factorized_dense
+        return per_iteration(lambda sb: solve_factorized_dense(Linv, Eb, sb))
+    return per_iteration(lambda sb: solve_factorized(Linv, Eb, sb))
 
 
 def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
@@ -585,26 +720,26 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     disabled).  ``col_enabled=False`` marks the collision-free initial QP,
     whose x-updates run on the shared per-channel (K, 3, 3) factorization.
 
-    Production form only: the budget is one check interval
-    (``max_iter == check_interval``), so every lane runs exactly that many
-    iterations and the residuals are checked once, at the end.  The fused
-    route keeps the batch-independent rho of :func:`rho_pattern_masks` on
-    every collision row, as the JAX router does; the other routes give rows
-    disabled by a -inf lower bound the loose rho.
+    The loop runs intervals of ``check_interval`` iterations, with the
+    residuals checked after each, while ``iters < max_iter`` and the lane
+    has not converged.  A lane that has stopped keeps its x, y, iteration
+    count, residuals and ``converged`` flag while the others go on, as each
+    lane of the vmapped JAX loop does; the host reads one flag per interval
+    (does any lane go on?), and none when the budget is one interval.
+
+    The fused routes keep the batch-independent rho of
+    :func:`rho_pattern_masks` on every collision row, as the JAX router
+    does; the other routes give rows disabled by a -inf lower bound the
+    loose rho.
     """
     dtype = x_init.a.dtype
     N = n_vehicles
     K = x_init.a.shape[-2]
     P = lower.col.shape[-1]
     nb = x_init.a.dim() - 3
-    if int(params.max_iter) != int(params.check_interval):
-        raise NotImplementedError(
-            "only the fixed budget max_iter == check_interval is ported "
-            "(early-exit intervals: ROADMAP Queue 1 item 7)")
     route = qp_route(static, n_vehicles=N, n_steps=K, dtype=dtype,
                      col_enabled=col_enabled)
-    sigma = params.sigma
-    alpha = params.alpha
+    check, max_iter = int(params.check_interval), int(params.max_iter)
     scaling = row_scaling_state(K, h, dtype=dtype, device=x_init.a.device)
 
     Ax0 = apply_A(x_init, eta, E, h)
@@ -615,36 +750,33 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     rho_b = rho_pattern_masks(scaling, static, params.rho,
                               params.col_rho_boost, n_steps=K, n_pairs=P,
                               col_enabled=col_enabled, dtype=dtype)
-    step = dict(h=h, sigma=sigma, alpha=alpha, lam=params.col_penalty,
-                n_iters=int(params.check_interval))
-    if route == "channel":
-        L, Eb = factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
-        x, z, y = admm_iterations(
-            x, z, y, lambda sb: solve_factorized_channel(
-                L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))
-            ).reshape(sb.shape), eta, E, lower, upper, rho_b, **step)
-    else:
-        if route == "grouped_X":
-            # rows disabled by a -inf bound take the loose rho
-            rho_b = rho_b._replace(col=torch.where(
-                torch.isinf(lower.col), torch.full_like(lower.col, _LOOSE_RHO),
-                rho_b.col))
-        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N)
-        Xf = _factorize_X_routed(D, C, static)
-        del D
-        if route == "fused_X":
-            from ..ops.admm_fused import admm_interval_fused_X
-            x, z, y = admm_interval_fused_X(Xf, C, eta, E, lower, upper, x, z,
-                                            y, rho_b, **step)
-        else:
-            from ..ops.group_solve import solve_factorized_grouped_X
-            x, z, y = admm_iterations(
-                x, z, y, lambda sb: solve_factorized_grouped_X(Xf, C, sb),
-                eta, E, lower, upper, rho_b, **step)
+    if route not in ("channel", "fused_X", "fused_L"):
+        # rows disabled by a -inf bound take the loose rho
+        rho_b = rho_b._replace(col=torch.where(
+            torch.isinf(lower.col), torch.full_like(lower.col, _LOOSE_RHO),
+            rho_b.col))
+    interval = _interval_fn(route, rho_b, lower, upper, eta, E, static, N,
+                            dict(h=h, sigma=params.sigma, alpha=params.alpha,
+                                 lam=params.col_penalty, n_iters=check))
 
+    x, z, y = interval(x, z, y)
     prim, dual, done = _residuals(x, z, y, eta, E, h, scaling, params, nb)
-    iters = torch.full(prim.shape, int(params.check_interval),
-                       dtype=torch.int32, device=prim.device)
+    iters = torch.full(prim.shape, check, dtype=torch.int32,
+                       device=prim.device)
+    active = ~done
+    for _ in range(check, max_iter, check):
+        if not bool(active.any()):
+            break
+        new = interval(x, z, y)
+        res = _residuals(*new, eta, E, h, scaling, params, nb)
+
+        def keep(n_, o_):
+            return torch.where(lane_mask(active, n_), n_, o_)
+        x, z, y = (tree_map(keep, n_, o_) for n_, o_ in zip(new, (x, z, y)))
+        prim, dual, done = (keep(n_, o_) for n_, o_ in zip(res, (prim, dual,
+                                                                 done)))
+        iters = iters + check * active.to(torch.int32)
+        active = active & ~done
     return StateQPResult(x=x, y=y, iters=iters, prim_res=prim, dual_res=dual,
                          converged=done)
 

@@ -13,13 +13,16 @@ Control flow of the reference solver:
 Every function works on a batch of scenarios (the leading axis).  The loop
 is resumable: :class:`SCPCarry` holds everything an iteration needs, so a
 driver can pause a batch, drop finished lanes and resume
-(``parallel.mesh.ShardedSCPSolver.solve_compacted``).
+(``parallel.mesh.ShardedSCPSolver.solve_compacted``).  :class:`SCP` is the
+reference-compatible class API on top of :class:`SCPEngine`.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..models.double_integrator import DoubleIntegrator2D
@@ -27,9 +30,10 @@ from ..ops.collisions import (PairIndex, check_feasible, degenerate_angles,
                               linearize, make_pair_index)
 from ..ops.rollout import rollout
 from ..utils.config import (ProblemConfig, SolverConfig, SolverParams,
-                            SolverStatic, make_solver_params)
+                            SolverStatic, make_solver_params, resolve_device)
 from .banded import (RowVals, StateVars, build_bounds,
-                     collision_lower_bounds_state, solve_qp_state, tree_map)
+                     collision_lower_bounds_state, lane_mask, solve_qp_state,
+                     tree_map)
 
 STATUS_FEASIBLE_INITIAL = 0   # initial QP already collision-free
 STATUS_CONVERGED = 1          # the active stopping rule fired
@@ -65,10 +69,6 @@ class SCPCarry(NamedTuple):
 
 # An angle source: (lane ids (B,), global SCP iteration (B,)) -> (B, K, P).
 AngleFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def _lane_mask(mask, t):
-    return mask.reshape((-1,) + (1,) * (t.dim() - 1))
 
 
 def _warm_state(a, p0, v0, h):
@@ -111,7 +111,7 @@ def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
     flat_new = a_new.flatten(1)
     bad = (~torch.isfinite(flat_new).all(-1)
            | (flat_new.abs().amax(-1) > acc_cap))
-    a_new = torch.where(_lane_mask(bad, a), a, a_new)
+    a_new = torch.where(lane_mask(bad, a), a, a_new)
     step = torch.linalg.vector_norm((a_new - a).flatten(1), dim=-1)
     denom = torch.clamp_min(torch.linalg.vector_norm(a.flatten(1), dim=-1),
                             1e-30)
@@ -190,7 +190,7 @@ def _scp_step_direct(carry: SCPCarry, p0, v0, pf, vf, lane_ids, it_cap, *,
                            solver=solver)
         if not bool(active.all()):
             new = tree_map(
-                lambda n_, o_: torch.where(_lane_mask(active, n_), n_, o_),
+                lambda n_, o_: torch.where(lane_mask(active, n_), n_, o_),
                 new, carry)
         carry = new
 
@@ -206,7 +206,7 @@ def _scp_finalize_direct(carry: SCPCarry, p0, v0, pf, vf, *,
         a_proj = _goal_projected(carry.a, p0, v0, pf, vf, problem)
         pos_p, _ = rollout(a_proj, p0, v0, h)
         feas_p = check_feasible(pos_p, pairs, problem.min_distance)
-        a_out = torch.where(_lane_mask(feas_p, a_proj), a_proj, carry.a)
+        a_out = torch.where(lane_mask(feas_p, a_proj), a_proj, carry.a)
     positions, velocities = rollout(a_out, p0, v0, h)
     feasible_final = check_feasible(positions, pairs, problem.min_distance)
     status = torch.where(
@@ -222,8 +222,8 @@ def _scp_finalize_direct(carry: SCPCarry, p0, v0, pf, vf, *,
 
 
 class SCPEngine:
-    """SCP solver for a fixed (problem, solver) configuration on one device,
-    direct method only."""
+    """SCP solver for a fixed (problem, solver) configuration on one device
+    (``device=None``: the card), direct method only."""
 
     def __init__(self, problem: ProblemConfig,
                  solver: SolverConfig | None = None, dtype=torch.float32,
@@ -243,8 +243,7 @@ class SCPEngine:
         self.problem = problem
         self.solver = solver
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         self.seed = seed
         self.pairs = make_pair_index(problem.n_vehicles, dtype=dtype,
                                      device=self.device)
@@ -280,6 +279,15 @@ class SCPEngine:
         return _scp_finalize_direct(carry, p0, v0, pf, vf, pairs=self.pairs,
                                     problem=self.problem)
 
+    def solve(self, p0, v0, pf, vf,
+              angle_fn: AngleFn | None = None) -> SCPResult:
+        """One scenario: state arrays (N, 2); the result has no batch
+        axis."""
+        res = self.solve_batch(*(torch.as_tensor(a)[None]
+                                 for a in (p0, v0, pf, vf)),
+                               angle_fn=angle_fn)
+        return SCPResult(*(t[0] for t in res))
+
     def solve_batch(self, p0, v0, pf, vf, lane_ids=None,
                     angle_fn: AngleFn | None = None) -> SCPResult:
         """All state arrays (B, N, 2); every lane runs to its end."""
@@ -290,3 +298,100 @@ class SCPEngine:
         carry = self.step(carry, p0, v0, pf, vf, lane_ids,
                           self.problem.max_iterations, angle_fn)
         return self.finalize(carry, p0, v0, pf, vf)
+
+
+class SCP:
+    """Drop-in equivalent of the reference ``path_planning.SCP`` class:
+    the same constructor signature, ``set_initial_states`` /
+    ``set_final_states`` / ``generate_trajectories`` and the
+    ``trajectories`` dict of (N, K, 2) numpy arrays, backed by
+    :class:`SCPEngine`.  The default solver is the reference-compatible one:
+    the direct method on L-form factors with hard collision rows, stopping
+    on step-norm convergence, up to 2000 ADMM iterations per QP checked
+    every 25.  ``device=None`` runs on the card."""
+
+    def __init__(self, n_vehicles=5, time_horizon=3.0, time_step=0.1,
+                 min_distance=0.1, space_dims=None, *, solver=None,
+                 dtype=None, device=None, verbose=True):
+        if space_dims is None:
+            space_dims = [0, 0, 20, 20]
+        self.N = n_vehicles
+        self.T = time_horizon
+        self.h = time_step
+        self.K = int(time_horizon / time_step)
+        self.R = min_distance
+        self.space_dims = list(space_dims)
+        self.convergence_tolerance = 1.5e-2
+        self.trajectories = None
+        self.result: SCPResult | None = None
+        self.initial_positions = None
+        self.initial_velocities = None
+        self.final_positions = None
+        self.final_velocities = None
+        if solver is None:
+            solver = SolverConfig(method="direct", polish=False,
+                                  adaptive_rho=False, max_iter=2000)
+        self._solver_cfg = solver
+        self._dtype = dtype if dtype is not None else torch.float32
+        self._device = resolve_device(device)
+        self._engine_cache: dict[tuple[int, int], SCPEngine] = {}
+        if verbose:
+            print("---=== SCP Problem initialized (PyTorch engine) ===---")
+            print(f"Number of timesteps: {self.K}")
+            print(f"Timestep: {self.h}")
+            print(f"Minimum distance between vehicles: {self.R}")
+            print(f"Space dimensions: {self.space_dims}")
+
+    def _set_states(self, positions, velocities):
+        positions = np.asarray(positions, dtype=float).reshape(self.N, 2)
+        if velocities is None:
+            velocities = np.zeros((self.N, 2))
+        velocities = np.asarray(velocities, dtype=float).reshape(self.N, 2)
+        return positions.reshape(-1), velocities.reshape(-1)
+
+    def set_initial_states(self, positions, velocities=None):
+        self.initial_positions, self.initial_velocities = self._set_states(
+            positions, velocities)
+
+    def set_final_states(self, positions, velocities=None):
+        self.final_positions, self.final_velocities = self._set_states(
+            positions, velocities)
+
+    def _engine(self, max_iterations: int, seed: int) -> SCPEngine:
+        if (max_iterations, seed) not in self._engine_cache:
+            problem = ProblemConfig(
+                n_vehicles=self.N, time_horizon=self.T, time_step=self.h,
+                min_distance=self.R, space_dims=tuple(self.space_dims),
+                max_iterations=max_iterations)
+            self._engine_cache[max_iterations, seed] = SCPEngine(
+                problem, self._solver_cfg, dtype=self._dtype,
+                device=self._device, seed=seed)
+        return self._engine_cache[max_iterations, seed]
+
+    def generate_trajectories(self, max_iterations=15, seed=0):
+        if self.initial_positions is None or self.final_positions is None:
+            raise ValueError("Set initial and final states first")
+        t0 = time.time()
+        res = self._engine(max_iterations, seed).solve(
+            *(a.reshape(self.N, 2) for a in (
+                self.initial_positions, self.initial_velocities,
+                self.final_positions, self.final_velocities)))
+        res = SCPResult(*(t.cpu().numpy() for t in res))
+        self.result = res
+        self.trajectories = {
+            "positions": res.positions,
+            "velocities": res.velocities,
+            "accelerations": res.accelerations,
+        }
+        print(f"Trajectory generation completed in {time.time() - t0:.3f} "
+              f"seconds ({int(res.iterations)} SCP iterations, "
+              f"status={int(res.status)})")
+        return self.trajectories
+
+    def _no_viz(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the plots of the facade wait for the CLIs and the viz layer "
+            "(ROADMAP Queue 1 item 8)")
+
+    visualize_trajectories = _no_viz
+    visualize_time_snapshots = _no_viz

@@ -17,6 +17,13 @@ from typing import NamedTuple
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``.  None means the card: an entry
+    point runs on "cuda" unless its caller names another device, and fails
+    where there is no card instead of falling back to the CPU."""
+    return torch.device("cuda" if device is None else device)
+
+
 @dataclass(frozen=True)
 class Limits:
     """State-space box limits (reference defaults)."""
@@ -171,6 +178,14 @@ class SolverConfig:
             if not in_envelope:
                 cfg = cfg.replace(assemble_precision="highest")
         return cfg
+
+    @classmethod
+    def latency(cls, kernels: bool | None = None) -> "SolverConfig":
+        """Single-scenario latency configuration: :meth:`production` with
+        the ADMM budget split into 9-iteration intervals and a residual
+        check after each, so a scenario pays the intervals it needs (at most
+        three) instead of the whole 25-iteration budget."""
+        return cls.production(kernels).replace(max_iter=27, check_interval=9)
 
 
 class SolverParams(NamedTuple):

@@ -67,3 +67,14 @@ def pairs_from_numpy(pairs, dtype=torch.float64, device=None) -> PairIndex:
                                            dtype=torch.int64, device=device),
                      E=torch.as_tensor(np.asarray(pairs.E), dtype=dtype,
                                        device=device))
+
+
+def factors_from_numpy(*arrays, dtype=torch.float64, device=None):
+    """Factor arrays of the JAX package, as numpy arrays, -> tensors, one
+    per array: the dense pair ``(Linv, Eb)``, ``Linv`` alone with the slot
+    scalars ``C``, or X-form ``X`` with ``C``.  Pass the factors as the
+    factorization returned them: ``pad_factors`` of the JAX package pads
+    the last axis to 128 lanes for the TPU's DMA engine, and the port's
+    kernels take the factors unpadded."""
+    return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                 for a in arrays)

@@ -11,21 +11,33 @@
    relative error of every (b, k) block, and CUDA-event times of both:
    the NS chain and the sweep at N=20 (B=64 and the chunk B=512); the NS
    chain at N=30 and N=40 (B=128, where it works out of global memory);
-   the fused ADMM interval at N=30 and N=40 (B=128);
+   the fused ADMM interval at N=30 and N=40 (B=128); on the factors of the
+   reference-compatible solver (rho 0.1, hard collision rows) the L-only
+   sweep and the dense (Linv, Eb) sweep at N=20 (B=64 and 512), the L-only
+   sweep at N=30 and N=40 (B=128) and the L-form fused interval at N=20
+   (B=128, penalty weight +inf);
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
-   N=30;
+   N=30 with the production solver and at N=20 with the
+   reference-compatible solver on its L-only sweep route;
 5. main paths, each solved by ``solve_compacted`` from scenarios made from a
    seed, at the ``bench.py`` configuration (T=10, h=0.2, R=0.8, production
    solver): N=20 with 1024 scenarios in chunks of 512 (the grouped sweep
    route), N=30 and N=40 with 2048 scenarios in chunks of 128 (the fused
-   route).  The launch counters are set to 0 just before each path and read
-   just after: each path must launch the kernels of its route and no other,
-   and at least 99% of its scenarios must be collision-free with goal error
-   < 5 cm.
+   route), and N=20 once more with ``SolverConfig.latency()`` (early-exit
+   intervals on the grouped sweep route).  At least 99% of a path's
+   scenarios must be collision-free with goal error < 5 cm;
+6. the reference-compatible path at N=20: ``SCPEngine.solve_batch`` over
+   FACADE_B scenarios with the ``SCP`` class's solver (L-form factors, hard
+   collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
+   ``stop_mode="reference"``), once per kernel route (L-only sweeps, dense
+   sweeps, L-form fused interval), the routes held against each other, and
+   one ``SCP(...).generate_trajectories()`` call.
 
-Any failed phase raises, so the exit code is not 0.  The last two lines are
-one JSON object on the kernels and ``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each path and read just after:
+each path must launch the kernels of its route and no other.  Any failed
+phase raises, so the exit code is not 0.  The last two lines are one JSON
+object on the kernels and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -39,9 +51,19 @@ K_STEPS = int(T_HORIZON / H)
 # (N, scenarios, chunk) of each main path
 MAIN_PATHS = ((20, 1024, 512), (30, 2048, 128), (40, 2048, 128))
 B_LARGE = 128                      # kernel phases at N=30/40: one chunk
+FACADE_B = 64                      # scenarios of the reference-compatible path
+REF_FACADE_ITERS = 500             # QP budget of its reference phase
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12    # H100 SXM data sheet
 NS_TOL, SWEEP_TOL, REF_TOL = 1e-4, 1e-5, 5e-3
 FUSED_TOL = 2e-4                   # one fused iteration: x, z per block
 ADMM_ERR_RATIO = 4.0
+# Routes of one path against each other.  Each QP stops at a relative
+# residual of 1e-3, so two routes' positions may differ by that share of the
+# 20 m box, 2e-2 m; FP32 rounding over thousands of ADMM iterations can move
+# a borderline lane to another SCP iteration count, so the bar is positions
+# within ROUTE_TOL, equal status and equal SCP iteration count on at least
+# ROUTE_SHARE of the lanes.
+ROUTE_TOL, ROUTE_SHARE = 2e-2, 0.9
 
 
 def _card_line() -> str:
@@ -65,21 +87,39 @@ def _time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _problem(n_veh):
+def _problem(n_veh, facade=False):
+    """The bench.py problem, or the ``SCP`` class's (``facade``): the same
+    but for the stopping rule and the goal projection."""
     from ba_path_planning_torch.utils.config import ProblemConfig
-    return ProblemConfig(n_vehicles=n_veh, time_horizon=T_HORIZON,
-                         time_step=H, min_distance=R, max_iterations=15,
-                         stop_mode="feasible", goal_project=True)
+    problem = ProblemConfig(n_vehicles=n_veh, time_horizon=T_HORIZON,
+                            time_step=H, min_distance=R, max_iterations=15)
+    return problem if facade else problem.replace(stop_mode="feasible",
+                                                  goal_project=True)
 
 
-def _case(n_veh, B, dev, seed):
+def _facade_solver(**route):
+    """The ``SCP`` class's default solver, on the kernel route ``route``."""
+    from ba_path_planning_torch.utils.config import SolverConfig
+    return SolverConfig(method="direct", polish=False, adaptive_rho=False,
+                        max_iter=2000).replace(**route)
+
+
+def _bound_ms(n_bytes, n_flops):
+    """The least time the card could take: the bytes over the memory rate
+    or the operations over the FP32 rate, whichever is larger."""
+    t_b, t_f = n_bytes / HBM_BYTES_S * 1e3, n_flops / FP32_FLOP_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _case(n_veh, B, dev, seed, solver=None):
     """Main-path-shaped inputs of the kernels, float32 on the card: bounds
     of random start and goal positions, collision rows of random unit
-    directions about the start positions (row 0 vacuous), the production
-    rho pattern of ``n_veh`` vehicles, the diagonal blocks D and slot
-    scalars C, a random right-hand side b, one at the scale the ADMM loop
-    feeds, b_admm = A^T (rho * A x) for a random state x, and the arguments
-    of ``admm_interval_fused_X`` but for the factors and its state."""
+    directions about the start positions (row 0 vacuous), the rho pattern of
+    ``solver`` (default: production for ``n_veh`` vehicles), the diagonal
+    blocks D and slot scalars C, a random right-hand side b, one at the
+    scale the ADMM loop feeds, b_admm = A^T (rho * A x) for a random state
+    x, and the arguments of the fused-interval wrappers but for the factors
+    and the state."""
     import numpy as np
     import torch
     from ba_path_planning_torch.ops.collisions import (make_pair_index,
@@ -90,7 +130,8 @@ def _case(n_veh, B, dev, seed):
                                                      make_solver_params)
     K, P, f32 = K_STEPS, n_veh * (n_veh - 1) // 2, torch.float32
     problem = _problem(n_veh)
-    solver = SolverConfig.production(problem=problem)
+    if solver is None:
+        solver = SolverConfig.production(problem=problem)
     prm = make_solver_params(solver, f32, dev)
     rng = np.random.default_rng(seed)
     rho = banded.rho_pattern_masks(
@@ -136,6 +177,20 @@ def _block_rel(got, want, block_dims):
     return float((diff / want.abs().amax(dim=dims)).max())
 
 
+def _stat(err, ms, plain_ms, shape, n_bytes, n_flops, stream_bytes,
+          library_ms=None):
+    """One kernel's numbers for the ``kernels`` line.  ``n_bytes`` counts
+    every input read once and every output written once, ``n_flops`` the
+    matrix-vector (or matrix-matrix) operations; ``stream_bytes`` is what
+    the algorithm streams when the factors, too large to stay on the chip,
+    are read again at every sweep."""
+    bound_ms, bound_by = _bound_ms(n_bytes, n_flops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "stream_bound_ms": _bound_ms(stream_bytes, n_flops)[0],
+            "library_ms": library_ms, "timed_at": shape}
+
+
 def ns_check(n_veh, D, C, tag):
     """NS chain: kernel route (exact anchors + interior kernel) against the
     plain factorize_X, both on the card.  Returns (X, stats)."""
@@ -161,48 +216,58 @@ def ns_check(n_veh, D, C, tag):
           f"kernel={ns_ms:.3f} ms plain={ns_plain_ms:.3f} ms", flush=True)
     if not ns_rel <= NS_TOL:
         raise AssertionError(f"NS chain kernel disagrees: {ns_rel:.3e}")
-    return X, (ns_abs, ns_ms, ns_plain_ms)
+    B, K, n = D.shape[:3]
+    # interior steps 3..K-2, 2 Newton-Schulz iterations of two n^3 products;
+    # the one library call of the same function is the plain factorize_X
+    return X, _stat(ns_abs, ns_ms, ns_plain_ms, f"N={n_veh} K={K} B={B}",
+                    2 * B * K * n * n * 4, B * (K - 4) * 2 * 4 * n ** 3,
+                    2 * B * K * n * n * 4, library_ms=ns_plain_ms)
+
+
+def _sweep_check(tag, kernel, plain, factors, b, b_admm):
+    """A sweep kernel against its plain version on the card: every (b, k)
+    block within SWEEP_TOL on a random right-hand side; on one at the ADMM
+    loop's scale, where the solve cancels ~2500x and FP32 itself is off by
+    ~1e-5, within ADMM_ERR_RATIO of the plain FP32 version's error against
+    float64.  Returns (max abs error, kernel ms, plain ms)."""
+    import torch
+    x, xp = kernel(*factors, b), plain(*factors, b)
+    torch.cuda.synchronize()
+    sw_abs, sw_rel = float((x - xp).abs().max()), _block_rel(x, xp, 1)
+    sw_ms = _time_ms(lambda: kernel(*factors, b), reps=20)
+    sw_plain_ms = _time_ms(lambda: plain(*factors, b), reps=3)
+    x64 = plain(*(f.double() for f in factors), b_admm.double())
+    adm_err = _block_rel(kernel(*factors, b_admm).double(), x64, 1)
+    adm_plain_err = _block_rel(plain(*factors, b_admm).double(), x64, 1)
+    print(f"{tag}: max_block_rel={sw_rel:.3e} (tol {SWEEP_TOL:g}) "
+          f"max_abs={sw_abs:.3e} kernel={sw_ms:.3f} ms "
+          f"plain={sw_plain_ms:.3f} ms; ADMM-scale b against float64: kernel "
+          f"max_block_rel={adm_err:.3e}, plain f32 {adm_plain_err:.3e} (limit "
+          f"{ADMM_ERR_RATIO:g}x plain)", flush=True)
+    if not sw_rel <= SWEEP_TOL:
+        raise AssertionError(f"{tag}: kernel disagrees: {sw_rel:.3e}")
+    if not adm_err <= ADMM_ERR_RATIO * adm_plain_err:
+        raise AssertionError(f"{tag}: kernel is off at the ADMM scale: "
+                             f"{adm_err:.3e} vs plain {adm_plain_err:.3e}")
+    return sw_abs, sw_ms, sw_plain_ms
 
 
 def kernel_phase(dev, B):
-    """N=20: the NS chain and the sweep kernel."""
-    import torch
+    """N=20: the NS chain and the X-form sweep kernel."""
     from ba_path_planning_torch.ops import group_solve
     D, C, b, b_admm, _ = _case(20, B, dev, seed=B)
     X, ns_stats = ns_check(20, D, C, f"kernel phase B={B}")
     del D
-    x = group_solve.solve_factorized_grouped_X(X, C, b)
-    xp = group_solve.solve_factorized_grouped_X_plain(X, C, b)
-    torch.cuda.synchronize()
-    sw_abs = float((x - xp).abs().max())
-    sw_rel = _block_rel(x, xp, 1)
-    sw_ms = _time_ms(lambda: group_solve.solve_factorized_grouped_X(X, C, b),
-                     reps=20)
-    sw_plain_ms = _time_ms(
-        lambda: group_solve.solve_factorized_grouped_X_plain(X, C, b), reps=5)
-    # at the ADMM loop's scale the solve cancels ~2500x, so FP32 itself is
-    # off by ~1e-5 there: hold the kernel to the plain FP32 version's error
-    # against float64
-    x64 = group_solve.solve_factorized_grouped_X_plain(
-        X.double(), C.double(), b_admm.double())
-    adm_err = _block_rel(group_solve.solve_factorized_grouped_X(
-        X, C, b_admm).double(), x64, 1)
-    adm_plain_err = _block_rel(group_solve.solve_factorized_grouped_X_plain(
-        X, C, b_admm).double(), x64, 1)
-    print(f"kernel phase B={B} N=20 K={K_STEPS} f32: "
-          f"solve_factorized_grouped_X max_block_rel={sw_rel:.3e} "
-          f"(tol {SWEEP_TOL:g}) "
-          f"max_abs={sw_abs:.3e} kernel={sw_ms:.3f} ms "
-          f"plain={sw_plain_ms:.3f} ms; ADMM-scale b against float64: "
-          f"kernel max_block_rel={adm_err:.3e}, plain f32 "
-          f"{adm_plain_err:.3e} (limit {ADMM_ERR_RATIO:g}x plain)", flush=True)
-    if not sw_rel <= SWEEP_TOL:
-        raise AssertionError(f"sweep kernel disagrees: {sw_rel:.3e}")
-    if not adm_err <= ADMM_ERR_RATIO * adm_plain_err:
-        raise AssertionError(f"sweep kernel is off at the ADMM scale: "
-                             f"{adm_err:.3e} vs plain {adm_plain_err:.3e}")
+    sw_abs, sw_ms, sw_plain_ms = _sweep_check(
+        f"kernel phase B={B} N=20 K={K_STEPS} f32: "
+        "solve_factorized_grouped_X", group_solve.solve_factorized_grouped_X,
+        group_solve.solve_factorized_grouped_X_plain, (X, C), b, b_admm)
+    n = 6 * 20
     return {"ns_chain": ns_stats,
-            "group_solve_x": (sw_abs, sw_ms, sw_plain_ms)}
+            "group_solve_x": _stat(
+                sw_abs, sw_ms, sw_plain_ms, f"N=20 K={K_STEPS} B={B}",
+                B * K_STEPS * (n * n + 2 * n) * 4, B * 2 * K_STEPS * 2 * n * n,
+                B * K_STEPS * (2 * n * n + 2 * n) * 4)}
 
 
 def _rows(out):
@@ -218,50 +283,42 @@ def _rows(out):
     return to_stacked(x), rows(z), rows(y)
 
 
-def _interval_f64(kw, state, n_iters):
+def _interval_f64(plain, kw, state, n_iters):
     """The plain interval in float64 on float32 inputs ``kw`` and state."""
-    from ba_path_planning_torch.ops.admm_fused import (
-        admm_interval_fused_X_plain)
     from ba_path_planning_torch.solvers.banded import tree_map
 
     def up(v):
         if isinstance(v, tuple):
             return tree_map(lambda t: t.double(), v)
         return v.double() if hasattr(v, "double") else v
-    return admm_interval_fused_X_plain(
-        **{k: up(v) for k, v in kw.items()}, **{k: up(v) for k, v in
-                                                state.items()},
-        n_iters=n_iters)
+    return plain(**{k: up(v) for k, v in kw.items()},
+                 **{k: up(v) for k, v in state.items()}, n_iters=n_iters)
 
 
-def large_phase(dev, n_veh):
-    """N=30 or N=40, B=128: the NS chain (global-memory layout) and the
-    fused ADMM interval on its factors.  The interval starts from a warm
-    state, as an SCP iteration finds it: one float64 plain interval from x
-    at rest, z = clip(A x, l, u) and y = 0."""
+def fused_check(tag, kernel, plain, kw, n_veh, factor_floats):
+    """A fused ADMM-interval kernel against its plain version on the
+    arguments ``kw`` (factors included; ``factor_floats`` is their size per
+    scenario), B_LARGE scenarios.  The interval starts from a warm state, as
+    an SCP iteration finds it: one float64 plain interval from x at rest,
+    z = clip(A x, l, u) and y = 0.  Returns the kernel's stats."""
     import torch
-    from ba_path_planning_torch.ops.admm_fused import (
-        admm_interval_fused_X, admm_interval_fused_X_plain)
     from ba_path_planning_torch.solvers import banded
-    D, C, _, _, kw = _case(n_veh, B_LARGE, dev, seed=n_veh)
-    X, ns_stats = ns_check(n_veh, D, C, "large phase")
-    del D
-    kw["X"] = X
     x = kw.pop("x")
     z = banded.tree_map(torch.clamp,
                         banded.apply_A(x, kw["eta"], kw["E"], H),
                         kw["lower"], kw["upper"])
-    warm = _interval_f64(kw, dict(x=x, z=z, y=banded.tree_map(
+    warm = _interval_f64(plain, kw, dict(x=x, z=z, y=banded.tree_map(
         torch.zeros_like, z)), 25)
     state = dict(zip("xzy", (banded.tree_map(lambda t: t.float(), v)
                              for v in warm)))
     errs, k64, p64 = {}, {}, {}
     for n_iters in (1, 25):
-        got = _rows(admm_interval_fused_X(**kw, **state, n_iters=n_iters))
-        want = _rows(admm_interval_fused_X_plain(**kw, **state,
-                                                 n_iters=n_iters))
-        ref = _rows(_interval_f64(kw, state, n_iters))
+        got = _rows(kernel(**kw, **state, n_iters=n_iters))
+        want = _rows(plain(**kw, **state, n_iters=n_iters))
+        ref = _rows(_interval_f64(plain, kw, state, n_iters))
         torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"{tag}: non-finite output")
         errs[n_iters] = [_block_rel(g, w, 1) for g, w in zip(got, want)]
         k64[n_iters] = [_block_rel(g.double(), r, 1) for g, r in zip(got, ref)]
         p64[n_iters] = [_block_rel(w.double(), r, 1)
@@ -270,61 +327,132 @@ def large_phase(dev, n_veh):
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
         del got, want, ref
-    fu_ms = _time_ms(lambda: admm_interval_fused_X(**kw, **state, n_iters=25))
-    fu_plain_ms = _time_ms(
-        lambda: admm_interval_fused_X_plain(**kw, **state, n_iters=25),
-        reps=2)
-    n = 6 * n_veh
-    gbs = 2 * K_STEPS * n * n * 4 * 25 * B_LARGE / (fu_ms * 1e-3) / 1e9
+    fu_ms = _time_ms(lambda: kernel(**kw, **state, n_iters=25))
+    fu_plain_ms = _time_ms(lambda: plain(**kw, **state, n_iters=25), reps=2)
+    B, K, n, P = B_LARGE, K_STEPS, 6 * n_veh, n_veh * (n_veh - 1) // 2
+    stream = 25 * B * 2 * factor_floats * 4
+    gbs = stream / (fu_ms * 1e-3) / 1e9
 
     def fmt(v):
         return "[" + ", ".join(f"{e:.3e}" for e in v) + "]"
-    print(f"large phase: admm_interval_fused_X N={n_veh} B={B_LARGE} "
-          f"K={K_STEPS} f32, block errors of (x, z, y) after 1 and 25 "
-          f"iterations: against plain {fmt(errs[1])} (x, z tol "
-          f"{FUSED_TOL:g}), max_abs={abs_err:.3e}; {fmt(errs[25])}; against "
-          f"float64 kernel {fmt(k64[1])}, {fmt(k64[25])}, plain f32 "
-          f"{fmt(p64[1])}, {fmt(p64[25])} (limit {ADMM_ERR_RATIO:g}x plain); "
-          f"25 iterations: kernel={fu_ms:.3f} ms ({gbs:.0f} GB/s of factor "
-          f"reads) plain={fu_plain_ms:.3f} ms", flush=True)
+    print(f"{tag} N={n_veh} B={B} K={K} f32 lam={float(kw['lam']):g}, block "
+          f"errors of (x, z, y) after 1 and 25 iterations: against plain "
+          f"{fmt(errs[1])} (x, z tol {FUSED_TOL:g}), max_abs={abs_err:.3e}; "
+          f"{fmt(errs[25])}; against float64 kernel {fmt(k64[1])}, "
+          f"{fmt(k64[25])}, plain f32 {fmt(p64[1])}, {fmt(p64[25])} (limit "
+          f"{ADMM_ERR_RATIO:g}x plain); 25 iterations: kernel={fu_ms:.3f} ms "
+          f"({gbs:.0f} GB/s of factor reads) plain={fu_plain_ms:.3f} ms",
+          flush=True)
     # x and z agree to a few ulps' worth of the sweeps; y = y + rho (zr - z)
     # multiplies the rounding of zr by rho (up to ~5e3 on the equality rows),
     # so its blocks are FP32-limited even after one iteration and are held
     # to the plain FP32 version's error against float64, as after 25
     if not max(errs[1][:2]) <= FUSED_TOL:
-        raise AssertionError(f"fused kernel disagrees: {fmt(errs[1])}")
+        raise AssertionError(f"{tag} disagrees: {fmt(errs[1])}")
     for n_iters in (1, 25):
         for ek, ep in zip(k64[n_iters], p64[n_iters]):
             if not ek <= ADMM_ERR_RATIO * ep:
                 raise AssertionError(
-                    f"fused kernel is off after {n_iters} iterations: "
+                    f"{tag} is off after {n_iters} iterations: "
                     f"{fmt(k64[n_iters])} vs plain {fmt(p64[n_iters])}")
+    # in: factors, eta, two static bound planes, collision bounds, and the
+    # state (x, static z and y, collision z and y); out: the state
+    rows = K * (12 * n_veh * 2 + 2 * P)
+    io = factor_floats + K * (2 * P + 2 * 12 * n_veh + P) + 2 * (K * n + rows)
+    return _stat(abs_err, fu_ms, fu_plain_ms,
+                 f"N={n_veh} K={K} B={B}, 25 iterations", B * io * 4,
+                 25 * B * 2 * 2 * factor_floats, stream)
+
+
+def large_phase(dev, n_veh):
+    """N=30 or N=40, B=128: the NS chain (global-memory layout) and the
+    fused X-form ADMM interval on its factors."""
+    from ba_path_planning_torch.ops.admm_fused import (
+        admm_interval_fused_X, admm_interval_fused_X_plain)
+    D, C, _, _, kw = _case(n_veh, B_LARGE, dev, seed=n_veh)
+    X, ns_stats = ns_check(n_veh, D, C, "large phase")
+    del D
+    kw["X"] = X
     return {"ns_chain": ns_stats,
-            "admm_fused_x": (abs_err, fu_ms, fu_plain_ms)}
+            "admm_fused_x": fused_check(
+                "large phase: admm_interval_fused_X", admm_interval_fused_X,
+                admm_interval_fused_X_plain, kw, n_veh,
+                K_STEPS * (6 * n_veh) ** 2)}
 
 
-def reference_phase(dev, n_veh):
+def lform_phase(dev, n_veh, B, dense=False, fused=False):
+    """The L-form family on the factors of the reference-compatible solver
+    (float32 block Cholesky on the card, as the path computes them): the
+    L-only sweep; with ``dense`` the dense (Linv, Eb) sweep; with ``fused``
+    the L-form fused interval (B must be B_LARGE), whose penalty weight is
+    this solver's +inf."""
+    from ba_path_planning_torch.ops import admm_fused, banded_solve, group_solve
+    from ba_path_planning_torch.solvers import banded
+    D, C, b, b_admm, kw = _case(n_veh, B, dev, seed=1000 + n_veh + B,
+                                solver=_facade_solver())
+    Linv, Eb = banded.factorize(D, banded.slot_dense(C, 2 * n_veh))
+    del D
+    K, n = K_STEPS, 6 * n_veh
+    tag = f"L-form phase B={B} N={n_veh} K={K} f32"
+    shape = f"N={n_veh} K={K} B={B}"
+    err, ms, plain_ms = _sweep_check(
+        f"{tag}: solve_factorized_grouped_L",
+        group_solve.solve_factorized_grouped_L,
+        group_solve.solve_factorized_grouped_L_plain, (Linv, C), b, b_admm)
+    out = {"group_solve_l": _stat(
+        err, ms, plain_ms, shape, B * K * (n * n + 2 * n) * 4,
+        B * 4 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)}
+    if dense:
+        err, ms, plain_ms = _sweep_check(
+            f"{tag}: solve_factorized_dense",
+            banded_solve.solve_factorized_dense,
+            banded_solve.solve_factorized_dense_plain, (Linv, Eb), b, b_admm)
+        fl = (2 * K - 1) * n * n
+        out["banded_solve"] = _stat(
+            err, ms, plain_ms, shape, B * (fl + 2 * K * n) * 4,
+            B * (4 * K - 2) * 2 * n * n, B * (2 * fl + 2 * K * n) * 4)
+    if fused:
+        kw.update(Linv=Linv, Eb=Eb)
+        del kw["C"]
+        out["admm_fused_l"] = fused_check(
+            "L-form phase: admm_interval_fused", admm_fused.admm_interval_fused,
+            admm_fused.admm_interval_fused_plain, kw, n_veh,
+            (2 * K - 1) * n * n)
+    return out
+
+
+def reference_phase(dev, n_veh, facade=False):
     """One SCP step of 8 lanes from the same phase-1 carry: the kernels on
     the card (f32) against the plain versions on the CPU (f32, and f64 for
     information).  Tolerance: one step's f32 accelerations move by 5e-4
-    (relative) under 1e-7 input noise on the CPU, so 5e-3 leaves 10x."""
+    (relative) under 1e-7 input noise on the CPU, so 5e-3 leaves 10x.
+    ``facade``: the reference-compatible problem and solver on the L-only
+    sweep route instead of the production configuration; its QP runs until
+    it converges, with the budget cut from 2000 to REF_FACADE_ITERS
+    iterations to bound the CPU's share of the run, and equal per-lane
+    iteration counts are asserted too."""
     import torch
     from ba_path_planning_torch.scenarios.generator import (
         generate_scenario_batch)
     from ba_path_planning_torch.solvers.banded import tree_map
     from ba_path_planning_torch.solvers.scp import SCPEngine
     from ba_path_planning_torch.utils.config import SolverConfig
-    problem = _problem(n_veh)
-    solver = SolverConfig.production(problem=problem)
+    problem = _problem(n_veh, facade)
+    solver = (_facade_solver(kernels=True, max_iter=REF_FACADE_ITERS)
+              if facade else SolverConfig.production(problem=problem))
     sc = generate_scenario_batch(5, 8, n_vehicles=n_veh, min_distance=R,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     v0 = torch.zeros_like(sc.initial)
     args = (sc.initial, v0, sc.final, v0)
-    engines = {"cpu64": SCPEngine(problem, solver, dtype=torch.float64),
-               "cpu32": SCPEngine(problem, solver, dtype=torch.float32),
+    engines = {"cpu64": SCPEngine(problem, solver, dtype=torch.float64,
+                                  device="cpu"),
+               "cpu32": SCPEngine(problem, solver, dtype=torch.float32,
+                                  device="cpu"),
                "gpu32": SCPEngine(problem, solver, dtype=torch.float32,
                                   device=dev)}
     carry = engines["cpu64"].start(*args)
+    if facade:      # QPs of up to 2000 iterations: leave the float64 step out
+        del engines["cpu64"]
     carry = carry._replace(feasible_initial=torch.zeros_like(
         carry.feasible_initial))              # make every lane step
     out = {}
@@ -340,18 +468,26 @@ def reference_phase(dev, n_veh):
             ref.abs().max())
     err = rel(out["gpu32"].a)
     same_stop = bool(torch.equal(out["gpu32"].stop.cpu(), out["cpu32"].stop))
-    print(f"reference phase: one SCP step, 8 lanes, N={n_veh}: card f32 vs "
-          f"CPU f32 plain max_rel(a)={err:.3e} (tol {REF_TOL:g}), equal stop "
-          f"flags={same_stop}; CPU f64 vs CPU f32 max_rel(a)="
-          f"{rel(out['cpu64'].a):.3e}", flush=True)
-    if not (err <= REF_TOL and same_stop
+    qp = {key: (c.qp_iters - carry.qp_iters.to(c.qp_iters.device)).tolist()
+          for key, c in out.items()}
+    print(f"reference phase: one SCP step, 8 lanes, N={n_veh}, "
+          f"{'reference-compatible' if facade else 'production'} solver: "
+          f"card f32 vs CPU f32 plain max_rel(a)={err:.3e} (tol {REF_TOL:g}), "
+          f"equal stop flags={same_stop}; QP iterations card {qp['gpu32']} "
+          f"CPU f32 {qp['cpu32']}" + ("" if facade else
+                                     f"; CPU f64 vs CPU f32 max_rel(a)="
+                                     f"{rel(out['cpu64'].a):.3e}"),
+          flush=True)
+    if not (err <= REF_TOL and same_stop and qp["gpu32"] == qp["cpu32"]
             and bool(torch.isfinite(out["gpu32"].a).all())):
         raise AssertionError(f"card and CPU reference disagree: {err:.3e}")
 
 
-def main_path(dev, card, n_veh, B, chunk, counters):
-    """``solve_compacted`` over B scenarios at the bench.py configuration;
-    returns the launch counts of this path alone."""
+def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
+    """``solve_compacted`` over B scenarios at the bench.py configuration
+    (``latency``: with ``SolverConfig.latency()``, three 9-iteration
+    intervals with early exit, for the production solver); returns the
+    launch counts of this path alone."""
     import numpy as np
     import torch
     from ba_path_planning_torch.models.double_integrator import (
@@ -361,7 +497,8 @@ def main_path(dev, card, n_veh, B, chunk, counters):
         generate_scenario_batch)
     from ba_path_planning_torch.utils.config import SolverConfig
     problem = _problem(n_veh)
-    solver = SolverConfig.production(problem=problem)
+    solver = (SolverConfig.latency() if latency
+              else SolverConfig.production(problem=problem))
     sh = ShardedSCPSolver(problem, solver, dtype=torch.float32, device=dev)
 
     def scenarios(seed, n):
@@ -401,7 +538,8 @@ def main_path(dev, card, n_veh, B, chunk, counters):
     ff = out.feasible_final
     ok = int((ff & (goal_err < 0.05)).sum())
     status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
-    print(f"main path: B={B} chunk={chunk} N={n_veh} K={K} R={R} f32 on "
+    print(f"main path{' (latency solver)' if latency else ''}: B={B} "
+          f"chunk={chunk} N={n_veh} K={K} R={R} f32 on "
           f"{card}: wall={wall:.3f} s solves/s={ok / wall:.1f} "
           f"ok={ok}/{B} collision_free={int(ff.sum())} "
           f"goal<5cm={int((goal_err < 0.05).sum())} statuses={status} "
@@ -422,6 +560,117 @@ def main_path(dev, card, n_veh, B, chunk, counters):
     return launches
 
 
+# route of the reference-compatible path -> (solver options, its kernel)
+FACADE_ROUTES = {
+    "grouped_L": (dict(kernels=True), "group_solve_l"),
+    "resident": (dict(kernels=True, group=-1), "banded_solve"),
+    "fused_L": (dict(kernels=True, group=-1, fused=True), "admm_fused_l"),
+}
+
+
+def facade_path(dev, card, route, counters):
+    """The reference-compatible path on one kernel route: one
+    ``SCPEngine.solve_batch`` over FACADE_B scenarios at N=20 with the
+    ``SCP`` class's problem and solver (no device given: the engine runs on
+    the card).  Returns the result and the launch counts of this path."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers.banded import qp_route
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    n_veh, B = 20, FACADE_B
+    change, kernel = FACADE_ROUTES[route]
+    problem, solver = _problem(n_veh, facade=True), _facade_solver(**change)
+    took = qp_route(solver.static_part(), n_vehicles=n_veh, n_steps=K_STEPS,
+                    dtype=torch.float32, col_enabled=True)
+    if took != route:
+        raise AssertionError(f"options {change} route {took}, not {route}")
+    eng = SCPEngine(problem, solver, dtype=torch.float32)
+    sc = generate_scenario_batch(100, B, n_vehicles=n_veh, min_distance=R,
+                                 dtype=torch.float32)
+    if eng.device.type != "cuda" or not sc.initial.is_cuda \
+            or not bool(sc.ok.all()):
+        raise AssertionError("the engine or its scenarios are not on the card")
+    v0 = torch.zeros_like(sc.initial)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = eng.solve_batch(sc.initial, v0, sc.final, v0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: fn.launches for key, fn in counters.items()}
+    if tuple(out.positions.shape) != (B, n_veh, K_STEPS, 2):
+        raise AssertionError(f"positions shape {tuple(out.positions.shape)}")
+    if not all(bool(torch.isfinite(t).all()) for t in out
+               if t.is_floating_point() and t is not out.rel_step):
+        raise AssertionError("non-finite output")
+    status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
+    print(f"reference-compatible path, route {route}: B={B} N={n_veh} "
+          f"K={K_STEPS} R={R} f32 on {card}: wall={wall:.3f} s "
+          f"statuses={status} "
+          f"collision_free={int(out.feasible_final.sum())}/{B} "
+          f"mean_scp_iters={float(out.iterations.float().mean()):.3f} "
+          f"mean_qp_iters={float(out.qp_iterations.float().mean()):.1f} "
+          f"max_qp_iters={int(out.qp_iterations.max())} "
+          f"qp_converged_all={int(out.qp_converged_all.sum())}/{B} "
+          f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"launches={launches}", flush=True)
+    for kname, n_launch in launches.items():
+        if (n_launch > 0) != (kname == kernel):
+            raise AssertionError(f"route {route} launched {kname} {n_launch} "
+                                 f"times; its kernel is {kernel}")
+    return out, launches
+
+
+def facade_call(dev, counters):
+    """One ``SCP(...).generate_trajectories()`` call, one scenario of
+    N=20, with the class's solver on its L-only sweep route."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers.scp import SCP
+    sc = generate_scenario_batch(7, 1, n_vehicles=20, min_distance=R,
+                                 dtype=torch.float64, device="cpu")
+    scp = SCP(20, T_HORIZON, H, R, solver=_facade_solver(kernels=True))
+    scp.set_initial_states(sc.initial[0].numpy())
+    scp.set_final_states(sc.final[0].numpy())
+    before = counters["group_solve_l"].launches
+    traj = scp.generate_trajectories()
+    pos = traj["positions"]
+    if pos.shape != (20, K_STEPS, 2) or not np.isfinite(pos).all() \
+            or counters["group_solve_l"].launches == before:
+        raise AssertionError("the SCP class did not run through its kernel")
+    print(f"SCP class: status={int(scp.result.status)} collision_free="
+          f"{bool(scp.result.feasible_final)} qp_iters="
+          f"{int(scp.result.qp_iterations)}", flush=True)
+
+
+def facade_agreement(results):
+    """The three routes compute the same algebra: hold them against each
+    other, lane by lane."""
+    import torch
+    names = list(results)
+    base = results[names[0]]
+    for other in names[1:]:
+        res = results[other]
+        same = base.status == res.status
+        same_it = same & (base.iterations == res.iterations)
+        diff = (base.positions - res.positions).abs().flatten(1).amax(-1)
+        print(f"routes {names[0]} vs {other}: equal status on "
+              f"{int(same.sum())}/{same.numel()} lanes, equal status and SCP "
+              f"iterations on {int(same_it.sum())}; max position difference "
+              f"on those {float(diff[same_it].max()):.3e} m, on all lanes "
+              f"{float(diff.max()):.3e} m (tol {ROUTE_TOL:g} m on "
+              f"{ROUTE_SHARE:.0%} of lanes)", flush=True)
+        close = same_it & (diff <= ROUTE_TOL)
+        if int(close.sum()) < ROUTE_SHARE * same.numel():
+            raise AssertionError(f"routes {names[0]} and {other} disagree")
+
+
 def main():
     if not (ROOT / "ba_path_planning_torch").is_dir():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repo")
@@ -440,8 +689,8 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    from ba_path_planning_torch.ops import (admm_fused, cuda_build,
-                                            group_solve, ns_chain)
+    from ba_path_planning_torch.ops import (admm_fused, banded_solve,
+                                            cuda_build, group_solve, ns_chain)
 
     t0 = time.perf_counter()
     cuda_build.load_kernels()
@@ -452,46 +701,82 @@ def main():
         if ln.endswith(".cu:") or "registers" in ln or "spill" in ln
         or "error" in ln), flush=True)
 
+    t_phase = [time.perf_counter()]
+
+    def lap(what):
+        t_phase.append(time.perf_counter())
+        print(f"[{what}: {t_phase[-1] - t_phase[-2]:.1f} s]", flush=True)
+
     kernel_phase(dev, 64)
     kstats = kernel_phase(dev, 512)
     lstats = {n_veh: large_phase(dev, n_veh) for n_veh in (30, 40)}
+    lform_phase(dev, 20, 64, dense=True)
+    fstats = lform_phase(dev, 20, 512, dense=True)
+    fstats.update(admm_fused_l=lform_phase(dev, 20, B_LARGE,
+                                           fused=True)["admm_fused_l"])
+    for n_veh in (30, 40):
+        lform_phase(dev, n_veh, B_LARGE)
+    lap("kernel phases")
     for n_veh in (20, 30):
         reference_phase(dev, n_veh)
+    reference_phase(dev, 20, facade=True)
+    lap("reference phases")
 
+    # the launch count of each wrapper, summed over the paths below; each
+    # path sets the counts to 0 before it runs and reads them after
     counters = {"ns_chain": ns_chain.factorize_X_chain_batched,
                 "group_solve_x": group_solve.solve_factorized_grouped_X,
-                "admm_fused_x": admm_fused.admm_interval_fused_X}
+                "admm_fused_x": admm_fused.admm_interval_fused_X,
+                "group_solve_l": group_solve.solve_factorized_grouped_L,
+                "banded_solve": banded_solve.solve_factorized_dense,
+                "admm_fused_l": admm_fused.admm_interval_fused}
     launches = dict.fromkeys(counters, 0)
-    for n_veh, B, chunk in MAIN_PATHS:
-        for key, n in main_path(dev, card, n_veh, B, chunk,
-                                counters).items():
-            launches[key] += n
 
-    # (wrapper, source, Pallas body replaced, timed at, stats)
+    def add(path_launches):
+        for key, n in path_launches.items():
+            launches[key] += n
+    for n_veh, B, chunk in MAIN_PATHS:
+        add(main_path(dev, card, n_veh, B, chunk, counters))
+    add(main_path(dev, card, *MAIN_PATHS[0], counters, latency=True))
+    lap("production main paths")
+    results = {}
+    for route in FACADE_ROUTES:
+        results[route], path_launches = facade_path(dev, card, route,
+                                                    counters)
+        add(path_launches)
+    facade_agreement(results)
+    facade_call(dev, counters)
+    lap("reference-compatible paths")
+
+    pallas = "ba_path_planning_tpu/ops/pallas/"
+    csrc = "ba_path_planning_torch/csrc/"
+    # key -> (wrapper, source, Pallas bodies replaced, stats)
     rows = {
-        "ns_chain": ("factorize_X_chain_batched",
-                     "ba_path_planning_torch/csrc/ns_chain.cu",
-                     "ba_path_planning_tpu/ops/pallas/ns_chain.py:105",
-                     f"N=40 K=50 B={B_LARGE}", lstats[40]["ns_chain"]),
-        "group_solve_x": ("solve_factorized_grouped_X",
-                          "ba_path_planning_torch/csrc/group_solve_x.cu",
-                          "ba_path_planning_tpu/ops/pallas/group_solve.py:424",
-                          "N=20 K=50 B=512", kstats["group_solve_x"]),
-        "admm_fused_x": ("admm_interval_fused_X",
-                         "ba_path_planning_torch/csrc/admm_fused_x.cu",
-                         "ba_path_planning_tpu/ops/pallas/admm_fused.py:637",
-                         f"N=40 K=50 B={B_LARGE}, 25 iterations",
+        "ns_chain": ("factorize_X_chain_batched", "ns_chain.cu",
+                     ["ns_chain.py:105"], lstats[40]["ns_chain"]),
+        "group_solve_x": ("solve_factorized_grouped_X", "group_solve_x.cu",
+                          ["group_solve.py:424"], kstats["group_solve_x"]),
+        "admm_fused_x": ("admm_interval_fused_X", "admm_fused_x.cu",
+                         ["admm_fused.py:637", "admm_fused.py:432"],
                          lstats[40]["admm_fused_x"]),
+        "group_solve_l": ("solve_factorized_grouped_L", "group_solve_l.cu",
+                          ["group_solve.py:241"], fstats["group_solve_l"]),
+        "banded_solve": ("solve_factorized_dense", "banded_solve.cu",
+                         ["banded_solve.py:116", "banded_solve.py:30",
+                          "group_solve.py:57"], fstats["banded_solve"]),
+        "admm_fused_l": ("admm_interval_fused", "admm_fused_l.cu",
+                         ["admm_fused.py:162"], fstats["admm_fused_l"]),
     }
     kernels = []
-    for key, (wrapper, src, replaces, shape, stats) in rows.items():
-        err, ms, plain_ms = stats
-        kernels.append({"name": wrapper, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "timed_at": shape})
-    kernels[-1]["also_replaces"] = \
-        "ba_path_planning_tpu/ops/pallas/admm_fused.py:432"
+    for key, (wrapper, src, replaces, stats) in rows.items():
+        entry = {"name": wrapper, "route": "cuda", "source": csrc + src,
+                 "replaces": pallas + replaces[0], "launches": launches[key],
+                 **stats}
+        if len(replaces) > 1:
+            entry["also_replaces"] = [pallas + r for r in replaces[1:]]
+        if launches[key] < 1:
+            raise AssertionError(f"no main path launched {wrapper}")
+        kernels.append(entry)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)

@@ -263,7 +263,7 @@ def test_solve_compacted_fused_route_matches_jax_engine(N, B, chunk):
     tp, ts = config_from_jax(problem, jsolver)
     assert tb.qp_route(ts.static_part(), n_vehicles=N, n_steps=tp.n_steps,
                        dtype=F64, col_enabled=True) == "fused_X"
-    solver = ShardedSCPSolver(tp, ts, dtype=F64)
+    solver = ShardedSCPSolver(tp, ts, dtype=F64, device="cpu")
     got = solver.solve_compacted(p0, v0, pf, v0, chunk=chunk,
                                  angle_fn=JaxAngles(keys, N, tp.n_steps))
     for name in ("status", "iterations", "feasible_final", "qp_iterations"):

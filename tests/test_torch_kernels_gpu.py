@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from ba_path_planning_torch.ops import admm_fused, group_solve, ns_chain
+from ba_path_planning_torch.ops import (admm_fused, banded_solve, group_solve,
+                                        ns_chain)
 from ba_path_planning_torch.ops.collisions import (make_pair_index,
                                                    pairwise_diffs)
 from ba_path_planning_torch.solvers import banded as tb
@@ -123,6 +124,66 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda):
         tb._factorize_X_routed(D, C.double(), static)
 
 
+def _dense_case(B, K, N, seed):
+    """float32 dense (Linv, Eb) and L-only factors of :func:`_assembled`
+    blocks, factorized in float64, the slot scalars and a right-hand side:
+    (Linv, Eb, C, b)."""
+    D, C = _assembled(B, K, N, seed)
+    Linv, Eb = tb.factorize(D, tb.slot_dense(C, 2 * N))
+    b = torch.as_tensor(np.random.default_rng(seed + 1).normal(
+        size=(B, K, 6 * N)))
+    return Linv.float(), Eb.float(), C.float(), b.float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,N", [(3, 10, 2), (5, 9, 4), (3, 50, 20),
+                                   (3, 50, 28), (3, 50, 29), (3, 50, 30),
+                                   (3, 50, 40), (2, 7, 45)])
+def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
+    """Relative 1e-5 in every (b, k) block, one code path for every n = 6N
+    (n = 270 at N = 45 takes two column passes of the transposed matvec)."""
+    Linv, _, C, b = (t.to(cuda) for t in _dense_case(B, K, N, seed=N))
+    before = group_solve.solve_factorized_grouped_L.launches
+    got = group_solve.solve_factorized_grouped_L(Linv, C, b)
+    assert group_solve.solve_factorized_grouped_L.launches == before + 1
+    want = group_solve.solve_factorized_grouped_L_plain(Linv, C, b)
+    torch.cuda.synchronize()
+    assert _block_rel(got, want, 1) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,N", [(3, 10, 2), (5, 9, 4), (64, 50, 20),
+                                   (3, 50, 30), (2, 7, 45)])
+def test_banded_solve_kernel_matches_plain(cuda, B, K, N):
+    Linv, Eb, _, b = (t.to(cuda) for t in _dense_case(B, K, N, seed=N))
+    before = banded_solve.solve_factorized_dense.launches
+    got = banded_solve.solve_factorized_dense(Linv, Eb, b)
+    same = group_solve.solve_factorized_grouped(Linv, Eb, b)
+    assert banded_solve.solve_factorized_dense.launches == before + 2
+    want = banded_solve.solve_factorized_dense_plain(Linv, Eb, b)
+    torch.cuda.synchronize()
+    assert _block_rel(got, want, 1) < 1e-5
+    assert torch.equal(got, same)
+
+
+@pytest.mark.gpu
+def test_l_form_wrappers_raise_on_unsupported_cuda_input(cuda):
+    Linv, Eb, C, b = (t.to(cuda) for t in _dense_case(2, 9, 3, seed=2))
+    with pytest.raises(TypeError):
+        group_solve.solve_factorized_grouped_L(Linv.double(), C.double(),
+                                               b.double())
+    with pytest.raises(ValueError):
+        group_solve.solve_factorized_grouped_L(Linv.mT, C, b)
+    with pytest.raises(ValueError):
+        group_solve.solve_factorized_grouped_L(Linv[:, :-1], C, b)
+    with pytest.raises(TypeError):
+        banded_solve.solve_factorized_dense(Linv, Eb.double(), b)
+    with pytest.raises(ValueError):
+        banded_solve.solve_factorized_dense(Linv, Eb[:, :-1], b)
+    with pytest.raises(ValueError):
+        banded_solve.solve_factorized_dense(Linv.cpu(), Eb, b)
+
+
 def _to64(args):
     """float64 copies of interval arguments (a tuple, or a dict of keyword
     arguments whose tensors are converted)."""
@@ -133,14 +194,16 @@ def _to64(args):
                  else a.double() for a in args)
 
 
-def _interval_case(B, K, N, seed, device):
+def _interval_case(B, K, N, seed, device, form="X", hard=False):
     """Inputs of one fused ADMM interval at main-path shapes, float32:
     bounds of random start and goal positions, collision rows of random
     unit directions about the start positions (row 0 vacuous), the
-    production rho pattern and X-form factors from the NS route.  The state
-    (x, z, y) is warm, as an SCP iteration finds it: one float64 plain
-    interval from x at rest, z = clip(A x, l, u) and y = 0.  Returns the
-    positional and keyword arguments of ``admm_interval_fused_X``."""
+    production rho pattern and X-form factors from the NS route
+    (``form="X"``) or dense (Linv, Eb) factors (``form="L"``).  ``hard``
+    sets the collision penalty to +inf (hard rows).  The state (x, z, y) is
+    warm, as an SCP iteration finds it: one float64 plain interval from x at
+    rest, z = clip(A x, l, u) and y = 0.  Returns the positional and keyword
+    arguments of ``admm_interval_fused_X`` or ``admm_interval_fused``."""
     rng = np.random.default_rng(seed)
     f32, h = torch.float32, 0.2
     P = N * (N - 1) // 2
@@ -169,15 +232,27 @@ def _interval_case(B, K, N, seed, device):
         n_pairs=P, col_enabled=True, dtype=f32)
     D, C = tb.assemble_D(rho, eta, pairs.E, h=h, sigma=prm.sigma,
                          n_vehicles=N)
-    X = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2)
+    if form == "X":
+        factors = (ns_chain.factorize_X_chain_batched(D, C, ns_iters=2), C)
+    else:
+        factors = tuple(t.float() for t in tb.factorize(
+            D.double(), tb.slot_dense(C.double(), 2 * N)))
     z = tb.tree_map(torch.clamp, tb.apply_A(x, eta, pairs.E, h), lower, upper)
     y = tb.tree_map(torch.zeros_like, z)
-    args = (X, C, eta, pairs.E, lower, upper, x, z, y, rho)
-    kw = dict(h=h, sigma=prm.sigma, alpha=prm.alpha, lam=prm.col_penalty)
-    warm = admm_fused.admm_interval_fused_X_plain(*_to64(args), n_iters=25,
-                                                  **_to64(kw))
+    args = factors + (eta, pairs.E, lower, upper, x, z, y, rho)
+    lam = torch.full_like(prm.col_penalty, np.inf) if hard \
+        else prm.col_penalty
+    kw = dict(h=h, sigma=prm.sigma, alpha=prm.alpha, lam=lam)
+    warm = _FUSED[form][1](*_to64(args), n_iters=25, **_to64(kw))
     state = tuple(tb.tree_map(lambda t: t.float(), v) for v in warm)
     return args[:6] + state + args[9:], kw
+
+
+# factor form -> (kernel wrapper, plain version)
+_FUSED = {"X": (admm_fused.admm_interval_fused_X,
+                admm_fused.admm_interval_fused_X_plain),
+          "L": (admm_fused.admm_interval_fused,
+                admm_fused.admm_interval_fused_plain)}
 
 
 def _interval_rows(out, K):
@@ -189,6 +264,29 @@ def _interval_rows(out, K):
         return torch.cat([admm_fused.static_plane(rv, K).flatten(-2), rv.col],
                          dim=-1)
     return tb.to_stacked(x), rows(z), rows(y)
+
+
+def _check_interval(cuda, B, K, N, n_iters, form, hard):
+    args, kw = _interval_case(B, K, N, seed=N, device=cuda, form=form,
+                              hard=hard)
+    kernel, plain = _FUSED[form]
+    before = kernel.launches
+    got = kernel(*args, n_iters=n_iters, **kw)
+    assert kernel.launches == before + 1
+    want = plain(*args, n_iters=n_iters, **kw)
+    ref = _interval_rows(plain(*_to64(args), n_iters=n_iters, **_to64(kw)),
+                         K)
+    torch.cuda.synchronize()
+    got_r, want_r = _interval_rows(got, K), _interval_rows(want, K)
+    assert all(bool(torch.isfinite(g).all()) for g in got_r)
+    errs = [_block_rel(g, w, 1) for g, w in zip(got_r, want_r)]
+    if n_iters == 1:
+        assert max(errs[:2]) < 2e-4, errs
+    checked = slice(2, 3) if n_iters == 1 else slice(0, 3)
+    for g, w, r in list(zip(got_r, want_r, ref))[checked]:
+        kernel_err = _block_rel(g.double(), r, 1)
+        plain_err = _block_rel(w.double(), r, 1)
+        assert kernel_err <= 4.0 * plain_err, (kernel_err, plain_err, errs)
 
 
 @pytest.mark.gpu
@@ -203,24 +301,27 @@ def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
     ~5e3 on the equality rows), and 25 iterations amplify rounding further
     (alpha = 1.9), so the y blocks, and every block after 25 iterations,
     may be off float64 by at most 4x the plain FP32 version's error."""
-    args, kw = _interval_case(B, K, N, seed=N, device=cuda)
-    before = admm_fused.admm_interval_fused_X.launches
-    got = admm_fused.admm_interval_fused_X(*args, n_iters=n_iters, **kw)
-    assert admm_fused.admm_interval_fused_X.launches == before + 1
-    want = admm_fused.admm_interval_fused_X_plain(*args, n_iters=n_iters,
-                                                  **kw)
-    ref = _interval_rows(admm_fused.admm_interval_fused_X_plain(
-        *_to64(args), n_iters=n_iters, **_to64(kw)), K)
-    torch.cuda.synchronize()
-    got_r, want_r = _interval_rows(got, K), _interval_rows(want, K)
-    errs = [_block_rel(g, w, 1) for g, w in zip(got_r, want_r)]
-    if n_iters == 1:
-        assert max(errs[:2]) < 2e-4, errs
-    checked = slice(2, 3) if n_iters == 1 else slice(0, 3)
-    for g, w, r in list(zip(got_r, want_r, ref))[checked]:
-        kernel_err = _block_rel(g.double(), r, 1)
-        plain_err = _block_rel(w.double(), r, 1)
-        assert kernel_err <= 4.0 * plain_err, (kernel_err, plain_err, errs)
+    _check_interval(cuda, B, K, N, n_iters, "X", hard=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,K,N", [(3, 10, 4), (4, 50, 20), (2, 50, 29),
+                                   (2, 500, 20)])
+def test_admm_fused_l_kernel_matches_plain(cuda, B, K, N, n_iters):
+    """The L-form kernel, held as the X-form one is; at K = 500 the sweep
+    plane no longer fits in shared memory."""
+    _check_interval(cuda, B, K, N, n_iters, "L", hard=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,N", [("X", 30), ("L", 20)])
+@pytest.mark.parametrize("n_iters", [1, 25])
+def test_admm_fused_kernels_with_hard_collision_rows(cuda, form, N, n_iters):
+    """lam = +inf (hard collision rows) beside the disabled row k = 0
+    (lower bound -inf): finite results that agree with the plain version,
+    which clips a violated row onto its bound."""
+    _check_interval(cuda, 3, 50, N, n_iters, form, hard=True)
 
 
 @pytest.mark.gpu

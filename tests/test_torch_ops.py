@@ -164,12 +164,12 @@ def test_generator_properties(n_vehicles, min_distance):
     B = 64
     sc = generate_scenario_batch(11, B, n_vehicles=n_vehicles,
                                  min_distance=min_distance,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     assert sc.initial.shape == sc.final.shape == (B, n_vehicles, 2)
     assert bool(sc.ok.all())
     again = generate_scenario_batch(11, B, n_vehicles=n_vehicles,
                                     min_distance=min_distance,
-                                    dtype=torch.float64)
+                                    dtype=torch.float64, device="cpu")
     assert torch.equal(sc.initial, again.initial)
     for pts in (sc.initial.numpy(), sc.final.numpy()):
         d = np.linalg.norm(pts[:, :, None] - pts[:, None], axis=-1)

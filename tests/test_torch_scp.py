@@ -93,7 +93,7 @@ def test_one_scp_step_from_jax_carry():
     jnext = jax.vmap(step)(jcarry, *args, keys, jcarry.it + 1)
 
     tp, ts = config_from_jax(problem, _jax_solver(problem))
-    eng = SCPEngine(tp, ts, dtype=F64)
+    eng = SCPEngine(tp, ts, dtype=F64, device="cpu")
     carry = carry_from_numpy(jax.tree.map(np.asarray, jcarry))
     targs = eng.as_inputs(p0, v0, pf, v0)
     nxt = eng.step(carry, *targs, torch.arange(B), carry.it + 1,
@@ -128,7 +128,7 @@ def test_solve_compacted_matches_jax_engine(N, B, chunk):
                    dtype=jnp.float64).solve_batch(p0, v0, pf, v0, keys)
 
     tp, ts = config_from_jax(problem, _jax_solver(problem))
-    solver = ShardedSCPSolver(tp, ts, dtype=F64)
+    solver = ShardedSCPSolver(tp, ts, dtype=F64, device="cpu")
     angles = JaxAngles(keys, N, tp.n_steps)
     compacted = solver.solve_compacted(p0, v0, pf, v0, chunk=chunk,
                                        angle_fn=angles)
