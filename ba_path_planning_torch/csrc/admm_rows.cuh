@@ -2,8 +2,9 @@
 // fused ADMM-interval kernels (admm_fused_x.cu, admm_fused_l.cu): the
 // right-hand side b = A^T (rho z - y) + sigma x before the sweeps, and the
 // relaxation, A xt, the clip / exact-penalty prox and the dual update after
-// them.  Every function is called by all threads of the block and leaves the
-// barrier after it to the caller.
+// them.  Every function is called by all threads of the block, or by the
+// first `nthr` of them when it is given (tid, nthr), and leaves the barrier
+// after it to the caller.
 //
 // Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p, dyn_v,
 // jerk, acc, vbox, pbox (the jerk block's row K-1 is unused), collision rows
@@ -54,8 +55,9 @@ __host__ __device__ inline long pair_table_bytes(long P) {
 
 // pi[p], pj[p] = the vehicles of pair p.
 __device__ __forceinline__ void fill_pair_table(unsigned short* pi,
-                                                unsigned short* pj, int N) {
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
+                                                unsigned short* pj, int N,
+                                                int tid, int nthr) {
+  for (int i = tid; i < N; i += nthr)
     for (int j = i + 1; j < N; ++j) {
       const int p = pair_base(i, N) + j - i - 1;
       pi[p] = static_cast<unsigned short>(i);
@@ -63,10 +65,15 @@ __device__ __forceinline__ void fill_pair_table(unsigned short* pi,
     }
 }
 
+__device__ __forceinline__ void fill_pair_table(unsigned short* pi,
+                                                unsigned short* pj, int N) {
+  fill_pair_table(pi, pj, N, threadIdx.x, blockDim.x);
+}
+
 // b = A^T (rho z - y) + sigma x into the sweep plane xt (K, 6N).
-__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt) {
+__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt,
+                                          int tid, int nthr) {
   const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
-  const int tid = threadIdx.x, nthr = blockDim.x;
   const float h = sc.h, sigma = sc.sigma, hh = 0.5f * h * h;
   const float *rho_s = sc.rho_s, *rho_c = sc.rho_c, *eb = sc.eb;
   const float *zsb = sc.zsb, *ysb = sc.ysb, *zcb = sc.zcb, *ycb = sc.ycb;
@@ -109,15 +116,19 @@ __device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt) {
   }
 }
 
+__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt) {
+  build_rhs(sc, xt, threadIdx.x, blockDim.x);
+}
+
 // Relaxation of x, A xt, the z update (clip on the static rows, the
 // exact-penalty soft prox on the collision rows) and the dual update, from
 // the sweep plane xt (K, 6N) = the solution of the x-update.
 __device__ __forceinline__ void update_rows(const Scenario& sc,
                                             const float* xt,
                                             const unsigned short* pi,
-                                            const unsigned short* pj) {
+                                            const unsigned short* pj,
+                                            int tid, int nthr) {
   const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
-  const int tid = threadIdx.x, nthr = blockDim.x;
   const float h = sc.h, alpha = sc.alpha, lam = sc.lam, hh = 0.5f * h * h;
   const float *rho_s = sc.rho_s, *rho_c = sc.rho_c, *eb = sc.eb;
   const float *lsb = sc.lsb, *usb = sc.usb, *lcb = sc.lcb;
@@ -169,6 +180,13 @@ __device__ __forceinline__ void update_rows(const Scenario& sc,
     ycb[idx] = ycb[idx] + rho * (zr - zn);
     zcb[idx] = zn;
   }
+}
+
+__device__ __forceinline__ void update_rows(const Scenario& sc,
+                                            const float* xt,
+                                            const unsigned short* pi,
+                                            const unsigned short* pj) {
+  update_rows(sc, xt, pi, pj, threadIdx.x, blockDim.x);
 }
 
 }  // namespace admm_rows

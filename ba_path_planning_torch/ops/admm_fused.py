@@ -177,7 +177,9 @@ def admm_interval_fused(Linv, Eb, eta, E, lower: RowVals, upper: RowVals,
                         x: StateVars, z: RowVals, y: RowVals, rho: RowVals,
                         **step):
     """As :func:`admm_interval_fused_X`, on the dense factors
-    Linv (B, K, 6N, 6N) and Eb (B, K-1, 6N, 6N) of ``banded.factorize``."""
+    Linv (B, K, 6N, 6N) and Eb (B, K-1, 6N, 6N) of ``banded.factorize``.
+    Linv_k is lower triangular: the kernel does not read what lies above
+    the diagonal.  It serves 6N <= 512."""
     if _on_cpu("admm_interval_fused", Linv):
         return admm_interval_fused_plain(Linv, Eb, eta, E, lower, upper, x,
                                          z, y, rho, **step)

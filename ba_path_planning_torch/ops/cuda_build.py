@@ -24,7 +24,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu",
            "group_solve_l.cu", "banded_solve.cu", "admm_fused_l.cu")
-HEADERS = ("sweeps.cuh", "admm_rows.cuh")   # included by the sources above
+# included by the sources above
+HEADERS = ("sweeps.cuh", "admm_rows.cuh", "factor_ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,7 +90,7 @@ def load_kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ns_chain_scratch_floats.argtypes = [i]
     lib.ns_chain_scratch_floats.restype = i
-    lib.ns_chain_interior_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.ns_chain_interior_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.ns_chain_interior_f32.restype = i
     for sweep in (lib.group_solve_x_f32, lib.group_solve_l_f32,
                   lib.banded_solve_f32):

@@ -597,12 +597,14 @@ def _factorize_X_routed(D, C, static: SolverStatic):
     """X-form factorization: the NS-chain kernel route where the JAX router
     takes its Pallas kernel (``banded.py:_factorize_X_routed``), else
     :func:`factorize_X`.  On the card that route takes float32 only and
-    raises for any other dtype; on the CPU it is :func:`factorize_X`."""
+    raises for any other dtype, and computes its products as
+    ``static.ns_precision`` says; on the CPU it is :func:`factorize_X`."""
     K = D.shape[-3]
     if (static.kernels and static.ns_iters > 0 and static.ns_anchor == 0
             and K >= 6):
         from ..ops.ns_chain import factorize_X_chain_batched
-        return factorize_X_chain_batched(D, C, ns_iters=static.ns_iters)
+        return factorize_X_chain_batched(D, C, ns_iters=static.ns_iters,
+                                         ns_precision=static.ns_precision)
     return factorize_X(D, C, ns_iters=static.ns_iters,
                        ns_anchor=static.ns_anchor)
 

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time goes on the reference-compatible path of the PyTorch/CUDA
-port (``ba_path_planning_torch``), on one GPU.
+"""Where the time goes on the paths of the PyTorch/CUDA port
+(``ba_path_planning_torch``), on one GPU.
 
     python3 scripts/torch_profile_lform.py [--route grouped_L] [--batch 128]
                                            [--max-iter 250]
+    python3 scripts/torch_profile_lform.py --route production [-N 30]
 
-Builds the N=20, K=50 problem and solver of the ``SCP`` class on the kernel
-route asked for (``grouped_L``, ``resident`` or ``fused_L``), runs phase 1
-over ``--batch`` generated scenarios, and then times one SCP iteration of
-every lane (``SCPEngine.step``) three times untraced and once under
-``torch.profiler``.  The QP budget of that iteration is cut to ``--max-iter``
-ADMM iterations (intervals of 25 with early exit, as on the full path) so
-that the trace stays small; an ADMM iteration costs what it costs on the
-full path.  Prints the walls, the device-busy time (the sum of the kernel
-times: everything runs on one stream), the idle share under tracing, the
-launches, and the kernels that take most of the device time.
+``--route grouped_L``, ``resident`` or ``fused_L``: the reference-compatible
+path.  Builds the N=20, K=50 problem and solver of the ``SCP`` class on that
+kernel route, runs phase 1 over ``--batch`` generated scenarios, and then
+measures one SCP iteration of every lane (``SCPEngine.step``).  The QP budget
+of that iteration is cut to ``--max-iter`` ADMM iterations (intervals of 25
+with early exit, as on the full path) so that the trace stays small; an ADMM
+iteration costs what it costs on the full path.
+
+``--route production``: the ``chip_smoke.py`` main path for ``-N`` vehicles
+(``solve_compacted`` at the ``bench.py`` configuration with
+``SolverConfig.production()``: 2048 scenarios in chunks of 128, or 1024 in
+chunks of 512 up to N = 21), the whole solve.
+
+Either is run three times untraced and once under ``torch.profiler``.  Prints
+the walls, the device-busy time (the sum of the kernel times: everything runs
+on one stream), the idle share under tracing, the launches, and the kernels
+that take most of the device time.
 """
 
 import argparse
@@ -25,25 +33,13 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--route", default="grouped_L",
-                    choices=("grouped_L", "resident", "fused_L"))
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--max-iter", type=int, default=250)
-    ap.add_argument("--top", type=int, default=12)
-    args = ap.parse_args()
-
+def lform_step(args):
+    """(what is measured, the function measured) for an L-form route."""
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: this script measures on a GPU only")
     import chip_smoke
     from ba_path_planning_torch.scenarios.generator import (
         generate_scenario_batch)
     from ba_path_planning_torch.solvers.scp import SCPEngine
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = chip_smoke._card_line()
     change, _ = chip_smoke.FACADE_ROUTES[args.route]
     problem = chip_smoke._problem(20, facade=True)
     solver = chip_smoke._facade_solver(**change).replace(
@@ -55,21 +51,79 @@ def main():
     inputs = (sc.initial, v0, sc.final, v0)
     lanes = torch.arange(args.batch, device=eng.device)
     carry = eng.start(*inputs)
-    torch.cuda.synchronize()
 
     def step():
-        t0 = time.perf_counter()
         out = eng.step(carry, *inputs, lanes, carry.it + 1)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
+        qp_iters = (out.qp_iters - carry.qp_iters).float()
+        return (f"QP iterations mean {float(qp_iters.mean()):.1f} max "
+                f"{int(qp_iters.max())}")
+    return (f"route {args.route}, N=20 K={chip_smoke.K_STEPS} "
+            f"B={args.batch} f32, one SCP iteration of every lane, QP budget "
+            f"{args.max_iter}", step)
 
-    walls = [step()[0] for _ in range(3)]
+
+def production_solve(args):
+    """(what is measured, the function measured) for the production path."""
+    import torch
+    import chip_smoke
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.utils.config import SolverConfig
+    n_veh = args.n_vehicles
+    B, chunk = (1024, 512) if n_veh <= 21 else (2048, 128)
+    problem = chip_smoke._problem(n_veh)
+    sh = ShardedSCPSolver(problem, SolverConfig.production(problem=problem),
+                          dtype=torch.float32)
+    sc = generate_scenario_batch(100, B, n_vehicles=n_veh,
+                                 min_distance=chip_smoke.R,
+                                 dtype=torch.float32)
+    v0 = torch.zeros_like(sc.initial)
+
+    def solve():
+        out = sh.solve_compacted(sc.initial, v0, sc.final, v0, chunk=chunk)
+        return (f"feasible {int(out.feasible_final.sum())}/{B}, mean SCP "
+                f"iterations {float(out.iterations.float().mean()):.3f}")
+    solve()                                  # library handles, allocator
+    return (f"production path N={n_veh} K={chip_smoke.K_STEPS} B={B} "
+            f"chunk={chunk} f32", solve)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--route", default="grouped_L",
+                    choices=("grouped_L", "resident", "fused_L",
+                             "production"))
+    ap.add_argument("-N", "--n-vehicles", type=int, default=30,
+                    help="vehicles of the production path")
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--max-iter", type=int, default=250)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script measures on a GPU only")
+    import chip_smoke
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = chip_smoke._card_line()
+    what, fn = (production_solve if args.route == "production"
+                else lform_step)(args)
+    torch.cuda.synchronize()
+
+    def timed():
+        t0 = time.perf_counter()
+        said = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, said
+
+    walls = [timed()[0] for _ in range(3)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced, out = step()
-    qp_iters = (out.qp_iters - carry.qp_iters).float()
-    from torch.autograd import DeviceType
+        traced, said = timed()
 
     def device_us(e):       # the attribute's name differs between versions
         return getattr(e, "self_device_time_total",
@@ -80,10 +134,7 @@ def main():
             if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"{card}; torch {torch.__version__}; route {args.route}, N=20 "
-          f"K={chip_smoke.K_STEPS} B={args.batch} f32, one SCP iteration of "
-          f"every lane, QP budget {args.max_iter}: QP iterations mean "
-          f"{float(qp_iters.mean()):.1f} max {int(qp_iters.max())}")
+    print(f"{card}; torch {torch.__version__}; {what}: {said}")
     print(f"untraced walls (s): {[round(w, 4) for w in walls]}; traced wall "
           f"{traced:.4f} s; device busy {busy / 1e3:.4f} s; idle share under "
           f"tracing {1 - busy / 1e3 / traced:.3f}; device launches "

@@ -73,6 +73,26 @@ def test_factorize_X_routed_cpu_runs_plain(dtype):
     assert torch.equal(got, tb.factorize_X(D, C, ns_iters=static.ns_iters))
 
 
+@pytest.mark.parametrize("ns_precision", ["high", "highest", "default"])
+def test_factorize_X_routed_hands_ns_precision_on(monkeypatch, ns_precision):
+    """``_factorize_X_routed`` passes ``static.ns_precision`` to the kernel
+    wrapper; on the CPU the wrapper then runs the plain version for every
+    value the solver options know."""
+    seen = {}
+    real = ns_chain.factorize_X_chain_batched
+
+    def spy(D, C, **kw):
+        seen.update(kw)
+        return real(D, C, **kw)
+    monkeypatch.setattr(ns_chain, "factorize_X_chain_batched", spy)
+    D, C = map(torch.as_tensor, _spd_chain(2, 9, 3, seed=4))
+    static = SolverConfig.production().replace(
+        ns_precision=ns_precision).static_part()
+    got = tb._factorize_X_routed(D, C, static)
+    assert seen == dict(ns_iters=static.ns_iters, ns_precision=ns_precision)
+    assert torch.equal(got, tb.factorize_X(D, C, ns_iters=static.ns_iters))
+
+
 def test_group_solve_plain_matches_jax_f64():
     X, C, b = _sweep_case(3, 8, 3, seed=0, dtype=torch.float64)
     before = group_solve.solve_factorized_grouped_X.launches

@@ -68,22 +68,44 @@ def _block_rel(got, want, block_dims):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ns_precision", ["high", "highest"])
 @pytest.mark.parametrize("B,K,N", [(3, 10, 3), (4, 12, 4), (8, 50, 20),
                                    (2, 9, 23), (2, 50, 28), (2, 50, 29),
-                                   (2, 50, 30), (2, 50, 40)])
-def test_ns_chain_kernel_matches_plain(cuda, B, K, N):
-    """Relative 1e-4 in every (b, k) block: the kernel sums its FP32
-    products in another order than cuBLAS.  N <= 28 keeps the matrices in
-    shared memory; from N = 29 two 6N x 6N tiles no longer fit there and
-    the kernel works out of a global scratch."""
+                                   (2, 50, 30), (2, 50, 40), (2, 8, 45)])
+def test_ns_chain_kernel_matches_plain(cuda, B, K, N, ns_precision):
+    """Relative 1e-4 in every (b, k) block.  "high" takes the products on
+    the tensor cores as three TF32 passes of a hi + lo split, "highest" as
+    FP32 FMAs (summed in another order than cuBLAS) in the same tiling.
+    Both mirror the upper triangle of each update; shared memory up to
+    N = 21, a streamed global scratch beyond, in one output tile up to
+    N = 32 and several above."""
     D, C = _assembled(B, K, N, seed=N)
     D, C = D.float().to(cuda), C.float().to(cuda)
     before = ns_chain.factorize_X_chain_batched.launches
-    got = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2)
+    got = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
+                                             ns_precision=ns_precision)
     assert ns_chain.factorize_X_chain_batched.launches == before + 1
     want = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
     torch.cuda.synchronize()
+    # the interior is mirrored exactly
+    assert torch.equal(got[:, 3:K - 1], got[:, 3:K - 1].mT)
     assert _block_rel(got, want, 2) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns_iters", [1, 3])
+def test_ns_chain_tensor_core_kernel_iteration_counts(cuda, ns_iters):
+    """One and three Newton-Schulz iterations a step: the streamed layout's
+    two X buffers change roles an odd and an even number of times."""
+    for B, K, N in ((2, 9, 4), (2, 9, 23), (2, 9, 34)):
+        D, C = _assembled(B, K, N, seed=N)
+        D, C = D.float().to(cuda), C.float().to(cuda)
+        want = ns_chain.factorize_X_chain_plain(D, C, ns_iters=ns_iters)
+        for ns_precision in ("high", "highest"):
+            got = ns_chain.factorize_X_chain_batched(
+                D, C, ns_iters=ns_iters, ns_precision=ns_precision)
+            torch.cuda.synchronize()
+            assert _block_rel(got, want, 2) < 1e-4
 
 
 @pytest.mark.gpu
@@ -119,6 +141,12 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         ns_chain.factorize_X_chain_batched(D.float()[:, :5], C[:4],
                                            ns_iters=2)
+    with pytest.raises(NotImplementedError):    # a single TF32 pass
+        ns_chain.factorize_X_chain_batched(D.float(), C, ns_iters=2,
+                                           ns_precision="default")
+    with pytest.raises(ValueError):
+        ns_chain.factorize_X_chain_batched(D.float(), C, ns_iters=2,
+                                           ns_precision="tf32")
     static = SolverConfig.production().static_part()
     with pytest.raises(TypeError):          # the JAX router's f64 XLA chain
         tb._factorize_X_routed(D, C.double(), static)
@@ -305,12 +333,17 @@ def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_iters", [1, 25])
-@pytest.mark.parametrize("B,K,N", [(3, 10, 4), (4, 50, 20), (2, 50, 29),
+@pytest.mark.parametrize("n_iters", [1, 2, 25])
+@pytest.mark.parametrize("B,K,N", [(3, 10, 4), (3, 9, 4), (3, 10, 2),
+                                   (3, 9, 20), (4, 50, 20), (2, 50, 29),
                                    (2, 500, 20)])
 def test_admm_fused_l_kernel_matches_plain(cuda, B, K, N, n_iters):
-    """The L-form kernel, held as the X-form one is; at K = 500 the sweep
-    plane no longer fits in shared memory."""
+    """The L-form kernel, held as the X-form one is.  Every block comes
+    through the factor ring as whole row bands, so the number of bands an
+    interval streams, and with it how often the ring wraps and on which
+    (stage, phase) it ends, follows from K, n_iters and the bands a block
+    splits into (N = 2, 4, 20 and 29 give other counts); at K = 500 the
+    sweep plane no longer fits in shared memory."""
     _check_interval(cuda, B, K, N, n_iters, "L", hard=False)
 
 
@@ -336,3 +369,12 @@ def test_admm_fused_wrapper_raises_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         admm_fused.admm_interval_fused_X(X[:, :-1], *args[1:], n_iters=1,
                                          **kw)
+    args, kw = _interval_case(2, 10, 3, seed=1, device=cuda, form="L")
+    Linv, Eb = args[:2]
+    with pytest.raises(TypeError):
+        admm_fused.admm_interval_fused(*_to64(args), n_iters=1, **_to64(kw))
+    with pytest.raises(ValueError):
+        admm_fused.admm_interval_fused(Linv.mT, *args[1:], n_iters=1, **kw)
+    with pytest.raises(ValueError):
+        admm_fused.admm_interval_fused(Linv, Eb[:, :-1], *args[2:],
+                                       n_iters=1, **kw)
