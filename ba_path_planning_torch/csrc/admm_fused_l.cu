@@ -121,10 +121,10 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
     for (int it = 0; it < n_iters; ++it) {
       for (int s = 0; s <= last; ++s)
         factor_ring::produce_block(ring, cur, sweep_block(Lb, Ebb, s, nsq), n,
-                                   band_rows);
+                                   0, n, band_rows);
       for (int s = last; s >= 0; --s)
         factor_ring::produce_block(ring, cur, sweep_block(Lb, Ebb, s, nsq), n,
-                                   band_rows);
+                                   0, n, band_rows);
     }
     return;
   }
@@ -149,16 +149,17 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
     for (int s = 0; s <= last; ++s) {
       float* tk = xt + ((s + 1) >> 1) * n;
       if (s & 1) {                               // E_{k-1}, k = (s + 1) / 2
-        factor_ring::matvec_rows(ring, cur, tk - n, n, band_rows, false, warp,
-                                 nwarps,
+        factor_ring::matvec_rows(ring, cur, tk - n, n, 0, n, band_rows, false,
+                                 warp, nwarps,
                                  [&](int i, float d) { r[i] = tk[i] - d; });
       } else {                                   // Linv_k, k = s / 2
         if (s == 0) {
           for (int j = tid; j < n; j += kConsumers) r[j] = tk[j];
           consumer_sync();
         }
-        factor_ring::matvec_rows(ring, cur, r, n, band_rows, true, warp,
-                                 nwarps, [&](int i, float d) { tk[i] = d; });
+        factor_ring::matvec_rows(ring, cur, r, n, 0, n, band_rows, true,
+                                 warp, nwarps,
+                                 [&](int i, float d) { tk[i] = d; });
       }
       consumer_sync();
     }

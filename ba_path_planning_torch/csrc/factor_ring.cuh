@@ -9,16 +9,18 @@
 //
 // A band is a run of whole rows (an even number of them, so that its bytes
 // and its address are multiples of 16 for every even n) and is one bulk
-// copy.  A lower triangular block is copied whole all the same: copying
-// each row only up to its diagonal needs a copy per row, and both ways of
-// doing that were slower than copying the zeros (a bulk copy per row is
-// bound by the copy engine's request rate, 16-byte cp.async copies by how
-// fast the one producer warp can start them).  The matvecs do stop at the
-// diagonal of such a block.
+// copy.  A block may be streamed whole or only its rows [lo, hi) (even
+// bounds), where the blocks of a thread-block cluster share the rows of
+// each factor block.  A lower triangular block is copied whole all the
+// same: copying each row only up to its diagonal needs a copy per row, and
+// both ways of doing that were slower than copying the zeros (a bulk copy
+// per row is bound by the copy engine's request rate, 16-byte cp.async
+// copies by how fast the one producer warp can start them).  The matvecs do
+// stop at the diagonal of such a block.
 //
-// Used by admm_fused_l.cu; the matvecs take the consumer warp's index and
-// the number of consumer warps, so a kernel is free in how it splits its
-// block.
+// Used by admm_fused_l.cu and, through group_sweep.cuh, by group_solve_x.cu
+// and group_solve_l.cu; the matvecs take the consumer warp's index and the
+// number of consumer warps, so a kernel is free in how it splits its block.
 
 #pragma once
 
@@ -118,14 +120,14 @@ __device__ __forceinline__ void init(const Ring& ring, int consumer_warps) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Producer warp: stream the n x n row-major `block` band by band (a band is
-// one copy, so lane 0 does it all).
+// Producer warp: stream rows [lo, hi) of the n x n row-major `block` band
+// by band (a band is one copy, so lane 0 does it all).
 __device__ __forceinline__ void produce_block(const Ring& ring, Cursor& cur,
                                               const float* block, int n,
-                                              int band_rows) {
+                                              int lo, int hi, int band_rows) {
   if ((threadIdx.x & 31) != 0) return;
-  for (int r0 = 0; r0 < n; r0 += band_rows) {
-    const int r1 = r0 + band_rows < n ? r0 + band_rows : n;
+  for (int r0 = lo; r0 < hi; r0 += band_rows) {
+    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
     mbar_wait(ring.empty(cur.stage), cur.phase ^ 1u);
     const unsigned bar = ring.full(cur.stage);
     const unsigned bytes = 4u * static_cast<unsigned>((r1 - r0) * n);
@@ -150,50 +152,100 @@ __device__ __forceinline__ void release(const Ring& ring, Cursor& cur) {
   cur.advance(ring.stages);
 }
 
-// fn(i, M[i, :] . v) for every row i of the next block in the ring, v (n)
-// in shared memory.  `tri`: M is lower triangular, row i stops at column i.
-// Warp `warp` of `nwarps` takes rows warp, warp + nwarps, ... of each band,
-// kRows at a time; its lanes read consecutive columns and reduce with
-// shuffles.  Called by every consumer warp; fn's writes need a barrier
-// before they are read.
+constexpr int kRows = 4;        // rows a warp reduces at a time
+
+// a[q] = M[i_q, :lim_q] . v for the rows i_q = i + q nwarps of the band
+// [r0, r1) at M (lim_q = i_q + 1 if `tri`, else n); a row beyond the band
+// stands in as row i and gets lim 0 and a 0.  Every lane returns the sums;
+// the result is the largest lim.
+__device__ __forceinline__ int row_dots(const float* M, int r0, int r1, int i,
+                                        int nwarps, const float* v, int n,
+                                        bool tri, const float* (&row)[kRows],
+                                        int (&lim)[kRows], float (&a)[kRows]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const bool ok = i + q * nwarps < r1;
+    const int iq = ok ? i + q * nwarps : i;
+    row[q] = M + (iq - r0) * n;
+    lim[q] = ok ? (tri ? iq + 1 : n) : 0;
+    a[q] = 0.f;
+  }
+  int last = lim[0];
+#pragma unroll
+  for (int q = 1; q < kRows; ++q) last = lim[q] > last ? lim[q] : last;
+#pragma unroll 2
+  for (int j = lane; j < last; j += 32) {
+    const float vj = v[j];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      if (j < lim[q]) a[q] = fmaf(row[q][j], vj, a[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) a[q] = sweeps::warp_sum(a[q]);
+  return last;
+}
+
+// fn(i, M[i, :] . v) for every row i in [lo, hi) of the next block in the
+// ring, v (n) in shared memory.  `tri`: M is lower triangular, row i stops
+// at column i.  Warp `warp` of `nwarps` takes rows r0 + warp,
+// r0 + warp + nwarps, ... of each band [r0, r1), kRows at a time; its lanes
+// read consecutive columns and reduce with shuffles.  Called by every
+// consumer warp; fn runs on lane 0, and its writes need a barrier before
+// they are read.
 template <typename Fn>
 __device__ __forceinline__ void matvec_rows(const Ring& ring, Cursor& cur,
-                                            const float* v, int n,
-                                            int band_rows, bool tri, int warp,
-                                            int nwarps, Fn fn) {
-  constexpr int kRows = 4;
-  const int lane = threadIdx.x & 31;
-  for (int r0 = 0; r0 < n; r0 += band_rows) {
-    const int r1 = r0 + band_rows < n ? r0 + band_rows : n;
+                                            const float* v, int n, int lo,
+                                            int hi, int band_rows, bool tri,
+                                            int warp, int nwarps, Fn fn) {
+  for (int r0 = lo; r0 < hi; r0 += band_rows) {
+    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
     const float* M = acquire(ring, cur);
     for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
       const float* row[kRows];
       int lim[kRows];
       float a[kRows];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        // a row beyond the band stands in as row i, and is not reported
-        const int iq = i + q * nwarps < r1 ? i + q * nwarps : i;
-        row[q] = M + (iq - r0) * n;
-        lim[q] = tri ? iq + 1 : n;
-        a[q] = 0.f;
-      }
-      int last = lim[0];
-#pragma unroll
-      for (int q = 1; q < kRows; ++q) last = lim[q] > last ? lim[q] : last;
-#pragma unroll 2
-      for (int j = lane; j < last; j += 32) {
-        const float vj = v[j];
+      row_dots(M, r0, r1, i, nwarps, v, n, tri, row, lim, a);
+      if ((threadIdx.x & 31) == 0) {
 #pragma unroll
         for (int q = 0; q < kRows; ++q)
-          if (j < lim[q]) a[q] = fmaf(row[q][j], vj, a[q]);
+          if (lim[q] > 0) fn(i + q * nwarps, a[q]);
       }
+    }
+    release(ring, cur);
+  }
+}
+
+// Both products of a lower triangular block with one read of its rows
+// [lo, hi) from the ring: y_i = M[i, :i+1] . v for each row, and at once
+// acc[u] += M[i, j] y_i for the lane's columns j = 32 u + lane <= i, so the
+// warp's partial sums of M[lo:hi, :]^T y stay in registers (U 32 >= hi).
+// The rows are split over the warps as in matvec_rows; the caller sums the
+// warps' acc.
+template <int U>
+__device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
+                                                 Cursor& cur, const float* v,
+                                                 int n, int lo, int hi,
+                                                 int band_rows, int warp,
+                                                 int nwarps, float (&acc)[U]) {
+  const int lane = threadIdx.x & 31;
+  for (int r0 = lo; r0 < hi; r0 += band_rows) {
+    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
+    const float* M = acquire(ring, cur);
+    for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
+      const float* row[kRows];
+      int lim[kRows];
+      float y[kRows];
+      const int last = row_dots(M, r0, r1, i, nwarps, v, n, true, row, lim, y);
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) a[q] = sweeps::warp_sum(a[q]);
-      if (lane == 0) {
+      for (int u = 0; u < U; ++u) {
+        if (32 * u >= last) break;
+        const int j = 32 * u + lane;
+        float s = acc[u];
 #pragma unroll
         for (int q = 0; q < kRows; ++q)
-          if (i + q * nwarps < r1) fn(i + q * nwarps, a[q]);
+          if (j < lim[q]) s = fmaf(row[q][j], y[q], s);
+        acc[u] = s;
       }
     }
     release(ring, cur);

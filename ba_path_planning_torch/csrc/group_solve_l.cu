@@ -12,97 +12,43 @@
 //               x_k = w_k - Linv_k^T (Linv_k (B_{k+1}^T x_{k+1}))
 //
 // What bounds it: memory bandwidth.  Each solve needs every Linv_k in both
-// sweeps, 2 K n^2 4 bytes = 5.76 MB per scenario at N = 20, K = 50, against
-// 4 flops per byte; the 4K matvecs of a scenario are serial.
+// sweeps (Linv_{K-1} once): (2K - 1) n^2 4 bytes = 5.7 MB per scenario at
+// N = 20, K = 50 as whole blocks, half of it below the diagonal, against
+// 4 flops per byte of the triangle; the 2K - 1 steps of a scenario are
+// serial.
 //
-// Design: one block of 1024 threads per scenario runs the 2K steps in order
-// (the path's batches have about as many scenarios as the card has SMs, so
-// a block's own 32 warps have to hide the load latency of each step).  Each
-// step applies Linv_k and then Linv_k^T; both read the block by rows from
-// global memory with consecutive addresses across a warp (sweeps.cuh), the
-// second pass finding the block in L1/L2 behind the first.  The same code
-// path serves every n: nothing is staged in shared memory but three vectors
-// and the partial sums of the transposed matvec (about 34 KB), so no size
-// of n = 6N has a layout of its own.  w_k is kept in the output array and
-// overwritten by x_k in the backward sweep.  No lane padding and no
-// scenario interleaving: those were rules of the TPU's DMA engine, not of
-// this card.
+// Design (group_sweep.cuh, shared with the X-form sweep): a producer warp
+// streams Linv_k in the sweeps' order, as bands of whole rows, through a
+// ring of shared-memory stages (factor_ring.cuh) and runs ahead of the
+// serial vector; 8 consumer warps take both products of a step from one read
+// of each band: a warp forms y_i for its rows and at once adds
+// Linv_k[i, j] y_i into register partial sums of its lanes' columns, so
+// Linv_k leaves HBM once a step (not once by rows and again for the
+// transpose) and both products stop at the diagonal.  The
+// launcher's plan (ops/group_solve.py sweep_plan) gives a large batch one
+// block per scenario, four to an SM, and a small one (up to 64 scenarios,
+// the reference-compatible path's 64 and the SCP class's 1) a cluster of 2
+// or 4 blocks per scenario, each streaming its share of the rows, their
+// column partial sums meeting in distributed shared memory with one cluster
+// barrier a step.  w_k is kept in the output array and overwritten by x_k
+// in the backward sweep.
 
 #include <cuda_runtime.h>
 
-#include "sweeps.cuh"
-
-namespace {
-
-constexpr int kThreads = 1024;
-
-__global__ void __launch_bounds__(kThreads)
-group_solve_l_kernel(const float* __restrict__ Linv,
-                     const float* __restrict__ C9,
-                     const float* __restrict__ bvec, float* __restrict__ xout,
-                     int K, int n) {
-  extern __shared__ float sm[];
-  float* r = sm;             // right-hand side of the row matvec
-  float* y = sm + n;         // its result, input of the transposed matvec
-  float* v = sm + 2 * n;     // w_{k-1} (forward) / x_{k+1} (backward)
-  float* part = sm + 3 * n;
-  const int b = blockIdx.x;
-  const int n2 = n / 3;
-  const size_t nsq = static_cast<size_t>(n) * n;
-  const float* Lb = Linv + static_cast<size_t>(b) * K * nsq;
-  const float* bb = bvec + static_cast<size_t>(b) * K * n;
-  float* xb = xout + static_cast<size_t>(b) * K * n;
-
-  for (int k = 0; k < K; ++k) {
-    const float* bk = bb + static_cast<size_t>(k) * n;
-    const float* c = C9 + (k > 0 ? k - 1 : 0) * 9;
-    for (int j = threadIdx.x; j < n; j += blockDim.x)
-      r[j] = k == 0 ? bk[j] : bk[j] - sweeps::slot_b(c, v, j, n2);
-    __syncthreads();
-    const float* Lk = Lb + k * nsq;
-    sweeps::matvec_rows(Lk, r, n, [&](int i, float d) { y[i] = d; });
-    __syncthreads();
-    float* wk = xb + static_cast<size_t>(k) * n;
-    sweeps::matvec_cols(Lk, y, n, part, [&](int j, float d) {
-      wk[j] = d;
-      v[j] = d;
-    });
-  }
-
-  for (int k = K - 2; k >= 0; --k) {
-    const float* c = C9 + k * 9;
-    for (int j = threadIdx.x; j < n; j += blockDim.x)
-      r[j] = sweeps::slot_bt(c, v, j, n2);
-    __syncthreads();
-    const float* Lk = Lb + k * nsq;
-    sweeps::matvec_rows(Lk, r, n, [&](int i, float d) { y[i] = d; });
-    __syncthreads();
-    float* xk = xb + static_cast<size_t>(k) * n;
-    sweeps::matvec_cols(Lk, y, n, part, [&](int j, float d) {
-      const float val = xk[j] - d;
-      xk[j] = val;
-      v[j] = val;
-    });
-  }
-}
-
-}  // namespace
+#include "group_sweep.cuh"
 
 extern "C" {
 
-// Linv (B, K, n, n) inverted diagonal factors; C9 (K-1, 9) upper-triangular
-// slot scalars; b and x (B, K, n).  All float32, contiguous.  Returns the
-// CUDA error code of the launch.
+// Linv (B, K, n, n) inverted diagonal factors, lower triangular (what lies
+// above the diagonal is not read); C9 (K-1, 9) upper-triangular slot
+// scalars; b and x (B, K, n).  All float32, contiguous, Linv 16-byte
+// aligned, n a multiple of 6 up to 512.  (cluster, band_rows, stages) is the
+// plan of sweep_plan.  Returns the CUDA error code of the launch.
 int group_solve_l_f32(const float* Linv, const float* C9, const float* b,
-                      float* x, int B, int K, int n, cudaStream_t stream) {
-  if (B < 1 || K < 2 || n < 3 || n % 3)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (3 * static_cast<size_t>(n) + sweeps::cols_part_floats(kThreads))
-      * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  group_solve_l_kernel<<<B, kThreads, smem, stream>>>(Linv, C9, b, x, K, n);
-  return static_cast<int>(cudaGetLastError());
+                      float* x, int B, int K, int n, int cluster,
+                      int band_rows, int stages, cudaStream_t stream) {
+  return group_sweep::launch<true>(Linv, C9, b, x, B, K, n, cluster,
+                                   band_rows, stages, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
-// Block-wide matvecs and slot recombinations shared by the sweep kernels on
-// L-form and dense factors (group_solve_l.cu, banded_solve.cu,
-// admm_fused_l.cu).  Every function is called by all threads of the block;
-// none of them synchronises before it reads its inputs, so the caller puts a
-// barrier between writing a vector and the matvec that reads it.
+// Block-wide matvecs from global memory (banded_solve.cu), the warp sum of
+// the ring's matvecs (factor_ring.cuh) and the slot recombinations of the
+// grouped sweeps (group_sweep.cuh).  Every matvec is called by all threads
+// of the block; none of them synchronises before it reads its inputs, so
+// the caller puts a barrier between writing a vector and the matvec that
+// reads it.
 
 #pragma once
 
@@ -94,8 +95,10 @@ __device__ __forceinline__ void matvec_cols(const float* __restrict__ M,
   }
 }
 
-// (B w)[j] for B = C (x) I_n2 with C (3, 3) upper triangular, row-major c[9].
-__device__ __forceinline__ float slot_b(const float* c, const float* w, int j,
+// (B w)[j] for B = C (x) I_n2 with C (3, 3) upper triangular, row-major c[9];
+// w is anything indexed like an array of floats.
+template <typename V>
+__device__ __forceinline__ float slot_b(const float* c, const V& w, int j,
                                         int n2) {
   const int s = j / n2, q = j % n2;
   const float wa = w[q], wp = w[n2 + q], wv = w[2 * n2 + q];
@@ -105,7 +108,8 @@ __device__ __forceinline__ float slot_b(const float* c, const float* w, int j,
 }
 
 // (B^T v)[j] for the same B.
-__device__ __forceinline__ float slot_bt(const float* c, const float* v, int j,
+template <typename V>
+__device__ __forceinline__ float slot_bt(const float* c, const V& v, int j,
                                          int n2) {
   const int s = j / n2, q = j % n2;
   const float va = v[q], vp = v[n2 + q], vv = v[2 * n2 + q];

@@ -25,7 +25,8 @@ _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu",
            "group_solve_l.cu", "banded_solve.cu", "admm_fused_l.cu")
 # included by the sources above
-HEADERS = ("sweeps.cuh", "admm_rows.cuh", "factor_ring.cuh")
+HEADERS = ("sweeps.cuh", "admm_rows.cuh", "factor_ring.cuh",
+           "group_sweep.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -92,9 +93,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.ns_chain_scratch_floats.restype = i
     lib.ns_chain_interior_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.ns_chain_interior_f32.restype = i
-    for sweep in (lib.group_solve_x_f32, lib.group_solve_l_f32,
-                  lib.banded_solve_f32):
-        sweep.argtypes = [p, p, p, p, i, i, i, p]
+    lib.banded_solve_f32.argtypes = [p, p, p, p, i, i, i, p]
+    lib.banded_solve_f32.restype = i
+    for sweep in (lib.group_solve_x_f32, lib.group_solve_l_f32):
+        sweep.argtypes = [p, p, p, p] + [i] * 6 + [p]
         sweep.restype = i
     for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32):
         fused.argtypes = [p] * 15 + [i] * 4 + [p]

@@ -16,8 +16,10 @@
    exact anchors timed apart; the fused ADMM interval at N=30 and N=40
    (B=128); on the factors of the reference-compatible solver (rho 0.1,
    hard collision rows) the L-only sweep and the dense (Linv, Eb) sweep at
-   N=20 (B=64 and 512), the L-only sweep at N=30 and N=40 (B=128) and the
-   L-form fused interval at N=20 (B=64 and 128, penalty weight +inf);
+   N=20 (B=64 and 512), the L-only sweep at N=20, B=1 (the ``SCP`` class's
+   batch) and at N=30 and N=40 (B=128) and the L-form fused interval at
+   N=20 (B=64 and 128, penalty weight +inf); the two grouped sweeps print
+   the launch plan they ran (``group_solve.sweep_plan``);
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
    N=30 with the production solver and at N=20 with the
@@ -295,6 +297,13 @@ def _sweep_check(tag, kernel, plain, factors, b, b_admm):
     return sw_abs, sw_ms, sw_plain_ms
 
 
+def _plan(b):
+    """The launch plan of the grouped sweeps for right-hand sides b."""
+    from ba_path_planning_torch.ops.group_solve import sweep_plan
+    plan = sweep_plan(*b.shape)
+    return ", ".join(f"{k}={v}" for k, v in plan._asdict().items())
+
+
 def kernel_phase(dev, B):
     """N=20: the NS chain and the X-form sweep kernel."""
     from ba_path_planning_torch.ops import group_solve
@@ -303,7 +312,8 @@ def kernel_phase(dev, B):
     del D
     sw_abs, sw_ms, sw_plain_ms = _sweep_check(
         f"kernel phase B={B} N=20 K={K_STEPS} f32: "
-        "solve_factorized_grouped_X", group_solve.solve_factorized_grouped_X,
+        f"solve_factorized_grouped_X ({_plan(b)})",
+        group_solve.solve_factorized_grouped_X,
         group_solve.solve_factorized_grouped_X_plain, (X, C), b, b_admm)
     n = 6 * 20
     return {"ns_chain": ns_stats,
@@ -451,12 +461,15 @@ def lform_phase(dev, n_veh, B, dense=False, fused=False):
     tag = f"L-form phase B={B} N={n_veh} K={K} f32"
     shape = f"N={n_veh} K={K} B={B}"
     err, ms, plain_ms = _sweep_check(
-        f"{tag}: solve_factorized_grouped_L",
+        f"{tag}: solve_factorized_grouped_L ({_plan(b)})",
         group_solve.solve_factorized_grouped_L,
         group_solve.solve_factorized_grouped_L_plain, (Linv, C), b, b_admm)
     out = {"group_solve_l": _stat(
         err, ms, plain_ms, shape, B * K * (n * n + 2 * n) * 4,
         B * 4 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)}
+    # the stream without the zero half of Linv
+    out["group_solve_l"]["nonzero_stream_bound_ms"] = _bound_ms(
+        B * K * (n * (n + 1) + 2 * n) * 4, B * 4 * K * n * (n + 1))[0]
     if dense:
         err, ms, plain_ms = _sweep_check(
             f"{tag}: solve_factorized_dense",
@@ -789,15 +802,20 @@ def main():
         t_phase.append(time.perf_counter())
         print(f"[{what}: {t_phase[-1] - t_phase[-2]:.1f} s]", flush=True)
 
-    kernel_phase(dev, 64)
+    kstats64 = kernel_phase(dev, 64)
     kstats = kernel_phase(dev, 512)
+    kstats["group_solve_x"]["ms_at_B64"] = kstats64["group_solve_x"]["ms"]
     lstats = {n_veh: large_phase(dev, n_veh) for n_veh in (30, 40)}
     small = lform_phase(dev, 20, FACADE_B, dense=True, fused=True)
     fstats = lform_phase(dev, 20, 512, dense=True)
     fstats.update(admm_fused_l=lform_phase(dev, 20, B_LARGE,
                                            fused=True)["admm_fused_l"])
-    # the batch the fused_L path below launches the kernel at
+    # the batches the reference-compatible paths below launch the kernels at
     fstats["admm_fused_l"][f"ms_at_B{FACADE_B}"] = small["admm_fused_l"]["ms"]
+    fstats["group_solve_l"][f"ms_at_B{FACADE_B}"] = (
+        small["group_solve_l"]["ms"])
+    fstats["group_solve_l"]["ms_at_B1"] = (
+        lform_phase(dev, 20, 1)["group_solve_l"]["ms"])
     for n_veh in (30, 40):
         lform_phase(dev, n_veh, B_LARGE)
     lap("kernel phases")

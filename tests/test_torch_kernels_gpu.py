@@ -108,10 +108,28 @@ def test_ns_chain_tensor_core_kernel_iteration_counts(cuda, ns_iters):
             assert _block_rel(got, want, 2) < 1e-4
 
 
+def _tiled(factors, B, K, N, seed):
+    """The factors of a few scenarios repeated to B scenarios (scenario b
+    takes those of b mod their count) and a fresh right-hand side for each,
+    float32: large batches without factorizing every scenario."""
+    idx = torch.arange(B) % factors[0].shape[0]
+    b = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(B, K, 6 * N)))
+    return tuple(f[idx] for f in factors) + (b.float(),)
+
+
+# The plans of group_solve.sweep_plan: a cluster of 4 blocks a scenario up
+# to B = 32, of 2 up to B = 64, one block a scenario (four to an SM) above,
+# and a second wave of blocks beyond 528.
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,K,N", [(5, 9, 4), (64, 50, 20), (3, 10, 3)])
+@pytest.mark.parametrize("B,K,N", [(5, 9, 4), (64, 50, 20), (3, 10, 3),
+                                   (1, 50, 20), (3, 2, 2), (2, 500, 20),
+                                   (65, 9, 21), (512, 50, 20), (600, 9, 2),
+                                   (2, 50, 29), (40, 9, 40)])
 def test_group_solve_kernel_matches_plain(cuda, B, K, N):
-    X, C, b = _sweep_case(B, K, N, seed=B, dtype=torch.float32)
+    """Relative 1e-5 in every (b, k) block, on every branch of the plan."""
+    X, C, _ = _sweep_case(min(B, 5), K, N, seed=B, dtype=torch.float32)
+    X, b = _tiled((X,), B, K, N, seed=B + 1)
     X, C, b = X.to(cuda), C.to(cuda), b.to(cuda)
     before = group_solve.solve_factorized_grouped_X.launches
     got = group_solve.solve_factorized_grouped_X(X, C, b)
@@ -166,11 +184,17 @@ def _dense_case(B, K, N, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,K,N", [(3, 10, 2), (5, 9, 4), (3, 50, 20),
                                    (3, 50, 28), (3, 50, 29), (3, 50, 30),
-                                   (3, 50, 40), (2, 7, 45)])
+                                   (3, 50, 40), (2, 7, 45), (1, 50, 20),
+                                   (1, 9, 2), (64, 50, 20), (65, 50, 20),
+                                   (512, 9, 20), (600, 2, 21), (3, 500, 4),
+                                   (70, 9, 40)])
 def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
     """Relative 1e-5 in every (b, k) block, one code path for every n = 6N
-    (n = 270 at N = 45 takes two column passes of the transposed matvec)."""
-    Linv, _, C, b = (t.to(cuda) for t in _dense_case(B, K, N, seed=N))
+    and every branch of the plan (the cluster's column partial sums meet in
+    distributed shared memory; at N = 45 a lane sums nine columns)."""
+    Linv, _, C, _ = _dense_case(min(B, 5), K, N, seed=N)
+    Linv, b = _tiled((Linv,), B, K, N, seed=B)
+    Linv, C, b = Linv.to(cuda), C.to(cuda), b.to(cuda)
     before = group_solve.solve_factorized_grouped_L.launches
     got = group_solve.solve_factorized_grouped_L(Linv, C, b)
     assert group_solve.solve_factorized_grouped_L.launches == before + 1
