@@ -42,7 +42,7 @@ extern "C" {
 // Linv (B, K, n, n) inverted diagonal factors, lower triangular (what lies
 // above the diagonal is not read); C9 (K-1, 9) upper-triangular slot
 // scalars; b and x (B, K, n).  All float32, contiguous, Linv 16-byte
-// aligned, n a multiple of 6 up to 512.  (cluster, band_rows, stages) is the
+// aligned, n a multiple of 6 up to 1536.  (cluster, band_rows, stages) is the
 // plan of sweep_plan.  Returns the CUDA error code of the launch.
 int group_solve_l_f32(const float* Linv, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,

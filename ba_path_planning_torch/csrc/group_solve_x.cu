@@ -37,7 +37,7 @@ extern "C" {
 
 // X (B, K, n, n) symmetric block inverses; C9 (K-1, 9) upper-triangular slot
 // scalars; b and x (B, K, n).  All float32, contiguous, X 16-byte aligned,
-// n a multiple of 6 up to 512.  (cluster, band_rows, stages) is the plan of
+// n a multiple of 6 up to 1536.  (cluster, band_rows, stages) is the plan of
 // sweep_plan.  Returns the CUDA error code of the launch.
 int group_solve_x_f32(const float* X, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,

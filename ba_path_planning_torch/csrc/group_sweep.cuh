@@ -27,23 +27,25 @@
 // batches run one block per scenario, as many to an SM as the batch needs
 // (up to four); small ones (up to 64 scenarios) a thread-block cluster of 2
 // or 4 blocks per scenario, so that the scenario's stream spreads over as
-// many SMs.  Each block of a cluster streams and solves the rows [lo, hi)
-// of every block (even bounds, so the bands stay 16-byte aligned), and the
-// vector of each step meets across the cluster in distributed shared
-// memory: every block stores its part (X: its rows of the result; L: its
-// column partial sums of Linv_k^T y, plus w_k of its rows in the backward
-// sweep) into its own exchange buffer and, with asynchronous stores that
-// count their bytes on the receiver's mbarrier (st.async ...
+// many SMs.  Two instantiations serve the sizes: n up to 512 (every
+// production N, in 56 registers so that four blocks share an SM) and n up to
+// 1536 (N <= 256, the L form's column sums in 48 registers a lane, launch
+// bounds for one block an SM).  Each block of a cluster streams and solves
+// the rows [lo, hi) of every block (even bounds, so the bands stay 16-byte
+// aligned), and the vector of each step meets across the cluster in
+// distributed shared memory: every block stores its part (X: its rows of the
+// result; L: its column partial sums of Linv_k^T y, plus w_k of its rows in
+// the backward sweep) into its own exchange buffer and, with asynchronous
+// stores that count their bytes on the receiver's mbarrier (st.async ...
 // complete_tx), into every other block's; a block reads the step's vector
-// once its barrier has the bytes of the step and its own stores are behind
-// a block barrier.  No fence and no remote arrival is on the chain.  The
-// buffer has two halves, one per step parity, and one barrier each: a block
-// stores into the half of step t + 2 only after it has the whole vector of
-// step t + 1, which every block sends after its last read of that half.  A
-// plan of one block is a cluster of one and runs the same code.  w_k is
-// kept in the output array (each block its rows) and overwritten by x_k in
-// the backward sweep.  Plain FP32; the order of the sums is not the plain
-// version's.
+// once its barrier has the bytes of the step and its own stores are behind a
+// block barrier.  No fence and no remote arrival is on the chain.  The buffer
+// has two halves, one per step parity, and one barrier each: a block stores
+// into the half of step t + 2 only after it has the whole vector of step
+// t + 1, which every block sends after its last read of that half.  A plan of
+// one block is a cluster of one and runs the same code.  w_k is kept in the
+// output array (each block its rows) and overwritten by x_k in the backward
+// sweep.  Plain FP32; the order of the sums is not the plain version's.
 
 #pragma once
 
@@ -60,11 +62,10 @@ namespace cg = cooperative_groups;
 constexpr int kConsumers = 256;               // 8 consumer warps
 constexpr int kWarps = kConsumers / 32;
 constexpr int kThreads = kConsumers + 32;     // and the producer warp
-constexpr int kMaxN = 512;
+constexpr int kNarrowN = 512;   // n of the instantiation for production N
+constexpr int kMaxN = 1536;     // n of the wide one, the most a launch serves
 constexpr int kMaxCluster = 4;
 constexpr int kMaxBandRows = factor_ring::kRows * kWarps;
-constexpr int kColRegs = kMaxN / 32;          // L form: columns of a lane
-constexpr int kPre = kMaxN / kConsumers;      // vector entries of a thread
 // the ring's barriers, then the exchange barriers xfull[2]
 constexpr int kBarrierBytes = factor_ring::kBarrierBytes + 16;
 constexpr long kSmemMax = 232448;
@@ -77,7 +78,8 @@ __host__ __device__ inline int row_lo(int c, int cluster, int n) {
 
 // Dynamic shared memory of a plan: the barriers, the ring, then r, wk, the
 // exchange buffer (2 halves of `cluster` slots of n) and the L form's warp
-// partial sums (kWarps x n).  ops/group_solve.py sweep_plan mirrors it.
+// partial sums (kWarps x n).  ops/group_solve.py sweep_plan mirrors it, and
+// tests/test_torch_sweep_plan.py holds the two copies to each other.
 __host__ __device__ inline long smem_bytes(int n, int cluster, int band_rows,
                                            int stages) {
   return kBarrierBytes + 4L * n * (static_cast<long>(stages) * band_rows +
@@ -131,13 +133,15 @@ struct Exchanged {
 };
 
 // F (B, K, n, n): X_k (kL false) or Linv_k (kL true, lower triangular: what
-// lies above the diagonal is not read).  A grid of B clusters of
-// cluster.num_blocks() blocks of kThreads threads.
-template <bool kL>
-__global__ void __launch_bounds__(kThreads, 4)
+// lies above the diagonal is not read), n <= kTierN.  A grid of B clusters
+// of cluster.num_blocks() blocks of kThreads threads.
+template <bool kL, int kTierN>
+__global__ void __launch_bounds__(kThreads, kTierN > kNarrowN ? 1 : 4)
 sweep_kernel(const float* __restrict__ F, const float* __restrict__ C9,
              const float* __restrict__ bvec, float* xout, int K, int n,
              int band_rows, int stages) {
+  constexpr int kColRegs = kTierN / 32;       // L form: columns of a lane
+  constexpr int kPre = kTierN / kConsumers;   // vector entries of a thread
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = static_cast<int>(cluster.num_blocks());
@@ -287,28 +291,23 @@ sweep_kernel(const float* __restrict__ F, const float* __restrict__ C9,
   cluster.sync();
 }
 
-// Launch the sweeps of B scenarios on the plan (cluster, band_rows,
-// stages); returns a CUDA error code, cudaErrorInvalidValue for arguments
-// or a plan it cannot serve.
-template <bool kL>
-int launch(const float* F, const float* C9, const float* b, float* x, int B,
-           int K, int n, int cluster, int band_rows, int stages,
-           cudaStream_t stream) {
-  if (B < 1 || K < 2 || n < 6 || n % 6 || n > kMaxN ||
-      (cluster != 1 && cluster != 2 && cluster != 4) || band_rows < 2 ||
-      band_rows % 2 || band_rows > kMaxBandRows || stages < 2 ||
-      stages > factor_ring::kMaxStages ||
-      (reinterpret_cast<size_t>(F) & 15))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long smem = smem_bytes(n, cluster, band_rows, stages);
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  static long allowed = 0;        // the largest size set so far
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_kernel<kL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+// Launch one instantiation on a checked plan.
+template <bool kL, int kTierN>
+int launch_tier(const float* F, const float* C9, const float* b, float* x,
+                int B, int K, int n, int cluster, int band_rows, int stages,
+                long smem, cudaStream_t stream) {
+  // the largest size set so far on each device (the attribute is per device)
+  constexpr int kDevices = 64;
+  static long allowed[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kDevices || smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(sweep_kernel<kL, kTierN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
+    if (dev < kDevices) allowed[dev] = smem;
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -322,10 +321,32 @@ int launch(const float* F, const float* C9, const float* b, float* x, int B,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, sweep_kernel<kL>, F, C9, b,
-                                             x, K, n, band_rows, stages);
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel<kL, kTierN>, F, C9, b, x, K, n,
+                           band_rows, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the sweeps of B scenarios on the plan (cluster, band_rows,
+// stages), on the narrow instantiation where n allows; returns a CUDA error
+// code, cudaErrorInvalidValue for arguments or a plan it cannot serve.
+template <bool kL>
+int launch(const float* F, const float* C9, const float* b, float* x, int B,
+           int K, int n, int cluster, int band_rows, int stages,
+           cudaStream_t stream) {
+  if (B < 1 || K < 2 || n < 6 || n % 6 || n > kMaxN ||
+      (cluster != 1 && cluster != 2 && cluster != 4) || band_rows < 2 ||
+      band_rows % 2 || band_rows > kMaxBandRows || stages < 2 ||
+      stages > factor_ring::kMaxStages ||
+      (reinterpret_cast<size_t>(F) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long smem = smem_bytes(n, cluster, band_rows, stages);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  return n <= kNarrowN
+             ? launch_tier<kL, kNarrowN>(F, C9, b, x, B, K, n, cluster,
+                                         band_rows, stages, smem, stream)
+             : launch_tier<kL, kMaxN>(F, C9, b, x, B, K, n, cluster,
+                                      band_rows, stages, smem, stream);
 }
 
 }  // namespace group_sweep

@@ -25,7 +25,7 @@ from .cuda_build import check, load_kernels, require_f32_cuda
 # (each resident block also takes 1 KB of it).
 SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
-SWEEP_MAX_N = 512              # n = 6N the kernels serve
+SWEEP_MAX_N = 1536             # n = 6N the kernels serve (N <= 256)
 SWEEP_WARPS = 8                # consumer warps of a block
 SWEEP_MAX_BAND = 4 * SWEEP_WARPS   # a warp takes at most 4 rows of a band
 SWEEP_MAX_STAGES = 8
@@ -39,11 +39,13 @@ class SweepPlan(NamedTuple):
     """How the grouped sweep kernels run a batch: ``cluster`` blocks a
     scenario, each streaming its rows of every factor block in bands of
     ``band_rows`` rows through a ring of ``stages`` shared-memory stages;
-    ``smem_bytes`` of dynamic shared memory a block."""
+    ``smem_bytes`` of dynamic shared memory a block, sized so that
+    ``per_sm`` blocks share an SM."""
     cluster: int
     band_rows: int
     stages: int
     smem_bytes: int
+    per_sm: int
 
 
 def sweep_rows(rank: int, cluster: int, n: int) -> int:
@@ -77,28 +79,33 @@ def sweep_plan(B: int, K: int, n: int) -> SweepPlan:
       SMs; two clusters may share an SM.
     Bands are an even number of rows, at most 4 a consumer warp, and shrink
     until SWEEP_WANT_STAGES stages fit; the ring is no deeper than the
-    bands of the whole chain.  Raises ValueError for what the kernels do
-    not serve (n not a multiple of 6, n > 512, K < 2)."""
+    bands of the whole chain.  Where n is so large that not even a ring of
+    two stages fits beside the vectors of as many blocks, fewer blocks
+    share an SM.  Raises ValueError for what the
+    kernels do not serve (n not a multiple of 6, n > 1536, K < 2)."""
     if B < 1 or K < 2 or n <= 0 or n % 6 or n > SWEEP_MAX_N:
         raise ValueError(f"sweep kernels: unsupported B={B}, K={K}, n={n} "
                          f"(n a multiple of 6 up to {SWEEP_MAX_N}, K >= 2)")
     cluster = (4 if B <= SWEEP_CLUSTER_B // 2 else
                2 if B <= SWEEP_CLUSTER_B else 1)
-    per_sm = 2 if cluster > 1 else min(4, -(-B // SMS))
-    budget = SMEM_SM // per_sm - 1024
     share = max(sweep_rows(c + 1, cluster, n) - sweep_rows(c, cluster, n)
                 for c in range(cluster))
-    room = budget - sweep_smem_bytes(n, cluster, 0, 0)
-    for n_bands in range(-(-share // SWEEP_MAX_BAND), share // 2 + 1):
-        band_rows = 2 * -(-share // (2 * n_bands))
-        stages = min(SWEEP_MAX_STAGES, room // (4 * n * band_rows))
-        if stages >= SWEEP_WANT_STAGES:
+    per_sm = 2 if cluster > 1 else min(4, -(-B // SMS))
+    while True:
+        room = (SMEM_SM // per_sm - 1024) - sweep_smem_bytes(n, cluster, 0, 0)
+        for n_bands in range(-(-share // SWEEP_MAX_BAND), share // 2 + 1):
+            band_rows = 2 * -(-share // (2 * n_bands))
+            stages = min(SWEEP_MAX_STAGES, room // (4 * n * band_rows))
+            if stages >= SWEEP_WANT_STAGES:
+                break
+        if stages >= 2 or per_sm == 1:
             break
+        per_sm -= 1
     stages = min(stages, -(-share // band_rows) * (2 * K - 1))
     if stages < 2:
         raise ValueError(f"sweep kernels: no ring of two stages fits n={n}")
     return SweepPlan(cluster, band_rows, stages,
-                     sweep_smem_bytes(n, cluster, band_rows, stages))
+                     sweep_smem_bytes(n, cluster, band_rows, stages), per_sm)
 
 
 def solve_factorized_grouped_X_plain(X, C, b):
@@ -110,7 +117,7 @@ def solve_factorized_grouped_X(X, C, b):
     """Solve M x = b for a batch: X (B, K, n, n) symmetric block inverses,
     C (K-1, 3, 3) shared upper-triangular slot scalars, b (B, K, n) ->
     x (B, K, n).  CUDA tensors launch the kernel on :func:`sweep_plan`
-    (float32, contiguous, n a multiple of 6 up to 512; anything else
+    (float32, contiguous, n a multiple of 6 up to 1536; anything else
     raises); CPU tensors run the plain version."""
     if not b.is_cuda:
         if b.device.type != "cpu":
@@ -151,7 +158,7 @@ def solve_factorized_grouped_L(Linv, C, b):
     """Solve M x = b for a batch from the L-only factors: Linv (B, K, n, n)
     inverted diagonal factors, C (K-1, 3, 3) shared upper-triangular slot
     scalars, b (B, K, n) -> x (B, K, n).  CUDA tensors launch the kernel on
-    :func:`sweep_plan` (float32, contiguous, n a multiple of 6 up to 512;
+    :func:`sweep_plan` (float32, contiguous, n a multiple of 6 up to 1536;
     Linv is read as lower triangular; anything else raises); CPU tensors
     run the plain version."""
     if not b.is_cuda:

@@ -9,7 +9,8 @@
 3. kernel phases, each kernel against its plain PyTorch version on the card
    at the main path's shapes (K=50, f32), with the stated tolerance on the
    relative error of every (b, k) block, and CUDA-event times of both:
-   the NS chain and the sweep at N=20 (B=64 and the chunk B=512); the NS
+   the NS chain and the sweep at N=20 (B=64, the chunk B=512 and the
+   tail chunk B=128 of the compaction's later rounds); the NS
    chain at N=30 and N=40 (B=128, where its operands are streamed from
    global memory), each at ``ns_precision`` "high" (tensor cores, what the
    production solver runs) and "highest" (FP32), with the kernel and the
@@ -802,9 +803,12 @@ def main():
         t_phase.append(time.perf_counter())
         print(f"[{what}: {t_phase[-1] - t_phase[-2]:.1f} s]", flush=True)
 
-    kstats64 = kernel_phase(dev, 64)
+    # the N=20 main path's chunk of 512 and its tail chunk of 128 (each its
+    # own sweep plan), and the clusters of a small batch
     kstats = kernel_phase(dev, 512)
-    kstats["group_solve_x"]["ms_at_B64"] = kstats64["group_solve_x"]["ms"]
+    for B in (128, 64):
+        kstats["group_solve_x"][f"ms_at_B{B}"] = (
+            kernel_phase(dev, B)["group_solve_x"]["ms"])
     lstats = {n_veh: large_phase(dev, n_veh) for n_veh in (30, 40)}
     small = lform_phase(dev, 20, FACADE_B, dense=True, fused=True)
     fstats = lform_phase(dev, 20, 512, dense=True)

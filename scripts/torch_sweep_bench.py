@@ -1,99 +1,78 @@
 #!/usr/bin/env python3
 """Time the grouped sweep kernels of the PyTorch port on one GPU.
 
-    python3 scripts/torch_sweep_bench.py [--reps 50] [--cases X:20:512,...]
+    python3 scripts/torch_sweep_bench.py [--cases X:20:512,...] [--root DIR]
 
-For each case (form X or L, N, B; K=50) it makes random float32 factors on
-the card (symmetric for the X form, lower triangular for the L form), checks
-the kernel against its plain version, and times it with CUDA events over
-``--reps`` launches after a warm-up.  Each case prints one JSON line: the
-launch plan, the kernel's ms, its stream bound (every block read in both
-sweeps, at 3.35 TB/s) and its share of it, the bound that counts only the
-lower triangle of Linv (L form) and the achieved GB/s of whole blocks.  The
-first line names the card and its power limit.
+Each case (form X or L, N, B; K=50) is built and checked as ``chip_smoke.py``
+builds and checks it: the X form on the NS factors of production blocks,
+the L form on the block Cholesky factors of the reference-compatible
+solver, both through ``chip_smoke._sweep_check`` (the kernel against its
+plain version, CUDA-event times of both, the check at the ADMM loop's
+scale).  Each case prints one JSON line: the launch plan, the kernel's ms,
+its stream bound (every block read in both sweeps, ``chip_smoke._bound_ms``)
+and its share of it, and for the L form the bound that counts only Linv's
+lower triangle.  The first line names the card and its power limit.
 
-The package is imported from the checkout the script lies in, or from the
-directory given by ``--root`` (another checkout, to compare two versions in
-one process's turn on the same card).  ``--cluster-b`` moves the batch size
-up to which the plan runs clusters, to time another plan on the same shapes.
+The package and ``chip_smoke.py`` are imported from the checkout the script
+lies in, or from the one given by ``--root``; to compare two versions on
+the same card, run the script for each checkout in turns in one call.
 """
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-HBM_BYTES_S = 3.35e12
-CASES = ("X:20:512,X:20:64,X:20:1,L:20:512,L:20:64,L:20:1,L:30:128,"
-         "L:40:128,X:40:128")
+CASES = ("X:20:512,X:20:128,X:20:64,X:20:1,L:20:512,L:20:64,L:20:1,"
+         "L:30:128,L:40:128")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--cases", default=CASES)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("-K", type=int, default=50)
-    ap.add_argument("--cluster-b", type=int, default=None,
-                    help="largest batch that runs in clusters (the plan's "
-                         "SWEEP_CLUSTER_B; clusters of 4 up to half of it)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_sweep_bench.py: no CUDA device")
-    from ba_path_planning_torch.ops import group_solve
-    if args.cluster_b is not None:
-        group_solve.SWEEP_CLUSTER_B = args.cluster_b
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    import chip_smoke as cs
+    from ba_path_planning_torch.ops import group_solve, ns_chain
+    from ba_path_planning_torch.solvers import banded
+    card = cs._card_line()
     print(f"card: {card}; root {args.root}", flush=True)
-    dev, K = torch.device("cuda", 0), args.K
+    dev, K = torch.device("cuda", 0), cs.K_STEPS
     plan_fn = getattr(group_solve, "sweep_plan", None)
-    gen = torch.Generator(device=dev).manual_seed(0)
     for case in args.cases.split(","):
         form, N, B = case.split(":")
         N, B = int(N), int(B)
         n = 6 * N
-        F = torch.randn((B, K, n, n), device=dev, generator=gen) / n
         if form == "X":
-            F = (F + F.mT) / 2 + torch.eye(n, device=dev)
+            D, C, b, b_admm, _ = cs._case(N, B, dev, seed=B)
+            F = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
             kernel = group_solve.solve_factorized_grouped_X
             plain = group_solve.solve_factorized_grouped_X_plain
         else:
-            F = torch.tril(F) + torch.eye(n, device=dev)
+            D, C, b, b_admm, _ = cs._case(N, B, dev, seed=1000 + N + B,
+                                          solver=cs._facade_solver())
+            F = banded.factorize(D, banded.slot_dense(C, 2 * N))[0]
             kernel = group_solve.solve_factorized_grouped_L
             plain = group_solve.solve_factorized_grouped_L_plain
-        C = torch.triu(torch.randn((K - 1, 3, 3), device=dev,
-                                   generator=gen)) * 0.1
-        b = torch.randn((B, K, n), device=dev, generator=gen)
-        got, want = kernel(F, C, b), plain(F, C, b)
-        torch.cuda.synchronize()
-        err = float(((got - want).abs().amax(-1)
-                     / want.abs().amax(-1)).max())
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.reps):
-            kernel(F, C, b)
-        stop.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(stop) / args.reps
-        stream = B * K * (2 * n * n + 2 * n) * 4
-        bound = stream / HBM_BYTES_S * 1e3
+        del D
+        err, ms, _ = cs._sweep_check(f"{form} N={N} B={B}", kernel, plain,
+                                     (F, C), b, b_admm)
+        flops = B * (2 if form == "X" else 4) * K * 2 * n * n
+        bound = cs._bound_ms(B * K * (2 * n * n + 2 * n) * 4, flops)[0]
         line = {"form": form, "N": N, "B": B, "K": K, "ms": ms,
                 "stream_bound_ms": bound, "share": bound / ms,
-                "GB_s": B * (2 * K - 1) * n * n * 4 / ms / 1e6,
-                "max_block_rel": err, "card": card}
+                "max_abs_err": err, "card": card}
         if form == "L":
-            line["nonzero_stream_bound_ms"] = (
-                B * K * (n * (n + 1) + 2 * n) * 4 / HBM_BYTES_S * 1e3)
+            line["nonzero_stream_bound_ms"] = cs._bound_ms(
+                B * K * (n * (n + 1) + 2 * n) * 4, B * 4 * K * n * (n + 1))[0]
         if plan_fn is not None:
             line["plan"] = plan_fn(B, K, n)._asdict()
         print(json.dumps(line), flush=True)
-        del F, b, got, want
+        del F, b, b_admm
 
 
 if __name__ == "__main__":

@@ -108,10 +108,18 @@ def test_ns_chain_tensor_core_kernel_iteration_counts(cuda, ns_iters):
             assert _block_rel(got, want, 2) < 1e-4
 
 
+# Scenarios with factors of their own; a larger batch repeats theirs.
+SWEEP_DISTINCT = 64
+# Its period: it divides no cluster size and no count of blocks in a wave,
+# so a kernel that reads another scenario's factors does not pass.
+SWEEP_PERIOD = 7
+
+
 def _tiled(factors, B, K, N, seed):
-    """The factors of a few scenarios repeated to B scenarios (scenario b
-    takes those of b mod their count) and a fresh right-hand side for each,
-    float32: large batches without factorizing every scenario."""
+    """The factors of SWEEP_PERIOD scenarios repeated to B scenarios
+    (scenario b takes those of b mod SWEEP_PERIOD) and a fresh right-hand
+    side for each, float32: large batches without factorizing every
+    scenario."""
     idx = torch.arange(B) % factors[0].shape[0]
     b = torch.as_tensor(np.random.default_rng(seed).normal(
         size=(B, K, 6 * N)))
@@ -119,17 +127,23 @@ def _tiled(factors, B, K, N, seed):
 
 
 # The plans of group_solve.sweep_plan: a cluster of 4 blocks a scenario up
-# to B = 32, of 2 up to B = 64, one block a scenario (four to an SM) above,
-# and a second wave of blocks beyond 528.
+# to B = 32, of 2 up to B = 64, one block a scenario above (alone on its SM
+# with a deep ring up to B = 132, four to an SM at B = 512), and a second
+# wave of blocks beyond 528; the wide instantiation for n > 512 (N > 85).
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,K,N", [(5, 9, 4), (64, 50, 20), (3, 10, 3),
                                    (1, 50, 20), (3, 2, 2), (2, 500, 20),
                                    (65, 9, 21), (512, 50, 20), (600, 9, 2),
-                                   (2, 50, 29), (40, 9, 40)])
+                                   (2, 50, 29), (40, 9, 40), (128, 50, 20),
+                                   (2, 9, 90), (1, 2, 256)])
 def test_group_solve_kernel_matches_plain(cuda, B, K, N):
     """Relative 1e-5 in every (b, k) block, on every branch of the plan."""
-    X, C, _ = _sweep_case(min(B, 5), K, N, seed=B, dtype=torch.float32)
-    X, b = _tiled((X,), B, K, N, seed=B + 1)
+    if B <= SWEEP_DISTINCT:
+        X, C, b = _sweep_case(B, K, N, seed=B, dtype=torch.float32)
+    else:
+        X, C, _ = _sweep_case(SWEEP_PERIOD, K, N, seed=B,
+                              dtype=torch.float32)
+        X, b = _tiled((X,), B, K, N, seed=B + 1)
     X, C, b = X.to(cuda), C.to(cuda), b.to(cuda)
     before = group_solve.solve_factorized_grouped_X.launches
     got = group_solve.solve_factorized_grouped_X(X, C, b)
@@ -187,13 +201,17 @@ def _dense_case(B, K, N, seed):
                                    (3, 50, 40), (2, 7, 45), (1, 50, 20),
                                    (1, 9, 2), (64, 50, 20), (65, 50, 20),
                                    (512, 9, 20), (600, 2, 21), (3, 500, 4),
-                                   (70, 9, 40)])
+                                   (70, 9, 40), (2, 9, 90), (1, 2, 256)])
 def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
     """Relative 1e-5 in every (b, k) block, one code path for every n = 6N
     and every branch of the plan (the cluster's column partial sums meet in
-    distributed shared memory; at N = 45 a lane sums nine columns)."""
-    Linv, _, C, _ = _dense_case(min(B, 5), K, N, seed=N)
-    Linv, b = _tiled((Linv,), B, K, N, seed=B)
+    distributed shared memory; at N = 45 a lane sums nine columns, at
+    N = 256 48 of them)."""
+    if B <= SWEEP_DISTINCT:
+        Linv, _, C, b = _dense_case(B, K, N, seed=N)
+    else:
+        Linv, _, C, _ = _dense_case(SWEEP_PERIOD, K, N, seed=N)
+        Linv, b = _tiled((Linv,), B, K, N, seed=B)
     Linv, C, b = Linv.to(cuda), C.to(cuda), b.to(cuda)
     before = group_solve.solve_factorized_grouped_L.launches
     got = group_solve.solve_factorized_grouped_L(Linv, C, b)

@@ -8,6 +8,9 @@ the kernel's split (each cluster rank's rows, the exchanged parts, w_k
 overwritten by x_k in place) to the plain sweeps.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,32 +19,51 @@ from ba_path_planning_torch.ops import group_solve as gs
 from ba_path_planning_torch.solvers import banded as tb
 
 
+def _check_plan(B, K, n):
+    """What the kernel needs of the plan of B scenarios of K blocks of
+    n x n; returns the plan."""
+    plan = gs.sweep_plan(B, K, n)
+    c, band, stages = plan.cluster, plan.band_rows, plan.stages
+    assert c in (1, 2, 4)
+    assert (c == 1) == (B > gs.SWEEP_CLUSTER_B)
+    assert 2 <= stages <= gs.SWEEP_MAX_STAGES
+    assert plan.smem_bytes == gs.sweep_smem_bytes(n, c, band, stages)
+    assert plan.smem_bytes <= gs.SMEM_BLOCK_MAX
+    # as many blocks share an SM as the plan counts on
+    assert 1 <= plan.per_sm <= 4
+    assert plan.per_sm * (plan.smem_bytes + 1024) <= gs.SMEM_SM
+    # bands: an even number of rows, at most 4 for each consumer warp
+    assert band % 2 == 0 and 2 <= band <= gs.SWEEP_MAX_BAND
+    bounds = [gs.sweep_rows(q, c, n) for q in range(c + 1)]
+    assert bounds[0] == 0 and bounds[-1] == n
+    for lo, hi in zip(bounds, bounds[1:]):
+        assert lo % 2 == 0 and hi >= lo
+        for r0 in range(lo, hi, band):
+            rows = min(band, hi - r0)
+            # one bulk copy: bytes and address multiples of 16
+            assert rows % 2 == 0 and rows * n * 4 % 16 == 0
+            assert r0 * n * 4 % 16 == 0
+    return plan
+
+
 @pytest.mark.parametrize("N", range(2, 41))
 def test_sweep_plan_fits_the_card_and_tiles_the_rows(N):
-    n = 6 * N
     for B in (1, 64, 65, 512, 2048):
         for K in (50, 500):
-            plan = gs.sweep_plan(B, K, n)
-            c, band, stages = plan.cluster, plan.band_rows, plan.stages
-            assert c in (1, 2, 4)
-            assert (c == 1) == (B > gs.SWEEP_CLUSTER_B)
-            assert 2 <= stages <= gs.SWEEP_MAX_STAGES
-            assert plan.smem_bytes == gs.sweep_smem_bytes(n, c, band, stages)
-            assert plan.smem_bytes <= gs.SMEM_BLOCK_MAX
-            # as many blocks share an SM as the plan counts on
-            per_sm = 2 if c > 1 else min(4, -(-B // gs.SMS))
-            assert per_sm * (plan.smem_bytes + 1024) <= gs.SMEM_SM
-            # bands: an even number of rows, at most 4 for each consumer warp
-            assert band % 2 == 0 and 2 <= band <= gs.SWEEP_MAX_BAND
-            bounds = [gs.sweep_rows(q, c, n) for q in range(c + 1)]
-            assert bounds[0] == 0 and bounds[-1] == n
-            for lo, hi in zip(bounds, bounds[1:]):
-                assert lo % 2 == 0 and hi >= lo
-                for r0 in range(lo, hi, band):
-                    rows = min(band, hi - r0)
-                    # one bulk copy: bytes and address multiples of 16
-                    assert rows % 2 == 0 and rows * n * 4 % 16 == 0
-                    assert r0 * n * 4 % 16 == 0
+            plan = _check_plan(B, K, 6 * N)
+            # at production sizes every plan keeps its blocks per SM
+            assert plan.per_sm == (2 if plan.cluster > 1
+                                   else min(4, -(-B // gs.SMS)))
+
+
+@pytest.mark.parametrize("N", [41, 60, 85, 86, 90, 128, 200, 227, 228, 256])
+def test_sweep_plan_serves_wide_blocks(N):
+    """n = 6N above the narrow instantiation's 512, up to the 1536 of the
+    wide one: a ring of two stages or more always fits, with fewer blocks
+    an SM where it must."""
+    for B in (1, 33, 64, 65, 128, 512, 2048):
+        for K in (2, 50, 500):
+            _check_plan(B, K, 6 * N)
 
 
 def test_sweep_plan_branches_and_refusals():
@@ -52,9 +74,61 @@ def test_sweep_plan_branches_and_refusals():
     assert alone.stages * alone.band_rows > 2 * shared.stages * shared.band_rows
     # the ring is no deeper than the bands of the whole chain
     assert gs.sweep_plan(512, 2, 12).stages == 3
-    for B, K, n in ((4, 50, 9), (4, 50, 518), (4, 1, 120), (0, 50, 120)):
+    # a cluster of the widest blocks runs alone on its SMs
+    assert gs.sweep_plan(1, 50, 1536).per_sm == 1
+    for B, K, n in ((4, 50, 9), (4, 50, 518), (4, 1, 120), (0, 50, 120),
+                    (4, 50, 1542)):
         with pytest.raises(ValueError):
             gs.sweep_plan(B, K, n)
+
+
+def _header(name):
+    return (Path(gs.__file__).resolve().parents[1] / "csrc" / name).read_text()
+
+
+def _constants(src):
+    """The namespace-level ``constexpr`` integers of a CUDA header, by name
+    (an expression of earlier ones is evaluated)."""
+    out = {}
+    for name, expr in re.findall(
+            r"^constexpr (?:int|long) (\w+) = ([^;]+);", src, re.M):
+        out[name] = eval(expr.replace("/", "//"), {}, dict(out))
+    return out
+
+
+def _c_function(src, name, args, consts):
+    """The one ``return`` expression of an inline function of a header as a
+    Python function (integer division, no casts)."""
+    body = re.search(name + r"\([^)]*\)\s*\{\s*return ([^;]+);", src).group(1)
+    body = re.sub(r"static_cast<\w+>\((\w+)\)", r"\1", body)
+    body = re.sub(r"\b(\d+)L\b", r"\1", body).replace("/", "//")
+    return eval(f"lambda {', '.join(args)}: {body}", dict(consts))
+
+
+def test_plan_layout_matches_the_kernel_header():
+    """The plan's copy of the kernel's layout (sizes, limits, the rows of a
+    cluster rank and the shared memory of a block) is the header's."""
+    ring = _constants(_header("factor_ring.cuh"))
+    src = _header("group_sweep.cuh")
+    k = _constants(src.replace("factor_ring::kBarrierBytes",
+                               str(ring["kBarrierBytes"])).replace(
+        "factor_ring::kRows", str(ring["kRows"])))
+    assert gs.SWEEP_MAX_N == k["kMaxN"]
+    assert gs.SWEEP_WARPS == k["kWarps"]
+    assert gs.SWEEP_MAX_BAND == k["kMaxBandRows"]
+    assert gs.SWEEP_MAX_STAGES == ring["kMaxStages"]
+    assert gs.SWEEP_BARRIER_BYTES == k["kBarrierBytes"]
+    assert gs.SMEM_BLOCK_MAX == k["kSmemMax"]
+    row_lo = _c_function(src, "row_lo", ("c", "cluster", "n"), k)
+    smem = _c_function(src, "smem_bytes",
+                       ("n", "cluster", "band_rows", "stages"), k)
+    for n in (12, 120, 246, 540, 1536):
+        for c in (1, 2, 4):
+            assert [gs.sweep_rows(q, c, n) for q in range(c + 1)] == [
+                row_lo(q, c, n) for q in range(c + 1)]
+            for band, stages in ((2, 2), (30, 7), (24, 8)):
+                assert gs.sweep_smem_bytes(n, c, band, stages) == smem(
+                    n, c, band, stages)
 
 
 def _slot_b(c, w, n2):
