@@ -51,7 +51,11 @@
 //     which starts as b, is overwritten by y_k in the forward sweep and by
 //     xt_k in the backward sweep, one vector (n) and the pair table.  Where
 //     the plane takes more than half of the shared memory, the launcher
-//     puts it in a per-scenario global scratch.
+//     puts it in a per-scenario global scratch (admm_fused.cuh; the plan
+//     is ops/admm_fused.py fused_plan).
+//   * Two instantiations: a warp keeps 4 column octets of the transposed
+//     products (n <= 512, every N the router sends here at K = 50) or 7
+//     (n <= 896: N <= 149, what the router sends here at K = 2..5).
 //   * The elementwise phases and the row-plane layout are those of
 //     admm_rows.cuh, shared with admm_fused_x.cu; hard collision rows
 //     (lam = +inf) and disabled rows (lower bound -inf) need no case of
@@ -59,20 +63,20 @@
 
 #include <cuda_runtime.h>
 
+#include "admm_fused.cuh"
 #include "admm_rows.cuh"
 #include "factor_ring.cuh"
 
 namespace {
 
-constexpr int kConsumers = 512;               // 16 consumer warps
-constexpr int kThreads = kConsumers + 32;     // and the producer warp
-constexpr int kMaxSmemBytes = 232448;
-constexpr int kWantStages = 4;                // shrink the bands to get these
+using admm_fused::consumer_sync;
+using admm_fused::kConsumers;
+using admm_fused::kThreads;
 
-// Barrier of the consumer threads only.
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
+// Column octets a consumer warp keeps in the transposed products: n <=
+// 8 kOct kConsumers / 32.
+constexpr int kNarrowOctets = 4;
+constexpr int kWideOctets = 7;
 
 // The factor block at place s of the sweep order L_0, E_0, L_1, ..., L_{K-1}.
 __device__ __forceinline__ const float* sweep_block(const float* Lb,
@@ -81,6 +85,7 @@ __device__ __forceinline__ const float* sweep_block(const float* Lb,
   return (s & 1) ? Ebb + (s >> 1) * nsq : Lb + (s >> 1) * nsq;
 }
 
+template <int kOct>
 __global__ void __launch_bounds__(kThreads, 1)
 admm_fused_l_kernel(const float* __restrict__ fpar,
                     const float* __restrict__ Linv,
@@ -169,16 +174,17 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
     for (int s = last; s >= 0; --s) {
       float* tk = xt + (s >> 1) * n;
       if (s & 1) {                               // E_{k+1}^T, k = (s - 1) / 2
-        factor_ring::matvec_cols(ring, cur, tk + n, n, band_rows, false, warp,
-                                 nwarps,
-                                 [&](int j, float d) { r[j] = tk[j] - d; });
+        factor_ring::matvec_cols<kOct>(
+            ring, cur, tk + n, n, band_rows, false, warp, nwarps,
+            [&](int j, float d) { r[j] = tk[j] - d; });
       } else {                                   // Linv_k^T, k = s / 2
         if (s == last) {
           for (int j = tid; j < n; j += kConsumers) r[j] = tk[j];
           consumer_sync();
         }
-        factor_ring::matvec_cols(ring, cur, r, n, band_rows, true, warp,
-                                 nwarps, [&](int j, float d) { tk[j] = d; });
+        factor_ring::matvec_cols<kOct>(ring, cur, r, n, band_rows, true,
+                                       warp, nwarps,
+                                       [&](int j, float d) { tk[j] = d; });
       }
       consumer_sync();
     }
@@ -198,48 +204,31 @@ extern "C" {
 // eta (B, K, P, 2); l_s, u_s (B, K, 6, 2N) static-row bounds; l_c (B, K, P)
 // collision lower bounds; rho_s (K, 6) and rho_c (K, P) batch-shared rho;
 // x (B, K, 6N), zs, ys (B, K, 6, 2N) and zc, yc (B, K, P) are read and
-// updated in place; plane (B, K, 6N) is scratch, used when the sweep plane
-// takes more than half of the shared memory.  All float32, contiguous, the
-// factors 16-byte aligned.  Serves 6N <= 512.  Returns the CUDA error code
-// of the launch, or cudaErrorInvalidValue for arguments it cannot serve.
+// updated in place; plane (B, K, 6N) is the scratch of the sweep plane, or
+// null where the plan keeps the plane in shared memory; (band_rows, stages)
+// is the ring of the plan (ops/admm_fused.py fused_plan).  All float32,
+// contiguous, the factors 16-byte aligned.  Serves 6N <= 896.  Returns the
+// CUDA error code of the launch, or cudaErrorInvalidValue for arguments it
+// cannot serve.
 int admm_fused_l_f32(const float* fpar, const float* Linv, const float* Eb,
                      const float* eta, const float* l_s, const float* u_s,
                      const float* l_c, const float* rho_s, const float* rho_c,
                      float* x, float* zs, float* ys, float* zc, float* yc,
                      float* plane, int B, int K, int N, int n_iters,
-                     cudaStream_t stream) {
-  if (B < 1 || K < 2 || N < 1 || n_iters < 0 ||
-      6 * N > 8 * factor_ring::kOctets * (kConsumers / 32) ||
+                     int band_rows, int stages, cudaStream_t stream) {
+  const long smem = admm_fused::plan_smem(B, K, N, n_iters, band_rows, stages,
+                                          plane == nullptr, false, false);
+  const bool narrow = 6 * N <= 8 * kNarrowOctets * (kConsumers / 32);
+  if (smem < 0 || 6 * N > 8 * kWideOctets * (kConsumers / 32) ||
       (reinterpret_cast<size_t>(Linv) | reinterpret_cast<size_t>(Eb)) & 15)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long n = 6L * N, P = static_cast<long>(N) * (N - 1) / 2;
-  const long plane_bytes = K * n * static_cast<long>(sizeof(float));
-  long fixed = factor_ring::kBarrierBytes + n * static_cast<long>(sizeof(float))
-               + admm_rows::pair_table_bytes(P);
-  if (plane_bytes <= kMaxSmemBytes / 2) {
-    fixed += plane_bytes;
-    plane = nullptr;
-  } else if (plane == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // the largest bands (an even number of rows) that leave kWantStages stages
-  long band_rows = 0, stages = 0;
-  for (long nb = 1; nb <= n / 2; ++nb) {
-    band_rows = ((n + nb - 1) / nb + 1) / 2 * 2;
-    stages = (kMaxSmemBytes - fixed) / (band_rows * n * 4);
-    if (stages >= kWantStages) break;
-  }
-  if (stages > factor_ring::kMaxStages) stages = factor_ring::kMaxStages;
-  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const long smem = fixed + stages * band_rows * n * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_fused_l_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  admm_fused_l_kernel<<<B, kThreads, smem, stream>>>(
+  auto kernel = narrow ? admm_fused_l_kernel<kNarrowOctets>
+                       : admm_fused_l_kernel<kWideOctets>;
+  const int err = admm_fused::allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<B, kThreads, smem, stream>>>(
       fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
-      plane, K, N, static_cast<int>(n_iters), static_cast<int>(band_rows),
-      static_cast<int>(stages));
+      plane, K, N, n_iters, band_rows, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,9 +18,10 @@
 // copies by how fast the one producer warp can start them).  The matvecs do
 // stop at the diagonal of such a block.
 //
-// Used by admm_fused_l.cu and, through group_sweep.cuh, by group_solve_x.cu
-// and group_solve_l.cu; the matvecs take the consumer warp's index and the
-// number of consumer warps, so a kernel is free in how it splits its block.
+// Used by admm_fused_x.cu, admm_fused_l.cu and, through group_sweep.cuh, by
+// group_solve_x.cu, group_solve_l.cu and banded_solve.cu; the matvecs take
+// the consumer warp's index and the number of consumer warps, so a kernel is
+// free in how it splits its block.
 
 #pragma once
 
@@ -32,7 +33,6 @@ namespace factor_ring {
 
 constexpr int kMaxStages = 8;
 constexpr int kBarrierBytes = 2 * kMaxStages * 8;   // full[], then empty[]
-constexpr int kOctets = 4;      // column octets a warp keeps in matvec_cols
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -120,6 +120,20 @@ __device__ __forceinline__ void init(const Ring& ring, int consumer_warps) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// Producer warp: `floats` floats at `src` (a multiple of 4, 16-byte
+// aligned) as the next band of the ring, one bulk copy by lane 0.
+__device__ __forceinline__ void produce_span(const Ring& ring, Cursor& cur,
+                                             const float* src, int floats) {
+  if ((threadIdx.x & 31) != 0) return;
+  mbar_wait(ring.empty(cur.stage), cur.phase ^ 1u);
+  const unsigned bar = ring.full(cur.stage);
+  const unsigned bytes = 4u * static_cast<unsigned>(floats);
+  mbar_arrive_expect_tx(bar, bytes);
+  bulk_copy(ring.data + static_cast<size_t>(cur.stage) * ring.stage_floats,
+            src, bytes, bar);
+  cur.advance(ring.stages);
+}
+
 // Producer warp: stream rows [lo, hi) of the n x n row-major `block` band
 // by band (a band is one copy, so lane 0 does it all).
 __device__ __forceinline__ void produce_block(const Ring& ring, Cursor& cur,
@@ -128,13 +142,8 @@ __device__ __forceinline__ void produce_block(const Ring& ring, Cursor& cur,
   if ((threadIdx.x & 31) != 0) return;
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
-    mbar_wait(ring.empty(cur.stage), cur.phase ^ 1u);
-    const unsigned bar = ring.full(cur.stage);
-    const unsigned bytes = 4u * static_cast<unsigned>((r1 - r0) * n);
-    mbar_arrive_expect_tx(bar, bytes);
-    bulk_copy(ring.data + static_cast<size_t>(cur.stage) * ring.stage_floats,
-              block + static_cast<size_t>(r0) * n, bytes, bar);
-    cur.advance(ring.stages);
+    produce_span(ring, cur, block + static_cast<size_t>(r0) * n,
+                 (r1 - r0) * n);
   }
 }
 
@@ -216,18 +225,21 @@ __device__ __forceinline__ void matvec_rows(const Ring& ring, Cursor& cur,
   }
 }
 
-// Both products of a lower triangular block with one read of its rows
-// [lo, hi) from the ring: y_i = M[i, :i+1] . v for each row, and at once
-// acc[u] += M[i, j] y_i for the lane's columns j = 32 u + lane <= i, so the
-// warp's partial sums of M[lo:hi, :]^T y stay in registers (U 32 >= hi).
-// The rows are split over the warps as in matvec_rows; the caller sums the
-// warps' acc.
-template <int U>
+// Column products of a block with one read of its rows [lo, hi) from the
+// ring: a weight y_i for each row, and at once acc[u] += M[i, j] y_i for
+// the lane's columns j = 32 u + lane (j <= i if `tri`, else j < n), so the
+// warp's partial sums of M[lo:hi, :]^T y stay in registers (U 32 >= hi if
+// `tri`, else >= n).  kDots: y_i = M[i, :] . v (to the diagonal if `tri`),
+// both products of the L form from one read; else y_i = v[i], the
+// transposed product alone.  The rows are split over the warps as in
+// matvec_rows; the caller sums the warps' acc.
+template <int U, bool kDots>
 __device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
                                                  Cursor& cur, const float* v,
                                                  int n, int lo, int hi,
-                                                 int band_rows, int warp,
-                                                 int nwarps, float (&acc)[U]) {
+                                                 int band_rows, bool tri,
+                                                 int warp, int nwarps,
+                                                 float (&acc)[U]) {
   const int lane = threadIdx.x & 31;
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
@@ -236,7 +248,21 @@ __device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
       const float* row[kRows];
       int lim[kRows];
       float y[kRows];
-      const int last = row_dots(M, r0, r1, i, nwarps, v, n, true, row, lim, y);
+      int last;
+      if constexpr (kDots) {
+        last = row_dots(M, r0, r1, i, nwarps, v, n, tri, row, lim, y);
+      } else {
+        last = 0;
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const bool ok = i + q * nwarps < r1;
+          const int iq = ok ? i + q * nwarps : i;
+          row[q] = M + (iq - r0) * n;
+          lim[q] = ok ? (tri ? iq + 1 : n) : 0;
+          y[q] = ok ? v[iq] : 0.f;
+          last = lim[q] > last ? lim[q] : last;
+        }
+      }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (32 * u >= last) break;
@@ -252,27 +278,56 @@ __device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
   }
 }
 
+// Both products of a lower triangular block with one read of its rows
+// [lo, hi), as matvec_rows_cols<U, true> with tri, for blocks too wide for
+// register column sums: the products M[i, j] y_i of kRows rows at a time are
+// added into the shared row `col` (col[j] += ..., j <= i), which the caller
+// zeroes before and reads after a barrier.
+__device__ __forceinline__ void matvec_rows_cols_shared(
+    const Ring& ring, Cursor& cur, const float* v, int n, int lo, int hi,
+    int band_rows, int warp, int nwarps, float* col) {
+  const int lane = threadIdx.x & 31;
+  for (int r0 = lo; r0 < hi; r0 += band_rows) {
+    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
+    const float* M = acquire(ring, cur);
+    for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
+      const float* row[kRows];
+      int lim[kRows];
+      float y[kRows];
+      const int last = row_dots(M, r0, r1, i, nwarps, v, n, true, row, lim, y);
+      for (int j = lane; j < last; j += 32) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+          if (j < lim[q]) s = fmaf(row[q][j], y[q], s);
+        atomicAdd(col + j, s);
+      }
+    }
+    release(ring, cur);
+  }
+}
+
 // fn(j, M[:, j] . v) for every column j of the next block in the ring: the
 // transposed matvec, straight down the columns of the band in shared memory.
-// A warp owns the column octets warp, warp + nwarps, ... (at most kOctets of
-// them: n <= 8 kOctets nwarps); a lane owns one column of the octet and
-// every fourth row, so a warp's loads touch four rows of eight consecutive
+// A warp owns the column octets warp, warp + nwarps, ... (at most kOct of
+// them: n <= 8 kOct nwarps); a lane owns one column of the octet and every
+// fourth row, so a warp's loads touch four rows of eight consecutive
 // floats, and two shuffles sum the four row groups.  `tri`: M is lower
 // triangular, column j starts at row j.
-template <typename Fn>
+template <int kOct, typename Fn>
 __device__ __forceinline__ void matvec_cols(const Ring& ring, Cursor& cur,
                                             const float* v, int n,
                                             int band_rows, bool tri, int warp,
                                             int nwarps, Fn fn) {
   const int lane = threadIdx.x & 31, g = lane >> 3, jj = lane & 7;
-  float acc[kOctets];
+  float acc[kOct];
 #pragma unroll
-  for (int u = 0; u < kOctets; ++u) acc[u] = 0.f;
+  for (int u = 0; u < kOct; ++u) acc[u] = 0.f;
   for (int r0 = 0; r0 < n; r0 += band_rows) {
     const int r1 = r0 + band_rows < n ? r0 + band_rows : n;
     const float* M = acquire(ring, cur);
 #pragma unroll
-    for (int u = 0; u < kOctets; ++u) {
+    for (int u = 0; u < kOct; ++u) {
       const int first = (warp + u * nwarps) * 8, j = first + jj;
       if (first < n && !(tri && first >= r1)) {
         // rows below the octet's first column hold nothing of it
@@ -288,7 +343,7 @@ __device__ __forceinline__ void matvec_cols(const Ring& ring, Cursor& cur,
     release(ring, cur);
   }
 #pragma unroll
-  for (int u = 0; u < kOctets; ++u) {
+  for (int u = 0; u < kOct; ++u) {
     float a = acc[u];
     a += __shfl_xor_sync(0xffffffffu, a, 8);
     a += __shfl_xor_sync(0xffffffffu, a, 16);

@@ -17,19 +17,19 @@
 // 4 flops per byte of the triangle; the 2K - 1 steps of a scenario are
 // serial.
 //
-// Design (group_sweep.cuh, shared with the X-form sweep): a producer warp
-// streams Linv_k in the sweeps' order, as bands of whole rows, through a
-// ring of shared-memory stages (factor_ring.cuh) and runs ahead of the
-// serial vector; 8 consumer warps take both products of a step from one read
-// of each band: a warp forms y_i for its rows and at once adds
-// Linv_k[i, j] y_i into register partial sums of its lanes' columns, so
-// Linv_k leaves HBM once a step (not once by rows and again for the
-// transpose) and both products stop at the diagonal.  The
-// launcher's plan (ops/group_solve.py sweep_plan) gives a large batch one
-// block per scenario, four to an SM, and a small one (up to 64 scenarios,
-// the reference-compatible path's 64 and the SCP class's 1) a cluster of 2
-// or 4 blocks per scenario, each streaming its share of the rows, their
-// column partial sums meeting in distributed shared memory with one cluster
+// Design (group_sweep.cuh, shared with the X-form and dense sweeps): a
+// producer warp streams Linv_k in the sweeps' order, as bands of whole
+// rows, through a ring of shared-memory stages (factor_ring.cuh) and runs
+// ahead of the serial vector; 8 consumer warps take both products of a
+// step from one read of each band: a warp forms y_i for its rows and at
+// once adds Linv_k[i, j] y_i into register partial sums of its lanes'
+// columns, so Linv_k leaves HBM once a step (not once by rows and again for
+// the transpose) and both products stop at the diagonal.  The launcher's
+// plan (ops/group_solve.py sweep_plan) gives a large batch one block per
+// scenario, four to an SM, and a small one (up to 64 scenarios, the
+// reference-compatible path's 64 and the SCP class's 1) a cluster of 2 or 4
+// blocks per scenario, each streaming its share of the rows, their column
+// partial sums meeting in distributed shared memory with one cluster
 // barrier a step.  w_k is kept in the output array and overwritten by x_k
 // in the backward sweep.
 
@@ -42,13 +42,14 @@ extern "C" {
 // Linv (B, K, n, n) inverted diagonal factors, lower triangular (what lies
 // above the diagonal is not read); C9 (K-1, 9) upper-triangular slot
 // scalars; b and x (B, K, n).  All float32, contiguous, Linv 16-byte
-// aligned, n a multiple of 6 up to 1536.  (cluster, band_rows, stages) is the
+// aligned, n a multiple of 6 up to 6144.  (cluster, band_rows, stages) is the
 // plan of sweep_plan.  Returns the CUDA error code of the launch.
 int group_solve_l_f32(const float* Linv, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,
                       int band_rows, int stages, cudaStream_t stream) {
-  return group_sweep::launch<true>(Linv, C9, b, x, B, K, n, cluster,
-                                   band_rows, stages, stream);
+  return group_sweep::launch<group_sweep::kFormL>(Linv, C9, b, x, B, K, n,
+                                                   cluster, band_rows, stages,
+                                                   stream);
 }
 
 }  // extern "C"

@@ -17,11 +17,12 @@
 // serial, so a design that waits for each row of X_k in turn is bound by
 // the latency of those loads instead.
 //
-// Design (group_sweep.cuh, shared with the L-form sweep): a producer warp
-// streams X_k in the sweeps' order, as bands of rows, through a ring of
-// shared-memory stages (factor_ring.cuh) and runs ahead of the serial
-// vector; 8 consumer warps take one matvec a step from the stages (X_k is
-// symmetric, so row i is also the column the backward sweep needs).  The
+// Design (group_sweep.cuh, shared with the L-only and dense sweeps): a
+// producer warp streams X_k in the sweeps' order, as bands of rows, through
+// a ring of shared-memory stages (factor_ring.cuh) and runs ahead of the
+// serial vector; 8 consumer warps take one matvec a step from the stages
+// (X_k is symmetric, so row i is also the column the backward sweep needs).
+// The
 // launcher's plan (ops/group_solve.py sweep_plan) gives a large batch one
 // block per scenario, four to an SM, and a small one (up to 64 scenarios) a
 // cluster of 2 or 4 blocks per scenario, each streaming its share of the
@@ -37,13 +38,14 @@ extern "C" {
 
 // X (B, K, n, n) symmetric block inverses; C9 (K-1, 9) upper-triangular slot
 // scalars; b and x (B, K, n).  All float32, contiguous, X 16-byte aligned,
-// n a multiple of 6 up to 1536.  (cluster, band_rows, stages) is the plan of
+// n a multiple of 6 up to 6144.  (cluster, band_rows, stages) is the plan of
 // sweep_plan.  Returns the CUDA error code of the launch.
 int group_solve_x_f32(const float* X, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,
                       int band_rows, int stages, cudaStream_t stream) {
-  return group_sweep::launch<false>(X, C9, b, x, B, K, n, cluster, band_rows,
-                                    stages, stream);
+  return group_sweep::launch<group_sweep::kFormX>(X, C9, b, x, B, K, n,
+                                                   cluster, band_rows, stages,
+                                                   stream);
 }
 
 }  // extern "C"

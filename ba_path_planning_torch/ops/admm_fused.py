@@ -10,9 +10,14 @@ The kernels take the rows as planes: the six static row blocks as
 jerk block's row K-1 is padding), the collision rows as (B, K, P), the state
 stacked as (B, K, 6N).  The TPU kernels' lane padding, jerk dummy bounds and
 dense pair maps were rules of its VMEM tiling and are not carried over.
+Both kernels stream their factors through a ring of shared-memory stages
+on the plan of :func:`fused_plan`.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +28,124 @@ from ..solvers.banded import (RowVals, StateVars, admm_iterations,
 from .cuda_build import check, load_kernels, require_f32_cuda
 
 SLOTS = ("dyn_p", "dyn_v", "jerk", "acc", "vbox", "pbox")
+
+# The fused kernels' launch layout (csrc/admm_fused.cuh, factor_ring.cuh)
+FUSED_SMEM_MAX = 232448          # dynamic shared memory of one block
+FUSED_RING_BARRIER_BYTES = 128   # the ring's full and empty barriers
+FUSED_MAX_STAGES = 8
+FUSED_WANT_STAGES = 4            # bands shrink until this many stages fit
+FUSED_WARPS = 16                 # consumer warps of a block
+# n = 6N the L-form kernel serves: 16 consumer warps of 7 column octets
+FUSED_L_MAX_N = 896
+# n from which and up to which the X-form kernel reads packed upper
+# triangles (below, whole bands time as fast or faster on the H100:
+# PERF.md), and the most bands a block splits into there
+FUSED_X_PACKED_MIN_N = 234
+FUSED_X_PACKED_MAX_N = 512
+FUSED_MAX_BANDS = 256
+
+
+class FusedPlan(NamedTuple):
+    """How a fused-interval kernel runs: its factor blocks stream through a
+    ring of ``stages`` shared-memory stages of ``band_rows`` rows; the
+    (K, 6N) sweep plane lies in shared memory where ``plane_in_smem``,
+    else in a global scratch; ``packed``: the X-form factors come as the
+    packed upper triangles of :func:`pack_upper`; ``smem_bytes`` of
+    dynamic shared memory a block."""
+    band_rows: int
+    stages: int
+    plane_in_smem: bool
+    packed: bool
+    smem_bytes: int
+
+
+def _ring_width(n: int, packed: int) -> int:
+    """Floats a factor row takes in the ring (the kernels' ``ring_width``):
+    n, or in the packed mode n rounded up to a multiple of 4."""
+    return -(-n // 4) * 4 if packed else n
+
+
+def fused_smem_bytes(K: int, N: int, band_rows: int, stages: int,
+                     plane: int, packed: int, xform: int) -> int:
+    """Dynamic shared memory of a fused-interval block (the kernels'
+    ``admm_fused::smem_bytes``): the ring's barriers and stages (a row of
+    6N floats, rounded up to a multiple of 4 where ``packed``), the sweep
+    plane where ``plane`` is 1, one vector of 6N floats, where ``packed``
+    the warps' column partial sums, the row dots and the band table, the
+    pair table and, in the X form (``xform`` 1), the slot scalars."""
+    n = 6 * N
+    return (FUSED_RING_BARRIER_BYTES
+            + 4 * (stages * band_rows * _ring_width(n, packed)
+                   + n * (1 + plane * K + packed * (FUSED_WARPS + 1))
+                   + packed * FUSED_MAX_BANDS)
+            + 2 * N * (N - 1) + 36 * (K - 1) * xform)
+
+
+def fused_plan(K: int, N: int, form: str) -> FusedPlan:
+    """The launch plan of the fused-interval kernel of factor ``form``
+    ("X" or "L") for K steps of N vehicles, one block a scenario: the X
+    form reads packed upper triangles for 234 <= 6N <= 512 (from N = 39;
+    PERF.md has the times of both layouts); the sweep plane in
+    shared memory where it takes at most half of it, then the largest bands
+    (an even number of rows) that leave FUSED_WANT_STAGES stages, at most
+    FUSED_MAX_STAGES.  Raises ValueError for what the kernel does not serve
+    (the L form: 6N > 896; either: no ring of two stages fits)."""
+    n = 6 * N
+    if form not in ("X", "L") or K < 2 or N < 1 or N > 65535 or (
+            form == "L" and n > FUSED_L_MAX_N):
+        raise ValueError(f"fused {form} kernel: unsupported K={K}, N={N}")
+    packed = int(form == "X"
+                 and FUSED_X_PACKED_MIN_N <= n <= FUSED_X_PACKED_MAX_N)
+    width = _ring_width(n, packed)
+    xform = int(form == "X")
+    plane = int(4 * K * n <= FUSED_SMEM_MAX // 2)
+    room = FUSED_SMEM_MAX - fused_smem_bytes(K, N, 0, 0, plane, packed, xform)
+    for n_bands in range(1, n // 2 + 1):
+        band_rows = (-(-n // n_bands) + 1) // 2 * 2
+        stages = room // (4 * width * band_rows)
+        if stages >= FUSED_WANT_STAGES:
+            break
+    stages = min(stages, FUSED_MAX_STAGES)
+    if stages < 2:
+        raise ValueError(f"fused {form} kernel: no ring of two stages fits "
+                         f"K={K}, N={N}")
+    return FusedPlan(band_rows, stages, bool(plane), bool(packed),
+                     fused_smem_bytes(K, N, band_rows, stages, plane, packed,
+                                      xform))
+
+
+def packed_offsets(n: int) -> list:
+    """Offsets of the rows of a packed upper triangle (the kernel's
+    ``packed_off``), n + 1 of them: row i holds columns 4 floor(i/4) up to
+    n rounded up to a multiple of 4 (the columns from n on are padding), so
+    every row starts 16-byte aligned; the last offset is the block's
+    size."""
+    width = _ring_width(n, 1)
+    out = [0]
+    for i in range(n):
+        out.append(out[-1] + width - 4 * (i // 4))
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_index(n: int, device: torch.device) -> torch.Tensor:
+    """Flat indices into an n x n block of the entries of its packed upper
+    triangle (a padding column repeats column n - 1)."""
+    width = _ring_width(n, 1)
+    idx = []
+    for i in range(n):
+        c0 = 4 * (i // 4)
+        idx.extend(i * n + min(j, n - 1) for j in range(c0, width))
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+def pack_upper(X: torch.Tensor) -> torch.Tensor:
+    """(B, K, n, n) symmetric blocks -> (B, K, T) their packed upper
+    triangles, the layout the X-form kernel reads in its packed mode
+    (:func:`packed_offsets`; T = ``packed_offsets(n)[-1]``)."""
+    B, K, n = X.shape[:3]
+    flat = X.reshape(B * K, n * n)
+    return flat.index_select(1, _packed_index(n, X.device)).reshape(B, K, -1)
 
 
 def static_plane(rv: RowVals, n_steps: int) -> torch.Tensor:
@@ -68,12 +191,18 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
             upper: RowVals, x: StateVars, z: RowVals, y: RowVals,
             rho: RowVals, *, h: float, sigma, alpha, lam, n_iters: int):
     """Lay the rows out as planes, launch ``entry`` of the kernel library
-    on the two factor tensors (their shapes checked by the caller) and
-    count the launch on ``wrapper``.  The inputs are not modified."""
+    on the two factor tensors (their shapes checked by the caller) on the
+    plan of :func:`fused_plan` and count the launch on ``wrapper``.  The
+    inputs are not modified."""
     what = wrapper.__name__
     B, K = eta.shape[:2]
     N, P = E.shape
     n = 6 * N
+    x_form = entry == "admm_fused_x_f32"
+    plan = fused_plan(K, N, "X" if x_form else "L")
+    if plan.packed:
+        require_f32_cuda(what, X=factors["X"])
+        factors = dict(factors, X=pack_upper(factors["X"]))
     # fresh contiguous copies of the state: the kernel updates them in place
     zs, ys = static_plane(z, K), static_plane(y, K)
     zc, yc = (t.clone(memory_format=torch.contiguous_format)
@@ -93,13 +222,17 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
         if tensors[name].shape != want:
             raise ValueError(f"{what}: {name} is "
                              f"{tuple(tensors[name].shape)}, not {want}")
-    # the kernel's sweep plane, used where it does not fit in shared memory
-    plane = torch.empty((B, K, n), dtype=eta.dtype, device=eta.device)
+    # the kernel's sweep plane, where the plan leaves it out of shared memory
+    plane = None if plan.plane_in_smem else torch.empty(
+        (B, K, n), dtype=eta.dtype, device=eta.device)
     lib = load_kernels()
     with torch.cuda.device(eta.device):
         err = getattr(lib, entry)(
-            *(t.data_ptr() for t in tensors.values()), plane.data_ptr(), B, K,
-            N, int(n_iters), torch.cuda.current_stream(eta.device).cuda_stream)
+            *(t.data_ptr() for t in tensors.values()),
+            None if plane is None else plane.data_ptr(), B, K, N,
+            int(n_iters), plan.band_rows, plan.stages,
+            *([int(plan.packed)] if x_form else []),
+            torch.cuda.current_stream(eta.device).cuda_stream)
     check(err, what)
     wrapper.launches += 1
     return (from_stacked(xs, N), planes_to_rows(zs, zc, N),
@@ -179,7 +312,8 @@ def admm_interval_fused(Linv, Eb, eta, E, lower: RowVals, upper: RowVals,
     """As :func:`admm_interval_fused_X`, on the dense factors
     Linv (B, K, 6N, 6N) and Eb (B, K-1, 6N, 6N) of ``banded.factorize``.
     Linv_k is lower triangular: the kernel does not read what lies above
-    the diagonal.  It serves 6N <= 512."""
+    the diagonal.  It serves 6N <= 896 (:data:`FUSED_L_MAX_N`): every (K, N)
+    that ``banded.qp_route`` sends to the L-form fused route."""
     if _on_cpu("admm_interval_fused", Linv):
         return admm_interval_fused_plain(Linv, Eb, eta, E, lower, upper, x,
                                          z, y, rho, **step)

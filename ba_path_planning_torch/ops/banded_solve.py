@@ -7,7 +7,8 @@ in their VMEM tiling only: ``_solve_kernel`` (a scenario per program, factors
 resident), ``_solve_kernel_nb`` (the same, unbatched under ``vmap``; the
 router's resident route) and ``group_solve._group_kernel`` (G scenarios per
 program, factors streamed).  Here a grid of blocks runs the scenarios side
-by side, so one kernel stands for all three.
+by side, so one kernel stands for all three: the dense form of the sweep
+template ``csrc/group_sweep.cuh``, launched on ``group_solve.sweep_plan``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..solvers.banded import solve_factorized
 from .cuda_build import check, load_kernels, require_f32_cuda
+from .group_solve import sweep_plan
 
 
 def solve_factorized_dense_plain(Linv, Eb, b):
@@ -26,8 +28,10 @@ def solve_factorized_dense_plain(Linv, Eb, b):
 def solve_factorized_dense(Linv, Eb, b):
     """Solve M x = b for a batch: Linv (B, K, n, n) inverted diagonal
     factors, Eb (B, K-1, n, n) off-diagonal factors, b (B, K, n) ->
-    x (B, K, n).  CUDA tensors launch the kernel (float32, contiguous;
-    anything else raises); CPU tensors run the plain version."""
+    x (B, K, n).  CUDA tensors launch the kernel on
+    ``group_solve.sweep_plan`` (float32, contiguous, n even up to 1536;
+    Linv is read as lower triangular; anything else raises); CPU tensors
+    run the plain version."""
     if not b.is_cuda:
         if b.device.type != "cpu":
             raise ValueError(
@@ -42,12 +46,14 @@ def solve_factorized_dense(Linv, Eb, b):
         raise ValueError(
             f"solve_factorized_dense: unsupported shapes Linv "
             f"{tuple(Linv.shape)}, Eb {tuple(Eb.shape)}, b {tuple(b.shape)}")
+    plan = sweep_plan(B, K, n, "dense")
     x = torch.empty_like(b)
     lib = load_kernels()
     with torch.cuda.device(b.device):
         err = lib.banded_solve_f32(
             Linv.data_ptr(), Eb.data_ptr(), b.data_ptr(), x.data_ptr(), B, K,
-            n, torch.cuda.current_stream(b.device).cuda_stream)
+            n, plan.cluster, plan.band_rows, plan.stages,
+            torch.cuda.current_stream(b.device).cuda_stream)
     check(err, "solve_factorized_dense")
     solve_factorized_dense.launches += 1
     return x

@@ -4,7 +4,7 @@ CUDA kernel ``csrc/group_solve_x.cu``, on L-only factors
 ``csrc/group_solve_l.cu``, each with its launcher and its plain PyTorch
 version; on dense (Linv, Eb) factors the kernel of ``ops/banded_solve.py``.
 
-The two kernels are one template (``csrc/group_sweep.cuh``) that streams
+The three kernels are one template (``csrc/group_sweep.cuh``) that streams
 the factors through a ring of shared-memory stages; :func:`sweep_plan`
 chooses how a batch runs.  The factors are not padded: the TPU kernels'
 128-lane pad was a rule of their DMA engine.
@@ -17,7 +17,6 @@ from typing import NamedTuple
 import torch
 
 from ..solvers.banded import solve_factorized_L, solve_factorized_X
-from .banded_solve import solve_factorized_dense
 from .cuda_build import check, load_kernels, require_f32_cuda
 
 
@@ -25,7 +24,13 @@ from .cuda_build import check, load_kernels, require_f32_cuda
 # (each resident block also takes 1 KB of it).
 SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
-SWEEP_MAX_N = 1536             # n = 6N the kernels serve (N <= 256)
+SWEEP_FORMS = ("X", "L", "dense")
+# n up to which the L and dense forms keep column sums in registers
+# (N <= 256; the most the dense form serves), and the most the X form
+# (no column sums) and the L form (beyond, column sums in shared memory)
+# serve
+SWEEP_MAX_N = 1536
+SWEEP_MAX_N_WIDE = 6144
 SWEEP_WARPS = 8                # consumer warps of a block
 SWEEP_MAX_BAND = 4 * SWEEP_WARPS   # a warp takes at most 4 rows of a band
 SWEEP_MAX_STAGES = 8
@@ -36,8 +41,8 @@ SMS = 132                      # streaming multiprocessors of the H100
 
 
 class SweepPlan(NamedTuple):
-    """How the grouped sweep kernels run a batch: ``cluster`` blocks a
-    scenario, each streaming its rows of every factor block in bands of
+    """How the sweep kernels run a batch: ``cluster`` blocks a scenario,
+    each streaming its rows of every factor block in bands of
     ``band_rows`` rows through a ring of ``stages`` shared-memory stages;
     ``smem_bytes`` of dynamic shared memory a block, sized so that
     ``per_sm`` blocks share an SM."""
@@ -55,18 +60,47 @@ def sweep_rows(rank: int, cluster: int, n: int) -> int:
     return 2 * (rank * (n // 2) // cluster)
 
 
-def sweep_smem_bytes(n: int, cluster: int, band_rows: int,
-                     stages: int) -> int:
+def sweep_part_rows(form: str, n: int) -> int:
+    """Rows of n floats of partial sums a form keeps at n (the kernel's
+    ``part_rows``): the warps' column sums of the L and dense forms, or the
+    block's one row of them in the L form above SWEEP_MAX_N."""
+    if form == "X":
+        return 0
+    return 1 if n > SWEEP_MAX_N else SWEEP_WARPS
+
+
+def sweep_smem_bytes(n: int, cluster: int, band_rows: int, stages: int,
+                     part: int) -> int:
     """Dynamic shared memory of a block (the kernel's ``smem_bytes``): the
     barriers, the ring, the right-hand side and w_k, the two halves of the
-    cluster's exchange buffer and the warps' column partial sums."""
+    cluster's exchange buffer and ``part`` rows of partial sums."""
     return SWEEP_BARRIER_BYTES + 4 * n * (stages * band_rows + 2
-                                          + 2 * cluster + SWEEP_WARPS)
+                                          + 2 * cluster + part)
 
 
-def sweep_plan(B: int, K: int, n: int) -> SweepPlan:
-    """The launch plan of both grouped sweep kernels for B scenarios of K
-    blocks of n x n.
+def _sweep_ring(B: int, n: int, cluster: int, part: int):
+    """(share, band_rows, stages, per_sm) of a cluster size: the largest
+    bands that leave SWEEP_WANT_STAGES stages beside as many blocks an SM as
+    B needs, or, where not even two stages fit, fewer blocks an SM."""
+    share = max(sweep_rows(c + 1, cluster, n) - sweep_rows(c, cluster, n)
+                for c in range(cluster))
+    per_sm = 2 if cluster > 1 else min(4, -(-B // SMS))
+    while True:
+        room = (SMEM_SM // per_sm - 1024) - sweep_smem_bytes(n, cluster, 0, 0,
+                                                             part)
+        for n_bands in range(-(-share // SWEEP_MAX_BAND), share // 2 + 1):
+            band_rows = 2 * -(-share // (2 * n_bands))
+            stages = min(SWEEP_MAX_STAGES, room // (4 * n * band_rows))
+            if stages >= SWEEP_WANT_STAGES:
+                break
+        if stages >= 2 or per_sm == 1:
+            return share, band_rows, stages, per_sm
+        per_sm -= 1
+
+
+def sweep_plan(B: int, K: int, n: int, form: str) -> SweepPlan:
+    """The launch plan of the sweep kernel of ``form`` ("X", "L" or
+    "dense") for B scenarios of K blocks of n x n.
 
     * B > 64 (the production chunk of 512, the compaction's later chunks):
       one block per scenario, its shared memory sized so that as many
@@ -79,33 +113,36 @@ def sweep_plan(B: int, K: int, n: int) -> SweepPlan:
       SMs; two clusters may share an SM.
     Bands are an even number of rows, at most 4 a consumer warp, and shrink
     until SWEEP_WANT_STAGES stages fit; the ring is no deeper than the
-    bands of the whole chain.  Where n is so large that not even a ring of
-    two stages fits beside the vectors of as many blocks, fewer blocks
-    share an SM.  Raises ValueError for what the
-    kernels do not serve (n not a multiple of 6, n > 1536, K < 2)."""
-    if B < 1 or K < 2 or n <= 0 or n % 6 or n > SWEEP_MAX_N:
-        raise ValueError(f"sweep kernels: unsupported B={B}, K={K}, n={n} "
-                         f"(n a multiple of 6 up to {SWEEP_MAX_N}, K >= 2)")
+    bands of the whole chain (2K - 1 blocks; dense: 4K - 3, its two blocks
+    a step of k).  Where n is so large that not even a ring of two stages
+    fits beside the vectors of as many blocks, fewer blocks share an SM,
+    and then a cluster has fewer blocks (the widest blocks run one block a
+    scenario).  Raises ValueError for what the kernels do not serve
+    (K < 2; X and L: n not a multiple of 6 or above 6144; dense: n odd or
+    above 1536)."""
+    if form not in SWEEP_FORMS:
+        raise ValueError(f"sweep kernels: unknown form {form!r}")
+    unit = 2 if form == "dense" else 6
+    max_n = SWEEP_MAX_N if form == "dense" else SWEEP_MAX_N_WIDE
+    if B < 1 or K < 2 or n <= 0 or n % unit or n > max_n:
+        raise ValueError(f"sweep kernels, {form} form: unsupported B={B}, "
+                         f"K={K}, n={n} (n a multiple of {unit} up to "
+                         f"{max_n}, K >= 2)")
+    part = sweep_part_rows(form, n)
+    chain = 4 * K - 3 if form == "dense" else 2 * K - 1
     cluster = (4 if B <= SWEEP_CLUSTER_B // 2 else
                2 if B <= SWEEP_CLUSTER_B else 1)
-    share = max(sweep_rows(c + 1, cluster, n) - sweep_rows(c, cluster, n)
-                for c in range(cluster))
-    per_sm = 2 if cluster > 1 else min(4, -(-B // SMS))
     while True:
-        room = (SMEM_SM // per_sm - 1024) - sweep_smem_bytes(n, cluster, 0, 0)
-        for n_bands in range(-(-share // SWEEP_MAX_BAND), share // 2 + 1):
-            band_rows = 2 * -(-share // (2 * n_bands))
-            stages = min(SWEEP_MAX_STAGES, room // (4 * n * band_rows))
-            if stages >= SWEEP_WANT_STAGES:
-                break
-        if stages >= 2 or per_sm == 1:
+        share, band_rows, stages, per_sm = _sweep_ring(B, n, cluster, part)
+        if stages >= 2 or cluster == 1:
             break
-        per_sm -= 1
-    stages = min(stages, -(-share // band_rows) * (2 * K - 1))
+        cluster //= 2
+    stages = min(stages, -(-share // band_rows) * chain)
     if stages < 2:
         raise ValueError(f"sweep kernels: no ring of two stages fits n={n}")
     return SweepPlan(cluster, band_rows, stages,
-                     sweep_smem_bytes(n, cluster, band_rows, stages), per_sm)
+                     sweep_smem_bytes(n, cluster, band_rows, stages, part),
+                     per_sm)
 
 
 def solve_factorized_grouped_X_plain(X, C, b):
@@ -117,7 +154,7 @@ def solve_factorized_grouped_X(X, C, b):
     """Solve M x = b for a batch: X (B, K, n, n) symmetric block inverses,
     C (K-1, 3, 3) shared upper-triangular slot scalars, b (B, K, n) ->
     x (B, K, n).  CUDA tensors launch the kernel on :func:`sweep_plan`
-    (float32, contiguous, n a multiple of 6 up to 1536; anything else
+    (float32, contiguous, n a multiple of 6 up to 6144; anything else
     raises); CPU tensors run the plain version."""
     if not b.is_cuda:
         if b.device.type != "cpu":
@@ -133,7 +170,7 @@ def solve_factorized_grouped_X(X, C, b):
         raise ValueError(
             f"solve_factorized_grouped_X: unsupported shapes X "
             f"{tuple(X.shape)}, C {tuple(C.shape)}, b {tuple(b.shape)}")
-    plan = sweep_plan(B, K, n)
+    plan = sweep_plan(B, K, n, "X")
     x = torch.empty_like(b)
     lib = load_kernels()
     with torch.cuda.device(b.device):
@@ -158,7 +195,7 @@ def solve_factorized_grouped_L(Linv, C, b):
     """Solve M x = b for a batch from the L-only factors: Linv (B, K, n, n)
     inverted diagonal factors, C (K-1, 3, 3) shared upper-triangular slot
     scalars, b (B, K, n) -> x (B, K, n).  CUDA tensors launch the kernel on
-    :func:`sweep_plan` (float32, contiguous, n a multiple of 6 up to 1536;
+    :func:`sweep_plan` (float32, contiguous, n a multiple of 6 up to 6144;
     Linv is read as lower triangular; anything else raises); CPU tensors
     run the plain version."""
     if not b.is_cuda:
@@ -175,7 +212,7 @@ def solve_factorized_grouped_L(Linv, C, b):
         raise ValueError(
             f"solve_factorized_grouped_L: unsupported shapes Linv "
             f"{tuple(Linv.shape)}, C {tuple(C.shape)}, b {tuple(b.shape)}")
-    plan = sweep_plan(B, K, n)
+    plan = sweep_plan(B, K, n, "L")
     x = torch.empty_like(b)
     lib = load_kernels()
     with torch.cuda.device(b.device):
@@ -196,4 +233,5 @@ def solve_factorized_grouped(Linv, Eb, b):
     grouped streaming kernel ``_group_kernel`` computes:
     :func:`banded_solve.solve_factorized_dense`, whose kernel and launch
     count it shares."""
+    from .banded_solve import solve_factorized_dense
     return solve_factorized_dense(Linv, Eb, b)

@@ -609,6 +609,11 @@ def _factorize_X_routed(D, C, static: SolverStatic):
                        ns_anchor=static.ns_anchor)
 
 
+# The values of ``SolverConfig.assemble_precision`` (the JAX package's
+# names); the port assembles at FP32 for each of them (:func:`qp_route`).
+ASSEMBLE_PRECISIONS = ("highest", "high", "default")
+
+
 def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
              dtype, col_enabled: bool) -> str:
     """The x-update route the JAX router (``banded.py:1210-1259`` and
@@ -629,7 +634,21 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
     The gates are the JAX router's as they stand: its 12 MiB and 96 MiB are
     byte budgets of the TPU's VMEM, kept so that the port routes where JAX
     routes.  Adaptive rho and bf16 factor storage raise NotImplementedError,
-    naming their ROADMAP item."""
+    naming their ROADMAP item.
+
+    ``static.assemble_precision`` must be one of
+    :data:`ASSEMBLE_PRECISIONS`, else ValueError.  Every one of them
+    assembles the collision blocks in FP32 here (:func:`collision_blocks`,
+    on the card as on the CPU): the JAX package's ``"default"`` and
+    ``"high"`` name bf16-input passes of the TPU's matrix unit, and a
+    reduced-precision product on this card would change the rounding of
+    D, which moves lanes between SCP iteration counts as any change of FP32
+    rounding does; so the port keeps one assembly and accepts the three
+    names (ROADMAP Queue 3)."""
+    if static.assemble_precision not in ASSEMBLE_PRECISIONS:
+        raise ValueError(
+            f"assemble_precision={static.assemble_precision!r}: one of "
+            f"{ASSEMBLE_PRECISIONS} (each assembles in FP32 on this card)")
     if static.adaptive_rho:
         raise NotImplementedError(
             "adaptive rho is not ported yet (ROADMAP Queue 1 item 7)")

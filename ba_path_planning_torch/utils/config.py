@@ -133,6 +133,7 @@ class SolverConfig:
     ns_iters: int = 0
     ns_anchor: int = 0
     ns_precision: str = "highest"
+    # accepted as in JAX, assembled in FP32 for each value (banded.qp_route)
     assemble_precision: str = "highest"
     col_penalty: float = float("inf")
     col_rho_boost: float = 1.0

@@ -15,12 +15,13 @@
    global memory), each at ``ns_precision`` "high" (tensor cores, what the
    production solver runs) and "highest" (FP32), with the kernel and the
    exact anchors timed apart; the fused ADMM interval at N=30 and N=40
-   (B=128); on the factors of the reference-compatible solver (rho 0.1,
+   (B=128), with the bound of its whole blocks and of their upper
+   triangles; on the factors of the reference-compatible solver (rho 0.1,
    hard collision rows) the L-only sweep and the dense (Linv, Eb) sweep at
-   N=20 (B=64 and 512), the L-only sweep at N=20, B=1 (the ``SCP`` class's
-   batch) and at N=30 and N=40 (B=128) and the L-form fused interval at
-   N=20 (B=64 and 128, penalty weight +inf); the two grouped sweeps print
-   the launch plan they ran (``group_solve.sweep_plan``);
+   N=20 (B=64, 512 and 1, the ``SCP`` class's batch), the L-only sweep at
+   N=30 and N=40 (B=128), the L-form fused interval at N=20 (B=64 and 128,
+   penalty weight +inf) and its wide instantiation at K=3, N=90; the three
+   sweeps print the launch plan they ran (``group_solve.sweep_plan``);
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
    N=30 with the production solver and at N=20 with the
@@ -93,11 +94,12 @@ def _time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _problem(n_veh, facade=False):
+def _problem(n_veh, facade=False, n_steps=K_STEPS):
     """The bench.py problem, or the ``SCP`` class's (``facade``): the same
-    but for the stopping rule and the goal projection."""
+    but for the stopping rule and the goal projection; ``n_steps`` cuts
+    the horizon."""
     from ba_path_planning_torch.utils.config import ProblemConfig
-    problem = ProblemConfig(n_vehicles=n_veh, time_horizon=T_HORIZON,
+    problem = ProblemConfig(n_vehicles=n_veh, time_horizon=n_steps * H,
                             time_step=H, min_distance=R, max_iterations=15)
     return problem if facade else problem.replace(stop_mode="feasible",
                                                   goal_project=True)
@@ -118,8 +120,9 @@ def _bound_ms(n_bytes, n_flops, flop_s=FP32_FLOP_S):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def _case(n_veh, B, dev, seed, solver=None):
-    """Main-path-shaped inputs of the kernels, float32 on the card: bounds
+def _case(n_veh, B, dev, seed, solver=None, n_steps=K_STEPS):
+    """Main-path-shaped inputs of the kernels (``n_steps`` steps), float32
+    on the card: bounds
     of random start and goal positions, collision rows of random unit
     directions about the start positions (row 0 vacuous), the rho pattern of
     ``solver`` (default: production for ``n_veh`` vehicles), the diagonal
@@ -135,8 +138,8 @@ def _case(n_veh, B, dev, seed, solver=None):
     from ba_path_planning_torch.solvers.scp import _warm_state
     from ba_path_planning_torch.utils.config import (SolverConfig,
                                                      make_solver_params)
-    K, P, f32 = K_STEPS, n_veh * (n_veh - 1) // 2, torch.float32
-    problem = _problem(n_veh)
+    K, P, f32 = n_steps, n_veh * (n_veh - 1) // 2, torch.float32
+    problem = _problem(n_veh, n_steps=n_steps)
     if solver is None:
         solver = SolverConfig.production(problem=problem)
     prm = make_solver_params(solver, f32, dev)
@@ -298,10 +301,11 @@ def _sweep_check(tag, kernel, plain, factors, b, b_admm):
     return sw_abs, sw_ms, sw_plain_ms
 
 
-def _plan(b):
-    """The launch plan of the grouped sweeps for right-hand sides b."""
+def _plan(b, form):
+    """The launch plan of the sweep kernel of ``form`` for right-hand sides
+    b."""
     from ba_path_planning_torch.ops.group_solve import sweep_plan
-    plan = sweep_plan(*b.shape)
+    plan = sweep_plan(*b.shape, form)
     return ", ".join(f"{k}={v}" for k, v in plan._asdict().items())
 
 
@@ -313,7 +317,7 @@ def kernel_phase(dev, B):
     del D
     sw_abs, sw_ms, sw_plain_ms = _sweep_check(
         f"kernel phase B={B} N=20 K={K_STEPS} f32: "
-        f"solve_factorized_grouped_X ({_plan(b)})",
+        f"solve_factorized_grouped_X ({_plan(b, 'X')})",
         group_solve.solve_factorized_grouped_X,
         group_solve.solve_factorized_grouped_X_plain, (X, C), b, b_admm)
     n = 6 * 20
@@ -331,9 +335,10 @@ def _rows(out):
     from ba_path_planning_torch.ops.admm_fused import static_plane
     from ba_path_planning_torch.solvers.banded import to_stacked
     x, z, y = out
+    K = z.col.shape[-2]
 
     def rows(rv):
-        return torch.cat([static_plane(rv, K_STEPS).flatten(-2), rv.col], -1)
+        return torch.cat([static_plane(rv, K).flatten(-2), rv.col], -1)
     return to_stacked(x), rows(z), rows(y)
 
 
@@ -353,8 +358,9 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
                 needed_floats=None):
     """A fused ADMM-interval kernel against its plain version on the
     arguments ``kw`` (factors included; ``factor_floats`` is their size per
-    scenario, ``needed_floats`` what of it is not structurally zero, where
-    that is less).  The interval starts from a warm state, as
+    scenario, ``needed_floats`` what of it has to be read, where that is
+    less: Linv without its zero half, X as its upper triangle).  The
+    interval starts from a warm state, as
     an SCP iteration finds it: one float64 plain interval from x at rest,
     z = clip(A x, l, u) and y = 0.  Returns the kernel's stats."""
     import torch
@@ -385,14 +391,14 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
         del got, want, ref
     fu_ms = _time_ms(lambda: kernel(**kw, **state, n_iters=25))
     fu_plain_ms = _time_ms(lambda: plain(**kw, **state, n_iters=25), reps=2)
-    B, K, n, P = kw["eta"].shape[0], K_STEPS, 6 * n_veh, \
-        n_veh * (n_veh - 1) // 2
+    B, K = kw["eta"].shape[:2]
+    n, P = 6 * n_veh, n_veh * (n_veh - 1) // 2
     stream = 25 * B * 2 * factor_floats * 4
     gbs = stream / (fu_ms * 1e-3) / 1e9
     stream_ms = stream / HBM_BYTES_S * 1e3
     sparse = "" if needed_floats is None else (
-        f", {stream_ms * needed_floats / factor_floats:.3f} ms with the zero "
-        "half of Linv left out")
+        f", {stream_ms * needed_floats / factor_floats:.3f} ms reading only "
+        "the triangle of each block that the sweeps need")
 
     def fmt(v):
         return "[" + ", ".join(f"{e:.3e}" for e in v) + "]"
@@ -434,52 +440,66 @@ def large_phase(dev, n_veh):
     """N=30 or N=40, B=128: the NS chain (global-memory layout) and the
     fused X-form ADMM interval on its factors."""
     from ba_path_planning_torch.ops.admm_fused import (
-        admm_interval_fused_X, admm_interval_fused_X_plain)
+        admm_interval_fused_X, admm_interval_fused_X_plain, fused_plan)
     D, C, _, _, kw = _case(n_veh, B_LARGE, dev, seed=n_veh)
     X, ns_stats = ns_check(n_veh, D, C, "large phase")
     del D
     kw["X"] = X
-    return {"ns_chain": ns_stats,
-            "admm_fused_x": fused_check(
-                "large phase: admm_interval_fused_X", admm_interval_fused_X,
-                admm_interval_fused_X_plain, kw, n_veh,
-                K_STEPS * (6 * n_veh) ** 2)}
+    n = 6 * n_veh
+    plan = fused_plan(K_STEPS, n_veh, "X")
+    # X_k is symmetric: its upper triangle, read once, serves both products
+    # (the packed mode), so the second bound counts that triangle
+    stats = fused_check(
+        f"large phase: admm_interval_fused_X (ring of {plan.stages} stages "
+        f"of {plan.band_rows} rows, packed={plan.packed})",
+        admm_interval_fused_X,
+        admm_interval_fused_X_plain, kw, n_veh, K_STEPS * n * n,
+        needed_floats=K_STEPS * n * (n + 1) // 2)
+    return {"ns_chain": ns_stats, "admm_fused_x": stats}
 
 
-def lform_phase(dev, n_veh, B, dense=False, fused=False):
+def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
+                n_steps=K_STEPS):
     """The L-form family on the factors of the reference-compatible solver
-    (float32 block Cholesky on the card, as the path computes them): the
-    L-only sweep; with ``dense`` the dense (Linv, Eb) sweep; with ``fused``
-    the L-form fused interval, whose penalty weight is this solver's
-    +inf."""
+    (float32 block Cholesky on the card, as the path computes them) at
+    ``n_steps`` steps: the L-only sweep (unless not ``l_only``); with
+    ``dense`` the dense (Linv, Eb) sweep; with ``fused`` the L-form fused
+    interval, whose penalty weight is this solver's +inf."""
     from ba_path_planning_torch.ops import admm_fused, banded_solve, group_solve
     from ba_path_planning_torch.solvers import banded
     D, C, b, b_admm, kw = _case(n_veh, B, dev, seed=1000 + n_veh + B,
-                                solver=_facade_solver())
+                                solver=_facade_solver(), n_steps=n_steps)
     Linv, Eb = banded.factorize(D, banded.slot_dense(C, 2 * n_veh))
     del D
-    K, n = K_STEPS, 6 * n_veh
+    K, n = n_steps, 6 * n_veh
     tag = f"L-form phase B={B} N={n_veh} K={K} f32"
     shape = f"N={n_veh} K={K} B={B}"
-    err, ms, plain_ms = _sweep_check(
-        f"{tag}: solve_factorized_grouped_L ({_plan(b)})",
-        group_solve.solve_factorized_grouped_L,
-        group_solve.solve_factorized_grouped_L_plain, (Linv, C), b, b_admm)
-    out = {"group_solve_l": _stat(
-        err, ms, plain_ms, shape, B * K * (n * n + 2 * n) * 4,
-        B * 4 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)}
-    # the stream without the zero half of Linv
-    out["group_solve_l"]["nonzero_stream_bound_ms"] = _bound_ms(
-        B * K * (n * (n + 1) + 2 * n) * 4, B * 4 * K * n * (n + 1))[0]
+    out = {}
+    if l_only:
+        err, ms, plain_ms = _sweep_check(
+            f"{tag}: solve_factorized_grouped_L ({_plan(b, 'L')})",
+            group_solve.solve_factorized_grouped_L,
+            group_solve.solve_factorized_grouped_L_plain, (Linv, C), b,
+            b_admm)
+        out["group_solve_l"] = _stat(
+            err, ms, plain_ms, shape, B * K * (n * n + 2 * n) * 4,
+            B * 4 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
+        # the stream without the zero half of Linv
+        out["group_solve_l"]["nonzero_stream_bound_ms"] = _bound_ms(
+            B * K * (n * (n + 1) + 2 * n) * 4, B * 4 * K * n * (n + 1))[0]
     if dense:
         err, ms, plain_ms = _sweep_check(
-            f"{tag}: solve_factorized_dense",
+            f"{tag}: solve_factorized_dense ({_plan(b, 'dense')})",
             banded_solve.solve_factorized_dense,
             banded_solve.solve_factorized_dense_plain, (Linv, Eb), b, b_admm)
         fl = (2 * K - 1) * n * n
         out["banded_solve"] = _stat(
             err, ms, plain_ms, shape, B * (fl + 2 * K * n) * 4,
             B * (4 * K - 2) * 2 * n * n, B * (2 * fl + 2 * K * n) * 4)
+        # the stream without the zero half of Linv
+        out["banded_solve"]["nonzero_stream_bound_ms"] = _bound_ms(
+            B * (2 * (K * n * (n + 1) // 2 + (K - 1) * n * n) + 2 * K * n) * 4,
+            B * (4 * K - 2) * 2 * n * n)[0]
     if fused:
         kw.update(Linv=Linv, Eb=Eb)
         del kw["C"]
@@ -810,18 +830,28 @@ def main():
         kstats["group_solve_x"][f"ms_at_B{B}"] = (
             kernel_phase(dev, B)["group_solve_x"]["ms"])
     lstats = {n_veh: large_phase(dev, n_veh) for n_veh in (30, 40)}
+    for key in ("ms", "bound_ms", "stream_bound_ms",
+                "nonzero_stream_bound_ms"):
+        lstats[40]["admm_fused_x"][f"{key}_at_N30"] = (
+            lstats[30]["admm_fused_x"][key])
     small = lform_phase(dev, 20, FACADE_B, dense=True, fused=True)
     fstats = lform_phase(dev, 20, 512, dense=True)
     fstats.update(admm_fused_l=lform_phase(dev, 20, B_LARGE,
                                            fused=True)["admm_fused_l"])
-    # the batches the reference-compatible paths below launch the kernels at
-    fstats["admm_fused_l"][f"ms_at_B{FACADE_B}"] = small["admm_fused_l"]["ms"]
-    fstats["group_solve_l"][f"ms_at_B{FACADE_B}"] = (
-        small["group_solve_l"]["ms"])
-    fstats["group_solve_l"]["ms_at_B1"] = (
-        lform_phase(dev, 20, 1)["group_solve_l"]["ms"])
+    # the batches the reference-compatible paths below launch the kernels
+    # at, the SCP class's B=1 among them
+    single = lform_phase(dev, 20, 1, dense=True)
+    for kname, at in (("admm_fused_l", small), ("group_solve_l", small),
+                      ("banded_solve", small), ("group_solve_l", single),
+                      ("banded_solve", single)):
+        B = FACADE_B if at is small else 1
+        for key in ("ms", "stream_bound_ms"):
+            fstats[kname][f"{key}_at_B{B}"] = at[kname][key]
     for n_veh in (30, 40):
         lform_phase(dev, n_veh, B_LARGE)
+    # the wide instantiation of the L-form fused interval (n = 540 > 512),
+    # where the router sends short horizons
+    lform_phase(dev, 90, 8, fused=True, l_only=False, n_steps=3)
     lap("kernel phases")
     for n_veh in (20, 30):
         reference_phase(dev, n_veh)

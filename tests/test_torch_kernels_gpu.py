@@ -129,13 +129,15 @@ def _tiled(factors, B, K, N, seed):
 # The plans of group_solve.sweep_plan: a cluster of 4 blocks a scenario up
 # to B = 32, of 2 up to B = 64, one block a scenario above (alone on its SM
 # with a deep ring up to B = 132, four to an SM at B = 512), and a second
-# wave of blocks beyond 528; the wide instantiation for n > 512 (N > 85).
+# wave of blocks beyond 528; the wide instantiation for n > 512 (N > 85),
+# which the X form serves up to n = 6144 (N = 300: clusters of 4 and 2).
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,K,N", [(5, 9, 4), (64, 50, 20), (3, 10, 3),
                                    (1, 50, 20), (3, 2, 2), (2, 500, 20),
                                    (65, 9, 21), (512, 50, 20), (600, 9, 2),
                                    (2, 50, 29), (40, 9, 40), (128, 50, 20),
-                                   (2, 9, 90), (1, 2, 256)])
+                                   (2, 9, 90), (1, 2, 256), (1, 2, 300),
+                                   (40, 2, 300)])
 def test_group_solve_kernel_matches_plain(cuda, B, K, N):
     """Relative 1e-5 in every (b, k) block, on every branch of the plan."""
     if B <= SWEEP_DISTINCT:
@@ -149,6 +151,38 @@ def test_group_solve_kernel_matches_plain(cuda, B, K, N):
     got = group_solve.solve_factorized_grouped_X(X, C, b)
     assert group_solve.solve_factorized_grouped_X.launches == before + 1
     want = group_solve.solve_factorized_grouped_X_plain(X, C, b)
+    torch.cuda.synchronize()
+    assert _block_rel(got, want, 1) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["X", "L"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_group_solve_kernel_serves_the_widest_blocks(cuda, B, form):
+    """n = 6144 (N = 1024), the most the X and L forms serve: no cluster's
+    exchange buffers fit beside a ring there, so one block a scenario runs
+    it (the L form with its column sums in shared memory).  Random blocks
+    of norm about 1 stand in for the factors (symmetric for X, lower
+    triangular for L; a float64 factorization at this size would take
+    minutes)."""
+    K, n = 2, 6144
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    A = torch.randn((B, K, n, n), generator=gen, device=cuda)
+    if form == "X":
+        F = (A + A.mT) / (2 * n ** 0.5)
+    else:
+        F = A.tril_() / n ** 0.5
+    del A
+    C = torch.triu(torch.randn((K - 1, 3, 3), generator=gen, device=cuda))
+    b = torch.randn((B, K, n), generator=gen, device=cuda)
+    assert group_solve.sweep_plan(B, K, n, form).cluster == 1
+    kernel, plain = {
+        "X": (group_solve.solve_factorized_grouped_X,
+              group_solve.solve_factorized_grouped_X_plain),
+        "L": (group_solve.solve_factorized_grouped_L,
+              group_solve.solve_factorized_grouped_L_plain)}[form]
+    got = kernel(F, C, b)
+    want = plain(F, C, b)
     torch.cuda.synchronize()
     assert _block_rel(got, want, 1) < 1e-5
 
@@ -201,12 +235,14 @@ def _dense_case(B, K, N, seed):
                                    (3, 50, 40), (2, 7, 45), (1, 50, 20),
                                    (1, 9, 2), (64, 50, 20), (65, 50, 20),
                                    (512, 9, 20), (600, 2, 21), (3, 500, 4),
-                                   (70, 9, 40), (2, 9, 90), (1, 2, 256)])
+                                   (70, 9, 40), (2, 9, 90), (1, 2, 256),
+                                   (1, 2, 300), (3, 2, 300)])
 def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
     """Relative 1e-5 in every (b, k) block, one code path for every n = 6N
     and every branch of the plan (the cluster's column partial sums meet in
     distributed shared memory; at N = 45 a lane sums nine columns, at
-    N = 256 48 of them)."""
+    N = 256 48 of them; at N = 300 the block's column sums are added in
+    shared memory)."""
     if B <= SWEEP_DISTINCT:
         Linv, _, C, b = _dense_case(B, K, N, seed=N)
     else:
@@ -221,11 +257,25 @@ def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
     assert _block_rel(got, want, 1) < 1e-5
 
 
+# The dense form's plans: those of the two other forms, its two blocks a
+# step (4K - 3 a chain; K = 2 runs the turn after one forward pair).
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,K,N", [(3, 10, 2), (5, 9, 4), (64, 50, 20),
-                                   (3, 50, 30), (2, 7, 45)])
+                                   (3, 50, 30), (2, 7, 45), (1, 50, 20),
+                                   (32, 50, 20), (128, 50, 20), (512, 50, 20),
+                                   (65, 9, 21), (600, 2, 2), (1, 2, 2),
+                                   (3, 500, 4), (2, 50, 40), (2, 9, 90),
+                                   (1, 2, 256)])
 def test_banded_solve_kernel_matches_plain(cuda, B, K, N):
-    Linv, Eb, _, b = (t.to(cuda) for t in _dense_case(B, K, N, seed=N))
+    """Relative 1e-5 in every (b, k) block, on every branch of the plan;
+    the factors of batches above SWEEP_DISTINCT repeat with
+    SWEEP_PERIOD."""
+    if B <= SWEEP_DISTINCT:
+        Linv, Eb, _, b = _dense_case(B, K, N, seed=N)
+    else:
+        Linv, Eb, _, _ = _dense_case(SWEEP_PERIOD, K, N, seed=N)
+        Linv, Eb, b = _tiled((Linv, Eb), B, K, N, seed=B)
+    Linv, Eb, b = Linv.to(cuda), Eb.to(cuda), b.to(cuda)
     before = banded_solve.solve_factorized_dense.launches
     got = banded_solve.solve_factorized_dense(Linv, Eb, b)
     same = group_solve.solve_factorized_grouped(Linv, Eb, b)
@@ -360,13 +410,20 @@ def _check_interval(cuda, B, K, N, n_iters, form, hard):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("n_iters", [1, 2, 25])
 @pytest.mark.parametrize("B,K,N", [(3, 10, 4), (4, 50, 30), (2, 50, 40),
-                                   (2, 330, 30)])
+                                   (2, 330, 30), (1, 50, 22), (3, 50, 22),
+                                   (1, 50, 40), (33, 9, 30), (3, 9, 20),
+                                   (3, 9, 39), (2, 6, 90)])
 def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
     """Every (b, k) row block of x and z within 2e-4 (relative to the
-    block's largest entry) of the plain version after one iteration; at
-    K = 330 the sweep plane no longer fits in shared memory.  The
+    block's largest entry) of the plain version after one iteration, at
+    the production N = 22, 30 and 40 (one scenario, and batches below the
+    path's chunk of 128); the factor ring wraps on other (stage, phase)
+    counts for other K, N and n_iters; at K = 330 the sweep plane no
+    longer fits in shared memory; the kernel reads packed triangles from
+    N = 39 (N = 39 has padding columns in them, N = 40 none) and whole
+    bands below and at N = 90 (n = 540).  The
     duals y = y + rho (zr - z) multiply the rounding of zr by rho (up to
     ~5e3 on the equality rows), and 25 iterations amplify rounding further
     (alpha = 1.9), so the y blocks, and every block after 25 iterations,
@@ -378,14 +435,17 @@ def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
 @pytest.mark.parametrize("n_iters", [1, 2, 25])
 @pytest.mark.parametrize("B,K,N", [(3, 10, 4), (3, 9, 4), (3, 10, 2),
                                    (3, 9, 20), (4, 50, 20), (2, 50, 29),
-                                   (2, 500, 20)])
+                                   (2, 500, 20), (3, 3, 86), (3, 3, 90),
+                                   (2, 2, 147)])
 def test_admm_fused_l_kernel_matches_plain(cuda, B, K, N, n_iters):
     """The L-form kernel, held as the X-form one is.  Every block comes
     through the factor ring as whole row bands, so the number of bands an
     interval streams, and with it how often the ring wraps and on which
     (stage, phase) it ends, follows from K, n_iters and the bands a block
     splits into (N = 2, 4, 20 and 29 give other counts); at K = 500 the
-    sweep plane no longer fits in shared memory."""
+    sweep plane no longer fits in shared memory.  N = 86, 90 (K = 3) and
+    147 (K = 2) run the wide instantiation (7 column octets a warp), where
+    the router sends short horizons."""
     _check_interval(cuda, B, K, N, n_iters, "L", hard=False)
 
 
