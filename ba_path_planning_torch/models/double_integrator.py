@@ -1,5 +1,5 @@
-"""Double-integrator vehicle model: closed-form terminal state and the
-exact goal projection (counterpart of
+"""Double-integrator vehicle model: closed-form terminal state, the exact
+goal projection and the reachability screen (counterpart of
 ``ba_path_planning_tpu.models.double_integrator``)."""
 
 from __future__ import annotations
@@ -49,3 +49,28 @@ class DoubleIntegrator2D:
         alpha = i11 * r_v + i12 * r_p
         beta = i12 * r_v + i22 * r_p
         return a + h * alpha[..., None, :] + c2[:, None] * beta[..., None, :]
+
+    def max_displacement(self, vel_max: float, acc_max: float) -> float:
+        """Upper bound on the reachable per-axis displacement from rest to
+        rest over the horizon, a cheap pre-feasibility screen.  The velocity
+        and acceleration limits are per-axis boxes, so the reachable set is a
+        square of this half-width, not a disc."""
+        T = self.n_steps * self.time_step
+        # accelerate/decelerate triangle capped by vel_max
+        t_ramp = vel_max / acc_max
+        if T <= 2 * t_ramp:
+            return 0.25 * acc_max * T * T
+        return vel_max * (T - t_ramp)
+
+    def reachable(self, p0, pf, vel_max: float, acc_max: float):
+        """Per vehicle: is every axis of |pf - p0| within
+        :meth:`max_displacement`?  p0/pf (..., 2) tensors (the result is a
+        bool tensor on their device) or arrays (a numpy bool array)."""
+        bound = self.max_displacement(vel_max, acc_max)
+        if isinstance(p0, torch.Tensor) or isinstance(pf, torch.Tensor):
+            dev = (p0 if isinstance(p0, torch.Tensor) else pf).device
+            d = (torch.as_tensor(pf, device=dev)
+                 - torch.as_tensor(p0, device=dev)).abs().amax(-1)
+        else:
+            d = np.max(np.abs(np.asarray(pf) - np.asarray(p0)), axis=-1)
+        return d <= bound

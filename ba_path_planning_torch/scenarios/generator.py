@@ -17,7 +17,11 @@ Same layout and sampling distribution as the JAX package:
 The whole batch runs the rejection loop in lockstep on the host, one
 candidate per scenario and attempt; the draws come from one
 ``torch.Generator``, so a seed fixes the batch.  They are not the JAX
-package's bits.
+package's bits: the same seed gives other scenarios than JAX's PRNG does.
+
+The reference-compatible helpers follow: :func:`generate_positions`,
+:func:`minimum_distance`, :func:`print_distance_analysis` and
+:func:`visualize_scenario`.
 """
 
 from __future__ import annotations
@@ -115,3 +119,90 @@ def generate_scenario_batch(seed: int, batch: int, *, n_vehicles: int,
     return Scenario(initial=init.to(dtype=dtype, device=device),
                     final=final.to(dtype=dtype, device=device),
                     ok=(ok_i & ok_f).to(device))
+
+
+def generate_scenario(seed: int, *, n_vehicles: int,
+                      min_distance: float = 0.4, max_attempts: int = 1000,
+                      dtype=torch.float32, device=None) -> Scenario:
+    """One scenario from one seed, without the batch axis: (N, 2) initial
+    and final positions and a 0-d ``ok``.  The draws are those of
+    :func:`generate_scenario_batch` with batch 1, not the JAX package's for
+    the same seed."""
+    sc = generate_scenario_batch(seed, 1, n_vehicles=n_vehicles,
+                                 min_distance=min_distance,
+                                 max_attempts=max_attempts, dtype=dtype,
+                                 device=device)
+    return Scenario(*(t[0] for t in sc))
+
+
+# ---------------------------------------------------------------------------
+# Reference-compatible functional API (path_planning.generate_positions)
+# ---------------------------------------------------------------------------
+
+def generate_positions(n_vehicles, min_distance=0.4, max_attempts=1000,
+                       seed=None):
+    """Drop-in for the reference ``generate_positions``: ``(initial (N, 2),
+    final (N, 2))`` float32 numpy arrays, drawn on the host; ValueError when
+    rejection sampling gives up.
+
+    ``seed=None`` draws a fresh seed from numpy's global RNG (repeated calls
+    differ, like the reference's unseeded stdlib random); pass an int for
+    exact reproducibility.  A seed gives other positions than the JAX
+    package's ``generate_positions`` with the same seed (``torch.Generator``
+    draws, not JAX's PRNG).
+    """
+    if seed is None:
+        seed = int(np.random.randint(0, 2**31 - 1))
+    sc = generate_scenario(seed, n_vehicles=n_vehicles,
+                           min_distance=float(min_distance),
+                           max_attempts=int(max_attempts), device="cpu")
+    if not bool(sc.ok):
+        raise ValueError("Could not generate enough positions.")
+    return sc.initial.numpy(), sc.final.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Scenario analysis
+# ---------------------------------------------------------------------------
+
+def visualize_scenario(initial_positions, final_positions, min_distance=0.4,
+                       save_path=None, show=False):
+    """Drop-in for the reference ``visualize_scenario``; delegates to the
+    viz layer (matplotlib)."""
+    from ..viz.plots import plot_scenario
+    return plot_scenario(initial_positions, final_positions,
+                         min_distance=min_distance, save_path=save_path,
+                         show=show)
+
+
+def minimum_distance(positions: np.ndarray) -> tuple[float, tuple[int, int]]:
+    """Min pairwise distance and the closest pair."""
+    pos = np.asarray(positions)
+    n = len(pos)
+    if n < 2:
+        return float("inf"), (-1, -1)
+    diff = pos[:, None, :] - pos[None, :, :]
+    d = np.linalg.norm(diff, axis=-1)
+    d[np.arange(n), np.arange(n)] = np.inf
+    idx = np.unravel_index(np.argmin(d), d.shape)
+    return float(d[idx]), (int(idx[0]), int(idx[1]))
+
+
+def print_distance_analysis(initial_positions, final_positions):
+    """Console summary: global min spacing and longest displacement."""
+    init_min, _ = minimum_distance(initial_positions)
+    final_min, _ = minimum_distance(final_positions)
+    global_min = min(init_min, final_min)
+    displacements = np.linalg.norm(
+        np.asarray(final_positions) - np.asarray(initial_positions), axis=1)
+    longest_path = float(displacements.max())
+    longest_vehicle = int(displacements.argmax())
+    print("\n" + "=" * 40)
+    print("DISTANCE SUMMARY")
+    print("=" * 40)
+    print(f"Global minimum distance: {global_min:.3f} m")
+    print(f"Longest path traveled:  {longest_path:.3f} m "
+          f"(Vehicle {longest_vehicle})")
+    print("=" * 40 + "\n")
+    return dict(global_min_distance=global_min, longest_path=longest_path,
+                longest_vehicle=longest_vehicle)

@@ -651,10 +651,10 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
             f"{ASSEMBLE_PRECISIONS} (each assembles in FP32 on this card)")
     if static.adaptive_rho:
         raise NotImplementedError(
-            "adaptive rho is not ported yet (ROADMAP Queue 1 item 7)")
+            "adaptive rho is not ported yet (ROADMAP Queue 1 item 3)")
     if static.factor_dtype != "f32":
         raise NotImplementedError(
-            "bf16 factor storage is not ported (ROADMAP Queue 1 item 7)")
+            "bf16 factor storage is not ported (ROADMAP Queue 1 item 5)")
     if not col_enabled:
         return "channel"
     N, K = n_vehicles, n_steps

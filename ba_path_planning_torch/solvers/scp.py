@@ -235,11 +235,11 @@ class SCPEngine:
         if solver.method != "direct":
             raise NotImplementedError(
                 "the CG (acceleration-space) method is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+                "(ROADMAP Queue 1 item 4)")
         if solver.polish:
             raise NotImplementedError(
                 "the active-set polish is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+                "(ROADMAP Queue 1 item 3)")
         self.problem = problem
         self.solver = solver
         self.dtype = dtype
@@ -279,6 +279,15 @@ class SCPEngine:
         return _scp_finalize_direct(carry, p0, v0, pf, vf, pairs=self.pairs,
                                     problem=self.problem)
 
+    def solve_fn(self):
+        """The per-scenario solve, ``(p0, v0, pf, vf, angle_fn=None) ->
+        SCPResult`` on (N, 2) state arrays with no batch axis, for callers
+        that compose their own loop around it.  The JAX engine hands its
+        closure to ``jit``/``vmap``/``lax.map``; the port has no such
+        transforms, so this is :meth:`solve` itself: each call runs eagerly
+        on the engine's device as lane 0."""
+        return self.solve
+
     def solve(self, p0, v0, pf, vf,
               angle_fn: AngleFn | None = None) -> SCPResult:
         """One scenario: state arrays (N, 2); the result has no batch
@@ -298,6 +307,13 @@ class SCPEngine:
         carry = self.step(carry, p0, v0, pf, vf, lane_ids,
                           self.problem.max_iterations, angle_fn)
         return self.finalize(carry, p0, v0, pf, vf)
+
+
+# The ``SCP`` class's default solver, the JAX class's: the direct method on
+# L-form factors with hard collision rows, up to 2000 ADMM iterations per QP
+# checked every 25, on the plain route (``kernels=False``).
+REFERENCE_SOLVER = SolverConfig(method="direct", polish=False,
+                                adaptive_rho=False, max_iter=2000)
 
 
 class SCP:
@@ -328,10 +344,7 @@ class SCP:
         self.initial_velocities = None
         self.final_positions = None
         self.final_velocities = None
-        if solver is None:
-            solver = SolverConfig(method="direct", polish=False,
-                                  adaptive_rho=False, max_iter=2000)
-        self._solver_cfg = solver
+        self._solver_cfg = REFERENCE_SOLVER if solver is None else solver
         self._dtype = dtype if dtype is not None else torch.float32
         self._device = resolve_device(device)
         self._engine_cache: dict[tuple[int, int], SCPEngine] = {}
@@ -388,10 +401,20 @@ class SCP:
               f"status={int(res.status)})")
         return self.trajectories
 
-    def _no_viz(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the plots of the facade wait for the CLIs and the viz layer "
-            "(ROADMAP Queue 1 item 8)")
+    def visualize_trajectories(self, show_animation=False,
+                               save_path="trajectories.pdf"):
+        from ..viz.plots import plot_trajectories
+        if self.trajectories is None:
+            raise ValueError("Trajectories not generated yet")
+        return plot_trajectories(self.trajectories["positions"],
+                                 self.space_dims, self.R,
+                                 save_path=save_path, show=show_animation)
 
-    visualize_trajectories = _no_viz
-    visualize_time_snapshots = _no_viz
+    def visualize_time_snapshots(self, num_snapshots=5, save_path=None):
+        from ..viz.plots import plot_time_snapshots
+        if self.trajectories is None:
+            raise ValueError("Trajectories not generated yet")
+        return plot_time_snapshots(self.trajectories["positions"],
+                                   self.space_dims, self.R, self.h,
+                                   num_snapshots=num_snapshots,
+                                   save_path=save_path)

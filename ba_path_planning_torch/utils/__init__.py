@@ -1,1 +1,7 @@
-"""Subpackage of the PyTorch port (see the package docstring)."""
+"""Configuration, config files and checkpoints of the PyTorch port."""
+
+from .config import (Limits, ProblemConfig, SolverConfig, load_yaml,
+                     problem_from_dict, solver_from_dict)
+
+__all__ = ["Limits", "ProblemConfig", "SolverConfig", "load_yaml",
+           "problem_from_dict", "solver_from_dict"]

@@ -5,14 +5,16 @@ Same frozen dataclasses and the same field values as
 ``pallas`` (route through the Pallas TPU kernels) is ``kernels`` here (route
 through the hand-written CUDA kernels of ``ops/``).  ``SolverParams`` and
 ``make_solver_params`` mirror ``ba_path_planning_tpu.solvers.admm``: the
-numeric settings as 0-d tensors of the working dtype.
+numeric settings as 0-d tensors of the working dtype.  ``load_yaml``,
+``problem_from_dict`` and ``solver_from_dict`` read the JAX package's config
+files; :func:`solver_from_dict` maps their ``pallas`` to ``kernels``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -225,3 +227,80 @@ def make_solver_params(cfg: SolverConfig, dtype=torch.float32,
                         check_interval=i(cfg.check_interval),
                         cg_iters=i(cfg.cg_iters),
                         polish_cg_iters=i(cfg.polish_cg_iters))
+
+
+def load_yaml(path: str) -> dict[str, Any]:
+    """Load a YAML config file (PyYAML if available, minimal parser
+    otherwise)."""
+    try:
+        import yaml
+    except ImportError:
+        return _parse_simple_yaml(path)
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+# YAML's boolean and null words, as PyYAML reads them.  The JAX package's
+# fallback parser keeps them as strings, so there ``kernels: false`` would
+# be the truthy string "false".
+_YAML_WORDS = {**dict.fromkeys(("true", "yes", "on"), True),
+               **dict.fromkeys(("false", "no", "off"), False),
+               **dict.fromkeys(("null", "~"), None)}
+
+
+def _parse_simple_yaml(path: str) -> dict[str, Any]:
+    """Tiny fallback parser: flat and one-level-nested 'key: value' YAML,
+    values as Python literals or YAML's boolean and null words."""
+    import ast
+    out: dict[str, Any] = {}
+    stack = [out]
+    indents = [0]
+    with open(path) as f:
+        for raw in f:
+            line = raw.split('#', 1)[0].rstrip()
+            if not line.strip():
+                continue
+            indent = len(line) - len(line.lstrip())
+            key, _, val = line.strip().partition(':')
+            val = val.strip()
+            while indent < indents[-1]:
+                stack.pop()
+                indents.pop()
+            if not val:
+                child: dict[str, Any] = {}
+                stack[-1][key] = child
+                stack.append(child)
+                indents.append(indent + 2)
+            elif val.lower() in _YAML_WORDS:
+                stack[-1][key] = _YAML_WORDS[val.lower()]
+            else:
+                try:
+                    stack[-1][key] = ast.literal_eval(val)
+                except (ValueError, SyntaxError):
+                    stack[-1][key] = val
+    return out
+
+
+def problem_from_dict(d: dict[str, Any]) -> ProblemConfig:
+    """A ProblemConfig from the known fields of ``d``; others are ignored."""
+    fields = {f.name for f in dataclasses.fields(ProblemConfig)}
+    kw = {k: v for k, v in d.items() if k in fields}
+    if 'space_dims' in kw:
+        kw['space_dims'] = tuple(kw['space_dims'])
+    return ProblemConfig(**kw)
+
+
+def solver_from_dict(d: dict[str, Any]) -> SolverConfig:
+    """A SolverConfig from the known fields of ``d``; others are ignored.
+    The JAX package's ``pallas`` is read as ``kernels``; ValueError if
+    both are given and differ."""
+    d = dict(d)
+    if 'pallas' in d:
+        pallas = d.pop('pallas')
+        if 'kernels' in d and d['kernels'] != pallas:
+            raise ValueError(
+                f"pallas={pallas!r} and kernels={d['kernels']!r} disagree; "
+                "kernels is the port's name for the JAX option pallas")
+        d['kernels'] = pallas
+    fields = {f.name for f in dataclasses.fields(SolverConfig)}
+    return SolverConfig(**{k: v for k, v in d.items() if k in fields})

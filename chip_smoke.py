@@ -38,7 +38,16 @@
    collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
    ``stop_mode="reference"``), once per kernel route (L-only sweeps, dense
    sweeps, L-form fused interval), the routes held against each other, and
-   one ``SCP(...).generate_trajectories()`` call.
+   one ``SCP(...).generate_trajectories()`` call through the single-scenario
+   CLI (``cli/compute_trajectories.py --no-viz``);
+7. the entry points: the bench twin ``ba_path_planning_torch.bench`` at its
+   own size (N=20, B=4096, chunk 512; its JSON line and summary are printed;
+   at least 99% of the lanes ok), and the batch CLI
+   (``cli/compute_trajectories_batch.py``): production at N=20 and N=30 with
+   256 trials each, the same with ``--resume-dir`` twice (the second run
+   solves nothing and gives the same rows), and ``--solver reference`` at
+   N=20 with 64 trials; the schema-1.0 JSON and CSV are checked, and at
+   least 99% of each production N must succeed.
 
 The launch counters are set to 0 just before each path and read just after:
 each path must launch the kernels of its route and no other.  Any failed
@@ -71,6 +80,13 @@ ADMM_ERR_RATIO = 4.0
 # within ROUTE_TOL, equal status and equal SCP iteration count on at least
 # ROUTE_SHARE of the lanes.
 ROUTE_TOL, ROUTE_SHARE = 2e-2, 0.9
+# the batch CLI's outputs (schema 1.0)
+CLI_ROW_KEYS = ["N", "trial_index", "status", "time_sec", "error", "K", "T",
+                "h", "scp_iterations", "qp_iterations", "scp_status",
+                "goal_error_m", "seed"]
+CLI_CSV_COLUMNS = ["N", "trial_index", "status", "time_sec", "K", "T", "h",
+                   "error"]
+CLI_TRIALS, CLI_REF_TRIALS = 256, 64
 
 
 def _card_line() -> str:
@@ -92,6 +108,23 @@ def _time_ms(fn, reps: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters):
+    return {key: fn.launches for key, fn in counters.items()}
+
+
+def _check_route(what, launches, route):
+    """Each kernel of ``route`` launched, no other."""
+    for kname, n_launch in launches.items():
+        if (n_launch > 0) != (kname in route):
+            raise AssertionError(f"{what} launched {kname} {n_launch} times; "
+                                 f"its route is {sorted(route)}")
 
 
 def _problem(n_veh, facade=False, n_steps=K_STEPS):
@@ -599,6 +632,13 @@ def reference_phase(dev, n_veh, facade=False):
         raise AssertionError(f"card and CPU reference disagree: {err:.3e}")
 
 
+def _production_route(n_veh):
+    """The kernels of the production solver at N=n_veh, as the JAX router
+    routes: grouped sweeps up to N=21, the fused interval above."""
+    return ({"ns_chain", "admm_fused_x"} if n_veh >= 22
+            else {"ns_chain", "group_solve_x"})
+
+
 def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
     """``solve_compacted`` over B scenarios at the bench.py configuration
     (``latency``: with ``SolverConfig.latency()``, three 9-iteration
@@ -634,13 +674,12 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
     p0, pf = scenarios(100, B)
     v0 = torch.zeros_like(p0)
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     out = sh.solve_compacted(p0, v0, pf, v0, chunk=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {key: fn.launches for key, fn in counters.items()}
+    launches = _read(counters)
 
     K = problem.n_steps
     if tuple(out.positions.shape) != (B, n_veh, K, 2):
@@ -664,13 +703,7 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
           f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
           f"timing={json.dumps(sh.last_timing)} launches={launches}",
           flush=True)
-    # the route of the JAX router: grouped sweeps up to N=21, fused above
-    route = ({"ns_chain", "admm_fused_x"} if n_veh >= 22
-             else {"ns_chain", "group_solve_x"})
-    for kname, n_launch in launches.items():
-        if (n_launch > 0) != (kname in route):
-            raise AssertionError(f"N={n_veh} main path launched {kname} "
-                                 f"{n_launch} times; its route is {route}")
+    _check_route(f"N={n_veh} main path", launches, _production_route(n_veh))
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
     return launches
@@ -711,13 +744,12 @@ def facade_path(dev, card, route, counters):
     v0 = torch.zeros_like(sc.initial)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     out = eng.solve_batch(sc.initial, v0, sc.final, v0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {key: fn.launches for key, fn in counters.items()}
+    launches = _read(counters)
     if tuple(out.positions.shape) != (B, n_veh, K_STEPS, 2):
         raise AssertionError(f"positions shape {tuple(out.positions.shape)}")
     if not all(bool(torch.isfinite(t).all()) for t in out
@@ -734,35 +766,160 @@ def facade_path(dev, card, route, counters):
           f"qp_converged_all={int(out.qp_converged_all.sum())}/{B} "
           f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
           f"launches={launches}", flush=True)
-    for kname, n_launch in launches.items():
-        if (n_launch > 0) != (kname == kernel):
-            raise AssertionError(f"route {route} launched {kname} {n_launch} "
-                                 f"times; its kernel is {kernel}")
+    _check_route(f"route {route}", launches, {kernel})
     return out, launches
 
 
-def facade_call(dev, counters):
-    """One ``SCP(...).generate_trajectories()`` call, one scenario of
-    N=20, with the class's solver on its L-only sweep route."""
+def facade_call(counters):
+    """One ``SCP(...).generate_trajectories()`` call, one scenario of N=20,
+    through the single-scenario CLI with no device given (the card), the
+    class's solver on its L-only sweep route.  Returns the launch counts."""
     import numpy as np
-    import torch
-    from ba_path_planning_torch.scenarios.generator import (
-        generate_scenario_batch)
+    from ba_path_planning_torch.cli import compute_trajectories
     from ba_path_planning_torch.solvers.scp import SCP
-    sc = generate_scenario_batch(7, 1, n_vehicles=20, min_distance=R,
-                                 dtype=torch.float64, device="cpu")
-    scp = SCP(20, T_HORIZON, H, R, solver=_facade_solver(kernels=True))
-    scp.set_initial_states(sc.initial[0].numpy())
-    scp.set_final_states(sc.final[0].numpy())
-    before = counters["group_solve_l"].launches
-    traj = scp.generate_trajectories()
-    pos = traj["positions"]
+    planners = []
+    solve = SCP.generate_trajectories
+
+    def recording(self, *args, **kwargs):
+        planners.append(self)
+        return solve(self, *args, **kwargs)
+    SCP.generate_trajectories = recording
+    _zero(counters)
+    try:
+        rc = compute_trajectories.main(
+            ["--n-vehicles", "20", "--time-horizon", str(T_HORIZON),
+             "--no-viz", "--seed", "7"])
+    finally:
+        SCP.generate_trajectories = solve
+    launches = _read(counters)
+    if rc != 0 or len(planners) != 1:
+        raise AssertionError(f"compute_trajectories exited {rc}")
+    scp = planners[0]
+    pos = scp.trajectories["positions"]
     if pos.shape != (20, K_STEPS, 2) or not np.isfinite(pos).all() \
-            or counters["group_solve_l"].launches == before:
-        raise AssertionError("the SCP class did not run through its kernel")
-    print(f"SCP class: status={int(scp.result.status)} collision_free="
+            or scp._device.type != "cuda":
+        raise AssertionError("the SCP class gave no trajectory on the card")
+    _check_route("the SCP class", launches, {"group_solve_l"})
+    print(f"SCP class (compute_trajectories CLI): status="
+          f"{int(scp.result.status)} collision_free="
           f"{bool(scp.result.feasible_final)} qp_iters="
-          f"{int(scp.result.qp_iterations)}", flush=True)
+          f"{int(scp.result.qp_iterations)} launches={launches}", flush=True)
+    return launches
+
+
+def bench_phase(dev, counters):
+    """The bench twin at the size of its ``main()``: at least 99% of the
+    lanes ok, and the production route's kernels at N=20 (the NS chain and
+    the X-form sweep) the only ones launched.  Returns the launch counts."""
+    import re
+    from ba_path_planning_torch import bench
+    _zero(counters)
+    line, summary = bench.measure(bench.headline_problem(), batch=bench.BATCH,
+                                  chunk=bench.CHUNK, device=dev)
+    launches = _read(counters)
+    print(json.dumps(line), flush=True)
+    print(summary, flush=True)
+    print(f"bench twin launches={launches}", flush=True)
+    ok, batch = map(int, re.search(r" ok=(\d+)/(\d+) ", summary).groups())
+    if batch != bench.BATCH or ok < -(-99 * batch // 100):
+        raise AssertionError(f"bench twin: only {ok}/{batch} ok")
+    _check_route("the bench twin", launches, _production_route(20))
+    return launches
+
+
+def _batch_output(results_dir, ns, trials, min_success=None):
+    """The schema-1.0 JSON and CSV of one batch CLI run in ``results_dir``;
+    with ``min_success``, that share of each N's trials must succeed.
+    Returns the JSON's rows."""
+    import csv
+    import math
+    (js,), (cs,) = (sorted(results_dir.glob(f"scp_benchmark_*.{x}"))
+                    for x in ("json", "csv"))
+    doc = json.loads(js.read_text())
+    meta = doc["meta"]
+    if set(doc) != {"meta", "runs", "summary"} \
+            or meta["schema_version"] != "1.0" \
+            or meta["engine"] != "ba_path_planning_torch" \
+            or meta["timing_mode"] != "per_scenario_iter_weighted" \
+            or set(doc["summary"]) != {str(n) for n in ns}:
+        raise AssertionError(f"{js.name}: not the batch CLI's schema")
+    runs = doc["runs"]
+    if len(runs) != len(ns) * trials \
+            or any(list(r) != CLI_ROW_KEYS for r in runs) \
+            or not all(math.isfinite(r["time_sec"]) and r["time_sec"] >= 0
+                       for r in runs):
+        raise AssertionError(f"{js.name}: rows are not the batch CLI's")
+    with open(cs, newline="") as f:
+        reader = csv.DictReader(f)
+        if reader.fieldnames != CLI_CSV_COLUMNS or len(list(reader)) != \
+                len(runs):
+            raise AssertionError(f"{cs.name}: not the batch CLI's CSV")
+    for n in ns:
+        rows = [r for r in runs if r["N"] == n]
+        succ = sum(r["status"] == "success" for r in rows)
+        ms = 1e3 * sum(r["time_sec"] for r in rows) / trials
+        print(f"batch CLI {results_dir.name} N={n}: {succ}/{trials} success, "
+              f"amortized {ms:.3f} ms/solve, mean SCP iterations "
+              f"{sum(r['scp_iterations'] for r in rows) / trials:.3f}",
+              flush=True)
+        if min_success is not None and succ < math.ceil(min_success * trials):
+            raise AssertionError(f"batch CLI N={n}: only {succ}/{trials} "
+                                 "success")
+    return runs
+
+
+def batch_cli_phase(counters):
+    """The batch CLI with no device given (the card), in a temporary
+    directory: production at N=20 and 30, the same twice with
+    ``--resume-dir``, and ``--solver reference`` at N=20.  Returns the
+    launch counts, summed."""
+    import tempfile
+    from ba_path_planning_torch.cli import compute_trajectories_batch as cli
+    total = {}
+
+    def run(name, argv, route):
+        _zero(counters)
+        rc = cli.main(argv + ["--results-dir", str(tmp / name)])
+        launches = _read(counters)
+        print(f"batch CLI {name}: exit {rc} launches={launches}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"batch CLI {name} exited {rc}")
+        _check_route(f"batch CLI {name}", launches, route)
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+
+    prod = ["--ns", "20", "30", "--trials-per-n", str(CLI_TRIALS)]
+    prod_route = _production_route(20) | _production_route(30)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        run("production", prod, prod_route)
+        straight = _batch_output(tmp / "production", (20, 30), CLI_TRIALS,
+                                 min_success=0.99)
+        resume = prod + ["--resume-dir", str(tmp / "checkpoints")]
+        run("resumed", resume, prod_route)
+        first = _batch_output(tmp / "resumed", (20, 30), CLI_TRIALS,
+                              min_success=0.99)
+        chunks = {c: c.stat().st_mtime_ns
+                  for c in (tmp / "checkpoints").rglob("chunk_*.npz")}
+        run("resumed_again", resume, set())
+        again = _batch_output(tmp / "resumed_again", (20, 30), CLI_TRIALS)
+        if not chunks or chunks != {
+                c: c.stat().st_mtime_ns
+                for c in (tmp / "checkpoints").rglob("chunk_*.npz")}:
+            raise AssertionError("the resumed run saved a chunk again")
+        if again != first:
+            raise AssertionError("the resumed run gave other rows")
+        same = sum(a["status"] == b["status"]
+                   and a["scp_iterations"] == b["scp_iterations"]
+                   for a, b in zip(first, straight))
+        print(f"batch CLI: {len(chunks)} chunks saved once; the rerun gives "
+              f"the same rows; status and SCP iterations as the run without "
+              f"checkpoints on {same}/{len(first)} rows", flush=True)
+        run("reference", ["--solver", "reference", "--ns", "20",
+                          "--trials-per-n", str(CLI_REF_TRIALS)],
+            _production_route(20))
+        _batch_output(tmp / "reference", (20,), CLI_REF_TRIALS)
+    return total
 
 
 def facade_agreement(results):
@@ -881,8 +1038,12 @@ def main():
                                                     counters)
         add(path_launches)
     facade_agreement(results)
-    facade_call(dev, counters)
+    add(facade_call(counters))
     lap("reference-compatible paths")
+    add(bench_phase(dev, counters))
+    lap("bench twin")
+    add(batch_cli_phase(counters))
+    lap("batch CLI")
 
     pallas = "ba_path_planning_tpu/ops/pallas/"
     csrc = "ba_path_planning_torch/csrc/"
@@ -911,7 +1072,7 @@ def main():
         if len(replaces) > 1:
             entry["also_replaces"] = [pallas + r for r in replaces[1:]]
         if launches[key] < 1:
-            raise AssertionError(f"no main path launched {wrapper}")
+            raise AssertionError(f"no path launched {wrapper}")
         kernels.append(entry)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -19,6 +19,10 @@ iteration costs what it costs on the full path.
 ``SolverConfig.production()``: 2048 scenarios in chunks of 128, or 1024 in
 chunks of 512 up to N = 21), the whole solve.
 
+``--route latency``: the bench twin's p50 latency call
+(``ba_path_planning_torch.bench``): one scenario of ``-N`` vehicles solved
+by ``SCPEngine(problem, SolverConfig.latency()).solve``.
+
 Either is run three times untraced and once under ``torch.profiler``.  Prints
 the walls, the device-busy time (the sum of the kernel times: everything runs
 on one stream), the idle share under tracing, the launches, and the kernels
@@ -89,11 +93,36 @@ def production_solve(args):
             f"chunk={chunk} f32", solve)
 
 
+def latency_solve(args):
+    """(what is measured, the function measured) for one latency solve."""
+    import torch
+    import chip_smoke
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    from ba_path_planning_torch.utils.config import SolverConfig
+    n_veh = args.n_vehicles
+    eng = SCPEngine(chip_smoke._problem(n_veh), SolverConfig.latency(),
+                    dtype=torch.float32)
+    sc = generate_scenario_batch(50, 1, n_vehicles=n_veh,
+                                 min_distance=chip_smoke.R)
+    v0 = torch.zeros_like(sc.initial[0])
+
+    def solve():
+        out = eng.solve(sc.initial[0], v0, sc.final[0], v0)
+        return (f"status {int(out.status)}, SCP iterations "
+                f"{int(out.iterations)}, QP iterations "
+                f"{int(out.qp_iterations)}")
+    solve()                                  # library handles, allocator
+    return (f"latency solve N={n_veh} K={chip_smoke.K_STEPS} B=1 f32 "
+            "(SolverConfig.latency())", solve)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--route", default="grouped_L",
                     choices=("grouped_L", "resident", "fused_L",
-                             "production"))
+                             "production", "latency"))
     ap.add_argument("-N", "--n-vehicles", type=int, default=30,
                     help="vehicles of the production path")
     ap.add_argument("--batch", type=int, default=128)
@@ -110,8 +139,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke._card_line()
-    what, fn = (production_solve if args.route == "production"
-                else lform_step)(args)
+    what, fn = {"production": production_solve,
+                "latency": latency_solve}.get(args.route, lform_step)(args)
     torch.cuda.synchronize()
 
     def timed():
@@ -142,6 +171,15 @@ def main():
     for key, ms, count in rows[:args.top]:
         print(f"  {ms:10.3f} ms {100 * ms / busy:5.1f}%  x{count:<7d} "
               f"{key[:90]}")
+    # the host's side: operators by their own CPU time
+    host = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host.sort(key=lambda r: -r[1])
+    print(f"host operators: {sum(r[2] for r in host)} calls, self CPU time "
+          f"{sum(r[1] for r in host) / 1e3:.4f} s under tracing; the largest:")
+    for key, ms, count in host[:args.top]:
+        print(f"  {ms:10.3f} ms  x{count:<7d} {key[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The port runs where JAX is not installed: no module of
-``ba_path_planning_torch`` (nor ``chip_smoke.py``) may import it."""
+``ba_path_planning_torch`` (nor ``chip_smoke.py``) may import it.  Nor does
+that machine have matplotlib, and importing a module builds no kernel."""
 
 import re
 import subprocess
@@ -18,6 +19,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "ba_path_planning_tpu")))
 print("LOADED", bad)
+from ba_path_planning_torch.ops import cuda_build
+print("MATPLOTLIB", "matplotlib" in sys.modules)
+print("BUILT", cuda_build._lib is not None or bool(cuda_build.build_info))
 """
 
 
@@ -26,6 +30,20 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_importing_every_module_loads_no_matplotlib_and_builds_nothing():
+    """The package, its bench twin and every CLI import without matplotlib
+    and without a CUDA build: both come only when a function needs them."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for module in ("bench", "cli.compute_trajectories_batch",
+                   "cli.compute_trajectories", "cli.position_generator",
+                   "cli.boxplot", "viz.plots", "viz.boxplot"):
+        assert (PKG / (module.replace(".", "/") + ".py")).is_file(), module
+    assert "MATPLOTLIB False" in out.stdout, out.stdout
+    assert "BUILT False" in out.stdout, out.stdout
 
 
 def test_sources_do_not_import_jax():

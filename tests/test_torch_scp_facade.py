@@ -83,7 +83,7 @@ def test_facade_prints_and_guards(capsys):
     assert scp.initial_positions.shape == (6,)
     assert not scp.initial_velocities.any()
     for plot in (scp.visualize_trajectories, scp.visualize_time_snapshots):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="not generated yet"):
             plot()
 
 
