@@ -97,7 +97,8 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
                     const float* __restrict__ rho_s,
                     const float* __restrict__ rho_c, float* x, float* zs,
                     float* ys, float* zc, float* yc, float* plane, int K,
-                    int N, int n_iters, int band_rows, int stages) {
+                    int N, int n_iters, int band_rows, int stages,
+                    int rho_s_stride, int rho_c_stride) {
   extern __shared__ float4 smem4[];
   const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -138,7 +139,9 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
   const size_t so = static_cast<size_t>(b) * K * 6 * n2;
   const size_t co = static_cast<size_t>(b) * K * P;
   const admm_rows::Scenario sc{
-      eta + 2 * co, l_s + so, u_s + so, l_c + co, rho_s, rho_c,
+      eta + 2 * co, l_s + so, u_s + so, l_c + co,
+      rho_s + static_cast<size_t>(b) * rho_s_stride,
+      rho_c + static_cast<size_t>(b) * rho_c_stride,
       x + static_cast<size_t>(b) * K * n, zs + so, ys + so, zc + co, yc + co,
       fpar[0], fpar[1], fpar[2], fpar[3], K, N};
   const int warp = tid >> 5, nwarps = kConsumers / 32;
@@ -202,20 +205,23 @@ extern "C" {
 // diagonal factors, lower triangular (what lies above the diagonal is not
 // read); Eb (B, K-1, 6N, 6N) off-diagonal factors;
 // eta (B, K, P, 2); l_s, u_s (B, K, 6, 2N) static-row bounds; l_c (B, K, P)
-// collision lower bounds; rho_s (K, 6) and rho_c (K, P) batch-shared rho;
-// x (B, K, 6N), zs, ys (B, K, 6, 2N) and zc, yc (B, K, P) are read and
-// updated in place; plane (B, K, 6N) is the scratch of the sweep plane, or
-// null where the plan keeps the plane in shared memory; (band_rows, stages)
-// is the ring of the plan (ops/admm_fused.py fused_plan).  All float32,
-// contiguous, the factors 16-byte aligned.  Serves 6N <= 896.  Returns the
-// CUDA error code of the launch, or cudaErrorInvalidValue for arguments it
-// cannot serve.
+// collision lower bounds; rho_s (K, 6) and rho_c (K, P) the rho of the
+// first scenario, the others' at `rho_s_stride` and `rho_c_stride` floats
+// apart (0: batch-shared; K * 6 and K * P: per-lane planes (B, K, 6) and
+// (B, K, P), adaptive rho); x (B, K, 6N), zs, ys (B, K, 6, 2N) and zc, yc
+// (B, K, P) are read and updated in place; plane (B, K, 6N) is the scratch
+// of the sweep plane, or null where the plan keeps the plane in shared
+// memory; (band_rows, stages) is the ring of the plan (ops/admm_fused.py
+// fused_plan).  All float32, contiguous, the factors 16-byte aligned.
+// Serves 6N <= 896.  Returns the CUDA error code of the launch, or
+// cudaErrorInvalidValue for arguments it cannot serve.
 int admm_fused_l_f32(const float* fpar, const float* Linv, const float* Eb,
                      const float* eta, const float* l_s, const float* u_s,
                      const float* l_c, const float* rho_s, const float* rho_c,
                      float* x, float* zs, float* ys, float* zc, float* yc,
                      float* plane, int B, int K, int N, int n_iters,
-                     int band_rows, int stages, cudaStream_t stream) {
+                     int band_rows, int stages, int rho_s_stride,
+                     int rho_c_stride, cudaStream_t stream) {
   const long smem = admm_fused::plan_smem(B, K, N, n_iters, band_rows, stages,
                                           plane == nullptr, false, false);
   const bool narrow = 6 * N <= 8 * kNarrowOctets * (kConsumers / 32);
@@ -228,7 +234,7 @@ int admm_fused_l_f32(const float* fpar, const float* Linv, const float* Eb,
   if (err != 0) return err;
   kernel<<<B, kThreads, smem, stream>>>(
       fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
-      plane, K, N, n_iters, band_rows, stages);
+      plane, K, N, n_iters, band_rows, stages, rho_s_stride, rho_c_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -164,7 +164,8 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
                     const float* __restrict__ rho_s,
                     const float* __restrict__ rho_c, float* x, float* zs,
                     float* ys, float* zc, float* yc, float* plane, int K,
-                    int N, int n_iters, int band_rows, int stages) {
+                    int N, int n_iters, int band_rows, int stages,
+                    int rho_s_stride, int rho_c_stride, int c9_stride) {
   extern __shared__ float4 smem4[];
   const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
   const int R = static_cast<int>(admm_fused::ring_width(n, kPacked));
@@ -232,7 +233,9 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
   const size_t so = static_cast<size_t>(b) * K * 6 * n2;
   const size_t co = static_cast<size_t>(b) * K * P;
   const admm_rows::Scenario sc{
-      eta + 2 * co, l_s + so, u_s + so, l_c + co, rho_s, rho_c,
+      eta + 2 * co, l_s + so, u_s + so, l_c + co,
+      rho_s + static_cast<size_t>(b) * rho_s_stride,
+      rho_c + static_cast<size_t>(b) * rho_c_stride,
       x + static_cast<size_t>(b) * K * n, zs + so, ys + so, zc + co, yc + co,
       fpar[0], fpar[1], fpar[2], fpar[3], K, N};
   const int warp = tid >> 5, lane = tid & 31;
@@ -268,7 +271,8 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
   };
 
   admm_rows::fill_pair_table(pi, pj, N, tid, kConsumers);
-  for (int i = tid; i < (K - 1) * 9; i += kConsumers) c9s[i] = C9[i];
+  const float* C9b = C9 + static_cast<size_t>(b) * c9_stride;
+  for (int i = tid; i < (K - 1) * 9; i += kConsumers) c9s[i] = C9b[i];
 
   for (int it = 0; it < n_iters; ++it) {
     admm_rows::build_rhs(sc, xt, tid, kConsumers);
@@ -307,11 +311,15 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
 extern "C" {
 
 // fpar (4,) = h, sigma, alpha, col_penalty; C9 (K-1, 9) upper-triangular
-// slot scalars; X the symmetric block inverses: (B, K, 6N, 6N) whole, or,
-// where `packed` is 1 (6N <= 512 only), their packed upper triangles
+// slot scalars of the first scenario, the others' `c9_stride` floats apart
+// (0: batch-shared; 9 (K - 1): one set a lane, adaptive rho); X the
+// symmetric block inverses: (B, K, 6N, 6N) whole, or, where `packed` is 1
+// (6N <= 512 only), their packed upper triangles
 // (B, K, T) of ops/admm_fused.py pack_upper; eta (B, K, P, 2); l_s, u_s
 // (B, K, 6, 2N) static-row bounds; l_c (B, K, P) collision lower bounds;
-// rho_s (K, 6) and rho_c (K, P) batch-shared rho; x (B, K, 6N), zs, ys
+// rho_s (K, 6) and rho_c (K, P) the rho of the first scenario, the others'
+// at `rho_s_stride` and `rho_c_stride` floats apart (0: batch-shared; K * 6
+// and K * P: per-lane planes, adaptive rho); x (B, K, 6N), zs, ys
 // (B, K, 6, 2N) and zc, yc (B, K, P) are read and updated in place; plane
 // (B, K, 6N) is the scratch of the sweep plane, or null where the plan
 // keeps the plane in shared memory; (band_rows, stages) is the ring of the
@@ -324,6 +332,7 @@ int admm_fused_x_f32(const float* fpar, const float* C9, const float* X,
                      float* x, float* zs, float* ys, float* zc, float* yc,
                      float* plane, int B, int K, int N, int n_iters,
                      int band_rows, int stages, int packed,
+                     int rho_s_stride, int rho_c_stride, int c9_stride,
                      cudaStream_t stream) {
   const long smem = admm_fused::plan_smem(B, K, N, n_iters, band_rows, stages,
                                           plane == nullptr, packed != 0,
@@ -336,7 +345,8 @@ int admm_fused_x_f32(const float* fpar, const float* C9, const float* X,
   if (err != 0) return err;
   kernel<<<B, kThreads, smem, stream>>>(
       fpar, C9, X, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc, plane,
-      K, N, n_iters, band_rows, stages);
+      K, N, n_iters, band_rows, stages, rho_s_stride, rho_c_stride,
+      c9_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

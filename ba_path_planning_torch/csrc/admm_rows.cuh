@@ -32,8 +32,8 @@ struct Scenario {
   const float* __restrict__ lsb;      // static lower bounds (K, 6, 2N)
   const float* __restrict__ usb;      // static upper bounds
   const float* __restrict__ lcb;      // collision lower bounds (K, P)
-  const float* __restrict__ rho_s;    // (K, 6) batch-shared
-  const float* __restrict__ rho_c;    // (K, P) batch-shared
+  const float* __restrict__ rho_s;    // (K, 6) this scenario's rho
+  const float* __restrict__ rho_c;    // (K, P)
   float* xb;             // x (K, 6N)
   float* zsb;            // z, y static rows (K, 6, 2N)
   float* ysb;

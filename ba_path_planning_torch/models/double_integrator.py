@@ -1,6 +1,6 @@
-"""Double-integrator vehicle model: closed-form terminal state, the exact
-goal projection and the reachability screen (counterpart of
-``ba_path_planning_tpu.models.double_integrator``)."""
+"""Double-integrator vehicle model: the dense operator matrices, the
+closed-form terminal state, the exact goal projection and the reachability
+screen (counterpart of ``ba_path_planning_tpu.models.double_integrator``)."""
 
 from __future__ import annotations
 
@@ -15,6 +15,34 @@ class DoubleIntegrator2D:
     """2-axis double integrator with timestep ``time_step`` over ``n_steps``."""
     n_steps: int
     time_step: float
+
+    # ---- dense operator forms (K x K float64 arrays), for the CG method's
+    # preconditioner and the matmul operators
+
+    def velocity_matrix(self) -> np.ndarray:
+        """L with velocity row k = h * sum_{j<=k} a[j]."""
+        K = self.n_steps
+        return self.time_step * np.tril(np.ones((K, K)))
+
+    def position_matrix(self) -> np.ndarray:
+        """S with position row k = sum_{j<=k} h^2 (k - j + 0.5) a[j]."""
+        K, h = self.n_steps, self.time_step
+        k, j = np.indices((K, K))
+        return np.where(j <= k, h * h * (k - j + 0.5), 0.0)
+
+    def rollout_position_matrix(self) -> np.ndarray:
+        """W with p~[k] = sum_{j<k} h^2 (k - j - 0.5) a[j] (zero row 0)."""
+        K, h = self.n_steps, self.time_step
+        k, j = np.indices((K, K))
+        return np.where(j < k, h * h * (k - j - 0.5), 0.0)
+
+    def jerk_matrix(self) -> np.ndarray:
+        """First-difference operator scaled by 1/h, (K-1) x K."""
+        K, h = self.n_steps, self.time_step
+        J = np.zeros((K - 1, K))
+        J[np.arange(K - 1), np.arange(K - 1)] = -1.0 / h
+        J[np.arange(K - 1), np.arange(1, K)] = 1.0 / h
+        return J
 
     def terminal_state(self, positions, velocities, accelerations):
         """(p[K], v[K]) one step past the last rollout index.

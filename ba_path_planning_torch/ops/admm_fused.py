@@ -172,19 +172,23 @@ def planes_to_rows(static, col, n_vehicles: int) -> RowVals:
 
 
 def rho_planes(rho: RowVals, n_steps: int, n_pairs: int):
-    """Batch-shared rho from :func:`banded.rho_pattern_masks` -> (K, 6)
-    per-(k, slot) scalars (the jerk row K-1 is padding) and (K, P)."""
+    """Rho from :func:`banded.rho_pattern_masks` -> per-(k, slot) scalars
+    (K, 6) (the jerk row K-1 is padding) and (K, P), batch-shared, or
+    (B, K, 6) and (B, K, P), one plane a lane, from per-lane leaves
+    (B, 1, K', 1) (adaptive rho)."""
     cols = []
     for name in SLOTS:
         leaf = getattr(rho, name)
-        if leaf.dim() != 2 or leaf.shape[-1] != 1:
+        if leaf.dim() == 4 and leaf.shape[1] == 1:
+            leaf = leaf[:, 0]
+        if leaf.dim() not in (2, 3) or leaf.shape[-1] != 1:
             raise ValueError(
-                "the fused ADMM kernels need batch-shared (K', 1) rho leaves "
-                "(banded.rho_pattern_masks)")
-        cols.append(F.pad(leaf, (0, 0, 0, n_steps - leaf.shape[0]),
+                "the fused ADMM kernels need (K', 1) or (B, 1, K', 1) rho "
+                "leaves (banded.rho_pattern_masks)")
+        cols.append(F.pad(leaf, (0, 0, 0, n_steps - leaf.shape[-2]),
                           value=1.0))
-    rho_c = rho.col.expand(n_steps, n_pairs).contiguous()
-    return torch.cat(cols, dim=-1).contiguous(), rho_c
+    rho_c = rho.col.expand(cols[0].shape[:-2] + (n_steps, n_pairs))
+    return torch.cat(cols, dim=-1).contiguous(), rho_c.contiguous()
 
 
 def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
@@ -209,6 +213,13 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
               for t in (z.col, y.col))
     xs = to_stacked(x)
     rho_s, rho_c = rho_planes(rho, K, P)
+    C = factors.get("C")
+    # floats between two lanes' rho planes and slot scalars: 0 where they
+    # are batch-shared
+    strides = [t.shape[-2] * t.shape[-1] if t.dim() == 3 else 0
+               for t in (rho_s, rho_c)]
+    if x_form:
+        strides.append(9 * (K - 1) if C.dim() == 4 else 0)
     fpar = torch.stack([torch.as_tensor(v, dtype=eta.dtype, device=eta.device)
                         .reshape(()) for v in (h, sigma, alpha, lam)])
     tensors = dict(fpar=fpar, **factors, eta=eta,
@@ -217,8 +228,10 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
                    zs=zs, ys=ys, zc=zc, yc=yc)
     require_f32_cuda(what, **tensors)
     sp, cp = (B, K, 6, 2 * N), (B, K, P)
-    for name, want in dict(l_s=sp, u_s=sp, l_c=cp, x=(B, K, n), zs=sp, ys=sp,
-                           zc=cp, yc=cp).items():
+    shapes = dict(l_s=sp, u_s=sp, l_c=cp, x=(B, K, n), zs=sp, ys=sp, zc=cp,
+                  yc=cp, rho_s=(B, K, 6) if strides[0] else (K, 6),
+                  rho_c=cp if strides[1] else (K, P))
+    for name, want in shapes.items():
         if tensors[name].shape != want:
             raise ValueError(f"{what}: {name} is "
                              f"{tuple(tensors[name].shape)}, not {want}")
@@ -231,7 +244,7 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
             *(t.data_ptr() for t in tensors.values()),
             None if plane is None else plane.data_ptr(), B, K, N,
             int(n_iters), plan.band_rows, plan.stages,
-            *([int(plan.packed)] if x_form else []),
+            *([int(plan.packed)] if x_form else []), *strides,
             torch.cuda.current_stream(eta.device).cuda_stream)
     check(err, what)
     wrapper.launches += 1
@@ -266,12 +279,14 @@ def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
     """``n_iters`` ADMM iterations for a batch, returning the new (x, z, y).
 
     X (B, K, 6N, 6N) symmetric block inverses and C (K-1, 3, 3) shared slot
-    scalars from ``banded.factorize_X``; eta (B, K, P, 2) and E (N, P) the
+    scalars from ``banded.factorize_X``, or (B, K-1, 3, 3) one set a lane
+    (adaptive rho); eta (B, K, P, 2) and E (N, P) the
     collision directions and the pair incidence (``triu_indices`` order);
     lower/upper the row bounds (``upper.col`` is not read: the collision
     rows have the exact-penalty prox with weight ``lam``, which may be
-    +inf for hard rows); x, z, y the ADMM state; rho the batch-shared rho of
-    ``banded.rho_pattern_masks``; ``step`` the keywords h, sigma, alpha, lam
+    +inf for hard rows); x, z, y the ADMM state; rho from
+    ``banded.rho_pattern_masks``, batch-shared or one rho a lane
+    (:func:`rho_planes`); ``step`` the keywords h, sigma, alpha, lam
     and n_iters.  CUDA tensors launch the kernel (float32, X, C and eta
     contiguous; anything else raises); CPU tensors run the plain version.
     The inputs are not modified."""
@@ -280,7 +295,8 @@ def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
                                            y, rho, **step)
     B, K, n = X.shape[:3]
     N, P = E.shape
-    if (X.shape != (B, K, n, n) or n != 6 * N or C.shape != (K - 1, 3, 3)
+    if (X.shape != (B, K, n, n) or n != 6 * N
+            or C.shape not in ((K - 1, 3, 3), (B, K - 1, 3, 3))
             or eta.shape != (B, K, P, 2) or P != N * (N - 1) // 2):
         raise ValueError(
             f"admm_interval_fused_X: unsupported shapes X {tuple(X.shape)}, "

@@ -98,6 +98,31 @@ def linearize(prev_positions: torch.Tensor, pairs: PairIndex,
     return eta, safe_dist
 
 
+def collision_lower_bounds(eta: torch.Tensor, dist: torch.Tensor,
+                           prev_positions: torch.Tensor, p0: torch.Tensor,
+                           v0: torch.Tensor, pairs: PairIndex, *, h: float,
+                           min_distance) -> torch.Tensor:
+    """Right-hand side of each collision row of the acceleration-space QP
+    (the CG method), (..., K, P):
+
+        l[k,p] = R + (eta . dprev - dist) - eta . (p0_i - p0_j)
+                 - k h eta . (v0_i - v0_j)
+
+    eta, dist (..., K, P(, 2)); prev_positions (..., N, K, 2); p0, v0
+    (..., N, 2).  The upper bounds are +inf."""
+    dprev = pairwise_diffs(prev_positions, pairs)
+    lin_term = torch.sum(eta * dprev, dim=-1) - dist
+    dp0 = (torch.index_select(p0, -2, pairs.i_idx)
+           - torch.index_select(p0, -2, pairs.j_idx))
+    dv0 = (torch.index_select(v0, -2, pairs.i_idx)
+           - torch.index_select(v0, -2, pairs.j_idx))
+    pos_contrib = torch.sum(eta * dp0[..., None, :, :], dim=-1)
+    vel_contrib = torch.sum(eta * dv0[..., None, :, :], dim=-1)
+    K = eta.shape[-3]
+    k_idx = torch.arange(K, dtype=eta.dtype, device=eta.device).reshape(K, 1)
+    return min_distance + lin_term - pos_contrib - h * k_idx * vel_contrib
+
+
 def check_feasible(positions: torch.Tensor, pairs: PairIndex,
                    min_distance: float) -> torch.Tensor:
     """True iff every pairwise distance is >= R - 0.01 at every timestep:

@@ -97,9 +97,9 @@ def load_kernels() -> ctypes.CDLL:
                   lib.banded_solve_f32):
         sweep.argtypes = [p, p, p, p] + [i] * 6 + [p]
         sweep.restype = i
-    # the X form also takes the plan's packed flag
-    lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 7 + [p]
-    lib.admm_fused_l_f32.argtypes = [p] * 15 + [i] * 6 + [p]
+    # the X form also takes the plan's packed flag and a slot-scalar stride
+    lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 10 + [p]
+    lib.admm_fused_l_f32.argtypes = [p] * 15 + [i] * 8 + [p]
     for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32):
         fused.restype = i
     _lib = lib

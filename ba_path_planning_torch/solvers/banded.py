@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..ops.collisions import PairIndex, pairwise_diffs
 from ..utils.config import SolverParams, SolverStatic
+from ..utils.graphs import graphed
 
 _LOOSE_RHO = 1e-6   # rho on disabled (+-inf) rows; OSQP's RHO_MIN
 
@@ -70,7 +71,8 @@ def tree_map(f, *ts):
 
 
 def lane_mask(mask, t):
-    """A per-lane mask (B,), shaped to broadcast against ``t`` (B, ...)."""
+    """A per-lane mask or scalar (B,), shaped to broadcast against ``t``
+    (B, ...)."""
     return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
 
 
@@ -206,10 +208,18 @@ def rho_pattern_masks(scaling: RowVals, static: SolverStatic, rho, col_boost,
                       dtype=torch.float32) -> RowVals:
     """Per-row rho from the structural equality pattern: dynamics rows are
     equalities, vbox/pbox rows are equalities at k = K-1, jerk/acc never.
-    Batch-independent; leaves are (K, 1) columns, (K, P) for collisions."""
+    A scalar ``rho`` gives batch-shared leaves, (K, 1) columns and (K, P)
+    for collisions; a per-lane rho (B,) (adaptive rho) gives (B, 1, K, 1),
+    which broadcast against the (B, N, K, 2) rows, and (B, K, P)."""
     K = n_steps
     dev = scaling.acc.device
     rho = torch.as_tensor(rho, dtype=dtype, device=dev)
+    batch = tuple(rho.shape)
+    if batch:
+        rho_col = rho.reshape(batch + (1, 1))
+        rho = rho.reshape(batch + (1, 1, 1))
+    else:
+        rho_col = rho
     eq = static.rho_eq_scale * rho
     box_r = rho
     is_term = (torch.arange(K, device=dev) == K - 1).reshape(K, 1)
@@ -217,17 +227,17 @@ def rho_pattern_masks(scaling: RowVals, static: SolverStatic, rho, col_boost,
     pbox = torch.where(is_term, eq, box_r) * scaling.pbox * scaling.pbox
     loose = torch.tensor(_LOOSE_RHO, dtype=dtype, device=dev)
     if col_enabled:
-        col = col_boost * box_r * scaling.col * scaling.col
+        col = col_boost * rho_col * scaling.col * scaling.col
         col = torch.where((torch.arange(K, device=dev) == 0).reshape(K, 1),
                           loose, col)
     else:
-        col = loose.expand(K, 1)
+        col = loose.expand(batch + (K, 1))
     return RowVals(
         dyn_p=eq * scaling.dyn_p * scaling.dyn_p,
         dyn_v=eq * scaling.dyn_v * scaling.dyn_v,
         jerk=box_r * scaling.jerk * scaling.jerk,
         acc=box_r * scaling.acc * scaling.acc,
-        vbox=vbox, pbox=pbox, col=col.expand(K, n_pairs))
+        vbox=vbox, pbox=pbox, col=col.expand(batch + (K, n_pairs)))
 
 
 # ---------------------------------------------------------------------------
@@ -235,13 +245,15 @@ def rho_pattern_masks(scaling: RowVals, static: SolverStatic, rho, col_boost,
 # ---------------------------------------------------------------------------
 
 def _per_k(leaf) -> torch.Tensor:
-    """Per-k scalar rho from a (K', 1) leaf."""
-    return leaf[:, 0]
+    """Per-k scalar rho from a (K', 1) leaf, or (B, K') from a per-lane
+    (B, 1, K', 1) one."""
+    return leaf[..., 0] if leaf.dim() == 2 else leaf[:, 0, :, 0]
 
 
 def _tridiag_scalars(rho: RowVals, *, h: float, sigma) -> dict:
     """The per-k scalars of the (a, p, v)-slot 3x3 coupling pattern: every
-    static row acts identically on all 2N (vehicle, axis) channels."""
+    static row acts identically on all 2N (vehicle, axis) channels.  Each
+    is (..., K) or (..., K-1), with the batch axes of the rho leaves."""
     h2 = h * h
     rdp = _per_k(rho.dyn_p)
     rdv = _per_k(rho.dyn_v)
@@ -249,11 +261,12 @@ def _tridiag_scalars(rho: RowVals, *, h: float, sigma) -> dict:
     ra = _per_k(rho.acc)
     rv = _per_k(rho.vbox)
     rp = _per_k(rho.pbox)
-    zero = torch.zeros(1, dtype=rdp.dtype, device=rdp.device)
-    rdp_next = torch.cat([rdp[1:], zero])
-    rdv_next = torch.cat([rdv[1:], zero])
-    rj_prev = torch.cat([zero, rj])
-    rj_here = torch.cat([rj, zero])
+    zero = torch.zeros(rdp.shape[:-1] + (1,), dtype=rdp.dtype,
+                       device=rdp.device)
+    rdp_next = torch.cat([rdp[..., 1:], zero], dim=-1)
+    rdv_next = torch.cat([rdv[..., 1:], zero], dim=-1)
+    rj_prev = torch.cat([zero, rj], dim=-1)
+    rj_here = torch.cat([rj, zero], dim=-1)
     return dict(
         aa=2.0 + sigma + rdp * (0.25 * h2 * h2) + rdv * h2 + ra
         + (rj_here + rj_prev) / h2,
@@ -264,16 +277,27 @@ def _tridiag_scalars(rho: RowVals, *, h: float, sigma) -> dict:
         pv=h * rdp_next,
         # B_k entries (rows u_k, cols u_{k-1}), k = 1..K-1
         aa_b=-rj / h2,
-        ap_pk=0.5 * h2 * rdp[1:],
-        av_bk=0.5 * h2 * h * rdp[1:] + h * rdv[1:],
-        pp_b=-rdp[1:],
-        pv_b=-h * rdp[1:],
-        vv_b=-rdv[1:],
+        ap_pk=0.5 * h2 * rdp[..., 1:],
+        av_bk=0.5 * h2 * h * rdp[..., 1:] + h * rdv[..., 1:],
+        pp_b=-rdp[..., 1:],
+        pv_b=-h * rdp[..., 1:],
+        vv_b=-rdv[..., 1:],
     )
 
 
+def unit_slot_scalars(static: SolverStatic, *, n_steps: int, h: float,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    """The slot scalars C (K-1, 3, 3) of rho = 1.  C is linear in rho (the
+    off-diagonal blocks come from A^T rho A alone), so those of any rho are
+    rho times these."""
+    scaling = row_scaling_state(n_steps, h, dtype=dtype, device=device)
+    rho = rho_pattern_masks(scaling, static, 1.0, 1.0, n_steps=n_steps,
+                            n_pairs=1, col_enabled=False, dtype=dtype)
+    return b_slot_mats(_tridiag_scalars(rho, h=h, sigma=0.0))
+
+
 def b_slot_mats(s: dict) -> torch.Tensor:
-    """The off-diagonal blocks B_k = C_k (x) I_2N as (K-1, 3, 3) slot
+    """The off-diagonal blocks B_k = C_k (x) I_2N as (..., K-1, 3, 3) slot
     scalars C_k (upper triangular)."""
     z = torch.zeros_like(s["aa_b"])
     return torch.stack([
@@ -285,7 +309,8 @@ def b_slot_mats(s: dict) -> torch.Tensor:
 
 def assemble_channel(rho: RowVals, *, h: float, sigma):
     """Collision-free normal blocks in per-channel form: D (K, 3, 3) and
-    B (K-1, 3, 3), shared by every channel and every scenario."""
+    B (K-1, 3, 3), shared by every channel and, for a batch-shared rho,
+    every scenario (else with the batch axes of the rho leaves)."""
     s = _tridiag_scalars(rho, h=h, sigma=sigma)
     D = torch.stack([
         torch.stack([s["aa"], s["ap"], s["av"]], dim=-1),
@@ -348,25 +373,30 @@ def solve_factorized(Linv, Eb, b):
 
 def solve_factorized_channel(Linv, Eb, b):
     """Channel-shared banded solve.  Linv (K, 3, 3), Eb (K-1, 3, 3) shared
-    factors; b (..., K, 3, C) with C channel columns.  Returns (..., K, 3, C).
+    factors, or (B, K, 3, 3) and (B, K-1, 3, 3) per lane; b (..., K, 3, C)
+    with C channel columns.  Returns (..., K, 3, C).
 
         y_k = Linv_k (b_k - E_k y_{k-1});  x_k = Linv_k^T (y_k - E_{k+1}^T x_{k+1})
     """
-    K = Linv.shape[0]
+    K = Linv.shape[-3]
+    m = 'ij' if Linv.dim() == 3 else '...ij'
+    mt = 'ji' if Linv.dim() == 3 else '...ji'
 
     def mv(M, t):
-        return torch.einsum('ij,...jc->...ic', M, t)
+        return torch.einsum(f'{m},...jc->...ic', M, t)
 
     def mv_t(M, t):
-        return torch.einsum('ji,...jc->...ic', M, t)
+        return torch.einsum(f'{mt},...jc->...ic', M, t)
 
-    y = [mv(Linv[0], b[..., 0, :, :])]
+    y = [mv(Linv[..., 0, :, :], b[..., 0, :, :])]
     for k in range(1, K):
-        y.append(mv(Linv[k], b[..., k, :, :] - mv(Eb[k - 1], y[-1])))
+        y.append(mv(Linv[..., k, :, :],
+                    b[..., k, :, :] - mv(Eb[..., k - 1, :, :], y[-1])))
     x = [None] * K
-    x[K - 1] = mv_t(Linv[K - 1], y[K - 1])
+    x[K - 1] = mv_t(Linv[..., K - 1, :, :], y[K - 1])
     for k in range(K - 2, -1, -1):
-        x[k] = mv_t(Linv[k], y[k] - mv_t(Eb[k], x[k + 1]))
+        x[k] = mv_t(Linv[..., k, :, :],
+                    y[k] - mv_t(Eb[..., k, :, :], x[k + 1]))
     return torch.stack(x, dim=-3)
 
 
@@ -397,17 +427,19 @@ def from_stacked(x: torch.Tensor, n_vehicles: int) -> StateVars:
 # ---------------------------------------------------------------------------
 
 def _slot_diag(n6, n2, sr, sc, vals_k):
-    """(K,) scalars -> (K, n6, n6) with vals on the (sr, sc) slot diagonal."""
-    K = vals_k.shape[0]
-    out = torch.zeros((K, n6, n6), dtype=vals_k.dtype, device=vals_k.device)
+    """(..., K) scalars -> (..., K, n6, n6) with vals on the (sr, sc) slot
+    diagonal."""
+    out = torch.zeros(vals_k.shape + (n6, n6), dtype=vals_k.dtype,
+                      device=vals_k.device)
     idx = torch.arange(n2, device=vals_k.device)
-    out[:, sr * n2 + idx, sc * n2 + idx] = vals_k[:, None]
+    out[..., sr * n2 + idx, sc * n2 + idx] = vals_k[..., None]
     return out
 
 
 def assemble_skeleton(rho: RowVals, *, h: float, sigma, n_vehicles: int):
     """Collision-free diagonal blocks D (K, 6N, 6N), shared by every
-    scenario, and the slot scalars they came from."""
+    scenario for a batch-shared rho (else with the batch axes of the rho
+    leaves), and the slot scalars they came from."""
     n2, n6 = 2 * n_vehicles, 6 * n_vehicles
     s = _tridiag_scalars(rho, h=h, sigma=sigma)
     D = (_slot_diag(n6, n2, 0, 0, s["aa"]) + _slot_diag(n6, n2, 1, 1, s["pp"])
@@ -434,27 +466,28 @@ def collision_blocks(rho_col, eta, E) -> torch.Tensor:
 
 def assemble_D(rho: RowVals, eta, E, *, h: float, sigma, n_vehicles: int):
     """Diagonal blocks D (..., K, 6N, 6N) and slot-scalar off-diagonals
-    C (K-1, 3, 3)."""
+    C (K-1, 3, 3), or (B, K-1, 3, 3) for a per-lane rho."""
     n2 = 2 * n_vehicles
     D0, s = assemble_skeleton(rho, h=h, sigma=sigma, n_vehicles=n_vehicles)
     colM = collision_blocks(rho.col, eta, E)
-    D = D0.expand(colM.shape[:-3] + D0.shape).clone()
+    D = D0.expand(colM.shape[:-3] + D0.shape[-3:]).clone()
     D[..., n2:2 * n2, n2:2 * n2] += colM
     return D, b_slot_mats(s)
 
 
 def slot_dense(C, n2: int) -> torch.Tensor:
-    """Slot scalars C (K-1, 3, 3) as the dense blocks C_k (x) I_n2,
-    (K-1, 3 n2, 3 n2)."""
+    """Slot scalars C (..., K-1, 3, 3) as the dense blocks C_k (x) I_n2,
+    (..., K-1, 3 n2, 3 n2)."""
     eye = torch.eye(n2, dtype=C.dtype, device=C.device)
-    return torch.einsum('kst,ij->ksitj', C, eye).reshape(-1, 3 * n2, 3 * n2)
+    return torch.einsum('...kst,ij->...ksitj', C, eye).reshape(
+        C.shape[:-2] + (3 * n2, 3 * n2))
 
 
 def assemble_blocks(rho: RowVals, eta, E, *, h: float, sigma,
                     n_vehicles: int):
     """Diagonal blocks D (..., K, 6N, 6N) and the dense off-diagonal blocks
-    B_k = C_k (x) I_2N as (K-1, 6N, 6N), shared by every scenario (the
-    collision rows touch only D)."""
+    B_k = C_k (x) I_2N as (K-1, 6N, 6N), shared by every scenario for a
+    batch-shared rho (the collision rows touch only D)."""
     D, C = assemble_D(rho, eta, E, h=h, sigma=sigma, n_vehicles=n_vehicles)
     return D, slot_dense(C, 2 * n_vehicles)
 
@@ -468,10 +501,12 @@ def slot_apply(C3, M):
 
 
 def slot_apply_vec(C3, w):
-    """(C (x) I) w for a stacked vector w (..., n) and a shared (3, 3) C."""
+    """(C (x) I) w for a stacked vector w (..., n) and a shared (3, 3) C, or
+    one C a lane (B, 3, 3) for w (B, n)."""
     n = w.shape[-1]
     w3 = w.reshape(w.shape[:-1] + (3, n // 3))
-    return torch.einsum('st,...tc->...sc', C3, w3).reshape(w.shape)
+    m = 'st' if C3.dim() == 2 else '...st'
+    return torch.einsum(f'{m},...tc->...sc', C3, w3).reshape(w.shape)
 
 
 def bxbt(C3, X):
@@ -528,7 +563,8 @@ def factorize_X(D, C, *, ns_iters: int = 0, ns_anchor: int = 0):
 
 def solve_factorized_X(X, C, b):
     """Solve M x = b from the X-form factors X (..., K, n, n) and the shared
-    slot scalars C (K-1, 3, 3); b (..., K, n).
+    slot scalars C (K-1, 3, 3), or one set a lane (B, K-1, 3, 3) for
+    X (B, K, n, n); b (..., K, n).
 
         w_k = X_k (b_k - B_k w_{k-1})
         x_{K-1} = w_{K-1};   x_k = w_k - X_k (B_{k+1}^T x_{k+1})
@@ -537,12 +573,181 @@ def solve_factorized_X(X, C, b):
     w = [_mv(X[..., 0, :, :], b[..., 0, :])]
     for k in range(1, K):
         w.append(_mv(X[..., k, :, :],
-                     b[..., k, :] - slot_apply_vec(C[k - 1], w[-1])))
+                     b[..., k, :] - slot_apply_vec(C[..., k - 1, :, :],
+                                                   w[-1])))
     x = [None] * K
     x[K - 1] = w[K - 1]
     for k in range(K - 2, -1, -1):
-        x[k] = w[k] - _mv(X[..., k, :, :], slot_apply_vec(C[k].mT, x[k + 1]))
+        x[k] = w[k] - _mv(X[..., k, :, :],
+                          slot_apply_vec(C[..., k, :, :].mT, x[k + 1]))
     return torch.stack(x, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Per-channel (row-wise) block assembly, for the active-set polish, where
+# the rho pattern varies per (vehicle, axis) row, not just per k
+# ---------------------------------------------------------------------------
+
+def _slot_diag_chan(n6, n2, sr, sc, vals):
+    """vals (..., K, n2) -> (..., K, n6, n6) with per-channel values on the
+    (sr, sc) slot diagonal (channel order as :func:`to_stacked`'s:
+    vehicle-major, then axis)."""
+    out = torch.zeros(vals.shape[:-1] + (n6, n6), dtype=vals.dtype,
+                      device=vals.device)
+    idx = torch.arange(n2, device=vals.device)
+    out[..., sr * n2 + idx, sc * n2 + idx] = vals
+    return out
+
+
+def _chan(leaf, n_vehicles):
+    """(..., N, K', 2) full rho leaf -> (..., K', 2N) in stacked channel
+    order."""
+    t = torch.swapaxes(leaf, -3, -2)
+    return t.reshape(t.shape[:-2] + (2 * n_vehicles,))
+
+
+def assemble_blocks_rowwise(rho: RowVals, eta, E, *, h: float, sigma,
+                            n_vehicles: int):
+    """Like :func:`assemble_blocks`, but the jerk/acc/vbox/pbox rho may vary
+    per (vehicle, axis) channel: full (..., N, K', 2) leaves.  The dynamics
+    rho must still be per-k ((K, 1) leaves), as in the polish, where the
+    dynamics rows are always active with per-k scaling.  Returns D and B,
+    both (..., K(-1), 6N, 6N) with the batch axes of the leaves."""
+    N = n_vehicles
+    n2, n6, h2 = 2 * N, 6 * N, h * h
+    rdp = _per_k(rho.dyn_p)                  # (K,) dynamics rho, per k
+    rdv = _per_k(rho.dyn_v)
+    rj = _chan(rho.jerk, N)                  # (..., K-1, 2N)
+    ra = _chan(rho.acc, N)
+    rv = _chan(rho.vbox, N)
+    rp = _chan(rho.pbox, N)
+    zero_k = torch.zeros(1, dtype=rdp.dtype, device=rdp.device)
+    rdp_next = torch.cat([rdp[1:], zero_k])
+    rdv_next = torch.cat([rdv[1:], zero_k])
+    zrow = torch.zeros(rj.shape[:-2] + (1, n2), dtype=rj.dtype,
+                       device=rj.device)
+    rj_prev = torch.cat([zrow, rj], dim=-2)          # jerk row k-1
+    rj_here = torch.cat([rj, zrow], dim=-2)          # jerk row k
+
+    aa = (2.0 + sigma + (rdp * (0.25 * h2 * h2) + rdv * h2)[:, None]
+          + ra + (rj_here + rj_prev) / h2)
+    pp = (sigma + rdp + rdp_next)[:, None] + rp
+    vv = (sigma + rdv + rdv_next + rdp_next * h2)[:, None] + rv
+    ap = -0.5 * h2 * rdp
+    av = -h * rdv
+    pv = h * rdp_next
+
+    D = (_slot_diag_chan(n6, n2, 0, 0, aa)
+         + _slot_diag_chan(n6, n2, 1, 1, pp)
+         + _slot_diag_chan(n6, n2, 2, 2, vv)
+         + _slot_diag(n6, n2, 0, 1, ap) + _slot_diag(n6, n2, 1, 0, ap)
+         + _slot_diag(n6, n2, 0, 2, av) + _slot_diag(n6, n2, 2, 0, av)
+         + _slot_diag(n6, n2, 1, 2, pv) + _slot_diag(n6, n2, 2, 1, pv))
+    D[..., n2:2 * n2, n2:2 * n2] += collision_blocks(rho.col, eta, E)
+
+    # B_k: rows u_k, cols u_{k-1}; only the jerk (a, a) slot is per channel
+    B = (_slot_diag_chan(n6, n2, 0, 0, -rj / h2)
+         + _slot_diag(n6, n2, 0, 1, 0.5 * h2 * rdp[1:])
+         + _slot_diag(n6, n2, 0, 2, 0.5 * h2 * h * rdp[1:] + h * rdv[1:])
+         + _slot_diag(n6, n2, 1, 1, -rdp[1:])
+         + _slot_diag(n6, n2, 1, 2, -h * rdp[1:])
+         + _slot_diag(n6, n2, 2, 2, -rdv[1:]))
+    return D, B
+
+
+# ---------------------------------------------------------------------------
+# Exact active-set polish (augmented Lagrangian on the banded factorization)
+# ---------------------------------------------------------------------------
+
+def polish_qp_state(lower: RowVals, upper: RowVals, eta, x: StateVars,
+                    y: RowVals, E, *, h: float, n_vehicles: int,
+                    rho_polish: float = 1e5, iters: int = 6,
+                    eps_act: float = 1e-10) -> StateVars:
+    """Refine the ADMM iterates of a batch (scenario axis first) to the
+    exact KKT points of the QPs restricted to the active sets their duals
+    identify (JAX ``banded.polish_qp_state``): the method of multipliers on
+    min x'Px s.t. A_act x = b_act, each x-step solved exactly by the block
+    Cholesky of one factorization a lane (active rows at ``rho_polish``,
+    inactive rows dropped):
+
+        x  <-  argmin x'Px + sum_act rho/2 (A_i x - b_i + y_i/rho)^2
+        y  <-  y + rho (A_act x - b_act)
+
+    A lane takes its polished point only where that violates no bound more
+    than the ADMM iterate does (or by at most 1e-9, scaled rows); else it
+    keeps ``x``.  The factorization and the sweeps are the plain
+    :func:`factorize` and :func:`solve_factorized`, as JAX's are: no
+    kernel."""
+    dtype = x.a.dtype
+    N = n_vehicles
+    K = x.a.shape[-2]
+    nb = x.a.dim() - 3
+    sigma = torch.tensor(1e-12, dtype=dtype, device=x.a.device)
+    scaling = row_scaling_state(K, h, dtype=dtype, device=x.a.device)
+
+    def box_mask(yv, lo, up):
+        lo_act = (yv < -eps_act) & torch.isfinite(lo)
+        up_act = (yv > eps_act) & torch.isfinite(up)
+        b = torch.where(yv < 0, lo, up)
+        # equality rows (terminal vbox/pbox) are always active
+        m = lo_act | up_act | (lo == up)
+        return m.to(dtype), torch.where(torch.isfinite(b), b,
+                                        torch.zeros_like(b))
+
+    boxes = {name: box_mask(getattr(y, name), getattr(lower, name),
+                            getattr(upper, name))
+             for name in ("jerk", "acc", "vbox", "pbox", "col")}
+    ones = torch.ones_like
+    mask = RowVals(dyn_p=ones(y.dyn_p), dyn_v=ones(y.dyn_v),
+                   **{k: v[0] for k, v in boxes.items()})
+    b_act = RowVals(dyn_p=lower.dyn_p, dyn_v=lower.dyn_v,
+                    **{k: v[1] for k, v in boxes.items()})
+    rho_p = torch.tensor(rho_polish, dtype=dtype, device=x.a.device)
+
+    def box_rho(m, d):
+        # inactive rows drop out entirely (rho 0, not the loose ADMM rho)
+        return torch.where(m > 0, rho_p * d * d, torch.zeros_like(m))
+
+    rho_row = RowVals(
+        dyn_p=rho_p * scaling.dyn_p * scaling.dyn_p,
+        dyn_v=rho_p * scaling.dyn_v * scaling.dyn_v,
+        jerk=box_rho(mask.jerk, scaling.jerk),
+        acc=box_rho(mask.acc, scaling.acc),
+        vbox=box_rho(mask.vbox, scaling.vbox),
+        pbox=box_rho(mask.pbox, scaling.pbox),
+        col=box_rho(mask.col, scaling.col.expand(mask.col.shape)))
+    D, B = assemble_blocks_rowwise(rho_row, eta, E, h=h, sigma=sigma,
+                                   n_vehicles=N)
+    L, Eb = factorize(D, B)
+    del D, B
+
+    def solve_x(yal):
+        rzy = tree_map(lambda r, b, ya, m: (r * b - ya) * m, rho_row, b_act,
+                       yal, mask)
+        rhs = apply_AT(rzy, eta, E, h)
+        return from_stacked(solve_factorized(L, Eb, to_stacked(rhs)), N)
+
+    yal = tree_map(torch.zeros_like, mask)
+    x_pol = x
+    for _ in range(iters):
+        x_pol = solve_x(yal)
+        Ax = apply_A(x_pol, eta, E, h)
+        yal = tree_map(lambda ya, r, a, b, m: (ya + r * (a - b)) * m,
+                       yal, rho_row, Ax, b_act, mask)
+
+    def viol(xv):
+        # the worst scaled violation of any original bound
+        Ax = apply_A(xv, eta, E, h)
+        zero = torch.zeros((), dtype=dtype, device=x.a.device)
+        v = tree_map(lambda a, lo, up, d: torch.clamp_min(torch.maximum(
+            torch.where(torch.isfinite(lo), (lo - a) * d, zero),
+            torch.where(torch.isfinite(up), (a - up) * d, zero)), 0.0),
+            Ax, lower, upper, scaling)
+        return _inf_norm(v, nb)
+
+    ok = viol(x_pol) <= torch.clamp_min(viol(x), 1e-9)
+    return tree_map(lambda a, b: torch.where(lane_mask(ok, a), a, b), x_pol,
+                    x)
 
 
 # ---------------------------------------------------------------------------
@@ -633,8 +838,8 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
 
     The gates are the JAX router's as they stand: its 12 MiB and 96 MiB are
     byte budgets of the TPU's VMEM, kept so that the port routes where JAX
-    routes.  Adaptive rho and bf16 factor storage raise NotImplementedError,
-    naming their ROADMAP item.
+    routes.  bf16 factor storage raises NotImplementedError, naming its
+    ROADMAP item.  Adaptive rho routes as the shared rho does.
 
     ``static.assemble_precision`` must be one of
     :data:`ASSEMBLE_PRECISIONS`, else ValueError.  Every one of them
@@ -649,9 +854,6 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
         raise ValueError(
             f"assemble_precision={static.assemble_precision!r}: one of "
             f"{ASSEMBLE_PRECISIONS} (each assembles in FP32 on this card)")
-    if static.adaptive_rho:
-        raise NotImplementedError(
-            "adaptive rho is not ported yet (ROADMAP Queue 1 item 3)")
     if static.factor_dtype != "f32":
         raise NotImplementedError(
             "bf16 factor storage is not ported (ROADMAP Queue 1 item 5)")
@@ -687,37 +889,78 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
     return "dense"
 
 
-def _interval_fn(route: str, rho_b: RowVals, lower: RowVals, upper: RowVals,
-                 eta, E, static: SolverStatic, n_vehicles: int, step: dict):
+SHARED_C_ROUTES = ("grouped_X", "grouped_L", "fused_X")
+
+
+def _route_factors(route: str, rho_b: RowVals, eta, E, static: SolverStatic,
+                   n_vehicles: int, h: float, sigma, rho_lane=None, C1=None):
+    """The factors of ``route`` for the lanes of ``eta``, as a tuple.
+
+    A batch-shared rho gives the factors the kernels take, the X-form and
+    L-only ones with their batch-shared slot scalars C last.  A per-lane
+    rho ``rho_lane`` (B,) (adaptive rho) gives a tuple of per-lane tensors
+    only.  The sweep kernels and the NS chain take batch-shared slot
+    scalars, and C is linear in rho, so the routes of
+    :data:`SHARED_C_ROUTES` factorize M / rho_lane, whose off-diagonal
+    slot scalars are ``C1`` (those of rho = 1) for every lane: the grouped
+    routes then solve (M / rho) x = b / rho, and the fused X route takes
+    X = (its factors of M / rho) / rho with each lane's own C."""
+    N = n_vehicles
+    if route == "channel":
+        return factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
+    if route in SHARED_C_ROUTES:
+        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N)
+        if rho_lane is not None:
+            scale = rho_lane.reshape(-1, 1, 1, 1)
+            D = D / scale
+        Cf = C if rho_lane is None else C1
+        if route == "grouped_L":
+            F_ = factorize_L(D, Cf)
+        else:
+            F_ = _factorize_X_routed(D, Cf, static)
+        del D
+        if rho_lane is None:
+            return F_, C
+        if route == "fused_X":
+            return F_ / scale, C
+        return (F_,)
+    return factorize(*assemble_blocks(rho_b, eta, E, h=h, sigma=sigma,
+                                      n_vehicles=N))
+
+
+def _interval_fn(route: str, factors: tuple, rho_b: RowVals, lower: RowVals,
+                 upper: RowVals, eta, E, n_vehicles: int, step: dict,
+                 C1=None, inv_rho=None):
     """The function (x, z, y) -> (x, z, y) that runs one check interval on
-    ``route``, its factors computed here once."""
-    N, h, sigma = n_vehicles, step["h"], step["sigma"]
+    ``route`` from the factors of :func:`_route_factors` (``C1`` and the
+    per-lane ``inv_rho`` (B,) where those are of M / rho)."""
+    N = n_vehicles
 
     def per_iteration(solve):
         return lambda x, z, y: admm_iterations(x, z, y, solve, eta, E, lower,
                                                upper, rho_b, **step)
 
+    def scaled(sb):
+        return sb if inv_rho is None else sb * inv_rho[:, None, None]
+
     if route == "channel":
-        L, Eb = factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
+        L, Eb = factors
         return per_iteration(lambda sb: solve_factorized_channel(
             L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))).reshape(sb.shape))
-    if route in ("fused_X", "grouped_X", "grouped_L"):
-        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N)
-        if route == "grouped_L":
-            from ..ops.group_solve import solve_factorized_grouped_L
-            Linv = factorize_L(D, C)
-            return per_iteration(
-                lambda sb: solve_factorized_grouped_L(Linv, C, sb))
-        Xf = _factorize_X_routed(D, C, static)
-        del D
-        if route == "fused_X":
-            from ..ops.admm_fused import admm_interval_fused_X
-            return lambda x, z, y: admm_interval_fused_X(
-                Xf, C, eta, E, lower, upper, x, z, y, rho_b, **step)
-        from ..ops.group_solve import solve_factorized_grouped_X
-        return per_iteration(lambda sb: solve_factorized_grouped_X(Xf, C, sb))
-    Linv, Eb = factorize(*assemble_blocks(rho_b, eta, E, h=h, sigma=sigma,
-                                          n_vehicles=N))
+    if route == "fused_X":
+        from ..ops.admm_fused import admm_interval_fused_X
+        Xf, C = factors
+        return lambda x, z, y: admm_interval_fused_X(
+            Xf, C, eta, E, lower, upper, x, z, y, rho_b, **step)
+    if route in ("grouped_X", "grouped_L"):
+        from ..ops.group_solve import (solve_factorized_grouped_L,
+                                       solve_factorized_grouped_X)
+        F_ = factors[0]
+        C = factors[1] if C1 is None else C1
+        solve = (solve_factorized_grouped_X if route == "grouped_X"
+                 else solve_factorized_grouped_L)
+        return per_iteration(lambda sb: solve(F_, C, scaled(sb)))
+    Linv, Eb = factors
     if route == "fused_L":
         from ..ops.admm_fused import admm_interval_fused
         return lambda x, z, y: admm_interval_fused(
@@ -725,7 +968,15 @@ def _interval_fn(route: str, rho_b: RowVals, lower: RowVals, upper: RowVals,
     if route == "resident":
         from ..ops.banded_solve import solve_factorized_dense
         return per_iteration(lambda sb: solve_factorized_dense(Linv, Eb, sb))
-    return per_iteration(lambda sb: solve_factorized(Linv, Eb, sb))
+    # no kernel on this route: on the card its intervals replay as a graph
+    return graphed(per_iteration(lambda sb: solve_factorized(Linv, Eb, sb)))
+
+
+# OSQP's adaptive-rho rule (JAX ``banded.py:1432-1448``): after a check
+# interval rho moves to clip(rho * sqrt(pr / dr)) when that ratio leaves
+# (1/5, 5); y is not rescaled.
+RHO_ADAPT_RATIO = 5.0
+RHO_MIN, RHO_MAX = 1e-6, 1e6
 
 
 def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
@@ -739,7 +990,8 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     (B, ...) RowVals, eta (B, K, P, 2), x_init (B, N, K, 2) StateVars.
     Collision rows are controlled through ``lower.col`` (-inf rows are
     disabled).  ``col_enabled=False`` marks the collision-free initial QP,
-    whose x-updates run on the shared per-channel (K, 3, 3) factorization.
+    whose x-updates run on the per-channel (K, 3, 3) factorization, shared
+    by every lane unless rho adapts.
 
     The loop runs intervals of ``check_interval`` iterations, with the
     residuals checked after each, while ``iters < max_iter`` and the lane
@@ -748,10 +1000,16 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     lane of the vmapped JAX loop does; the host reads one flag per interval
     (does any lane go on?), and none when the budget is one interval.
 
-    The fused routes keep the batch-independent rho of
-    :func:`rho_pattern_masks` on every collision row, as the JAX router
-    does; the other routes give rows disabled by a -inf lower bound the
-    loose rho.
+    With ``static.adaptive_rho`` each lane carries its own rho, which
+    starts at ``params.rho`` and adapts after each interval by OSQP's rule
+    (:data:`RHO_ADAPT_RATIO`, y not rescaled); the lanes that go on and
+    adapt get new factors (gathered, refactorized and scattered back; none
+    after the last interval), and the host reads which lanes those are
+    instead of the one flag.
+
+    The fused routes keep the rho of :func:`rho_pattern_masks` on every
+    collision row, as the JAX router does; the other routes give rows
+    disabled by a -inf lower bound the loose rho.
     """
     dtype = x_init.a.dtype
     N = n_vehicles
@@ -761,45 +1019,100 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     route = qp_route(static, n_vehicles=N, n_steps=K, dtype=dtype,
                      col_enabled=col_enabled)
     check, max_iter = int(params.check_interval), int(params.max_iter)
-    scaling = row_scaling_state(K, h, dtype=dtype, device=x_init.a.device)
+    dev = x_init.a.device
+    scaling = row_scaling_state(K, h, dtype=dtype, device=dev)
 
     Ax0 = apply_A(x_init, eta, E, h)
     z = tree_map(torch.clamp, Ax0, lower, upper)
     y = tree_map(torch.zeros_like, z) if y_init is None else y_init
     x = x_init
+    step = dict(h=h, sigma=params.sigma, alpha=params.alpha,
+                lam=params.col_penalty, n_iters=check)
+    loose_col = route not in ("channel", "fused_X", "fused_L")
 
-    rho_b = rho_pattern_masks(scaling, static, params.rho,
-                              params.col_rho_boost, n_steps=K, n_pairs=P,
-                              col_enabled=col_enabled, dtype=dtype)
-    if route not in ("channel", "fused_X", "fused_L"):
-        # rows disabled by a -inf bound take the loose rho
-        rho_b = rho_b._replace(col=torch.where(
-            torch.isinf(lower.col), torch.full_like(lower.col, _LOOSE_RHO),
-            rho_b.col))
-    interval = _interval_fn(route, rho_b, lower, upper, eta, E, static, N,
-                            dict(h=h, sigma=params.sigma, alpha=params.alpha,
-                                 lam=params.col_penalty, n_iters=check))
+    def rho_rows(rho, lower_col):
+        rho_b = rho_pattern_masks(scaling, static, rho, params.col_rho_boost,
+                                  n_steps=K, n_pairs=P,
+                                  col_enabled=col_enabled, dtype=dtype)
+        if loose_col:
+            # rows disabled by a -inf bound take the loose rho
+            rho_b = rho_b._replace(col=torch.where(
+                torch.isinf(lower_col), torch.full_like(lower_col, _LOOSE_RHO),
+                rho_b.col))
+        return rho_b
+
+    def factors_of(rho_b, eta_, rho_lane=None, C1=None):
+        return _route_factors(route, rho_b, eta_, E, static, N, h,
+                              params.sigma, rho_lane=rho_lane, C1=C1)
+
+    adaptive = static.adaptive_rho
+    if not adaptive:
+        rho_b = rho_rows(params.rho, lower.col)
+        interval = _interval_fn(route, factors_of(rho_b, eta), rho_b, lower,
+                                upper, eta, E, N, step)
+    else:
+        B = x_init.a.shape[0]
+        rho_l = params.rho.to(dtype).expand(B).clone()
+        C1 = (unit_slot_scalars(static, n_steps=K, h=h, dtype=dtype,
+                                device=dev)
+              if route in SHARED_C_ROUTES else None)
+        rho_b = tree_map(torch.Tensor.contiguous, rho_rows(rho_l, lower.col))
+        factors = factors_of(rho_b, eta, rho_l, C1)
+        scaled = route in ("grouped_X", "grouped_L")
+
+        def interval_now():
+            return _interval_fn(route, factors, rho_b, lower, upper, eta, E,
+                                N, step, C1=C1 if scaled else None,
+                                inv_rho=1.0 / rho_l if scaled else None)
+        interval = interval_now()
 
     x, z, y = interval(x, z, y)
-    prim, dual, done = _residuals(x, z, y, eta, E, h, scaling, params, nb)
-    iters = torch.full(prim.shape, check, dtype=torch.int32,
-                       device=prim.device)
+    prim, dual, done, scales = _residuals(x, z, y, eta, E, h, scaling,
+                                           params, nb)
+    iters = torch.full(prim.shape, check, dtype=torch.int32, device=dev)
     active = ~done
     for _ in range(check, max_iter, check):
-        if not bool(active.any()):
+        if adaptive:
+            # the relative residuals of the last interval, which every lane
+            # that goes on ran
+            pr, dr = (r / torch.clamp_min(sc, 1e-10)
+                      for r, sc in zip((prim, dual), scales))
+            ratio = torch.sqrt(pr / torch.clamp_min(dr, 1e-12))
+            refac = active & ((ratio > RHO_ADAPT_RATIO)
+                              | (ratio < 1.0 / RHO_ADAPT_RATIO))
+            flags = torch.stack([active, refac]).cpu()
+            if not bool(flags[0].any()):
+                break
+            if bool(flags[1].any()):
+                idx = torch.nonzero(flags[1]).squeeze(1)
+                solve_qp_state.refactorized_lanes += idx.numel()
+                idx = idx.to(dev)
+                rho_l[idx] = torch.clamp(rho_l[idx] * ratio[idx], RHO_MIN,
+                                         RHO_MAX)
+                sub_b = rho_rows(rho_l[idx], lower.col[idx])
+                sub = factors_of(sub_b, eta[idx], rho_l[idx], C1)
+                for full, part in zip(tuple(rho_b) + tuple(factors),
+                                      tuple(sub_b) + tuple(sub)):
+                    full[idx] = part
+                interval = interval_now()
+        elif not bool(active.any()):
             break
         new = interval(x, z, y)
-        res = _residuals(*new, eta, E, h, scaling, params, nb)
+        *res, scales = _residuals(*new, eta, E, h, scaling, params, nb)
 
         def keep(n_, o_):
             return torch.where(lane_mask(active, n_), n_, o_)
         x, z, y = (tree_map(keep, n_, o_) for n_, o_ in zip(new, (x, z, y)))
-        prim, dual, done = (keep(n_, o_) for n_, o_ in zip(res, (prim, dual,
-                                                                 done)))
+        prim, dual, done = (keep(n_, o_) for n_, o_ in zip(
+            res, (prim, dual, done)))
         iters = iters + check * active.to(torch.int32)
         active = active & ~done
     return StateQPResult(x=x, y=y, iters=iters, prim_res=prim, dual_res=dual,
                          converged=done)
+
+
+# lanes refactorized after their rho adapted, summed over calls
+solve_qp_state.refactorized_lanes = 0
 
 
 def admm_iterations(x: StateVars, z: RowVals, y: RowVals, solve, eta, E,
@@ -832,7 +1145,8 @@ def admm_iterations(x: StateVars, z: RowVals, y: RowVals, solve, eta, E,
 
 
 def _residuals(x, z, y, eta, E, h, scaling, params, nb):
-    """OSQP primal/dual residuals and the termination test, per scenario."""
+    """OSQP primal/dual residuals, the termination test and the scales of
+    the two residuals (which make them relative), per scenario."""
     Ax = apply_A(x, eta, E, h)
     dAx = tree_map(lambda a, d_: a * d_, Ax, scaling)
     dz = tree_map(lambda a, d_: a * d_, z, scaling)
@@ -845,4 +1159,4 @@ def _residuals(x, z, y, eta, E, h, scaling, params, nb):
     eps_prim = params.eps_abs + params.eps_rel * prim_scale
     eps_dual = params.eps_abs + params.eps_rel * dual_scale
     done = (prim <= eps_prim) & (dual <= eps_dual)
-    return prim, dual, done
+    return prim, dual, done, (prim_scale, dual_scale)

@@ -1,5 +1,6 @@
-"""Sequential Convex Programming engine, direct (state-space) method
-(counterpart of ``ba_path_planning_tpu.solvers.scp``).
+"""Sequential Convex Programming engine (counterpart of
+``ba_path_planning_tpu.solvers.scp``): the direct (state-space) method and
+the CG (acceleration-space) method.
 
 Control flow of the reference solver:
 
@@ -10,11 +11,13 @@ Control flow of the reference solver:
      warm-started at the previous state and duals;
   4. final rollout and status codes.
 
-Every function works on a batch of scenarios (the leading axis).  The loop
-is resumable: :class:`SCPCarry` holds everything an iteration needs, so a
-driver can pause a batch, drop finished lanes and resume
-(``parallel.mesh.ShardedSCPSolver.solve_compacted``).  :class:`SCP` is the
-reference-compatible class API on top of :class:`SCPEngine`.
+Every function works on a batch of scenarios (the leading axis).  The direct
+method's loop is resumable: :class:`SCPCarry` holds everything an iteration
+needs, so a driver can pause a batch, drop finished lanes and resume
+(``parallel.mesh.ShardedSCPSolver.solve_compacted``).  The CG method's
+loop, :func:`_scp_solve`, runs in one piece, as the JAX package's does.
+:class:`SCP` is the reference-compatible class API on top of
+:class:`SCPEngine`.
 """
 
 from __future__ import annotations
@@ -26,14 +29,17 @@ import numpy as np
 import torch
 
 from ..models.double_integrator import DoubleIntegrator2D
-from ..ops.collisions import (PairIndex, check_feasible, degenerate_angles,
-                              linearize, make_pair_index)
+from ..ops.collisions import (PairIndex, check_feasible, collision_lower_bounds,
+                              degenerate_angles, linearize, make_pair_index)
+from ..ops.constraints import ConstraintBlocks, static_bounds
 from ..ops.rollout import rollout
 from ..utils.config import (ProblemConfig, SolverConfig, SolverParams,
                             SolverStatic, make_solver_params, resolve_device)
+from .admm import (Preconditioner, QPData, build_static_normal_inverse,
+                   solve_qp_impl)
 from .banded import (RowVals, StateVars, build_bounds,
-                     collision_lower_bounds_state, lane_mask, solve_qp_state,
-                     tree_map)
+                     collision_lower_bounds_state, lane_mask, polish_qp_state,
+                     solve_qp_state, tree_map)
 
 STATUS_FEASIBLE_INITIAL = 0   # initial QP already collision-free
 STATUS_CONVERGED = 1          # the active stopping rule fired
@@ -88,6 +94,17 @@ def _goal_projected(a, p0, v0, pf, vf, problem: ProblemConfig):
     return model.goal_projection(a, p0, v0, pf, vf)
 
 
+def _divergence_guard(a_new, a, problem: ProblemConfig):
+    """Keep the previous iterate of a lane whose QP failed: a valid QP
+    solution respects the acceleration box, so an iterate far outside it
+    (or not finite) marks a failed solve."""
+    acc_cap = 2.0 * max(abs(problem.acc_min), abs(problem.acc_max))
+    flat_new = a_new.flatten(1)
+    bad = (~torch.isfinite(flat_new).all(-1)
+           | (flat_new.abs().amax(-1) > acc_cap))
+    return torch.where(lane_mask(bad, a), a, a_new)
+
+
 def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
                  params: SolverParams, pairs: PairIndex,
                  problem: ProblemConfig, solver: SolverStatic) -> SCPCarry:
@@ -104,14 +121,10 @@ def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
     qp = solve_qp_state(lower_it, upper_s, eta, x_warm, params, pairs.E, h=h,
                         static=solver, n_vehicles=N, y_init=carry.y)
     a_new = qp.x.a
-    # divergence guard: a valid QP solution respects the acceleration box,
-    # so an iterate far outside it (or not finite) marks a failed solve;
-    # keep the previous iterate
-    acc_cap = 2.0 * max(abs(problem.acc_min), abs(problem.acc_max))
-    flat_new = a_new.flatten(1)
-    bad = (~torch.isfinite(flat_new).all(-1)
-           | (flat_new.abs().amax(-1) > acc_cap))
-    a_new = torch.where(lane_mask(bad, a), a, a_new)
+    if solver.polish:
+        a_new = polish_qp_state(lower_it, upper_s, eta, qp.x, qp.y, pairs.E,
+                                h=h, n_vehicles=N).a
+    a_new = _divergence_guard(a_new, a, problem)
     step = torch.linalg.vector_norm((a_new - a).flatten(1), dim=-1)
     denom = torch.clamp_min(torch.linalg.vector_norm(a.flatten(1), dim=-1),
                             1e-30)
@@ -151,6 +164,9 @@ def _scp_start_direct(p0, v0, pf, vf, *, params: SolverParams,
     qp0 = solve_qp_state(lower_s, upper_s, eta0, x0, params, pairs.E, h=h,
                          static=solver, n_vehicles=N, col_enabled=False)
     a = qp0.x.a
+    if solver.polish:
+        a = polish_qp_state(lower_s, upper_s, eta0, qp0.x, qp0.y, pairs.E,
+                            h=h, n_vehicles=N).a
     a_chk = (_goal_projected(a, p0, v0, pf, vf, problem)
              if problem.goal_project else a)
     pos_init, _ = rollout(a_chk, p0, v0, h)
@@ -221,9 +237,100 @@ def _scp_finalize_direct(carry: SCPCarry, p0, v0, pf, vf, *,
                      qp_converged_all=carry.qp_ok, rel_step=carry.rel)
 
 
+def _scp_solve(p0, v0, pf, vf, lane_ids, *, params: SolverParams,
+               pairs: PairIndex, Minv: Preconditioner,
+               problem: ProblemConfig, solver: SolverStatic,
+               angle_fn: AngleFn) -> SCPResult:
+    """The SCP loop over the acceleration-space QP of the CG method
+    (:func:`solvers.admm.solve_qp_impl`), for a batch: p0/v0/pf/vf
+    (B, N, 2), ``lane_ids`` (B,) the scenario ids that key the
+    degenerate-pair draws.  The control flow and the statuses are the
+    direct path's; a lane that has stopped keeps its state while the others
+    go on (only the lanes that go on are solved), and the host reads which
+    lanes those are once per SCP iteration."""
+    N, K, P = problem.n_vehicles, problem.n_steps, pairs.E.shape[1]
+    h, R = problem.time_step, problem.min_distance
+    B, dtype, dev = p0.shape[0], p0.dtype, p0.device
+    lo_s, up_s = static_bounds(p0, v0, pf, vf, n_vehicles=N, n_steps=K, h=h,
+                               limits=problem.limits)
+    col_up = torch.full((B, K, P), float("inf"), dtype=dtype, device=dev)
+    E = pairs.E
+
+    # phase 1: the QP without collision rows
+    data0 = QPData(eta=torch.zeros((B, K, P, 2), dtype=dtype, device=dev),
+                   col_mask=torch.zeros((), dtype=dtype, device=dev),
+                   lower=ConstraintBlocks(col=-col_up, **lo_s),
+                   upper=ConstraintBlocks(col=col_up, **up_s))
+    qp0 = solve_qp_impl(data0, E, Minv,
+                        torch.zeros((B, N, K, 2), dtype=dtype, device=dev),
+                        params, h=h, static=solver)
+    a, y = qp0.x, qp0.y
+    a_chk = (_goal_projected(a, p0, v0, pf, vf, problem)
+             if problem.goal_project else a)
+    feasible_initial = check_feasible(rollout(a_chk, p0, v0, h)[0], pairs, R)
+
+    # phase 2: the SCP iterations, on the lanes that go on
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    converged = torch.zeros(B, dtype=torch.bool, device=dev)
+    stop = converged.clone()
+    rel = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    qp_iters, qp_ok = qp0.iters.clone(), qp0.converged.clone()
+    y = ConstraintBlocks(*(t.clone() for t in y))
+    one = torch.ones((), dtype=dtype, device=dev)
+    while True:
+        act = torch.nonzero((it < problem.max_iterations) & ~stop
+                            & ~feasible_initial).squeeze(1)
+        if act.numel() == 0:
+            break
+        a_l, p0_l, v0_l, pf_l, vf_l = (t[act] for t in (a, p0, v0, pf, vf))
+        prev_pos, _ = rollout(a_l, p0_l, v0_l, h)
+        eta, dist = linearize(prev_pos, pairs,
+                              angle_fn(lane_ids[act], it[act]))
+        # constraint tightening: enforce R + margin, check feasibility at R
+        col_lo = collision_lower_bounds(eta, dist, prev_pos, p0_l, v0_l,
+                                        pairs, h=h,
+                                        min_distance=R + params.col_margin)
+        data = QPData(eta=eta, col_mask=one,
+                      lower=ConstraintBlocks(col=col_lo, **{
+                          k: v[act] for k, v in lo_s.items()}),
+                      upper=ConstraintBlocks(col=col_up[act], **{
+                          k: v[act] for k, v in up_s.items()}))
+        qp = solve_qp_impl(data, E, Minv, a_l, params,
+                           ConstraintBlocks(*(t[act] for t in y)), h=h,
+                           static=solver)
+        a_new = _divergence_guard(qp.x, a_l, problem)
+        step = torch.linalg.vector_norm((a_new - a_l).flatten(1), dim=-1)
+        rel[act] = step / torch.clamp_min(
+            torch.linalg.vector_norm(a_l.flatten(1), dim=-1), 1e-30)
+        converged[act] = rel[act] <= problem.convergence_tolerance
+        if problem.stop_mode == "feasible":
+            a_stop = (_goal_projected(a_new, p0_l, v0_l, pf_l, vf_l, problem)
+                      if problem.goal_project else a_new)
+            stop[act] = check_feasible(rollout(a_stop, p0_l, v0_l, h)[0],
+                                       pairs, R)
+        else:
+            stop[act] = converged[act]
+        a[act] = a_new
+        for full, part in zip(y, qp.y):
+            full[act] = part
+        it[act] += 1
+        qp_iters[act] += qp.iters
+        qp_ok[act] &= qp.converged
+
+    carry = SCPCarry(a=a, y=y, it=it, converged=converged, stop=stop,
+                     rel=rel, qp_iters=qp_iters, qp_ok=qp_ok,
+                     feasible_initial=feasible_initial)
+    return _scp_finalize_direct(carry, p0, v0, pf, vf, pairs=pairs,
+                                problem=problem)
+
+
 class SCPEngine:
     """SCP solver for a fixed (problem, solver) configuration on one device
-    (``device=None``: the card), direct method only."""
+    (``device=None``: the card).  The solver's ``method`` picks the QP:
+    "direct" (state space, banded factors; resumable through
+    :meth:`start`, :meth:`step` and :meth:`finalize`), else the CG method
+    (the acceleration-space ADMM of ``solvers/admm.py``, whose
+    preconditioner the engine builds once), as in the JAX engine."""
 
     def __init__(self, problem: ProblemConfig,
                  solver: SolverConfig | None = None, dtype=torch.float32,
@@ -232,14 +339,6 @@ class SCPEngine:
             raise ValueError(
                 f"K = int(T/h) = {problem.n_steps}; need K >= 2")
         solver = solver if solver is not None else SolverConfig()
-        if solver.method != "direct":
-            raise NotImplementedError(
-                "the CG (acceleration-space) method is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
-        if solver.polish:
-            raise NotImplementedError(
-                "the active-set polish is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         self.problem = problem
         self.solver = solver
         self.dtype = dtype
@@ -247,8 +346,16 @@ class SCPEngine:
         self.seed = seed
         self.pairs = make_pair_index(problem.n_vehicles, dtype=dtype,
                                      device=self.device)
+        self.Minv = build_static_normal_inverse(
+            problem.n_steps, problem.time_step, solver, dtype=dtype,
+            device=self.device)
         self.solver_static = solver.static_part()
         self.solver_params = make_solver_params(solver, dtype, self.device)
+
+    def _direct_only(self):
+        if self.solver_static.method != "direct":
+            raise NotImplementedError(
+                "resumable SCP requires the direct (state-space) solver")
 
     def _kw(self):
         return dict(params=self.solver_params, pairs=self.pairs,
@@ -267,15 +374,18 @@ class SCPEngine:
                 for a in arrays]
 
     def start(self, p0, v0, pf, vf) -> SCPCarry:
+        self._direct_only()
         return _scp_start_direct(p0, v0, pf, vf, **self._kw())
 
     def step(self, carry, p0, v0, pf, vf, lane_ids, it_cap,
              angle_fn: AngleFn | None = None) -> SCPCarry:
+        self._direct_only()
         return _scp_step_direct(carry, p0, v0, pf, vf, lane_ids, it_cap,
                                 angle_fn=angle_fn or self.default_angle_fn(),
                                 **self._kw())
 
     def finalize(self, carry, p0, v0, pf, vf) -> SCPResult:
+        self._direct_only()
         return _scp_finalize_direct(carry, p0, v0, pf, vf, pairs=self.pairs,
                                     problem=self.problem)
 
@@ -303,6 +413,10 @@ class SCPEngine:
         p0, v0, pf, vf = self.as_inputs(p0, v0, pf, vf)
         if lane_ids is None:
             lane_ids = torch.arange(p0.shape[0], device=self.device)
+        if self.solver_static.method != "direct":
+            return _scp_solve(p0, v0, pf, vf, lane_ids, Minv=self.Minv,
+                              angle_fn=angle_fn or self.default_angle_fn(),
+                              **self._kw())
         carry = self.start(p0, v0, pf, vf)
         carry = self.step(carry, p0, v0, pf, vf, lane_ids,
                           self.problem.max_iterations, angle_fn)

@@ -21,7 +21,10 @@
    N=20 (B=64, 512 and 1, the ``SCP`` class's batch), the L-only sweep at
    N=30 and N=40 (B=128), the L-form fused interval at N=20 (B=64 and 128,
    penalty weight +inf) and its wide instantiation at K=3, N=90; the three
-   sweeps print the launch plan they ran (``group_solve.sweep_plan``);
+   sweeps print the launch plan they ran (``group_solve.sweep_plan``); both
+   fused intervals again with one rho a lane (adaptive rho), read through
+   their per-lane strides (the X form at N=30, B=128, the L form at N=20,
+   B=64);
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
    N=30 with the production solver and at N=20 with the
@@ -47,7 +50,23 @@
    256 trials each, the same with ``--resume-dir`` twice (the second run
    solves nothing and gives the same rows), and ``--solver reference`` at
    N=20 with 64 trials; the schema-1.0 JSON and CSV are checked, and at
-   least 99% of each production N must succeed.
+   least 99% of each production N must succeed;
+8. the adaptive-rho paths: ``solve_compacted`` with
+   ``SolverConfig.production().replace(adaptive_rho=True, polish=True,
+   max_iter=100)`` at N=20 (1024 scenarios, chunk 512, the grouped sweep
+   route) and N=30 (256 scenarios, chunk 128, the fused X route), at least
+   99% ok, and the reference-compatible solver with adaptive rho on its
+   fused L route (64 scenarios at N=20);
+9. the parity phase: the certified oracle trajectories of
+   ``docs/parity_oracle_cache`` (N=20 and N=18) reproduced in float64 by
+   the parity configuration of ``scripts/parity_full.py`` (the direct
+   method to 1e-6 with the exact polish, the dense route): equal SCP
+   iteration counts, positions and velocities within 1e-3;
+10. the CG phase: ``SCPEngine(problem)`` with the default
+   ``SolverConfig()`` (the CG method, adaptive rho, its polish) at N=20 on
+   CG_B scenarios in float32 and in float64, the SCP loop cut to one
+   iteration: valid statuses, equal on at least 90% of the lanes, and no
+   hand-written kernel launched.
 
 The launch counters are set to 0 just before each path and read just after:
 each path must launch the kernels of its route and no other.  Any failed
@@ -87,6 +106,11 @@ CLI_ROW_KEYS = ["N", "trial_index", "status", "time_sec", "error", "K", "T",
 CLI_CSV_COLUMNS = ["N", "trial_index", "status", "time_sec", "K", "T", "h",
                    "error"]
 CLI_TRIALS, CLI_REF_TRIALS = 256, 64
+# the adaptive-rho paths (N, scenarios, chunk) and the CG phase's lanes
+ADAPTIVE_PATHS = ((20, 1024, 512), (30, 256, 128))
+# the CG phase's lanes and SCP depth: phase 1 and one linearized QP a lane
+# (a QP runs up to 4000 ADMM iterations of about 6 ms each on the card)
+CG_B, CG_SCP_ITERATIONS = 16, 1
 
 
 def _card_line() -> str:
@@ -153,7 +177,7 @@ def _bound_ms(n_bytes, n_flops, flop_s=FP32_FLOP_S):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def _case(n_veh, B, dev, seed, solver=None, n_steps=K_STEPS):
+def _case(n_veh, B, dev, seed, solver=None, n_steps=K_STEPS, lane_rho=None):
     """Main-path-shaped inputs of the kernels (``n_steps`` steps), float32
     on the card: bounds
     of random start and goal positions, collision rows of random unit
@@ -162,7 +186,8 @@ def _case(n_veh, B, dev, seed, solver=None, n_steps=K_STEPS):
     blocks D and slot scalars C, a random right-hand side b, one at the
     scale the ADMM loop feeds, b_admm = A^T (rho * A x) for a random state
     x, and the arguments of the fused-interval wrappers but for the factors
-    and the state."""
+    and the state.  ``lane_rho`` (B,) gives each lane its own rho (adaptive
+    rho): rho leaves and slot scalars C a lane."""
     import numpy as np
     import torch
     from ba_path_planning_torch.ops.collisions import (make_pair_index,
@@ -179,8 +204,8 @@ def _case(n_veh, B, dev, seed, solver=None, n_steps=K_STEPS):
     rng = np.random.default_rng(seed)
     rho = banded.rho_pattern_masks(
         banded.row_scaling_state(K, H, dtype=f32, device=dev),
-        solver.static_part(), prm.rho, prm.col_rho_boost, n_steps=K,
-        n_pairs=P, col_enabled=True, dtype=f32)
+        solver.static_part(), prm.rho if lane_rho is None else lane_rho,
+        prm.col_rho_boost, n_steps=K, n_pairs=P, col_enabled=True, dtype=f32)
     eta = torch.as_tensor(rng.normal(size=(B, K, P, 2)), dtype=f32,
                           device=dev)
     eta = eta / torch.linalg.vector_norm(eta, dim=-1, keepdim=True)
@@ -469,6 +494,16 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
     return stats
 
 
+def _lane_rho(B, seed):
+    """One rho a lane (adaptive rho), spread over two decades around the
+    production rho, float32 on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(2.6 * np.exp(rng.uniform(-2.3, 2.3, B)),
+                           dtype=torch.float32, device="cuda")
+
+
 def large_phase(dev, n_veh):
     """N=30 or N=40, B=128: the NS chain (global-memory layout) and the
     fused X-form ADMM interval on its factors."""
@@ -489,6 +524,48 @@ def large_phase(dev, n_veh):
         admm_interval_fused_X_plain, kw, n_veh, K_STEPS * n * n,
         needed_floats=K_STEPS * n * (n + 1) // 2)
     return {"ns_chain": ns_stats, "admm_fused_x": stats}
+
+
+def lane_rho_phase(dev):
+    """Both fused intervals with one rho a lane, read through their
+    per-lane strides: the X form at N=30, B=128 (the adaptive N=30 path's
+    chunk; per-lane rho planes and slot scalars, its factors those of
+    M / rho scaled back, as the solver makes them) and the L form at N=20,
+    B=64 (the reference-compatible path's batch), each against its plain
+    version and the float64 interval as :func:`fused_check` holds them."""
+    from ba_path_planning_torch.ops import admm_fused, ns_chain
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.utils.config import SolverConfig
+    out = {}
+    n_veh, B = 30, B_LARGE
+    lane_rho = _lane_rho(B, seed=n_veh)
+    D, C, _, _, kw = _case(n_veh, B, dev, seed=n_veh, lane_rho=lane_rho)
+    C1 = banded.unit_slot_scalars(
+        SolverConfig.production(problem=_problem(n_veh)).static_part(),
+        n_steps=K_STEPS, h=H, device=dev)
+    scale = lane_rho.reshape(-1, 1, 1, 1)
+    kw["X"] = ns_chain.factorize_X_chain_batched(
+        D / scale, C1, ns_iters=2, ns_precision="high") / scale
+    del D
+    n = 6 * n_veh
+    out["admm_fused_x"] = fused_check(
+        "lane-rho phase: admm_interval_fused_X, one rho a lane",
+        admm_fused.admm_interval_fused_X, admm_fused.admm_interval_fused_X_plain,
+        kw, n_veh, K_STEPS * n * n, needed_floats=K_STEPS * n * (n + 1) // 2)
+    n_veh, B = 20, FACADE_B
+    lane_rho = _lane_rho(B, seed=n_veh) / 26.0       # around the facade's 0.1
+    D, C, _, _, kw = _case(n_veh, B, dev, seed=1000 + n_veh + B,
+                           solver=_facade_solver(), lane_rho=lane_rho)
+    kw["Linv"], kw["Eb"] = banded.factorize(D, banded.slot_dense(C,
+                                                                 2 * n_veh))
+    del D, kw["C"]
+    n = 6 * n_veh
+    out["admm_fused_l"] = fused_check(
+        "lane-rho phase: admm_interval_fused, one rho a lane",
+        admm_fused.admm_interval_fused, admm_fused.admm_interval_fused_plain,
+        kw, n_veh, (2 * K_STEPS - 1) * n * n,
+        needed_floats=K_STEPS * n * (n + 1) // 2 + (K_STEPS - 1) * n * n)
+    return out
 
 
 def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
@@ -709,6 +786,239 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
     return launches
 
 
+# the certified oracle trajectories of ``scripts/parity_full.py`` and its
+# engine configuration (``scripts/parity_full.py:114-117``)
+ORACLES = ("docs/parity_oracle_cache/oracle_N20_seed7_K50.npz",
+           "docs/parity_oracle_cache/oracle_N18_seed42_K50.npz")
+ORACLE_VERSION = 5
+PARITY_TOL = 1e-3                  # the repository's parity contract
+
+
+def _parity_solver():
+    from ba_path_planning_torch.utils.config import SolverConfig
+    return SolverConfig(method="direct", eps_abs=1e-6, eps_rel=1e-6,
+                        polish=True, rho=1.6, adaptive_rho=False,
+                        max_iter=50000, check_interval=100)
+
+
+def parity_phase(counters):
+    """The parity contract on the card: each certified oracle trajectory
+    of ``docs/parity_oracle_cache`` against ``SCPEngine.solve`` in float64
+    with the parity configuration (the direct method to 1e-6, the exact
+    active-set polish, the dense route: no kernel), from the oracle's own
+    start and goal at rest.  Equal SCP iteration counts and max |dposition|
+    and |dvelocity| within PARITY_TOL.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.solvers.banded import qp_route
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    from ba_path_planning_torch.utils.config import ProblemConfig
+    solver = _parity_solver()
+    total = {}
+    for path in ORACLES:
+        ref = np.load(ROOT / path)
+        if int(ref["oracle_version"]) != ORACLE_VERSION:
+            raise AssertionError(f"{path}: oracle_version "
+                                 f"{int(ref['oracle_version'])}")
+        n_veh = ref["p0"].shape[0]
+        h = float(ref["h"])
+        K = ref["positions"].shape[1]
+        problem = ProblemConfig(n_vehicles=n_veh, time_horizon=K * h,
+                                time_step=h, min_distance=float(ref["R"]),
+                                max_iterations=int(ref["max_iterations"]))
+        route = qp_route(solver.static_part(), n_vehicles=n_veh, n_steps=K,
+                         dtype=torch.float64, col_enabled=True)
+        eng = SCPEngine(problem, solver, dtype=torch.float64)
+        p0, pf = ref["p0"], ref["pf"]
+        v0 = np.zeros_like(p0)
+        _zero(counters)
+        t0 = time.perf_counter()
+        res = eng.solve(p0, v0, pf, v0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+        dpos = float(np.abs(res.positions.cpu().numpy()
+                            - ref["positions"]).max())
+        dvel = float(np.abs(res.velocities.cpu().numpy()
+                            - ref["velocities"]).max())
+        iters, want = int(res.iterations), int(ref["iterations"])
+        print(f"parity phase {Path(path).name}: N={n_veh} K={K} f64 on the "
+              f"card ({eng.device}), route {route}: SCP iterations {iters} "
+              f"(oracle {want}), status {int(res.status)}, QP iterations "
+              f"{int(res.qp_iterations)}, max |dposition|={dpos:.3e} m, max "
+              f"|dvelocity|={dvel:.3e} m/s (contract {PARITY_TOL:g}); "
+              f"engine {wall:.1f} s; launches={launches}", flush=True)
+        _check_route(f"parity {path}", launches, set())
+        if eng.device.type != "cuda" or iters != want \
+                or not (dpos <= PARITY_TOL and dvel <= PARITY_TOL):
+            raise AssertionError(f"parity with {path} fails")
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def adaptive_path(dev, card, n_veh, B, chunk, counters):
+    """``solve_compacted`` with the production solver, adaptive rho over up
+    to four intervals and the exact polish, at the bench.py configuration:
+    the grouped sweep route at N=20 (the NS chain refactorizes the lanes
+    whose rho adapts), the fused X route at N=30.  Returns the launch
+    counts of the path."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.models.double_integrator import (
+        DoubleIntegrator2D)
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers.banded import solve_qp_state
+    from ba_path_planning_torch.utils.config import SolverConfig
+    problem = _problem(n_veh)
+    solver = SolverConfig.production(problem=problem).replace(
+        adaptive_rho=True, polish=True, max_iter=100)
+    sh = ShardedSCPSolver(problem, solver, dtype=torch.float32, device=dev)
+    sc = generate_scenario_batch(200 + n_veh, B, n_vehicles=n_veh,
+                                 min_distance=R, dtype=torch.float32,
+                                 device=dev)
+    v0 = torch.zeros_like(sc.initial)
+    torch.cuda.synchronize()
+    _zero(counters)
+    refac = solve_qp_state.refactorized_lanes
+    t0 = time.perf_counter()
+    out = sh.solve_compacted(sc.initial, v0, sc.final, v0, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    refac = solve_qp_state.refactorized_lanes - refac
+    K = problem.n_steps
+    if not bool(torch.isfinite(out.positions).all()):
+        raise AssertionError("non-finite positions")
+    pK, _ = DoubleIntegrator2D(K, H).terminal_state(
+        out.positions, out.velocities, out.accelerations)
+    goal_ok = torch.linalg.vector_norm(pK - sc.final, dim=-1).amax(-1) < 0.05
+    ok = int((out.feasible_final & goal_ok).sum())
+    status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
+    print(f"adaptive-rho path (production, adaptive rho, polish, max_iter "
+          f"100): B={B} chunk={chunk} N={n_veh} f32 on {card}: "
+          f"wall={wall:.3f} s ok={ok}/{B} statuses={status} "
+          f"mean_scp_iters={float(out.iterations.float().mean()):.3f} "
+          f"mean_qp_iters={float(out.qp_iterations.float().mean()):.2f} "
+          f"lanes refactorized after rho adapted={refac} "
+          f"launches={launches}", flush=True)
+    _check_route(f"adaptive N={n_veh} path", launches,
+                 _production_route(n_veh))
+    if ok < int(np.ceil(0.99 * B)):
+        raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
+    return launches
+
+
+def cg_phase(dev, counters, B=CG_B):
+    """``SCPEngine(problem)`` with the default ``SolverConfig()`` (the CG
+    method, adaptive rho, its polish) at N=20, K=50 on the card, the SCP
+    loop cut to CG_SCP_ITERATIONS: B lanes in float32 and the same lanes in
+    float64.  Finite results of the expected
+    shape, valid statuses, equal statuses on at least ROUTE_SHARE of the
+    lanes, and no hand-written kernel launched.  Prints the collision-free
+    and QP-converged shares, ms per ADMM iteration and, from a profile of
+    one check interval, device launches per ADMM iteration."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers import admm
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    n_veh = 20
+    problem = _problem(n_veh, facade=True).replace(
+        max_iterations=CG_SCP_ITERATIONS)
+    sc = generate_scenario_batch(300, B, n_vehicles=n_veh, min_distance=R,
+                                 dtype=torch.float64, device=dev)
+    v0 = torch.zeros_like(sc.initial)
+    out = {}
+    _zero(counters)
+    for dtype in (torch.float32, torch.float64):
+        eng = SCPEngine(problem, dtype=dtype)
+        if eng.solver.method != "cg" or eng.device.type != "cuda":
+            raise AssertionError("SCPEngine(problem) is not the CG method "
+                                 "on the card")
+        its = admm.solve_qp_impl.iterations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.solve_batch(sc.initial, v0, sc.final, v0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = admm.solve_qp_impl.iterations - its
+        out[dtype] = res
+        if tuple(res.positions.shape) != (B, n_veh, K_STEPS, 2) or not bool(
+                torch.isfinite(res.positions).all()):
+            raise AssertionError("CG phase: positions not finite or of "
+                                 "another shape")
+        st = res.status.cpu().numpy()
+        if not np.isin(st, (0, 1, 2)).all():
+            raise AssertionError(f"CG phase: invalid statuses {st}")
+        print(f"CG phase (SCPEngine(problem), SolverConfig()): B={B} "
+              f"N={n_veh} K={K_STEPS} {str(dtype)[6:]}: wall={wall:.1f} s "
+              f"statuses={np.bincount(st, minlength=3).tolist()} "
+              f"collision_free={int(res.feasible_final.sum())}/{B} "
+              f"qp_converged_all={int(res.qp_converged_all.sum())}/{B} "
+              f"mean_scp_iters={float(res.iterations.float().mean()):.2f} "
+              f"mean_qp_iters={float(res.qp_iterations.float().mean()):.0f} "
+              f"batch ADMM iterations={its} "
+              f"({1e3 * wall / max(its, 1):.2f} ms each)", flush=True)
+    launches = _read(counters)
+    _check_route("CG phase", launches, set())
+    same = out[torch.float32].status.cpu() == out[torch.float64].status.cpu()
+    print(f"CG phase: float32 and float64 statuses equal on "
+          f"{int(same.sum())}/{B} lanes (at least {ROUTE_SHARE:.0%}); "
+          f"device launches per ADMM iteration "
+          f"{_cg_launches_per_iteration(problem, sc, v0)}", flush=True)
+    if int(same.sum()) < ROUTE_SHARE * B:
+        raise AssertionError("CG phase: float32 and float64 disagree")
+    return launches
+
+
+def _cg_launches_per_iteration(problem, sc, v0):
+    """Device kernels of one 5-iteration check interval of the CG method's
+    QP (phase 1, float32, eager: a QP's first interval is not replayed),
+    counted by ``torch.profiler``, per ADMM iteration; "not measured" where
+    the profiler records no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ba_path_planning_torch.ops.constraints import (ConstraintBlocks,
+                                                        static_bounds)
+    from ba_path_planning_torch.solvers import admm
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    from ba_path_planning_torch.utils.config import SolverConfig
+    n_iters = 5
+    eng = SCPEngine(problem, SolverConfig(max_iter=n_iters,
+                                          check_interval=n_iters,
+                                          polish=False), dtype=torch.float32)
+    p0, v0_, pf = (t.float() for t in (sc.initial, v0, sc.final))
+    lo, up = static_bounds(p0, v0_, pf, v0_, n_vehicles=problem.n_vehicles,
+                           n_steps=problem.n_steps, h=H,
+                           limits=problem.limits)
+    B, K, P = p0.shape[0], problem.n_steps, eng.pairs.E.shape[1]
+    inf = torch.full((B, K, P), float("inf"), device=p0.device)
+    data = admm.QPData(eta=torch.zeros((B, K, P, 2), device=p0.device),
+                       col_mask=torch.ones((), device=p0.device),
+                       lower=ConstraintBlocks(col=-inf, **lo),
+                       upper=ConstraintBlocks(col=inf, **up))
+
+    def run():
+        return admm.solve_qp_impl(
+            data, eng.pairs.E, eng.Minv,
+            torch.zeros((B, problem.n_vehicles, K, 2), device=p0.device),
+            eng.solver_params, h=H, static=eng.solver_static)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return f"{kernels / n_iters:.0f}" if kernels else "not measured"
+
+
+
 # route of the reference-compatible path -> (solver options, its kernel)
 FACADE_ROUTES = {
     "grouped_L": (dict(kernels=True), "group_solve_l"),
@@ -717,11 +1027,12 @@ FACADE_ROUTES = {
 }
 
 
-def facade_path(dev, card, route, counters):
+def facade_path(dev, card, route, counters, adaptive=False):
     """The reference-compatible path on one kernel route: one
     ``SCPEngine.solve_batch`` over FACADE_B scenarios at N=20 with the
     ``SCP`` class's problem and solver (no device given: the engine runs on
-    the card).  Returns the result and the launch counts of this path."""
+    the card), with ``adaptive`` its rho adaptive.  Returns the result and
+    the launch counts of this path."""
     import numpy as np
     import torch
     from ba_path_planning_torch.scenarios.generator import (
@@ -730,7 +1041,8 @@ def facade_path(dev, card, route, counters):
     from ba_path_planning_torch.solvers.scp import SCPEngine
     n_veh, B = 20, FACADE_B
     change, kernel = FACADE_ROUTES[route]
-    problem, solver = _problem(n_veh, facade=True), _facade_solver(**change)
+    problem = _problem(n_veh, facade=True)
+    solver = _facade_solver(**change, adaptive_rho=adaptive)
     took = qp_route(solver.static_part(), n_vehicles=n_veh, n_steps=K_STEPS,
                     dtype=torch.float32, col_enabled=True)
     if took != route:
@@ -756,7 +1068,8 @@ def facade_path(dev, card, route, counters):
                if t.is_floating_point() and t is not out.rel_step):
         raise AssertionError("non-finite output")
     status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
-    print(f"reference-compatible path, route {route}: B={B} N={n_veh} "
+    print(f"reference-compatible path, route {route}"
+          f"{', adaptive rho' if adaptive else ''}: B={B} N={n_veh} "
           f"K={K_STEPS} R={R} f32 on {card}: wall={wall:.3f} s "
           f"statuses={status} "
           f"collision_free={int(out.feasible_final.sum())}/{B} "
@@ -1009,6 +1322,7 @@ def main():
     # the wide instantiation of the L-form fused interval (n = 540 > 512),
     # where the router sends short horizons
     lform_phase(dev, 90, 8, fused=True, l_only=False, n_steps=3)
+    lane = lane_rho_phase(dev)
     lap("kernel phases")
     for n_veh in (20, 30):
         reference_phase(dev, n_veh)
@@ -1040,6 +1354,21 @@ def main():
     facade_agreement(results)
     add(facade_call(counters))
     lap("reference-compatible paths")
+    # the adaptive-rho paths; their launches of the fused kernels are those
+    # of the per-lane rho planes
+    lane_launches = dict.fromkeys(counters, 0)
+    for n_veh, B, chunk in ADAPTIVE_PATHS:
+        path = adaptive_path(dev, card, n_veh, B, chunk, counters)
+        add(path)
+        lane_launches["admm_fused_x"] += path["admm_fused_x"]
+    _, path = facade_path(dev, card, "fused_L", counters, adaptive=True)
+    add(path)
+    lane_launches["admm_fused_l"] += path["admm_fused_l"]
+    lap("adaptive-rho paths")
+    add(parity_phase(counters))
+    lap("parity phase")
+    add(cg_phase(dev, counters))
+    lap("CG phase")
     add(bench_phase(dev, counters))
     lap("bench twin")
     add(batch_cli_phase(counters))
@@ -1064,15 +1393,31 @@ def main():
         "admm_fused_l": ("admm_interval_fused", "admm_fused_l.cu",
                          ["admm_fused.py:162"], fstats["admm_fused_l"]),
     }
+    # the fused kernels again, with one rho a lane (their per-lane strides)
+    lane_rows = {
+        "admm_fused_x": ("admm_interval_fused_X", "admm_fused_x.cu",
+                         ["admm_fused.py:637", "admm_fused.py:432"],
+                         lane["admm_fused_x"]),
+        "admm_fused_l": ("admm_interval_fused", "admm_fused_l.cu",
+                         ["admm_fused.py:162"], lane["admm_fused_l"]),
+    }
     kernels = []
-    for key, (wrapper, src, replaces, stats) in rows.items():
+    for key, (wrapper, src, replaces, stats) in (
+            list(rows.items()) + [(k + "_lane_rho", v)
+                                  for k, v in lane_rows.items()]):
+        lane_rho = key.endswith("_lane_rho")
+        n_launch = (lane_launches[key[:-len("_lane_rho")]] if lane_rho
+                    else launches[key])
         entry = {"name": wrapper, "route": "cuda", "source": csrc + src,
-                 "replaces": pallas + replaces[0], "launches": launches[key],
+                 "replaces": pallas + replaces[0], "launches": n_launch,
                  **stats}
+        if lane_rho:
+            entry["rho"] = ("one rho a lane (adaptive rho); launches: the "
+                            "adaptive-rho paths'")
         if len(replaces) > 1:
             entry["also_replaces"] = [pallas + r for r in replaces[1:]]
-        if launches[key] < 1:
-            raise AssertionError(f"no path launched {wrapper}")
+        if n_launch < 1:
+            raise AssertionError(f"no path launched {wrapper} ({key})")
         kernels.append(entry)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s",
           flush=True)

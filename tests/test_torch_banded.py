@@ -272,7 +272,7 @@ def test_scp_iteration_qp_matches_jax():
     (20, dict(), None),
     (21, dict(), None),
     (22, dict(), None),
-    (20, dict(adaptive_rho=True), "adaptive rho"),
+    (20, dict(adaptive_rho=True), "grouped_X"),
     (20, dict(factor_form="L"), "grouped_L"),
     (20, dict(kernels=False, fused=False), "dense"),
     (20, dict(factor_dtype="bf16"), "bf16"),
@@ -284,8 +284,9 @@ def test_qp_route_matches_the_jax_router_or_raises(N, change, expect):
     """The grouped X route where the JAX router takes the grouped sweep
     kernel and the fused X route where it takes the fused ADMM-interval
     kernel, N >= 22 in float32 (banded.py:1210-1259); the L-only, dense and
-    L-form fused routes where it takes those; every option not ported
-    raises, naming its ROADMAP item, instead of running another route."""
+    L-form fused routes where it takes those; adaptive rho routes as the
+    shared rho does; bf16 factors, not ported, raise, naming their ROADMAP
+    item, instead of running another route."""
     from ba_path_planning_torch.utils.config import SolverConfig
     static = SolverConfig.production().replace(**change).static_part()
     kw = dict(n_vehicles=N, n_steps=50, dtype=torch.float32)
@@ -293,7 +294,7 @@ def test_qp_route_matches_the_jax_router_or_raises(N, change, expect):
         assert tb.qp_route(static, col_enabled=False, **kw) == "channel"
         assert tb.qp_route(static, col_enabled=True, **kw) == (
             "fused_X" if N >= 22 else "grouped_X")
-    elif expect in ("grouped_L", "dense", "fused_L"):
+    elif expect in ("grouped_X", "grouped_L", "dense", "fused_L"):
         assert tb.qp_route(static, col_enabled=True, **kw) == expect
     else:
         with pytest.raises(NotImplementedError, match=expect):
@@ -301,18 +302,26 @@ def test_qp_route_matches_the_jax_router_or_raises(N, change, expect):
 
 
 def test_unported_solver_options_raise():
+    """The polish and the CG method, refused before the slice that ported
+    them, now run; a budget of two check intervals is served."""
     from ba_path_planning_torch.solvers.scp import SCPEngine
     from ba_path_planning_torch.utils.config import (ProblemConfig,
                                                      SolverConfig)
     problem = ProblemConfig(n_vehicles=3, time_horizon=2.0, time_step=0.2)
     prod = SolverConfig.production(problem=problem)
-    for change in (dict(polish=True), dict(method="cg")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SCPEngine(problem, prod.replace(**change), device="cpu")
+    z = torch.zeros((1, 3, 2), dtype=F64)
+    polished = SCPEngine(problem, prod.replace(polish=True), dtype=F64,
+                         device="cpu")
+    carry = polished.start(z, z, z + 1.0, z)
+    assert bool(torch.isfinite(carry.a).all())
+    cg = SCPEngine(problem, prod.replace(method="cg", max_iter=50),
+                   dtype=F64, device="cpu")
+    res = cg.solve_batch(z, z, z + 1.0, z)
+    assert bool(torch.isfinite(res.positions).all())
+    assert int(res.status[0]) in (0, 1, 2)
     # a budget of two check intervals is served: a lane stops after the
     # first if its residuals pass there, else runs the second
     eng = SCPEngine(problem, prod.replace(max_iter=50), dtype=F64,
                     device="cpu")
-    z = torch.zeros((1, 3, 2), dtype=F64)
     carry = eng.start(z, z, z + 1.0, z)
     assert int(carry.qp_iters) == (25 if bool(carry.qp_ok) else 50)

@@ -314,13 +314,17 @@ def _to64(args):
                  else a.double() for a in args)
 
 
-def _interval_case(B, K, N, seed, device, form="X", hard=False):
+def _interval_case(B, K, N, seed, device, form="X", hard=False,
+                   lane_rho=None):
     """Inputs of one fused ADMM interval at main-path shapes, float32:
     bounds of random start and goal positions, collision rows of random
     unit directions about the start positions (row 0 vacuous), the
     production rho pattern and X-form factors from the NS route
     (``form="X"``) or dense (Linv, Eb) factors (``form="L"``).  ``hard``
-    sets the collision penalty to +inf (hard rows).  The state (x, z, y) is
+    sets the collision penalty to +inf (hard rows).  ``lane_rho`` (B,)
+    gives each lane its own rho (adaptive rho): per-lane rho planes, and
+    in the X form per-lane slot scalars, its factors those of M / rho
+    scaled back, as the solver makes them.  The state (x, z, y) is
     warm, as an SCP iteration finds it: one float64 plain interval from x at
     rest, z = clip(A x, l, u) and y = 0.  Returns the positional and keyword
     arguments of ``admm_interval_fused_X`` or ``admm_interval_fused``."""
@@ -346,13 +350,20 @@ def _interval_case(B, K, N, seed, device, form="X", hard=False):
     dist = torch.linalg.vector_norm(pairwise_diffs(prev, pairs), dim=-1)
     lower = lower._replace(col=tb.collision_lower_bounds_state(
         eta, dist, prev, pairs, min_distance=0.93))
+    scaling = tb.row_scaling_state(K, h, dtype=f32, device=device)
     rho = tb.rho_pattern_masks(
-        tb.row_scaling_state(K, h, dtype=f32, device=device),
-        solver.static_part(), prm.rho, prm.col_rho_boost, n_steps=K,
-        n_pairs=P, col_enabled=True, dtype=f32)
+        scaling, solver.static_part(),
+        prm.rho if lane_rho is None else lane_rho.to(device),
+        prm.col_rho_boost, n_steps=K, n_pairs=P, col_enabled=True, dtype=f32)
     D, C = tb.assemble_D(rho, eta, pairs.E, h=h, sigma=prm.sigma,
                          n_vehicles=N)
-    if form == "X":
+    if form == "X" and lane_rho is not None:
+        C1 = tb.unit_slot_scalars(solver.static_part(), n_steps=K, h=h,
+                                  device=device)
+        scale = lane_rho.to(device, f32).reshape(-1, 1, 1, 1)
+        factors = (ns_chain.factorize_X_chain_batched(
+            (D / scale).contiguous(), C1, ns_iters=2) / scale, C)
+    elif form == "X":
         factors = (ns_chain.factorize_X_chain_batched(D, C, ns_iters=2), C)
     else:
         factors = tuple(t.float() for t in tb.factorize(
@@ -386,9 +397,9 @@ def _interval_rows(out, K):
     return tb.to_stacked(x), rows(z), rows(y)
 
 
-def _check_interval(cuda, B, K, N, n_iters, form, hard):
+def _check_interval(cuda, B, K, N, n_iters, form, hard, lane_rho=None):
     args, kw = _interval_case(B, K, N, seed=N, device=cuda, form=form,
-                              hard=hard)
+                              hard=hard, lane_rho=lane_rho)
     kernel, plain = _FUSED[form]
     before = kernel.launches
     got = kernel(*args, n_iters=n_iters, **kw)
@@ -460,6 +471,42 @@ def test_admm_fused_kernels_with_hard_collision_rows(cuda, form, N, n_iters):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("form,N", [("X", 30), ("X", 40), ("L", 20)])
+@pytest.mark.parametrize("B", [1, 64, 128])
+@pytest.mark.parametrize("n_iters", [1, 25])
+def test_admm_fused_kernels_with_lane_rho(cuda, form, N, B, n_iters):
+    """Adaptive rho: one rho a lane, spread over two decades around the
+    production rho, read through the kernels' per-lane strides (rho planes,
+    and the X form's slot scalars), held as the shared-rho cases are."""
+    rng = np.random.default_rng(B + N)
+    lane_rho = torch.as_tensor(2.6 * np.exp(rng.uniform(-2.3, 2.3, B)),
+                               dtype=torch.float32)
+    _check_interval(cuda, B, 50, N, n_iters, form, hard=False,
+                    lane_rho=lane_rho)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,N", [("X", 30), ("L", 20)])
+def test_admm_fused_kernels_shared_rho_bit_for_bit(cuda, form, N):
+    """Stride 0 (batch-shared rho planes and slot scalars) and per-lane
+    planes that all hold the same rho give the same bits."""
+    args, kw = _interval_case(8, 50, N, seed=N, device=cuda, form=form)
+    kernel = _FUSED[form][0]
+    rho = args[-1]
+    B = args[2].shape[0]
+    lane = tb.RowVals(*(t.expand((B, 1) + t.shape).contiguous()
+                        for t in rho[:-1]),
+                      col=rho.col.expand((B,) + rho.col.shape).contiguous())
+    shared = kernel(*args, n_iters=25, **kw)
+    if form == "X":
+        C = args[1]
+        args = (args[0], C.expand((B,) + C.shape).contiguous()) + args[2:]
+    per_lane = kernel(*args[:-1], lane, n_iters=25, **kw)
+    for a, b in zip(_interval_rows(shared, 50), _interval_rows(per_lane, 50)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_admm_fused_wrapper_raises_on_unsupported_cuda_input(cuda):
     args, kw = _interval_case(2, 10, 3, seed=1, device=cuda)
     X = args[0]
@@ -480,3 +527,57 @@ def test_admm_fused_wrapper_raises_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         admm_fused.admm_interval_fused(Linv, Eb[:, :-1], *args[2:],
                                        n_iters=1, **kw)
+
+
+@pytest.mark.gpu
+def test_graphed_interval_replays_the_eager_kernels(cuda):
+    """An ADMM interval of the dense route (no hand-written kernel) as a
+    CUDA graph: eager on the first call, captured on the second, replayed
+    after; each call gives the bits of an eager call on its inputs."""
+    from ba_path_planning_torch.utils.graphs import graphed
+    args, kw = _interval_case(4, 20, 5, seed=3, device=cuda, form="L")
+    Linv, Eb, eta, E, lower, upper, x, z, y, rho = args
+
+    def interval(x, z, y):
+        return tb.admm_iterations(
+            x, z, y, lambda sb: tb.solve_factorized(Linv, Eb, sb), eta, E,
+            lower, upper, rho, n_iters=5, **kw)
+    run = graphed(interval)
+    state = (x, z, y)
+    for _ in range(4):
+        got, want = run(*state), interval(*state)
+        for g, w in zip(_interval_rows(got, 20), _interval_rows(want, 20)):
+            assert torch.equal(g, w)
+        state = want
+
+
+@pytest.mark.gpu
+def test_cg_method_on_the_card_matches_the_cpu(cuda):
+    """``SCPEngine(problem)`` with the default ``SolverConfig()`` (the CG
+    method, its check intervals replayed as CUDA graphs) in float64 on the
+    card against the same solve on the CPU, on swap-and-cross layouts of
+    three vehicles whose QPs converge: equal statuses and iteration counts,
+    positions within 1e-6 m."""
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    problem = ProblemConfig(n_vehicles=3, time_horizon=2.0, time_step=0.2,
+                            min_distance=0.3, stop_mode="feasible",
+                            goal_project=True)
+    rng = np.random.default_rng(0)
+    ang = np.linspace(0, 2 * np.pi, 3, endpoint=False)
+    p0, pf = np.zeros((4, 3, 2)), np.zeros((4, 3, 2))
+    for b in range(4):
+        rot = rng.uniform(0, np.pi)
+        base = np.stack([np.cos(ang + rot), np.sin(ang + rot)], -1) * (
+            1.2 + 0.1 * b)
+        p0[b] = 10 + base + rng.normal(scale=0.05, size=(3, 2))
+        pf[b] = 10 - base + rng.normal(scale=0.05, size=(3, 2))
+    v0 = np.zeros_like(p0)
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = SCPEngine(problem, dtype=torch.float64, device=dev)
+        out[str(dev)] = eng.solve_batch(p0, v0, pf, v0)
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert bool(cpu.qp_converged_all.all())
+    for name in ("status", "iterations", "qp_iterations"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+    assert float((gpu.positions.cpu() - cpu.positions).abs().max()) <= 1e-6
