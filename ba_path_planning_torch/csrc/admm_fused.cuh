@@ -40,8 +40,10 @@ __host__ __device__ inline long ring_width(long n, int packed) {
 }
 
 // Dynamic shared memory of a block for K steps of N vehicles (n = 6N): the
-// ring's barriers and its `stages` stages of `band_rows` rows, the (K, n)
-// sweep plane where `plane` is 1 (else it lies in a global scratch), one
+// ring's barriers and its `stages` stages of `band_rows` rows of
+// `row_bytes` bytes (float factors: 4 ring_width(n, packed); bf16 ones:
+// 2 ld), the (K, n) sweep plane where `plane` is 1 (else it lies in a
+// global scratch), one
 // vector of n floats, in the packed mode the warps' column partial sums
 // (kWarps x n), the row dots (n) and the band table (kMaxBands ints), the
 // pair table (two 16-bit indices a pair) and, in the X form (`xform` 1),
@@ -50,28 +52,30 @@ __host__ __device__ inline long ring_width(long n, int packed) {
 // each other.
 __host__ __device__ inline long smem_bytes(int K, int N, int band_rows,
                                            int stages, int plane, int packed,
-                                           int xform) {
+                                           int xform, int row_bytes) {
   const long n = 6L * N;
   return factor_ring::kBarrierBytes +
-         4L * (static_cast<long>(stages) * band_rows * ring_width(n, packed) +
-               n * (1 + static_cast<long>(plane) * K +
+         static_cast<long>(stages) * band_rows * row_bytes +
+         4L * (n * (1 + static_cast<long>(plane) * K +
                     static_cast<long>(packed) * (kWarps + 1)) +
                static_cast<long>(packed) * kMaxBands) +
          2L * N * (N - 1) + 36L * (K - 1) * xform;
 }
 
 // The shared memory of a launch plan, or -1 for a plan the kernels cannot
-// run: bands of an even number of rows, 2 to kMaxStages stages, within an
-// SM's shared memory; the packed mode up to n = kPackedMaxN.
+// run: bands of an even number of rows, each a multiple of 16 bytes, 2 to
+// kMaxStages stages, within an SM's shared memory; the packed mode up to
+// n = kPackedMaxN.
 inline long plan_smem(int B, int K, int N, int n_iters, int band_rows,
-                      int stages, bool plane, bool packed, bool xform) {
+                      int stages, bool plane, bool packed, bool xform,
+                      int row_bytes) {
   if (B < 1 || K < 2 || N < 1 || N > 65535 || n_iters < 0 ||
       band_rows < 2 || band_rows % 2 || band_rows > 6 * N || stages < 2 ||
-      stages > factor_ring::kMaxStages ||
+      stages > factor_ring::kMaxStages || (2 * row_bytes) % 16 ||
       (packed && 6 * N > kPackedMaxN))
     return -1;
   const long smem = smem_bytes(K, N, band_rows, stages, plane ? 1 : 0,
-                               packed ? 1 : 0, xform ? 1 : 0);
+                               packed ? 1 : 0, xform ? 1 : 0, row_bytes);
   return smem <= kSmemMax ? smem : -1;
 }
 

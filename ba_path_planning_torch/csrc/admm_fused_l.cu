@@ -60,6 +60,10 @@
 //     admm_rows.cuh, shared with admm_fused_x.cu; hard collision rows
 //     (lam = +inf) and disabled rows (lower bound -inf) need no case of
 //     their own there.  Plain FP32.
+//   * The factors come as float or as bf16 (SolverConfig.factor_dtype,
+//     the element type T: half the bytes of the stream, rows stored ld
+//     elements apart, a multiple of 8); bf16 elements are widened to FP32
+//     as the matvecs read them, and every sum and vector is FP32.
 
 #include <cuda_runtime.h>
 
@@ -78,18 +82,19 @@ using admm_fused::kThreads;
 constexpr int kNarrowOctets = 4;
 constexpr int kWideOctets = 7;
 
-// The factor block at place s of the sweep order L_0, E_0, L_1, ..., L_{K-1}.
-__device__ __forceinline__ const float* sweep_block(const float* Lb,
-                                                    const float* Ebb, int s,
-                                                    size_t nsq) {
+// The factor block at place s of the sweep order L_0, E_0, L_1, ..., L_{K-1}
+// (nsq elements a block).
+template <typename T>
+__device__ __forceinline__ const T* sweep_block(const T* Lb, const T* Ebb,
+                                                int s, size_t nsq) {
   return (s & 1) ? Ebb + (s >> 1) * nsq : Lb + (s >> 1) * nsq;
 }
 
-template <int kOct>
+template <int kOct, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 admm_fused_l_kernel(const float* __restrict__ fpar,
-                    const float* __restrict__ Linv,
-                    const float* __restrict__ Eb,
+                    const T* __restrict__ Linv,
+                    const T* __restrict__ Eb,
                     const float* __restrict__ eta,
                     const float* __restrict__ l_s,
                     const float* __restrict__ u_s,
@@ -97,25 +102,26 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
                     const float* __restrict__ rho_s,
                     const float* __restrict__ rho_c, float* x, float* zs,
                     float* ys, float* zc, float* yc, float* plane, int K,
-                    int N, int n_iters, int band_rows, int stages,
+                    int N, int ld, int n_iters, int band_rows, int stages,
                     int rho_s_stride, int rho_c_stride) {
   extern __shared__ float4 smem4[];
   const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
   const int b = blockIdx.x, tid = threadIdx.x;
   unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
-  float* sm = reinterpret_cast<float*>(raw + factor_ring::kBarrierBytes);
-  const factor_ring::Ring ring{sm, factor_ring::smem_addr(raw), stages,
-                               band_rows * n};
-  sm += static_cast<size_t>(stages) * ring.stage_floats;
+  const factor_ring::RingOf<T> ring{
+      reinterpret_cast<T*>(raw + factor_ring::kBarrierBytes),
+      factor_ring::smem_addr(raw), stages, band_rows * ld, ld};
+  float* sm = reinterpret_cast<float*>(
+      ring.data + static_cast<size_t>(stages) * ring.stage_elems);
   // (K, n) sweep plane, in shared memory unless the launcher gave a scratch
   float* xt = plane ? plane + static_cast<size_t>(b) * K * n : sm;
   float* r = plane ? sm : sm + K * n;            // (n) matvec input
   unsigned short* pi = reinterpret_cast<unsigned short*>(r + n);
   unsigned short* pj = pi + P;
 
-  const size_t nsq = static_cast<size_t>(n) * n;
-  const float* Lb = Linv + static_cast<size_t>(b) * K * nsq;
-  const float* Ebb = Eb + static_cast<size_t>(b) * (K - 1) * nsq;
+  const size_t nsq = static_cast<size_t>(n) * ld;   // elements of a block
+  const T* Lb = Linv + static_cast<size_t>(b) * K * nsq;
+  const T* Ebb = Eb + static_cast<size_t>(b) * (K - 1) * nsq;
   const int last = 2 * K - 2;                    // place of L_{K-1}
 
   if (tid == 0) factor_ring::init(ring, kConsumers / 32);
@@ -126,11 +132,11 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
     factor_ring::Cursor cur{0, 0u};
     for (int it = 0; it < n_iters; ++it) {
       for (int s = 0; s <= last; ++s)
-        factor_ring::produce_block(ring, cur, sweep_block(Lb, Ebb, s, nsq), n,
-                                   0, n, band_rows);
+        factor_ring::produce_block(ring, cur, sweep_block(Lb, Ebb, s, nsq), 0,
+                                   n, band_rows);
       for (int s = last; s >= 0; --s)
-        factor_ring::produce_block(ring, cur, sweep_block(Lb, Ebb, s, nsq), n,
-                                   0, n, band_rows);
+        factor_ring::produce_block(ring, cur, sweep_block(Lb, Ebb, s, nsq), 0,
+                                   n, band_rows);
     }
     return;
   }
@@ -197,6 +203,33 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
   }
 }
 
+// Launch the kernel of factor type T on a checked plan; the factors' rows
+// lie ld elements apart.
+template <typename T>
+int launch(const float* fpar, const T* Linv, const T* Eb, const float* eta,
+           const float* l_s, const float* u_s, const float* l_c,
+           const float* rho_s, const float* rho_c, float* x, float* zs,
+           float* ys, float* zc, float* yc, float* plane, int B, int K, int N,
+           int ld, int n_iters, int band_rows, int stages, int rho_s_stride,
+           int rho_c_stride, cudaStream_t stream) {
+  const long smem = admm_fused::plan_smem(
+      B, K, N, n_iters, band_rows, stages, plane == nullptr, false, false,
+      static_cast<int>(sizeof(T)) * ld);
+  const bool narrow = 6 * N <= 8 * kNarrowOctets * (kConsumers / 32);
+  if (smem < 0 || ld < 6 * N || 6 * N > 8 * kWideOctets * (kConsumers / 32) ||
+      (reinterpret_cast<size_t>(Linv) | reinterpret_cast<size_t>(Eb)) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = narrow ? admm_fused_l_kernel<kNarrowOctets, T>
+                       : admm_fused_l_kernel<kWideOctets, T>;
+  const int err = admm_fused::allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<B, kThreads, smem, stream>>>(
+      fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
+      plane, K, N, ld, n_iters, band_rows, stages, rho_s_stride,
+      rho_c_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -222,20 +255,27 @@ int admm_fused_l_f32(const float* fpar, const float* Linv, const float* Eb,
                      float* plane, int B, int K, int N, int n_iters,
                      int band_rows, int stages, int rho_s_stride,
                      int rho_c_stride, cudaStream_t stream) {
-  const long smem = admm_fused::plan_smem(B, K, N, n_iters, band_rows, stages,
-                                          plane == nullptr, false, false);
-  const bool narrow = 6 * N <= 8 * kNarrowOctets * (kConsumers / 32);
-  if (smem < 0 || 6 * N > 8 * kWideOctets * (kConsumers / 32) ||
-      (reinterpret_cast<size_t>(Linv) | reinterpret_cast<size_t>(Eb)) & 15)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = narrow ? admm_fused_l_kernel<kNarrowOctets>
-                       : admm_fused_l_kernel<kWideOctets>;
-  const int err = admm_fused::allow_smem(kernel, smem);
-  if (err != 0) return err;
-  kernel<<<B, kThreads, smem, stream>>>(
-      fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
-      plane, K, N, n_iters, band_rows, stages, rho_s_stride, rho_c_stride);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s, rho_c, x,
+                       zs, ys, zc, yc, plane, B, K, N, 6 * N, n_iters,
+                       band_rows, stages, rho_s_stride, rho_c_stride, stream);
+}
+
+// As admm_fused_l_f32 on bf16 factors Linv (B, K, 6N, ld) and
+// Eb (B, K-1, 6N, ld), rows ld elements apart (ld >= 6N, a multiple of 8;
+// the columns from 6N on are not read), widened to FP32 as they are read;
+// everything else float32.
+int admm_fused_l_bf16(const float* fpar, const __nv_bfloat16* Linv,
+                      const __nv_bfloat16* Eb, const float* eta,
+                      const float* l_s, const float* u_s, const float* l_c,
+                      const float* rho_s, const float* rho_c, float* x,
+                      float* zs, float* ys, float* zc, float* yc,
+                      float* plane, int B, int K, int N, int ld, int n_iters,
+                      int band_rows, int stages, int rho_s_stride,
+                      int rho_c_stride, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s,
+                               rho_c, x, zs, ys, zc, yc, plane, B, K, N, ld,
+                               n_iters, band_rows, stages, rho_s_stride,
+                               rho_c_stride, stream);
 }
 
 }  // extern "C"

@@ -173,8 +173,8 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
   unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
   float* sm = reinterpret_cast<float*>(raw + factor_ring::kBarrierBytes);
   const factor_ring::Ring ring{sm, factor_ring::smem_addr(raw), stages,
-                               band_rows * R};
-  sm += static_cast<size_t>(stages) * ring.stage_floats;
+                               band_rows * R, n};
+  sm += static_cast<size_t>(stages) * ring.stage_elems;
   // (K, n) sweep plane, in shared memory unless the launcher gave a scratch
   float* xt = plane ? plane + static_cast<size_t>(b) * K * n : sm;
   float* r = plane ? sm : sm + K * n;            // (n) matvec input
@@ -202,7 +202,7 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
       for (int r0 = 0; r0 < n;) {
         int r1 = r0;
         while (r1 < n &&
-               packed_off(r1 + 1, R) - packed_off(r0, R) <= ring.stage_floats)
+               packed_off(r1 + 1, R) - packed_off(r0, R) <= ring.stage_elems)
           ++r1;
         band_end[nb++] = r1;
         r0 = r1;
@@ -223,7 +223,7 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
                 ring, cur, Xk + packed_off(r0, R),
                 packed_off(band_end[bi], R) - packed_off(r0, R));
         } else {
-          factor_ring::produce_block(ring, cur, Xk, n, 0, n, band_rows);
+          factor_ring::produce_block(ring, cur, Xk, 0, n, band_rows);
         }
       }
     return;
@@ -334,9 +334,9 @@ int admm_fused_x_f32(const float* fpar, const float* C9, const float* X,
                      int band_rows, int stages, int packed,
                      int rho_s_stride, int rho_c_stride, int c9_stride,
                      cudaStream_t stream) {
-  const long smem = admm_fused::plan_smem(B, K, N, n_iters, band_rows, stages,
-                                          plane == nullptr, packed != 0,
-                                          true);
+  const long smem = admm_fused::plan_smem(
+      B, K, N, n_iters, band_rows, stages, plane == nullptr, packed != 0,
+      true, 4 * static_cast<int>(admm_fused::ring_width(6L * N, packed)));
   if (smem < 0 || (reinterpret_cast<size_t>(X) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = packed ? admm_fused_x_kernel<true>

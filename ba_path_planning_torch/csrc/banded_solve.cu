@@ -52,8 +52,20 @@ extern "C" {
 int banded_solve_f32(const float* Linv, const float* Eb, const float* b,
                      float* x, int B, int K, int n, int cluster,
                      int band_rows, int stages, cudaStream_t stream) {
-  return group_sweep::launch<group_sweep::kFormDense>(
-      Linv, Eb, b, x, B, K, n, cluster, band_rows, stages, stream);
+  return group_sweep::launch<group_sweep::kFormDense, float>(
+      Linv, Eb, b, x, B, K, n, n, cluster, band_rows, stages, stream);
+}
+
+// As banded_solve_f32 on bf16 factors Linv (B, K, n, ld) and
+// Eb (B, K-1, n, ld), rows ld elements apart (ld >= n, a multiple of 8; the
+// columns from n on are not read), widened to FP32 as they are read; b and
+// x float32.
+int banded_solve_bf16(const __nv_bfloat16* Linv, const __nv_bfloat16* Eb,
+                      const float* b, float* x, int B, int K, int n, int ld,
+                      int cluster, int band_rows, int stages,
+                      cudaStream_t stream) {
+  return group_sweep::launch<group_sweep::kFormDense, __nv_bfloat16>(
+      Linv, Eb, b, x, B, K, n, ld, cluster, band_rows, stages, stream);
 }
 
 }  // extern "C"

@@ -18,6 +18,13 @@
 // copies by how fast the one producer warp can start them).  The matvecs do
 // stop at the diagonal of such a block.
 //
+// The factors are stored as float or as bf16 (the element type T of the
+// ring): a bf16 element is widened to FP32 in registers as it is read, and
+// every sum, vector and scalar stays FP32.  The rows of a block lie `ld`
+// elements apart (Ring::ld): n for float factors; for bf16 ones n rounded
+// up to a multiple of 8, so that every row is 16 bytes aligned
+// (ops/group_solve.py bf16_row_stride).
+//
 // Used by admm_fused_x.cu, admm_fused_l.cu and, through group_sweep.cuh, by
 // group_solve_x.cu, group_solve_l.cu and banded_solve.cu; the matvecs take
 // the consumer warp's index and the number of consumer warps, so a kernel is
@@ -25,6 +32,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "sweeps.cuh"
@@ -32,6 +40,12 @@
 namespace factor_ring {
 
 constexpr int kMaxStages = 8;
+
+// A factor element in FP32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 constexpr int kBarrierBytes = 2 * kMaxStages * 8;   // full[], then empty[]
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -75,7 +89,7 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 
 // `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
 // aligned, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           unsigned bytes, unsigned bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -84,17 +98,21 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       : "memory");
 }
 
-// The ring: `stages` tiles of `stage_floats` floats at `data`, and the full
-// and empty barriers of each stage at `bars`.
-struct Ring {
-  float* data;
+// The ring: `stages` tiles of `stage_elems` elements of T at `data`, and
+// the full and empty barriers of each stage at `bars`; the rows of a factor
+// block lie `ld` elements apart, in global memory and in a stage.
+template <typename T>
+struct RingOf {
+  T* data;
   unsigned bars;            // shared address of full[kMaxStages], empty[...]
-  int stages, stage_floats;
+  int stages, stage_elems;
+  int ld;
   __device__ unsigned full(int s) const { return bars + 8 * s; }
   __device__ unsigned empty(int s) const {
     return bars + 8 * (kMaxStages + s);
   }
 };
+using Ring = RingOf<float>;
 
 // A role's position in the ring.  Both roles start at {0, 0} and walk the
 // same sequence of bands.
@@ -112,7 +130,9 @@ struct Cursor {
 // One thread initialises the barriers: a full barrier completes on the
 // producer's arrival and the bytes it announced, an empty one on the
 // arrival of every consumer warp.  The block synchronises afterwards.
-__device__ __forceinline__ void init(const Ring& ring, int consumer_warps) {
+template <typename T>
+__device__ __forceinline__ void init(const RingOf<T>& ring,
+                                     int consumer_warps) {
   for (int s = 0; s < ring.stages; ++s) {
     mbar_init(ring.full(s), 1);
     mbar_init(ring.empty(s), consumer_warps);
@@ -120,42 +140,48 @@ __device__ __forceinline__ void init(const Ring& ring, int consumer_warps) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Producer warp: `floats` floats at `src` (a multiple of 4, 16-byte
-// aligned) as the next band of the ring, one bulk copy by lane 0.
-__device__ __forceinline__ void produce_span(const Ring& ring, Cursor& cur,
-                                             const float* src, int floats) {
+// Producer warp: `elems` elements at `src` (16-byte aligned, a multiple of
+// 16 bytes) as the next band of the ring, one bulk copy by lane 0.
+template <typename T>
+__device__ __forceinline__ void produce_span(const RingOf<T>& ring,
+                                             Cursor& cur, const T* src,
+                                             int elems) {
   if ((threadIdx.x & 31) != 0) return;
   mbar_wait(ring.empty(cur.stage), cur.phase ^ 1u);
   const unsigned bar = ring.full(cur.stage);
-  const unsigned bytes = 4u * static_cast<unsigned>(floats);
+  const unsigned bytes =
+      static_cast<unsigned>(sizeof(T)) * static_cast<unsigned>(elems);
   mbar_arrive_expect_tx(bar, bytes);
-  bulk_copy(ring.data + static_cast<size_t>(cur.stage) * ring.stage_floats,
+  bulk_copy(ring.data + static_cast<size_t>(cur.stage) * ring.stage_elems,
             src, bytes, bar);
   cur.advance(ring.stages);
 }
 
-// Producer warp: stream rows [lo, hi) of the n x n row-major `block` band
-// by band (a band is one copy, so lane 0 does it all).
-__device__ __forceinline__ void produce_block(const Ring& ring, Cursor& cur,
-                                              const float* block, int n,
+// Producer warp: stream rows [lo, hi) of the row-major `block` (rows
+// ring.ld apart) band by band (a band is one copy, so lane 0 does it all).
+template <typename T>
+__device__ __forceinline__ void produce_block(const RingOf<T>& ring,
+                                              Cursor& cur, const T* block,
                                               int lo, int hi, int band_rows) {
   if ((threadIdx.x & 31) != 0) return;
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
-    produce_span(ring, cur, block + static_cast<size_t>(r0) * n,
-                 (r1 - r0) * n);
+    produce_span(ring, cur, block + static_cast<size_t>(r0) * ring.ld,
+                 (r1 - r0) * ring.ld);
   }
 }
 
 // Consumer: the band at the cursor, once it has landed.
-__device__ __forceinline__ const float* acquire(const Ring& ring,
-                                                const Cursor& cur) {
+template <typename T>
+__device__ __forceinline__ const T* acquire(const RingOf<T>& ring,
+                                            const Cursor& cur) {
   mbar_wait(ring.full(cur.stage), cur.phase);
-  return ring.data + static_cast<size_t>(cur.stage) * ring.stage_floats;
+  return ring.data + static_cast<size_t>(cur.stage) * ring.stage_elems;
 }
 
 // Consumer: this warp is done with the band at the cursor.
-__device__ __forceinline__ void release(const Ring& ring, Cursor& cur) {
+template <typename T>
+__device__ __forceinline__ void release(const RingOf<T>& ring, Cursor& cur) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(ring.empty(cur.stage));
   cur.advance(ring.stages);
@@ -164,19 +190,21 @@ __device__ __forceinline__ void release(const Ring& ring, Cursor& cur) {
 constexpr int kRows = 4;        // rows a warp reduces at a time
 
 // a[q] = M[i_q, :lim_q] . v for the rows i_q = i + q nwarps of the band
-// [r0, r1) at M (lim_q = i_q + 1 if `tri`, else n); a row beyond the band
-// stands in as row i and gets lim 0 and a 0.  Every lane returns the sums;
-// the result is the largest lim.
-__device__ __forceinline__ int row_dots(const float* M, int r0, int r1, int i,
+// [r0, r1) at M, rows ld apart (lim_q = i_q + 1 if `tri`, else n); a row
+// beyond the band stands in as row i and gets lim 0 and a 0.  Every lane
+// returns the sums; the result is the largest lim.
+template <typename T>
+__device__ __forceinline__ int row_dots(const T* M, int r0, int r1, int i,
                                         int nwarps, const float* v, int n,
-                                        bool tri, const float* (&row)[kRows],
+                                        int ld, bool tri,
+                                        const T* (&row)[kRows],
                                         int (&lim)[kRows], float (&a)[kRows]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
     const bool ok = i + q * nwarps < r1;
     const int iq = ok ? i + q * nwarps : i;
-    row[q] = M + (iq - r0) * n;
+    row[q] = M + (iq - r0) * ld;
     lim[q] = ok ? (tri ? iq + 1 : n) : 0;
     a[q] = 0.f;
   }
@@ -188,7 +216,7 @@ __device__ __forceinline__ int row_dots(const float* M, int r0, int r1, int i,
     const float vj = v[j];
 #pragma unroll
     for (int q = 0; q < kRows; ++q)
-      if (j < lim[q]) a[q] = fmaf(row[q][j], vj, a[q]);
+      if (j < lim[q]) a[q] = fmaf(widen(row[q][j]), vj, a[q]);
   }
 #pragma unroll
   for (int q = 0; q < kRows; ++q) a[q] = sweeps::warp_sum(a[q]);
@@ -202,19 +230,20 @@ __device__ __forceinline__ int row_dots(const float* M, int r0, int r1, int i,
 // read consecutive columns and reduce with shuffles.  Called by every
 // consumer warp; fn runs on lane 0, and its writes need a barrier before
 // they are read.
-template <typename Fn>
-__device__ __forceinline__ void matvec_rows(const Ring& ring, Cursor& cur,
-                                            const float* v, int n, int lo,
-                                            int hi, int band_rows, bool tri,
+template <typename T, typename Fn>
+__device__ __forceinline__ void matvec_rows(const RingOf<T>& ring,
+                                            Cursor& cur, const float* v,
+                                            int n, int lo, int hi,
+                                            int band_rows, bool tri,
                                             int warp, int nwarps, Fn fn) {
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
-    const float* M = acquire(ring, cur);
+    const T* M = acquire(ring, cur);
     for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
-      const float* row[kRows];
+      const T* row[kRows];
       int lim[kRows];
       float a[kRows];
-      row_dots(M, r0, r1, i, nwarps, v, n, tri, row, lim, a);
+      row_dots(M, r0, r1, i, nwarps, v, n, ring.ld, tri, row, lim, a);
       if ((threadIdx.x & 31) == 0) {
 #pragma unroll
         for (int q = 0; q < kRows; ++q)
@@ -233,8 +262,8 @@ __device__ __forceinline__ void matvec_rows(const Ring& ring, Cursor& cur,
 // both products of the L form from one read; else y_i = v[i], the
 // transposed product alone.  The rows are split over the warps as in
 // matvec_rows; the caller sums the warps' acc.
-template <int U, bool kDots>
-__device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
+template <int U, bool kDots, typename T>
+__device__ __forceinline__ void matvec_rows_cols(const RingOf<T>& ring,
                                                  Cursor& cur, const float* v,
                                                  int n, int lo, int hi,
                                                  int band_rows, bool tri,
@@ -243,21 +272,22 @@ __device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
   const int lane = threadIdx.x & 31;
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
-    const float* M = acquire(ring, cur);
+    const T* M = acquire(ring, cur);
     for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
-      const float* row[kRows];
+      const T* row[kRows];
       int lim[kRows];
       float y[kRows];
       int last;
       if constexpr (kDots) {
-        last = row_dots(M, r0, r1, i, nwarps, v, n, tri, row, lim, y);
+        last = row_dots(M, r0, r1, i, nwarps, v, n, ring.ld, tri, row, lim,
+                        y);
       } else {
         last = 0;
 #pragma unroll
         for (int q = 0; q < kRows; ++q) {
           const bool ok = i + q * nwarps < r1;
           const int iq = ok ? i + q * nwarps : i;
-          row[q] = M + (iq - r0) * n;
+          row[q] = M + (iq - r0) * ring.ld;
           lim[q] = ok ? (tri ? iq + 1 : n) : 0;
           y[q] = ok ? v[iq] : 0.f;
           last = lim[q] > last ? lim[q] : last;
@@ -270,7 +300,7 @@ __device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
         float s = acc[u];
 #pragma unroll
         for (int q = 0; q < kRows; ++q)
-          if (j < lim[q]) s = fmaf(row[q][j], y[q], s);
+          if (j < lim[q]) s = fmaf(widen(row[q][j]), y[q], s);
         acc[u] = s;
       }
     }
@@ -283,23 +313,25 @@ __device__ __forceinline__ void matvec_rows_cols(const Ring& ring,
 // register column sums: the products M[i, j] y_i of kRows rows at a time are
 // added into the shared row `col` (col[j] += ..., j <= i), which the caller
 // zeroes before and reads after a barrier.
+template <typename T>
 __device__ __forceinline__ void matvec_rows_cols_shared(
-    const Ring& ring, Cursor& cur, const float* v, int n, int lo, int hi,
+    const RingOf<T>& ring, Cursor& cur, const float* v, int n, int lo, int hi,
     int band_rows, int warp, int nwarps, float* col) {
   const int lane = threadIdx.x & 31;
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
-    const float* M = acquire(ring, cur);
+    const T* M = acquire(ring, cur);
     for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
-      const float* row[kRows];
+      const T* row[kRows];
       int lim[kRows];
       float y[kRows];
-      const int last = row_dots(M, r0, r1, i, nwarps, v, n, true, row, lim, y);
+      const int last = row_dots(M, r0, r1, i, nwarps, v, n, ring.ld, true,
+                                row, lim, y);
       for (int j = lane; j < last; j += 32) {
         float s = 0.f;
 #pragma unroll
         for (int q = 0; q < kRows; ++q)
-          if (j < lim[q]) s = fmaf(row[q][j], y[q], s);
+          if (j < lim[q]) s = fmaf(widen(row[q][j]), y[q], s);
         atomicAdd(col + j, s);
       }
     }
@@ -312,20 +344,20 @@ __device__ __forceinline__ void matvec_rows_cols_shared(
 // A warp owns the column octets warp, warp + nwarps, ... (at most kOct of
 // them: n <= 8 kOct nwarps); a lane owns one column of the octet and every
 // fourth row, so a warp's loads touch four rows of eight consecutive
-// floats, and two shuffles sum the four row groups.  `tri`: M is lower
+// elements, and two shuffles sum the four row groups.  `tri`: M is lower
 // triangular, column j starts at row j.
-template <int kOct, typename Fn>
-__device__ __forceinline__ void matvec_cols(const Ring& ring, Cursor& cur,
-                                            const float* v, int n,
-                                            int band_rows, bool tri, int warp,
-                                            int nwarps, Fn fn) {
+template <int kOct, typename T, typename Fn>
+__device__ __forceinline__ void matvec_cols(const RingOf<T>& ring,
+                                            Cursor& cur, const float* v,
+                                            int n, int band_rows, bool tri,
+                                            int warp, int nwarps, Fn fn) {
   const int lane = threadIdx.x & 31, g = lane >> 3, jj = lane & 7;
   float acc[kOct];
 #pragma unroll
   for (int u = 0; u < kOct; ++u) acc[u] = 0.f;
   for (int r0 = 0; r0 < n; r0 += band_rows) {
     const int r1 = r0 + band_rows < n ? r0 + band_rows : n;
-    const float* M = acquire(ring, cur);
+    const T* M = acquire(ring, cur);
 #pragma unroll
     for (int u = 0; u < kOct; ++u) {
       const int first = (warp + u * nwarps) * 8, j = first + jj;
@@ -337,7 +369,7 @@ __device__ __forceinline__ void matvec_cols(const Ring& ring, Cursor& cur,
 #pragma unroll 4
         for (; i < r1; i += 4)
           if (col_ok && (!tri || i >= j))
-            acc[u] = fmaf(M[(i - r0) * n + j], v[i], acc[u]);
+            acc[u] = fmaf(widen(M[(i - r0) * ring.ld + j]), v[i], acc[u]);
       }
     }
     release(ring, cur);

@@ -43,9 +43,19 @@ extern "C" {
 int group_solve_x_f32(const float* X, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,
                       int band_rows, int stages, cudaStream_t stream) {
-  return group_sweep::launch<group_sweep::kFormX>(X, C9, b, x, B, K, n,
-                                                   cluster, band_rows, stages,
-                                                   stream);
+  return group_sweep::launch<group_sweep::kFormX, float>(
+      X, C9, b, x, B, K, n, n, cluster, band_rows, stages, stream);
+}
+
+// As group_solve_x_f32 on bf16 factors X (B, K, n, ld), rows ld elements
+// apart (ld >= n, a multiple of 8; the columns from n on are not read),
+// widened to FP32 as they are read; C9, b and x float32.
+int group_solve_x_bf16(const __nv_bfloat16* X, const float* C9,
+                       const float* b, float* x, int B, int K, int n, int ld,
+                       int cluster, int band_rows, int stages,
+                       cudaStream_t stream) {
+  return group_sweep::launch<group_sweep::kFormX, __nv_bfloat16>(
+      X, C9, b, x, B, K, n, ld, cluster, band_rows, stages, stream);
 }
 
 }  // extern "C"

@@ -56,13 +56,19 @@
 // after it has the whole vector of step t + 1, which every block sends after
 // its last read of that half.  A plan of one block is a cluster of one and
 // runs the same code.  w_k (dense: y_k) is kept in the output array (each
-// block its rows) and overwritten by x_k in the backward sweep.  Plain
-// FP32; the order of the sums is not the plain version's.
+// block its rows) and overwritten by x_k in the backward sweep.  The factor
+// blocks come as float or as bf16 (the element type T; rows ld apart, a
+// multiple of 8 elements in bf16, so that every row is 16-byte aligned);
+// bf16 elements are widened to FP32 as the matvecs read them, and the
+// sums, the vectors and the slot scalars are FP32; the order of the sums
+// is not the plain version's.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "factor_ring.cuh"
 #include "sweeps.cuh"
@@ -101,14 +107,17 @@ __host__ __device__ inline int part_rows(int form, int n) {
   return form == kFormX ? 0 : n > kMaxN ? 1 : kWarps;
 }
 
-// Dynamic shared memory of a plan: the barriers, the ring, then r, wk, the
-// exchange buffer (2 halves of `cluster` slots of n) and `part` rows of
-// partial sums (part_rows).  ops/group_solve.py sweep_plan mirrors it,
-// and tests/test_torch_sweep_plan.py holds the two copies to each other.
+// Dynamic shared memory of a plan: the barriers, the ring (`stages` stages
+// of `band_rows` rows of `row_bytes` bytes: 4 n for float factors, 2 ld for
+// bf16 ones), then r, wk, the exchange buffer (2 halves of `cluster` slots
+// of n) and `part` rows of partial sums (part_rows), all FP32.
+// ops/group_solve.py sweep_plan mirrors it, and
+// tests/test_torch_sweep_plan.py holds the two copies to each other.
 __host__ __device__ inline long smem_bytes(int n, int cluster, int band_rows,
-                                           int stages, int part) {
-  return kBarrierBytes + 4L * n * (static_cast<long>(stages) * band_rows +
-                                   2 + 2 * cluster + part);
+                                           int stages, int part,
+                                           int row_bytes) {
+  return kBarrierBytes + (static_cast<long>(stages) * band_rows * row_bytes +
+                          4L * n * (2 + 2 * cluster + part));
 }
 
 __device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
@@ -165,16 +174,22 @@ struct Exchanged {
   }
 };
 
-// F (B, K, n, n): X_k (X form), Linv_k (L and dense forms, lower
-// triangular: what lies above the diagonal is not read); G: the slot
-// scalars C9 (K-1, 9) (X and L forms) or E (B, K-1, n, n) (dense form);
-// n <= kTierN.  A grid of B clusters of cluster.num_blocks() blocks of
-// kThreads threads.
-template <int kForm, int kTierN>
+// The type of the kernel's second operand: the FP32 slot scalars C9 of the
+// X and L forms, or the dense form's off-diagonal factors, of type T.
+template <int kForm, typename T>
+using Second = std::conditional_t<kForm == kFormDense, T, float>;
+
+// F (B, K, n, ld): X_k (X form), Linv_k (L and dense forms, lower
+// triangular: what lies above the diagonal is not read), each row's
+// columns n.. ld-1 unread; G: the slot scalars C9 (K-1, 9) (X and L forms)
+// or E (B, K-1, n, ld) (dense form); n <= kTierN.  A grid of B clusters of
+// cluster.num_blocks() blocks of kThreads threads.
+template <int kForm, int kTierN, typename T>
 __global__ void __launch_bounds__(kThreads, kTierN > kNarrowN ? 1 : 4)
-sweep_kernel(const float* __restrict__ F, const float* __restrict__ G,
+sweep_kernel(const T* __restrict__ F,
+             const Second<kForm, T>* __restrict__ G,
              const float* __restrict__ bvec, float* xout, int K, int n,
-             int band_rows, int stages) {
+             int ld, int band_rows, int stages) {
   constexpr bool kL = kForm == kFormL;
   constexpr bool kDense = kForm == kFormDense;
   // column sums of a lane, or (the L form's widest instantiation) of the
@@ -191,16 +206,18 @@ sweep_kernel(const float* __restrict__ F, const float* __restrict__ G,
   unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
   const unsigned bars = factor_ring::smem_addr(raw);
   const unsigned xfull = bars + factor_ring::kBarrierBytes;
-  float* sm = reinterpret_cast<float*>(raw + kBarrierBytes);
-  const factor_ring::Ring ring{sm, bars, stages, band_rows * n};
-  sm += static_cast<size_t>(stages) * ring.stage_floats;
+  const factor_ring::RingOf<T> ring{
+      reinterpret_cast<T*>(raw + kBarrierBytes), bars, stages, band_rows * ld,
+      ld};
+  float* sm = reinterpret_cast<float*>(
+      ring.data + static_cast<size_t>(stages) * ring.stage_elems);
   float* r = sm;                 // right-hand side of the step's matvec
   float* wk = sm + n;            // w_k (dense: b_k, y_k) of this block's rows
   float* xch = sm + 2 * n;       // exchange: [2][slots][n]
   float* part = xch + 2 * nc * n;  // L, dense: [part_rows][n]
   const int slots = kForm == kFormX ? 1 : nc;
-  const size_t nsq = static_cast<size_t>(n) * n;
-  const float* Fb = F + static_cast<size_t>(b) * K * nsq;
+  const size_t nsq = static_cast<size_t>(n) * ld;   // elements of a block
+  const T* Fb = F + static_cast<size_t>(b) * K * nsq;
   const float* bb = bvec + static_cast<size_t>(b) * K * n;
   float* xb = xout + static_cast<size_t>(b) * K * n;
   // X, L: forward k = t, backward k = 2K - 2 - t.  Dense: place p of the
@@ -220,7 +237,7 @@ sweep_kernel(const float* __restrict__ F, const float* __restrict__ G,
     // ---- producer warp: this block's rows of every step's block
     factor_ring::Cursor cur{0, 0u};
     for (int t = 0; t < steps; ++t) {
-      const float* blk;
+      const T* blk;
       if constexpr (kDense) {
         const int p = t <= turn ? t : 2 * turn - t;
         blk = (p & 1) ? G + (static_cast<size_t>(b) * (K - 1) + p / 2) * nsq
@@ -228,7 +245,7 @@ sweep_kernel(const float* __restrict__ F, const float* __restrict__ G,
       } else {
         blk = Fb + (t < K ? t : 2 * K - 2 - t) * nsq;
       }
-      factor_ring::produce_block(ring, cur, blk, n, lo, hi, band_rows);
+      factor_ring::produce_block(ring, cur, blk, lo, hi, band_rows);
     }
     __syncwarp();
     cluster.sync();
@@ -478,10 +495,10 @@ sweep_kernel(const float* __restrict__ F, const float* __restrict__ G,
 }
 
 // Launch one instantiation on a checked plan.
-template <int kForm, int kTierN>
-int launch_tier(const float* F, const float* G, const float* b, float* x,
-                int B, int K, int n, int cluster, int band_rows, int stages,
-                long smem, cudaStream_t stream) {
+template <int kForm, int kTierN, typename T>
+int launch_tier(const T* F, const Second<kForm, T>* G, const float* b,
+                float* x, int B, int K, int n, int ld, int cluster,
+                int band_rows, int stages, long smem, cudaStream_t stream) {
   // the largest size set so far on each device (the attribute is per device)
   constexpr int kDevices = 64;
   static long allowed[kDevices] = {};
@@ -489,7 +506,7 @@ int launch_tier(const float* F, const float* G, const float* b, float* x,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kDevices || smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(sweep_kernel<kForm, kTierN>,
+    err = cudaFuncSetAttribute(sweep_kernel<kForm, kTierN, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -507,8 +524,8 @@ int launch_tier(const float* F, const float* G, const float* b, float* x,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sweep_kernel<kForm, kTierN>, F, G, b, x, K,
-                           n, band_rows, stages);
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel<kForm, kTierN, T>, F, G, b, x,
+                           K, n, ld, band_rows, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -518,14 +535,18 @@ int launch_tier(const float* F, const float* G, const float* b, float* x,
 // (the L form above kMaxN: its column sums in shared memory); returns a
 // CUDA error code, cudaErrorInvalidValue for arguments or a plan it cannot
 // serve.  n is a multiple of 6 (X, L: the slot scalars) or of 2 (dense), up
-// to kMaxNWide (X, L) or kMaxN (dense).
-template <int kForm>
-int launch(const float* F, const float* G, const float* b, float* x, int B,
-           int K, int n, int cluster, int band_rows, int stages,
-           cudaStream_t stream) {
+// to kMaxNWide (X, L) or kMaxN (dense); the factors' rows lie ld >= n
+// elements apart, with a pair of rows a multiple of 16 bytes (float: ld
+// even; bf16: a multiple of 4).
+template <int kForm, typename T>
+int launch(const T* F, const Second<kForm, T>* G, const float* b, float* x,
+           int B, int K, int n, int ld, int cluster, int band_rows,
+           int stages, cudaStream_t stream) {
   constexpr int kWideN = kForm == kFormDense ? kMaxN : kMaxNWide;
   const int unit = kForm == kFormDense ? 2 : 6;
-  if (B < 1 || K < 2 || n < unit || n % unit || n > kWideN ||
+  const int row_bytes = static_cast<int>(sizeof(T)) * ld;
+  if (B < 1 || K < 2 || n < unit || n % unit || n > kWideN || ld < n ||
+      (2 * row_bytes) % 16 ||
       (cluster != 1 && cluster != 2 && cluster != 4) || band_rows < 2 ||
       band_rows % 2 || band_rows > kMaxBandRows || stages < 2 ||
       stages > factor_ring::kMaxStages ||
@@ -533,17 +554,17 @@ int launch(const float* F, const float* G, const float* b, float* x, int B,
       (kForm == kFormDense && (reinterpret_cast<size_t>(G) & 15)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long smem = smem_bytes(n, cluster, band_rows, stages,
-                               part_rows(kForm, n));
+                               part_rows(kForm, n), row_bytes);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= kNarrowN)
-    return launch_tier<kForm, kNarrowN>(F, G, b, x, B, K, n, cluster,
-                                        band_rows, stages, smem, stream);
+    return launch_tier<kForm, kNarrowN, T>(F, G, b, x, B, K, n, ld, cluster,
+                                           band_rows, stages, smem, stream);
   if constexpr (kForm == kFormL)
     if (n <= kMaxN)
-      return launch_tier<kForm, kMaxN>(F, G, b, x, B, K, n, cluster,
+      return launch_tier<kForm, kMaxN, T>(F, G, b, x, B, K, n, ld, cluster,
+                                          band_rows, stages, smem, stream);
+  return launch_tier<kForm, kWideN, T>(F, G, b, x, B, K, n, ld, cluster,
                                        band_rows, stages, smem, stream);
-  return launch_tier<kForm, kWideN>(F, G, b, x, B, K, n, cluster, band_rows,
-                                    stages, smem, stream);
 }
 
 }  // namespace group_sweep

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from ..solvers.banded import (RowVals, StateVars, admm_iterations,
                               from_stacked, solve_factorized,
                               solve_factorized_X, to_stacked)
-from .cuda_build import check, load_kernels, require_f32_cuda
+from .cuda_build import (bf16_row_stride, check, load_kernels,
+                         require_f32_cuda)
 
 SLOTS = ("dyn_p", "dyn_v", "jerk", "acc", "vbox", "pbox")
 
@@ -65,25 +66,36 @@ def _ring_width(n: int, packed: int) -> int:
     return -(-n // 4) * 4 if packed else n
 
 
+def fused_row_bytes(n: int, packed: int, esize: int = 4) -> int:
+    """Bytes a factor row takes in the ring: 6N floats, rounded up to a
+    multiple of 4 where ``packed``, or (``esize`` 2) 6N bf16 elements on
+    the stride :func:`cuda_build.bf16_row_stride`."""
+    return 4 * _ring_width(n, packed) if esize == 4 else 2 * bf16_row_stride(n)
+
+
 def fused_smem_bytes(K: int, N: int, band_rows: int, stages: int,
-                     plane: int, packed: int, xform: int) -> int:
+                     plane: int, packed: int, xform: int,
+                     row_bytes: int | None = None) -> int:
     """Dynamic shared memory of a fused-interval block (the kernels'
-    ``admm_fused::smem_bytes``): the ring's barriers and stages (a row of
-    6N floats, rounded up to a multiple of 4 where ``packed``), the sweep
-    plane where ``plane`` is 1, one vector of 6N floats, where ``packed``
-    the warps' column partial sums, the row dots and the band table, the
-    pair table and, in the X form (``xform`` 1), the slot scalars."""
+    ``admm_fused::smem_bytes``): the ring's barriers and stages (rows of
+    ``row_bytes``, by default float32 rows of :func:`fused_row_bytes`), the
+    sweep plane where ``plane`` is 1, one vector of 6N floats, where
+    ``packed`` the warps' column partial sums, the row dots and the band
+    table, the pair table and, in the X form (``xform`` 1), the slot
+    scalars."""
     n = 6 * N
-    return (FUSED_RING_BARRIER_BYTES
-            + 4 * (stages * band_rows * _ring_width(n, packed)
-                   + n * (1 + plane * K + packed * (FUSED_WARPS + 1))
+    if row_bytes is None:
+        row_bytes = fused_row_bytes(n, packed)
+    return (FUSED_RING_BARRIER_BYTES + stages * band_rows * row_bytes
+            + 4 * (n * (1 + plane * K + packed * (FUSED_WARPS + 1))
                    + packed * FUSED_MAX_BANDS)
             + 2 * N * (N - 1) + 36 * (K - 1) * xform)
 
 
-def fused_plan(K: int, N: int, form: str) -> FusedPlan:
+def fused_plan(K: int, N: int, form: str, esize: int = 4) -> FusedPlan:
     """The launch plan of the fused-interval kernel of factor ``form``
-    ("X" or "L") for K steps of N vehicles, one block a scenario: the X
+    ("X" or "L") for K steps of N vehicles, one block a scenario, its
+    factors float32 or (``esize`` 2, the L form) bf16 on padded rows: the X
     form reads packed upper triangles for 234 <= 6N <= 512 (from N = 39;
     PERF.md has the times of both layouts); the sweep plane in
     shared memory where it takes at most half of it, then the largest bands
@@ -92,17 +104,19 @@ def fused_plan(K: int, N: int, form: str) -> FusedPlan:
     (the L form: 6N > 896; either: no ring of two stages fits)."""
     n = 6 * N
     if form not in ("X", "L") or K < 2 or N < 1 or N > 65535 or (
-            form == "L" and n > FUSED_L_MAX_N):
-        raise ValueError(f"fused {form} kernel: unsupported K={K}, N={N}")
+            form == "L" and n > FUSED_L_MAX_N) or esize not in (
+                (4,) if form == "X" else (4, 2)):
+        raise ValueError(f"fused {form} kernel: unsupported K={K}, N={N}, "
+                         f"{esize}-byte factors")
     packed = int(form == "X"
                  and FUSED_X_PACKED_MIN_N <= n <= FUSED_X_PACKED_MAX_N)
-    width = _ring_width(n, packed)
+    row_bytes = fused_row_bytes(n, packed, esize)
     xform = int(form == "X")
     plane = int(4 * K * n <= FUSED_SMEM_MAX // 2)
     room = FUSED_SMEM_MAX - fused_smem_bytes(K, N, 0, 0, plane, packed, xform)
     for n_bands in range(1, n // 2 + 1):
         band_rows = (-(-n // n_bands) + 1) // 2 * 2
-        stages = room // (4 * width * band_rows)
+        stages = room // (row_bytes * band_rows)
         if stages >= FUSED_WANT_STAGES:
             break
     stages = min(stages, FUSED_MAX_STAGES)
@@ -111,7 +125,7 @@ def fused_plan(K: int, N: int, form: str) -> FusedPlan:
                          f"K={K}, N={N}")
     return FusedPlan(band_rows, stages, bool(plane), bool(packed),
                      fused_smem_bytes(K, N, band_rows, stages, plane, packed,
-                                      xform))
+                                      xform, row_bytes))
 
 
 def packed_offsets(n: int) -> list:
@@ -195,15 +209,18 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
             upper: RowVals, x: StateVars, z: RowVals, y: RowVals,
             rho: RowVals, *, h: float, sigma, alpha, lam, n_iters: int):
     """Lay the rows out as planes, launch ``entry`` of the kernel library
-    on the two factor tensors (their shapes checked by the caller) on the
-    plan of :func:`fused_plan` and count the launch on ``wrapper``.  The
-    inputs are not modified."""
+    (its ``_bf16`` variant for the L form's bf16 factors) on the two factor
+    tensors (their shapes checked by the caller) on the plan of
+    :func:`fused_plan` and count the launch on ``wrapper``.  The inputs are
+    not modified."""
     what = wrapper.__name__
     B, K = eta.shape[:2]
     N, P = E.shape
     n = 6 * N
-    x_form = entry == "admm_fused_x_f32"
-    plan = fused_plan(K, N, "X" if x_form else "L")
+    x_form = entry == "admm_fused_x"
+    first = factors["X" if x_form else "Linv"]
+    bf16 = first.dtype == torch.bfloat16
+    plan = fused_plan(K, N, "X" if x_form else "L", esize=2 if bf16 else 4)
     if plan.packed:
         require_f32_cuda(what, X=factors["X"])
         factors = dict(factors, X=pack_upper(factors["X"]))
@@ -226,7 +243,8 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
                    l_s=static_plane(lower, K), u_s=static_plane(upper, K),
                    l_c=lower.col.contiguous(), rho_s=rho_s, rho_c=rho_c, x=xs,
                    zs=zs, ys=ys, zc=zc, yc=yc)
-    require_f32_cuda(what, **tensors)
+    require_f32_cuda(what, bf16_ok=() if x_form else ("Linv", "Eb"),
+                     **tensors)
     sp, cp = (B, K, 6, 2 * N), (B, K, P)
     shapes = dict(l_s=sp, u_s=sp, l_c=cp, x=(B, K, n), zs=sp, ys=sp, zc=cp,
                   yc=cp, rho_s=(B, K, 6) if strides[0] else (K, 6),
@@ -240,9 +258,10 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
         (B, K, n), dtype=eta.dtype, device=eta.device)
     lib = load_kernels()
     with torch.cuda.device(eta.device):
-        err = getattr(lib, entry)(
+        err = getattr(lib, entry + ("_bf16" if bf16 else "_f32"))(
             *(t.data_ptr() for t in tensors.values()),
             None if plane is None else plane.data_ptr(), B, K, N,
+            *([first.stride(-2)] if bf16 else []),
             int(n_iters), plan.band_rows, plan.stages,
             *([int(plan.packed)] if x_form else []), *strides,
             torch.cuda.current_stream(eta.device).cuda_stream)
@@ -301,7 +320,7 @@ def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
         raise ValueError(
             f"admm_interval_fused_X: unsupported shapes X {tuple(X.shape)}, "
             f"C {tuple(C.shape)}, eta {tuple(eta.shape)}, E {tuple(E.shape)}")
-    return _launch(admm_interval_fused_X, "admm_fused_x_f32", dict(C=C, X=X),
+    return _launch(admm_interval_fused_X, "admm_fused_x", dict(C=C, X=X),
                    eta, E,
                    lower, upper, x, z, y, rho, **step)
 
@@ -315,7 +334,8 @@ def admm_interval_fused_plain(Linv, Eb, eta, E, lower: RowVals,
                               alpha, lam, n_iters: int):
     """Plain version of the kernel: ``n_iters`` iterations of
     :func:`banded.admm_iterations` with the dense sweeps of
-    ``banded.solve_factorized``."""
+    ``banded.solve_factorized`` (bf16 factors are widened to the state's
+    dtype block by block)."""
     return admm_iterations(x, z, y,
                            lambda sb: solve_factorized(Linv, Eb, sb), eta, E,
                            lower, upper, rho, h=h, sigma=sigma, alpha=alpha,
@@ -328,8 +348,10 @@ def admm_interval_fused(Linv, Eb, eta, E, lower: RowVals, upper: RowVals,
     """As :func:`admm_interval_fused_X`, on the dense factors
     Linv (B, K, 6N, 6N) and Eb (B, K-1, 6N, 6N) of ``banded.factorize``.
     Linv_k is lower triangular: the kernel does not read what lies above
-    the diagonal.  It serves 6N <= 896 (:data:`FUSED_L_MAX_N`): every (K, N)
-    that ``banded.qp_route`` sends to the L-form fused route."""
+    the diagonal.  The factors may be bf16 as ``banded.compress_factors``
+    lays them out (``SolverConfig.factor_dtype="bf16"``).  It serves
+    6N <= 896 (:data:`FUSED_L_MAX_N`): every (K, N) that
+    ``banded.qp_route`` sends to the L-form fused route."""
     if _on_cpu("admm_interval_fused", Linv):
         return admm_interval_fused_plain(Linv, Eb, eta, E, lower, upper, x,
                                          z, y, rho, **step)
@@ -342,7 +364,7 @@ def admm_interval_fused(Linv, Eb, eta, E, lower: RowVals, upper: RowVals,
             f"admm_interval_fused: unsupported shapes Linv "
             f"{tuple(Linv.shape)}, Eb {tuple(Eb.shape)}, eta "
             f"{tuple(eta.shape)}, E {tuple(E.shape)}")
-    return _launch(admm_interval_fused, "admm_fused_l_f32",
+    return _launch(admm_interval_fused, "admm_fused_l",
                    dict(Linv=Linv, Eb=Eb), eta, E,
                    lower, upper, x, z, y, rho, **step)
 

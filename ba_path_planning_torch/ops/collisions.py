@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.dist import all_reduce
+
 DEGENERATE_EPS = 1e-6
 FEAS_SLACK = 0.01
 
@@ -26,10 +28,28 @@ _M32 = 0xFFFFFFFF
 
 
 class PairIndex(NamedTuple):
-    """Pair bookkeeping for N vehicles."""
+    """Pair bookkeeping for N vehicles: the dense all-pair index, every
+    pair valid (``valid`` is None, as the JAX index's default)."""
     i_idx: torch.Tensor   # (P,) int64, first vehicle of each pair
     j_idx: torch.Tensor   # (P,) int64, second vehicle
     E: torch.Tensor       # (N, P) signed incidence
+
+    @property
+    def valid(self) -> None:
+        return None
+
+
+class PaddedPairIndex(NamedTuple):
+    """A pair index with a ``valid`` mask (the JAX ``PairIndex`` with
+    ``valid`` set): the pair-sharded path (``parallel/pair_sharded.py``)
+    pads P up to a multiple of the shard count and marks the pad pairs
+    invalid; their E columns are zero (no force contribution), their
+    collision bounds -inf (inert rows), and the feasibility checks skip
+    them.  Every function that takes a PairIndex takes this."""
+    i_idx: torch.Tensor   # (P,) int64
+    j_idx: torch.Tensor   # (P,) int64
+    E: torch.Tensor       # (N, P)
+    valid: torch.Tensor   # (P,) bool
 
 
 def make_pair_index(n_vehicles: int, dtype=torch.float32,
@@ -123,19 +143,32 @@ def collision_lower_bounds(eta: torch.Tensor, dist: torch.Tensor,
     return min_distance + lin_term - pos_contrib - h * k_idx * vel_contrib
 
 
+def _dist2(positions, pairs: PairIndex):
+    """Squared pairwise distances (..., K, P), +inf at invalid pairs."""
+    diff = pairwise_diffs(positions, pairs)
+    dist2 = torch.sum(diff * diff, dim=-1)
+    if pairs.valid is not None:
+        dist2 = torch.where(pairs.valid, dist2,
+                            torch.full_like(dist2, float("inf")))
+    return dist2
+
+
 def check_feasible(positions: torch.Tensor, pairs: PairIndex,
-                   min_distance: float) -> torch.Tensor:
+                   min_distance: float, group=None) -> torch.Tensor:
     """True iff every pairwise distance is >= R - 0.01 at every timestep:
-    (..., N, K, 2) -> bool (...)."""
-    diff = pairwise_diffs(positions, pairs)
-    dist2 = torch.sum(diff * diff, dim=-1)
+    (..., N, K, 2) -> bool (...).  Pad pairs (``pairs.valid``) are skipped;
+    ``group``: the pairs are this rank's share, and the answer is the AND
+    over the group (JAX's ``pmin`` over a pair-sharded axis)."""
     thresh = min_distance - FEAS_SLACK
-    return torch.all((dist2 >= thresh * thresh).flatten(-2), dim=-1)
+    ok = torch.all((_dist2(positions, pairs) >= thresh * thresh)
+                   .flatten(-2), dim=-1)
+    return all_reduce(ok, "min", group)
 
 
-def min_pairwise_distance(positions: torch.Tensor,
-                          pairs: PairIndex) -> torch.Tensor:
-    """Minimum pairwise distance over all timesteps: (..., N, K, 2) -> (...)."""
-    diff = pairwise_diffs(positions, pairs)
-    dist2 = torch.sum(diff * diff, dim=-1)
-    return torch.sqrt(torch.amin(dist2, dim=(-2, -1)))
+def min_pairwise_distance(positions: torch.Tensor, pairs: PairIndex,
+                          group=None) -> torch.Tensor:
+    """Minimum pairwise distance over all timesteps: (..., N, K, 2) -> (...),
+    pad pairs skipped, the minimum over ``group`` where the pairs are
+    sharded."""
+    out = torch.amin(_dist2(positions, pairs), dim=(-2, -1))
+    return torch.sqrt(all_reduce(out, "min", group))

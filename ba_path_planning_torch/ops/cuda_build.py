@@ -30,8 +30,28 @@ HEADERS = ("sweeps.cuh", "admm_rows.cuh", "factor_ring.cuh",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# bf16 factors lie with the rows of each block on a stride of a multiple of
+# this many elements (16 bytes), the alignment of the kernels' bulk copies
+BF16_ROW_ALIGN = 8
+
 _lib = None
 build_info: dict = {}
+
+
+def bf16_row_stride(n: int) -> int:
+    """Elements between two rows of a bf16 factor block of n columns: n
+    rounded up to a multiple of :data:`BF16_ROW_ALIGN`."""
+    return -(-n // BF16_ROW_ALIGN) * BF16_ROW_ALIGN
+
+
+def padded_strides(shape, ld: int) -> tuple:
+    """The strides of a (..., rows, n) view of a contiguous (..., rows, ld)
+    tensor."""
+    out, step = [1], ld
+    for size in reversed(tuple(shape)[:-1]):
+        out.append(step)
+        step *= size
+    return tuple(reversed(out))
 
 
 def _nvcc() -> str:
@@ -97,10 +117,17 @@ def load_kernels() -> ctypes.CDLL:
                   lib.banded_solve_f32):
         sweep.argtypes = [p, p, p, p] + [i] * 6 + [p]
         sweep.restype = i
+    # the bf16 entries also take the factors' row stride
+    for sweep in (lib.group_solve_x_bf16, lib.group_solve_l_bf16,
+                  lib.banded_solve_bf16):
+        sweep.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        sweep.restype = i
     # the X form also takes the plan's packed flag and a slot-scalar stride
     lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 10 + [p]
     lib.admm_fused_l_f32.argtypes = [p] * 15 + [i] * 8 + [p]
-    for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32):
+    lib.admm_fused_l_bf16.argtypes = [p] * 15 + [i] * 9 + [p]
+    for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32,
+                  lib.admm_fused_l_bf16):
         fused.restype = i
     _lib = lib
     return lib
@@ -112,17 +139,29 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def require_f32_cuda(what: str, **tensors) -> None:
+def require_f32_cuda(what: str, bf16_ok=(), **tensors) -> None:
     """Raise unless every tensor is float32, contiguous and on one CUDA
-    device."""
+    device.  The factor operands named in ``bf16_ok`` may instead be
+    bfloat16, all of them alike, laid out with the rows of each block on
+    the stride :func:`bf16_row_stride` (``banded.compress_factors``)."""
     dev = None
+    factor_dtypes = {tensors[name].dtype for name in bf16_ok}
+    if len(factor_dtypes) > 1:
+        raise TypeError(f"{what}: factors of mixed types {factor_dtypes}")
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{what}: {name} is not a CUDA tensor")
-        if t.dtype != torch.float32:
+        if name in bf16_ok and t.dtype == torch.bfloat16:
+            ld = bf16_row_stride(t.shape[-1])
+            if t.stride() != padded_strides(t.shape, ld):
+                raise ValueError(
+                    f"{what}: bf16 {name} does not lie on rows of {ld} "
+                    "elements (banded.compress_factors)")
+        elif t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} is {t.dtype}, the kernel takes "
-                            "float32 only")
-        if not t.is_contiguous():
+                            "float32" + (" or bfloat16 factors" if bf16_ok
+                                         else " only"))
+        elif not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
         if dev is not None and t.device != dev:
             raise ValueError(f"{what}: tensors on different devices")

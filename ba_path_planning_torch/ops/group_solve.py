@@ -6,8 +6,12 @@ version; on dense (Linv, Eb) factors the kernel of ``ops/banded_solve.py``.
 
 The three kernels are one template (``csrc/group_sweep.cuh``) that streams
 the factors through a ring of shared-memory stages; :func:`sweep_plan`
-chooses how a batch runs.  The factors are not padded: the TPU kernels'
-128-lane pad was a rule of their DMA engine.
+chooses how a batch runs.  Float32 factors are not padded: the TPU kernels'
+128-lane pad was a rule of their DMA engine.  bf16 factors
+(``SolverConfig.factor_dtype="bf16"``, ``banded.compress_factors``) lie on
+rows of :func:`cuda_build.bf16_row_stride` elements, 16 bytes aligned for
+the ring's bulk copies, and the kernels widen them to FP32 as they read
+them.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from typing import NamedTuple
 import torch
 
 from ..solvers.banded import solve_factorized_L, solve_factorized_X
-from .cuda_build import check, load_kernels, require_f32_cuda
+from .cuda_build import (bf16_row_stride, check, load_kernels,
+                         require_f32_cuda)
 
 
 # The H100's shared memory: what one block may take, and what an SM holds
@@ -69,16 +74,25 @@ def sweep_part_rows(form: str, n: int) -> int:
     return 1 if n > SWEEP_MAX_N else SWEEP_WARPS
 
 
+def sweep_row_bytes(n: int, esize: int = 4) -> int:
+    """Bytes a factor row takes in global memory and in the ring: n floats,
+    or n bf16 elements on the stride :func:`cuda_build.bf16_row_stride`."""
+    return 4 * n if esize == 4 else 2 * bf16_row_stride(n)
+
+
 def sweep_smem_bytes(n: int, cluster: int, band_rows: int, stages: int,
-                     part: int) -> int:
+                     part: int, row_bytes: int | None = None) -> int:
     """Dynamic shared memory of a block (the kernel's ``smem_bytes``): the
-    barriers, the ring, the right-hand side and w_k, the two halves of the
-    cluster's exchange buffer and ``part`` rows of partial sums."""
-    return SWEEP_BARRIER_BYTES + 4 * n * (stages * band_rows + 2
-                                          + 2 * cluster + part)
+    barriers, the ring (rows of ``row_bytes``, default float32 rows of n),
+    the right-hand side and w_k, the two halves of the cluster's exchange
+    buffer and ``part`` rows of partial sums."""
+    if row_bytes is None:
+        row_bytes = 4 * n
+    return (SWEEP_BARRIER_BYTES + stages * band_rows * row_bytes
+            + 4 * n * (2 + 2 * cluster + part))
 
 
-def _sweep_ring(B: int, n: int, cluster: int, part: int):
+def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int):
     """(share, band_rows, stages, per_sm) of a cluster size: the largest
     bands that leave SWEEP_WANT_STAGES stages beside as many blocks an SM as
     B needs, or, where not even two stages fit, fewer blocks an SM."""
@@ -90,7 +104,7 @@ def _sweep_ring(B: int, n: int, cluster: int, part: int):
                                                              part)
         for n_bands in range(-(-share // SWEEP_MAX_BAND), share // 2 + 1):
             band_rows = 2 * -(-share // (2 * n_bands))
-            stages = min(SWEEP_MAX_STAGES, room // (4 * n * band_rows))
+            stages = min(SWEEP_MAX_STAGES, room // (row_bytes * band_rows))
             if stages >= SWEEP_WANT_STAGES:
                 break
         if stages >= 2 or per_sm == 1:
@@ -98,9 +112,12 @@ def _sweep_ring(B: int, n: int, cluster: int, part: int):
         per_sm -= 1
 
 
-def sweep_plan(B: int, K: int, n: int, form: str) -> SweepPlan:
+def sweep_plan(B: int, K: int, n: int, form: str,
+               esize: int = 4) -> SweepPlan:
     """The launch plan of the sweep kernel of ``form`` ("X", "L" or
-    "dense") for B scenarios of K blocks of n x n.
+    "dense") for B scenarios of K blocks of n x n, stored as float32
+    (``esize`` 4) or as bf16 on padded rows (``esize`` 2: a stage holds
+    about twice the rows).
 
     * B > 64 (the production chunk of 512, the compaction's later chunks):
       one block per scenario, its shared memory sized so that as many
@@ -129,11 +146,13 @@ def sweep_plan(B: int, K: int, n: int, form: str) -> SweepPlan:
                          f"K={K}, n={n} (n a multiple of {unit} up to "
                          f"{max_n}, K >= 2)")
     part = sweep_part_rows(form, n)
+    row_bytes = sweep_row_bytes(n, esize)
     chain = 4 * K - 3 if form == "dense" else 2 * K - 1
     cluster = (4 if B <= SWEEP_CLUSTER_B // 2 else
                2 if B <= SWEEP_CLUSTER_B else 1)
     while True:
-        share, band_rows, stages, per_sm = _sweep_ring(B, n, cluster, part)
+        share, band_rows, stages, per_sm = _sweep_ring(B, n, cluster, part,
+                                                       row_bytes)
         if stages >= 2 or cluster == 1:
             break
         cluster //= 2
@@ -141,44 +160,59 @@ def sweep_plan(B: int, K: int, n: int, form: str) -> SweepPlan:
     if stages < 2:
         raise ValueError(f"sweep kernels: no ring of two stages fits n={n}")
     return SweepPlan(cluster, band_rows, stages,
-                     sweep_smem_bytes(n, cluster, band_rows, stages, part),
-                     per_sm)
+                     sweep_smem_bytes(n, cluster, band_rows, stages, part,
+                                      row_bytes), per_sm)
 
 
 def solve_factorized_grouped_X_plain(X, C, b):
-    """Plain version of the kernel: ``banded.solve_factorized_X``."""
+    """Plain version of the kernel: ``banded.solve_factorized_X`` (bf16
+    factors are widened to b's dtype block by block)."""
     return solve_factorized_X(X, C, b)
+
+
+def _launch_sweep(what: str, entry: str, F, G, b, form: str,
+                  bf16_ok=("F",)):
+    """Check the operands of a sweep kernel, launch ``entry`` (its ``_f32``
+    or, for bf16 factors, ``_bf16`` variant) on :func:`sweep_plan` and
+    return x.  F (B, K, n, n) the factor blocks, G the slot scalars
+    (K-1, 3, 3) (X, L) or the second factor (B, K-1, n, n) (dense)."""
+    require_f32_cuda(what, bf16_ok=bf16_ok, F=F, G=G, b=b)
+    if b.dim() != 3:
+        raise ValueError(f"{what}: b {tuple(b.shape)} is not (B, K, n)")
+    B, K, n = b.shape
+    second = (B, K - 1, n, n) if form == "dense" else (K - 1, 3, 3)
+    if K < 2 or F.shape != (B, K, n, n) or G.shape != second:
+        raise ValueError(
+            f"{what}: unsupported shapes {tuple(F.shape)}, "
+            f"{tuple(G.shape)}, b {tuple(b.shape)}")
+    bf16 = F.dtype == torch.bfloat16
+    plan = sweep_plan(B, K, n, form, esize=F.element_size())
+    x = torch.empty_like(b)
+    lib = load_kernels()
+    with torch.cuda.device(b.device):
+        err = getattr(lib, entry + ("_bf16" if bf16 else "_f32"))(
+            F.data_ptr(), G.data_ptr(), b.data_ptr(), x.data_ptr(), B, K, n,
+            *((F.stride(-2),) if bf16 else ()), plan.cluster,
+            plan.band_rows, plan.stages,
+            torch.cuda.current_stream(b.device).cuda_stream)
+    check(err, what)
+    return x
 
 
 def solve_factorized_grouped_X(X, C, b):
     """Solve M x = b for a batch: X (B, K, n, n) symmetric block inverses,
     C (K-1, 3, 3) shared upper-triangular slot scalars, b (B, K, n) ->
     x (B, K, n).  CUDA tensors launch the kernel on :func:`sweep_plan`
-    (float32, contiguous, n a multiple of 6 up to 6144; anything else
-    raises); CPU tensors run the plain version."""
+    (float32 and contiguous, X also bf16 as ``banded.compress_factors``
+    lays it out; n a multiple of 6 up to 6144; anything else raises); CPU
+    tensors run the plain version."""
     if not b.is_cuda:
         if b.device.type != "cpu":
             raise ValueError(
                 f"solve_factorized_grouped_X: unsupported device {b.device}")
         return solve_factorized_grouped_X_plain(X, C, b)
-    require_f32_cuda("solve_factorized_grouped_X", X=X, C=C, b=b)
-    if b.dim() != 3:
-        raise ValueError(
-            f"solve_factorized_grouped_X: b {tuple(b.shape)} is not (B, K, n)")
-    B, K, n = b.shape
-    if X.shape != (B, K, n, n) or C.shape != (K - 1, 3, 3):
-        raise ValueError(
-            f"solve_factorized_grouped_X: unsupported shapes X "
-            f"{tuple(X.shape)}, C {tuple(C.shape)}, b {tuple(b.shape)}")
-    plan = sweep_plan(B, K, n, "X")
-    x = torch.empty_like(b)
-    lib = load_kernels()
-    with torch.cuda.device(b.device):
-        err = lib.group_solve_x_f32(
-            X.data_ptr(), C.data_ptr(), b.data_ptr(), x.data_ptr(), B, K, n,
-            plan.cluster, plan.band_rows, plan.stages,
-            torch.cuda.current_stream(b.device).cuda_stream)
-    check(err, "solve_factorized_grouped_X")
+    x = _launch_sweep("solve_factorized_grouped_X", "group_solve_x", X, C, b,
+                      "X")
     solve_factorized_grouped_X.launches += 1
     return x
 
@@ -187,7 +221,8 @@ solve_factorized_grouped_X.launches = 0
 
 
 def solve_factorized_grouped_L_plain(Linv, C, b):
-    """Plain version of the kernel: ``banded.solve_factorized_L``."""
+    """Plain version of the kernel: ``banded.solve_factorized_L`` (bf16
+    factors are widened to b's dtype block by block)."""
     return solve_factorized_L(Linv, C, b)
 
 
@@ -195,7 +230,8 @@ def solve_factorized_grouped_L(Linv, C, b):
     """Solve M x = b for a batch from the L-only factors: Linv (B, K, n, n)
     inverted diagonal factors, C (K-1, 3, 3) shared upper-triangular slot
     scalars, b (B, K, n) -> x (B, K, n).  CUDA tensors launch the kernel on
-    :func:`sweep_plan` (float32, contiguous, n a multiple of 6 up to 6144;
+    :func:`sweep_plan` (float32 and contiguous, Linv also bf16 as
+    ``banded.compress_factors`` lays it out; n a multiple of 6 up to 6144;
     Linv is read as lower triangular; anything else raises); CPU tensors
     run the plain version."""
     if not b.is_cuda:
@@ -203,24 +239,8 @@ def solve_factorized_grouped_L(Linv, C, b):
             raise ValueError(
                 f"solve_factorized_grouped_L: unsupported device {b.device}")
         return solve_factorized_grouped_L_plain(Linv, C, b)
-    require_f32_cuda("solve_factorized_grouped_L", Linv=Linv, C=C, b=b)
-    if b.dim() != 3:
-        raise ValueError(
-            f"solve_factorized_grouped_L: b {tuple(b.shape)} is not (B, K, n)")
-    B, K, n = b.shape
-    if Linv.shape != (B, K, n, n) or C.shape != (K - 1, 3, 3):
-        raise ValueError(
-            f"solve_factorized_grouped_L: unsupported shapes Linv "
-            f"{tuple(Linv.shape)}, C {tuple(C.shape)}, b {tuple(b.shape)}")
-    plan = sweep_plan(B, K, n, "L")
-    x = torch.empty_like(b)
-    lib = load_kernels()
-    with torch.cuda.device(b.device):
-        err = lib.group_solve_l_f32(
-            Linv.data_ptr(), C.data_ptr(), b.data_ptr(), x.data_ptr(), B, K,
-            n, plan.cluster, plan.band_rows, plan.stages,
-            torch.cuda.current_stream(b.device).cuda_stream)
-    check(err, "solve_factorized_grouped_L")
+    x = _launch_sweep("solve_factorized_grouped_L", "group_solve_l", Linv, C,
+                      b, "L")
     solve_factorized_grouped_L.launches += 1
     return x
 

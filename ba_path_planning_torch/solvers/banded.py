@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..ops.collisions import PairIndex, pairwise_diffs
 from ..utils.config import SolverParams, SolverStatic
+from ..utils.dist import all_reduce
 from ..utils.graphs import graphed
 
 _LOOSE_RHO = 1e-6   # rho on disabled (+-inf) rows; OSQP's RHO_MIN
@@ -76,11 +77,12 @@ def lane_mask(mask, t):
     return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
 
 
-def _inf_norm(t, batch_dims: int = 0) -> torch.Tensor:
+def _inf_norm(t, batch_dims: int = 0, group=None) -> torch.Tensor:
     """Max |entry| over every leaf, per index of the ``batch_dims`` leading
-    axes (a scalar when ``batch_dims`` is 0)."""
+    axes (a scalar when ``batch_dims`` is 0); over the ranks of ``group``
+    too where the collision rows are sharded (JAX's ``pmax``)."""
     maxes = [v.abs().flatten(batch_dims).amax(-1) for v in t if v.numel() > 0]
-    return torch.stack(maxes).amax(0)
+    return all_reduce(torch.stack(maxes).amax(0), "max", group)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +113,10 @@ def apply_A(xv: StateVars, eta, E, h: float) -> RowVals:
                    pbox=p, col=col)
 
 
-def apply_AT(y: RowVals, eta, E, h: float) -> StateVars:
+def apply_AT(y: RowVals, eta, E, h: float, group=None) -> StateVars:
+    """A^T y.  ``group``: the collision rows are this rank's share of the
+    pairs, and their contribution to p is summed over the group (JAX's
+    ``psum``)."""
     yj = F.pad(y.jerk, (0, 0, 1, 1))
     a = (-0.5 * h * h * y.dyn_p - h * y.dyn_v
          + (yj[..., :-1, :] - yj[..., 1:, :]) / h + y.acc)
@@ -122,7 +127,8 @@ def apply_AT(y: RowVals, eta, E, h: float) -> StateVars:
     w = y.col[..., None] * eta
     w_shift = torch.cat(
         [w[..., 1:, :, :], torch.zeros_like(w[..., 0:1, :, :])], dim=-3)
-    p = p + torch.einsum('np,...kpc->...nkc', E, w_shift)
+    p = p + all_reduce(torch.einsum('np,...kpc->...nkc', E, w_shift), "sum",
+                       group)
 
     dyn_v_next = torch.cat(
         [y.dyn_v[..., 1:, :], torch.zeros_like(y.dyn_v[..., 0:1, :])], dim=-2)
@@ -173,10 +179,13 @@ def build_bounds(p0, v0, pf, vf, *, n_vehicles: int, n_steps: int, h: float,
 def collision_lower_bounds_state(eta, dist, prev_positions, pairs: PairIndex,
                                  *, min_distance) -> torch.Tensor:
     """RHS of the collision rows in state space: R + (eta . dprev - dist);
-    row k = 0 is vacuous (-inf)."""
+    row k = 0 is vacuous (-inf), and so are the rows of pad pairs
+    (``pairs.valid``)."""
     dprev = pairwise_diffs(prev_positions, pairs)
     lin = torch.sum(eta * dprev, dim=-1) - dist
     l = min_distance + lin
+    if pairs.valid is not None:
+        l = torch.where(pairs.valid, l, torch.full_like(l, -np.inf))
     neg_inf = torch.full_like(l[..., 0:1, :], -np.inf)
     return torch.cat([neg_inf, l[..., 1:, :]], dim=-2)
 
@@ -343,13 +352,38 @@ def factorize(D, B):
 
 
 def _mv(M, t):
-    """M t for stacked matrices (..., n, n) and vectors (..., n)."""
-    return (M @ t[..., None])[..., 0]
+    """M t for stacked matrices (..., n, n) and vectors (..., n).  Stored
+    bf16 factors are widened to t's dtype first, as JAX promotes bf16 x
+    f32 (or f64)."""
+    return (M.to(t.dtype) @ t[..., None])[..., 0]
 
 
 def _mv_t(M, t):
-    """M^T t for stacked matrices (..., n, n) and vectors (..., n)."""
-    return (t[..., None, :] @ M)[..., 0, :]
+    """M^T t for stacked matrices (..., n, n) and vectors (..., n), M
+    widened as in :func:`_mv`."""
+    return (t[..., None, :] @ M.to(t.dtype))[..., 0, :]
+
+
+def compress_factors(*factors, dtype=torch.bfloat16):
+    """Store factor blocks (..., n, n) at reduced precision (JAX
+    ``banded.compress_factors``, ``SolverConfig.factor_dtype="bf16"``): the
+    sweeps stream the factors at every ADMM iteration, and the ADMM
+    tolerances and the collision margin absorb the rounding.  Each result
+    is a (..., n, n) view of a zero-filled (..., n, ld) tensor, ld the
+    stride :func:`ops.cuda_build.bf16_row_stride` (n rounded up to 8
+    elements, 16 bytes), which the sweep kernels' bulk copies need; the
+    counterpart of JAX's ``pad_factors``, whose 128 lanes were the TPU DMA
+    engine's rule.  Written once a factorization."""
+    from ..ops.cuda_build import bf16_row_stride
+    out = []
+    for F_ in factors:
+        n = F_.shape[-1]
+        store = torch.zeros(F_.shape[:-1] + (bf16_row_stride(n),),
+                            dtype=dtype, device=F_.device)
+        view = store[..., :n]
+        view.copy_(F_)
+        out.append(view)
+    return tuple(out)
 
 
 def solve_factorized(Linv, Eb, b):
@@ -451,25 +485,28 @@ def assemble_skeleton(rho: RowVals, *, h: float, sigma, n_vehicles: int):
     return D, s
 
 
-def collision_blocks(rho_col, eta, E) -> torch.Tensor:
+def collision_blocks(rho_col, eta, E, group=None) -> torch.Tensor:
     """Collision contributions to the p-p slot of D: G_k diag(rho_k) G_k^T
     with G_k = E (x) eta_k.  eta (..., K, P, 2), rho_col broadcastable to
     (..., K, P).  Returns (..., K, 2N, 2N), shifted so entry k adds onto D_k
-    (last entry zero)."""
+    (last entry zero).  ``group``: the pairs are this rank's share, and the
+    partial blocks are summed over the group (JAX's ``psum``)."""
     K, P = eta.shape[-3], eta.shape[-2]
     G = torch.einsum('np,...kpc->...kncp', E, eta)
     G = G.reshape(G.shape[:-3] + (-1, P))
-    colM = (G * rho_col[..., None, :]) @ G.mT
+    colM = all_reduce((G * rho_col[..., None, :]) @ G.mT, "sum", group)
     return torch.cat([colM[..., 1:, :, :], torch.zeros_like(colM[..., :1, :, :])],
                      dim=-3)
 
 
-def assemble_D(rho: RowVals, eta, E, *, h: float, sigma, n_vehicles: int):
+def assemble_D(rho: RowVals, eta, E, *, h: float, sigma, n_vehicles: int,
+               group=None):
     """Diagonal blocks D (..., K, 6N, 6N) and slot-scalar off-diagonals
-    C (K-1, 3, 3), or (B, K-1, 3, 3) for a per-lane rho."""
+    C (K-1, 3, 3), or (B, K-1, 3, 3) for a per-lane rho; ``group`` as in
+    :func:`collision_blocks`."""
     n2 = 2 * n_vehicles
     D0, s = assemble_skeleton(rho, h=h, sigma=sigma, n_vehicles=n_vehicles)
-    colM = collision_blocks(rho.col, eta, E)
+    colM = collision_blocks(rho.col, eta, E, group)
     D = D0.expand(colM.shape[:-3] + D0.shape[-3:]).clone()
     D[..., n2:2 * n2, n2:2 * n2] += colM
     return D, b_slot_mats(s)
@@ -484,11 +521,13 @@ def slot_dense(C, n2: int) -> torch.Tensor:
 
 
 def assemble_blocks(rho: RowVals, eta, E, *, h: float, sigma,
-                    n_vehicles: int):
+                    n_vehicles: int, group=None):
     """Diagonal blocks D (..., K, 6N, 6N) and the dense off-diagonal blocks
     B_k = C_k (x) I_2N as (K-1, 6N, 6N), shared by every scenario for a
-    batch-shared rho (the collision rows touch only D)."""
-    D, C = assemble_D(rho, eta, E, h=h, sigma=sigma, n_vehicles=n_vehicles)
+    batch-shared rho (the collision rows touch only D); ``group`` as in
+    :func:`collision_blocks`."""
+    D, C = assemble_D(rho, eta, E, h=h, sigma=sigma, n_vehicles=n_vehicles,
+                      group=group)
     return D, slot_dense(C, 2 * n_vehicles)
 
 
@@ -607,12 +646,13 @@ def _chan(leaf, n_vehicles):
 
 
 def assemble_blocks_rowwise(rho: RowVals, eta, E, *, h: float, sigma,
-                            n_vehicles: int):
+                            n_vehicles: int, group=None):
     """Like :func:`assemble_blocks`, but the jerk/acc/vbox/pbox rho may vary
     per (vehicle, axis) channel: full (..., N, K', 2) leaves.  The dynamics
     rho must still be per-k ((K, 1) leaves), as in the polish, where the
     dynamics rows are always active with per-k scaling.  Returns D and B,
-    both (..., K(-1), 6N, 6N) with the batch axes of the leaves."""
+    both (..., K(-1), 6N, 6N) with the batch axes of the leaves; ``group``
+    as in :func:`collision_blocks`."""
     N = n_vehicles
     n2, n6, h2 = 2 * N, 6 * N, h * h
     rdp = _per_k(rho.dyn_p)                  # (K,) dynamics rho, per k
@@ -643,7 +683,7 @@ def assemble_blocks_rowwise(rho: RowVals, eta, E, *, h: float, sigma,
          + _slot_diag(n6, n2, 0, 1, ap) + _slot_diag(n6, n2, 1, 0, ap)
          + _slot_diag(n6, n2, 0, 2, av) + _slot_diag(n6, n2, 2, 0, av)
          + _slot_diag(n6, n2, 1, 2, pv) + _slot_diag(n6, n2, 2, 1, pv))
-    D[..., n2:2 * n2, n2:2 * n2] += collision_blocks(rho.col, eta, E)
+    D[..., n2:2 * n2, n2:2 * n2] += collision_blocks(rho.col, eta, E, group)
 
     # B_k: rows u_k, cols u_{k-1}; only the jerk (a, a) slot is per channel
     B = (_slot_diag_chan(n6, n2, 0, 0, -rj / h2)
@@ -662,7 +702,7 @@ def assemble_blocks_rowwise(rho: RowVals, eta, E, *, h: float, sigma,
 def polish_qp_state(lower: RowVals, upper: RowVals, eta, x: StateVars,
                     y: RowVals, E, *, h: float, n_vehicles: int,
                     rho_polish: float = 1e5, iters: int = 6,
-                    eps_act: float = 1e-10) -> StateVars:
+                    eps_act: float = 1e-10, group=None) -> StateVars:
     """Refine the ADMM iterates of a batch (scenario axis first) to the
     exact KKT points of the QPs restricted to the active sets their duals
     identify (JAX ``banded.polish_qp_state``): the method of multipliers on
@@ -677,7 +717,9 @@ def polish_qp_state(lower: RowVals, upper: RowVals, eta, x: StateVars,
     than the ADMM iterate does (or by at most 1e-9, scaled rows); else it
     keeps ``x``.  The factorization and the sweeps are the plain
     :func:`factorize` and :func:`solve_factorized`, as JAX's are: no
-    kernel."""
+    kernel.  ``group``: the collision rows are this rank's share of the
+    pairs; the collision blocks, A^T and the violations reduce over the
+    group, so the polished x is the same on every rank."""
     dtype = x.a.dtype
     N = n_vehicles
     K = x.a.shape[-2]
@@ -717,14 +759,14 @@ def polish_qp_state(lower: RowVals, upper: RowVals, eta, x: StateVars,
         pbox=box_rho(mask.pbox, scaling.pbox),
         col=box_rho(mask.col, scaling.col.expand(mask.col.shape)))
     D, B = assemble_blocks_rowwise(rho_row, eta, E, h=h, sigma=sigma,
-                                   n_vehicles=N)
+                                   n_vehicles=N, group=group)
     L, Eb = factorize(D, B)
     del D, B
 
     def solve_x(yal):
         rzy = tree_map(lambda r, b, ya, m: (r * b - ya) * m, rho_row, b_act,
                        yal, mask)
-        rhs = apply_AT(rzy, eta, E, h)
+        rhs = apply_AT(rzy, eta, E, h, group)
         return from_stacked(solve_factorized(L, Eb, to_stacked(rhs)), N)
 
     yal = tree_map(torch.zeros_like, mask)
@@ -743,7 +785,7 @@ def polish_qp_state(lower: RowVals, upper: RowVals, eta, x: StateVars,
             torch.where(torch.isfinite(lo), (lo - a) * d, zero),
             torch.where(torch.isfinite(up), (a - up) * d, zero)), 0.0),
             Ax, lower, upper, scaling)
-        return _inf_norm(v, nb)
+        return _inf_norm(v, nb, group)
 
     ok = viol(x_pol) <= torch.clamp_min(viol(x), 1e-9)
     return tree_map(lambda a, b: torch.where(lane_mask(ok, a), a, b), x_pol,
@@ -838,8 +880,12 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
 
     The gates are the JAX router's as they stand: its 12 MiB and 96 MiB are
     byte budgets of the TPU's VMEM, kept so that the port routes where JAX
-    routes.  bf16 factor storage raises NotImplementedError, naming its
-    ROADMAP item.  Adaptive rho routes as the shared rho does.
+    routes.  They count the working dtype's item size, also for bf16
+    factor storage (``static.factor_dtype``), as JAX's do; bf16 then
+    stores the factors of the grouped routes and of the dense pair
+    (``resident``, ``dense``, ``fused_L``) in bf16 (:func:`compress_factors`),
+    and those of ``channel`` and ``fused_X`` in the working dtype, as JAX
+    does.  Adaptive rho routes as the shared rho does.
 
     ``static.assemble_precision`` must be one of
     :data:`ASSEMBLE_PRECISIONS`, else ValueError.  Every one of them
@@ -854,9 +900,9 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
         raise ValueError(
             f"assemble_precision={static.assemble_precision!r}: one of "
             f"{ASSEMBLE_PRECISIONS} (each assembles in FP32 on this card)")
-    if static.factor_dtype != "f32":
-        raise NotImplementedError(
-            "bf16 factor storage is not ported (ROADMAP Queue 1 item 5)")
+    if static.factor_dtype not in ("f32", "bf16"):
+        raise ValueError(f"factor_dtype={static.factor_dtype!r}: 'f32' or "
+                         "'bf16'")
     if not col_enabled:
         return "channel"
     N, K = n_vehicles, n_steps
@@ -890,10 +936,14 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
 
 
 SHARED_C_ROUTES = ("grouped_X", "grouped_L", "fused_X")
+# the routes whose factors bf16 factor storage compresses (JAX
+# ``banded.py:1306-1317``): not "channel", not "fused_X"
+BF16_ROUTES = ("grouped_X", "grouped_L", "resident", "dense", "fused_L")
 
 
 def _route_factors(route: str, rho_b: RowVals, eta, E, static: SolverStatic,
-                   n_vehicles: int, h: float, sigma, rho_lane=None, C1=None):
+                   n_vehicles: int, h: float, sigma, rho_lane=None, C1=None,
+                   group=None):
     """The factors of ``route`` for the lanes of ``eta``, as a tuple.
 
     A batch-shared rho gives the factors the kernels take, the X-form and
@@ -904,12 +954,31 @@ def _route_factors(route: str, rho_b: RowVals, eta, E, static: SolverStatic,
     :data:`SHARED_C_ROUTES` factorize M / rho_lane, whose off-diagonal
     slot scalars are ``C1`` (those of rho = 1) for every lane: the grouped
     routes then solve (M / rho) x = b / rho, and the fused X route takes
-    X = (its factors of M / rho) / rho with each lane's own C."""
+    X = (its factors of M / rho) / rho with each lane's own C.
+
+    With ``static.factor_dtype == "bf16"`` the factor blocks of the routes
+    of :data:`BF16_ROUTES` come as :func:`compress_factors` stores them.
+    ``group``: the pairs of ``eta`` are this rank's share (the collision
+    blocks are summed over the group)."""
+    factors = _route_factors_wide(route, rho_b, eta, E, static, n_vehicles,
+                                  h, sigma, rho_lane, C1, group)
+    if static.factor_dtype != "bf16" or route not in BF16_ROUTES:
+        return factors
+    if route in SHARED_C_ROUTES:
+        return compress_factors(factors[0]) + factors[1:]
+    return compress_factors(*factors)
+
+
+def _route_factors_wide(route: str, rho_b: RowVals, eta, E,
+                        static: SolverStatic, n_vehicles: int, h: float,
+                        sigma, rho_lane=None, C1=None, group=None):
+    """:func:`_route_factors` in the working dtype."""
     N = n_vehicles
     if route == "channel":
         return factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
     if route in SHARED_C_ROUTES:
-        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N)
+        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N,
+                          group=group)
         if rho_lane is not None:
             scale = rho_lane.reshape(-1, 1, 1, 1)
             D = D / scale
@@ -925,20 +994,25 @@ def _route_factors(route: str, rho_b: RowVals, eta, E, static: SolverStatic,
             return F_ / scale, C
         return (F_,)
     return factorize(*assemble_blocks(rho_b, eta, E, h=h, sigma=sigma,
-                                      n_vehicles=N))
+                                      n_vehicles=N, group=group))
 
 
 def _interval_fn(route: str, factors: tuple, rho_b: RowVals, lower: RowVals,
                  upper: RowVals, eta, E, n_vehicles: int, step: dict,
-                 C1=None, inv_rho=None):
+                 C1=None, inv_rho=None, group=None):
     """The function (x, z, y) -> (x, z, y) that runs one check interval on
     ``route`` from the factors of :func:`_route_factors` (``C1`` and the
-    per-lane ``inv_rho`` (B,) where those are of M / rho)."""
+    per-lane ``inv_rho`` (B,) where those are of M / rho).  ``group``: the
+    collision rows are sharded over its ranks (only the routes without a
+    kernel then run, as JAX's pair-sharded solver forces), and the dense
+    route is not replayed as a CUDA graph, whose capture would hold the
+    group's collectives."""
     N = n_vehicles
 
     def per_iteration(solve):
         return lambda x, z, y: admm_iterations(x, z, y, solve, eta, E, lower,
-                                               upper, rho_b, **step)
+                                               upper, rho_b, **step,
+                                               group=group)
 
     def scaled(sb):
         return sb if inv_rho is None else sb * inv_rho[:, None, None]
@@ -969,7 +1043,8 @@ def _interval_fn(route: str, factors: tuple, rho_b: RowVals, lower: RowVals,
         from ..ops.banded_solve import solve_factorized_dense
         return per_iteration(lambda sb: solve_factorized_dense(Linv, Eb, sb))
     # no kernel on this route: on the card its intervals replay as a graph
-    return graphed(per_iteration(lambda sb: solve_factorized(Linv, Eb, sb)))
+    interval = per_iteration(lambda sb: solve_factorized(Linv, Eb, sb))
+    return interval if group is not None else graphed(interval)
 
 
 # OSQP's adaptive-rho rule (JAX ``banded.py:1432-1448``): after a check
@@ -983,7 +1058,7 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
                    params: SolverParams, E, *, h: float,
                    static: SolverStatic, n_vehicles: int,
                    y_init: RowVals | None = None,
-                   col_enabled: bool = True) -> StateQPResult:
+                   col_enabled: bool = True, group=None) -> StateQPResult:
     """One ADMM solve in state space for a batch of scenarios.
 
     Every argument carries the scenario axis first: bounds and duals as
@@ -1010,6 +1085,11 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     The fused routes keep the rho of :func:`rho_pattern_masks` on every
     collision row, as the JAX router does; the other routes give rows
     disabled by a -inf lower bound the loose rho.
+
+    ``group`` (JAX's ``axis_name``): eta, the collision rows and their
+    duals hold this rank's share of the pairs; the collision blocks, A^T
+    and the residual norms are reduced over the group, so x is the same on
+    every rank.  ``None`` runs as on one device.
     """
     dtype = x_init.a.dtype
     N = n_vehicles
@@ -1043,13 +1123,14 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
 
     def factors_of(rho_b, eta_, rho_lane=None, C1=None):
         return _route_factors(route, rho_b, eta_, E, static, N, h,
-                              params.sigma, rho_lane=rho_lane, C1=C1)
+                              params.sigma, rho_lane=rho_lane, C1=C1,
+                              group=group)
 
     adaptive = static.adaptive_rho
     if not adaptive:
         rho_b = rho_rows(params.rho, lower.col)
         interval = _interval_fn(route, factors_of(rho_b, eta), rho_b, lower,
-                                upper, eta, E, N, step)
+                                upper, eta, E, N, step, group=group)
     else:
         B = x_init.a.shape[0]
         rho_l = params.rho.to(dtype).expand(B).clone()
@@ -1063,12 +1144,13 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
         def interval_now():
             return _interval_fn(route, factors, rho_b, lower, upper, eta, E,
                                 N, step, C1=C1 if scaled else None,
-                                inv_rho=1.0 / rho_l if scaled else None)
+                                inv_rho=1.0 / rho_l if scaled else None,
+                                group=group)
         interval = interval_now()
 
     x, z, y = interval(x, z, y)
     prim, dual, done, scales = _residuals(x, z, y, eta, E, h, scaling,
-                                           params, nb)
+                                           params, nb, group)
     iters = torch.full(prim.shape, check, dtype=torch.int32, device=dev)
     active = ~done
     for _ in range(check, max_iter, check):
@@ -1098,7 +1180,8 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
         elif not bool(active.any()):
             break
         new = interval(x, z, y)
-        *res, scales = _residuals(*new, eta, E, h, scaling, params, nb)
+        *res, scales = _residuals(*new, eta, E, h, scaling, params, nb,
+                                  group)
 
         def keep(n_, o_):
             return torch.where(lane_mask(active, n_), n_, o_)
@@ -1117,15 +1200,16 @@ solve_qp_state.refactorized_lanes = 0
 
 def admm_iterations(x: StateVars, z: RowVals, y: RowVals, solve, eta, E,
                     lower: RowVals, upper: RowVals, rho: RowVals, *, h: float,
-                    sigma, alpha, lam, n_iters: int):
+                    sigma, alpha, lam, n_iters: int, group=None):
     """``n_iters`` ADMM iterations from (x, z, y): the loop body of the JAX
     ``solve_qp_state`` (``admm_iter``).  ``solve`` maps a stacked right-hand
     side (..., K, 6N) to the solution of the normal equations.  Returns the
-    new (x, z, y)."""
+    new (x, z, y).  ``group``: A^T sums the sharded collision rows over
+    it."""
     N = x.a.shape[-3]
     for _ in range(n_iters):
         rzy = tree_map(lambda zz, yy, rr: rr * zz - yy, z, y, rho)
-        b_sv = apply_AT(rzy, eta, E, h)
+        b_sv = apply_AT(rzy, eta, E, h, group)
         b_sv = tree_map(lambda bb, xx: bb + sigma * xx, b_sv, x)
         x_t = from_stacked(solve(to_stacked(b_sv)), N)
         x = tree_map(lambda xt, xx: alpha * xt + (1 - alpha) * xx, x_t, x)
@@ -1144,16 +1228,19 @@ def admm_iterations(x: StateVars, z: RowVals, y: RowVals, solve, eta, E,
     return x, z, y
 
 
-def _residuals(x, z, y, eta, E, h, scaling, params, nb):
+def _residuals(x, z, y, eta, E, h, scaling, params, nb, group=None):
     """OSQP primal/dual residuals, the termination test and the scales of
-    the two residuals (which make them relative), per scenario."""
+    the two residuals (which make them relative), per scenario; the norms
+    over the rows reduce over ``group`` where those are sharded (x and
+    A^T y are the same on every rank)."""
     Ax = apply_A(x, eta, E, h)
     dAx = tree_map(lambda a, d_: a * d_, Ax, scaling)
     dz = tree_map(lambda a, d_: a * d_, z, scaling)
-    prim = _inf_norm(tree_map(lambda a, b_: a - b_, dAx, dz), nb)
-    ATy = apply_AT(y, eta, E, h)
+    prim = _inf_norm(tree_map(lambda a, b_: a - b_, dAx, dz), nb, group)
+    ATy = apply_AT(y, eta, E, h, group)
     dual = _inf_norm(StateVars(a=2.0 * x.a + ATy.a, p=ATy.p, v=ATy.v), nb)
-    prim_scale = torch.maximum(_inf_norm(dAx, nb), _inf_norm(dz, nb))
+    prim_scale = torch.maximum(_inf_norm(dAx, nb, group),
+                               _inf_norm(dz, nb, group))
     dual_scale = torch.maximum(2.0 * x.a.abs().flatten(nb).amax(-1),
                                _inf_norm(ATy, nb))
     eps_prim = params.eps_abs + params.eps_rel * prim_scale

@@ -107,8 +107,11 @@ def _divergence_guard(a_new, a, problem: ProblemConfig):
 
 def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
                  params: SolverParams, pairs: PairIndex,
-                 problem: ProblemConfig, solver: SolverStatic) -> SCPCarry:
-    """One SCP iteration of every lane in the batch."""
+                 problem: ProblemConfig, solver: SolverStatic,
+                 group=None) -> SCPCarry:
+    """One SCP iteration of every lane in the batch (``group``: ``pairs``
+    is this rank's share, and the QP and the feasibility check reduce over
+    the group)."""
     N, h, R = problem.n_vehicles, problem.time_step, problem.min_distance
     a = carry.a
     prev_pos, _ = rollout(a, p0, v0, h)
@@ -119,11 +122,12 @@ def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
     lower_it = lower_s._replace(col=col_lo)
     x_warm = _warm_state(a, p0, v0, h)
     qp = solve_qp_state(lower_it, upper_s, eta, x_warm, params, pairs.E, h=h,
-                        static=solver, n_vehicles=N, y_init=carry.y)
+                        static=solver, n_vehicles=N, y_init=carry.y,
+                        group=group)
     a_new = qp.x.a
     if solver.polish:
         a_new = polish_qp_state(lower_it, upper_s, eta, qp.x, qp.y, pairs.E,
-                                h=h, n_vehicles=N).a
+                                h=h, n_vehicles=N, group=group).a
     a_new = _divergence_guard(a_new, a, problem)
     step = torch.linalg.vector_norm((a_new - a).flatten(1), dim=-1)
     denom = torch.clamp_min(torch.linalg.vector_norm(a.flatten(1), dim=-1),
@@ -134,7 +138,7 @@ def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
         a_stop = (_goal_projected(a_new, p0, v0, pf, vf, problem)
                   if problem.goal_project else a_new)
         new_pos, _ = rollout(a_stop, p0, v0, h)
-        stop = check_feasible(new_pos, pairs, R)
+        stop = check_feasible(new_pos, pairs, R, group)
     else:
         stop = converged
     return SCPCarry(a=a_new, y=qp.y, it=carry.it + 1, converged=converged,
@@ -150,9 +154,10 @@ def _direct_cond(carry: SCPCarry, cap) -> torch.Tensor:
 
 def _scp_start_direct(p0, v0, pf, vf, *, params: SolverParams,
                       pairs: PairIndex, problem: ProblemConfig,
-                      solver: SolverStatic) -> SCPCarry:
+                      solver: SolverStatic, group=None) -> SCPCarry:
     """Phase 1: the collision-free initial QP and the feasibility
-    pre-check, as a resumable carry.  p0/v0/pf/vf (B, N, 2)."""
+    pre-check, as a resumable carry.  p0/v0/pf/vf (B, N, 2); ``group``: the
+    pairs are sharded over its ranks (P is the local count)."""
     N, K, P = problem.n_vehicles, problem.n_steps, pairs.E.shape[1]
     h, R = problem.time_step, problem.min_distance
     B, dtype, dev = p0.shape[0], p0.dtype, p0.device
@@ -162,15 +167,16 @@ def _scp_start_direct(p0, v0, pf, vf, *, params: SolverParams,
     x0 = _warm_state(torch.zeros((B, N, K, 2), dtype=dtype, device=dev),
                      p0, v0, h)
     qp0 = solve_qp_state(lower_s, upper_s, eta0, x0, params, pairs.E, h=h,
-                         static=solver, n_vehicles=N, col_enabled=False)
+                         static=solver, n_vehicles=N, col_enabled=False,
+                         group=group)
     a = qp0.x.a
     if solver.polish:
         a = polish_qp_state(lower_s, upper_s, eta0, qp0.x, qp0.y, pairs.E,
-                            h=h, n_vehicles=N).a
+                            h=h, n_vehicles=N, group=group).a
     a_chk = (_goal_projected(a, p0, v0, pf, vf, problem)
              if problem.goal_project else a)
     pos_init, _ = rollout(a_chk, p0, v0, h)
-    feasible_initial = check_feasible(pos_init, pairs, R)
+    feasible_initial = check_feasible(pos_init, pairs, R, group)
     false = torch.zeros(B, dtype=torch.bool, device=dev)
     return SCPCarry(a=a, y=qp0.y,
                     it=torch.zeros(B, dtype=torch.int32, device=dev),
@@ -184,11 +190,12 @@ def _scp_start_direct(p0, v0, pf, vf, *, params: SolverParams,
 def _scp_step_direct(carry: SCPCarry, p0, v0, pf, vf, lane_ids, it_cap, *,
                      params: SolverParams, pairs: PairIndex,
                      problem: ProblemConfig, solver: SolverStatic,
-                     angle_fn: AngleFn) -> SCPCarry:
+                     angle_fn: AngleFn, group=None) -> SCPCarry:
     """Run SCP iterations from ``carry`` until each lane's stopping rule
     fires or its ``it`` reaches ``min(it_cap, max_iterations)``.  Lanes that
     are done keep their state.  ``lane_ids`` (B,) and the lane's global
-    iteration key the degenerate-pair angles through ``angle_fn``."""
+    iteration key the degenerate-pair angles through ``angle_fn``, which
+    gives the angles of ``pairs`` (this rank's share under ``group``)."""
     N, K, P = problem.n_vehicles, problem.n_steps, pairs.E.shape[1]
     lower_s, upper_s = build_bounds(p0, v0, pf, vf, n_vehicles=N, n_steps=K,
                                     h=problem.time_step,
@@ -203,7 +210,7 @@ def _scp_step_direct(carry: SCPCarry, p0, v0, pf, vf, lane_ids, it_cap, *,
         new = _direct_body(carry, p0, v0, pf, vf,
                            angle_fn(lane_ids, carry.it), lower_s, upper_s,
                            params=params, pairs=pairs, problem=problem,
-                           solver=solver)
+                           solver=solver, group=group)
         if not bool(active.all()):
             new = tree_map(
                 lambda n_, o_: torch.where(lane_mask(active, n_), n_, o_),
@@ -212,19 +219,22 @@ def _scp_step_direct(carry: SCPCarry, p0, v0, pf, vf, lane_ids, it_cap, *,
 
 
 def _scp_finalize_direct(carry: SCPCarry, p0, v0, pf, vf, *,
-                         pairs: PairIndex,
-                         problem: ProblemConfig) -> SCPResult:
+                         pairs: PairIndex, problem: ProblemConfig,
+                         group=None) -> SCPResult:
     """Final rollout and status codes.  With ``goal_project`` the output is
-    the exact-terminal projection wherever that is collision-free."""
+    the exact-terminal projection wherever that is collision-free; the
+    feasibility checks reduce over ``group`` where the pairs are
+    sharded."""
     h = problem.time_step
     a_out = carry.a
     if problem.goal_project:
         a_proj = _goal_projected(carry.a, p0, v0, pf, vf, problem)
         pos_p, _ = rollout(a_proj, p0, v0, h)
-        feas_p = check_feasible(pos_p, pairs, problem.min_distance)
+        feas_p = check_feasible(pos_p, pairs, problem.min_distance, group)
         a_out = torch.where(lane_mask(feas_p, a_proj), a_proj, carry.a)
     positions, velocities = rollout(a_out, p0, v0, h)
-    feasible_final = check_feasible(positions, pairs, problem.min_distance)
+    feasible_final = check_feasible(positions, pairs, problem.min_distance,
+                                    group)
     status = torch.where(
         carry.feasible_initial, STATUS_FEASIBLE_INITIAL,
         torch.where(carry.stop, STATUS_CONVERGED, STATUS_MAX_ITERS))

@@ -10,8 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.collisions import PairIndex
-from ..solvers.banded import RowVals
+from ..ops.collisions import PaddedPairIndex, PairIndex
+from ..solvers.banded import RowVals, compress_factors
 from ..solvers.scp import SCPCarry
 from .config import ProblemConfig, SolverConfig
 
@@ -57,24 +57,42 @@ def carry_from_numpy(carry, dtype=torch.float64, device=None) -> SCPCarry:
 
 
 def pairs_from_numpy(pairs, dtype=torch.float64, device=None) -> PairIndex:
-    """A JAX ``PairIndex`` -> the port's PairIndex (``valid`` must be
-    None: pair sharding is not ported)."""
-    if getattr(pairs, "valid", None) is not None:
-        raise NotImplementedError("padded pair indices are not ported")
-    return PairIndex(i_idx=torch.as_tensor(np.asarray(pairs.i_idx),
-                                           dtype=torch.int64, device=device),
-                     j_idx=torch.as_tensor(np.asarray(pairs.j_idx),
-                                           dtype=torch.int64, device=device),
-                     E=torch.as_tensor(np.asarray(pairs.E), dtype=dtype,
-                                       device=device))
+    """A JAX ``PairIndex`` -> the port's PairIndex, its ``valid`` mask (the
+    pad pairs of a pair-sharded index) carried across."""
+    out = PairIndex(i_idx=torch.as_tensor(np.array(pairs.i_idx),
+                                          dtype=torch.int64, device=device),
+                    j_idx=torch.as_tensor(np.array(pairs.j_idx),
+                                          dtype=torch.int64, device=device),
+                    E=torch.as_tensor(np.array(pairs.E), dtype=dtype,
+                                      device=device))
+    valid = getattr(pairs, "valid", None)
+    if valid is None:
+        return out
+    return PaddedPairIndex(*out, valid=torch.as_tensor(
+        np.array(valid), dtype=torch.bool, device=device))
 
 
-def factors_from_numpy(*arrays, dtype=torch.float64, device=None):
+def factors_from_numpy(*arrays, dtype=torch.float64, device=None, n=None):
     """Factor arrays of the JAX package, as numpy arrays, -> tensors, one
     per array: the dense pair ``(Linv, Eb)``, ``Linv`` alone with the slot
-    scalars ``C``, or X-form ``X`` with ``C``.  Pass the factors as the
-    factorization returned them: ``pad_factors`` of the JAX package pads
-    the last axis to 128 lanes for the TPU's DMA engine, and the port's
-    kernels take the factors unpadded."""
-    return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
-                 for a in arrays)
+    scalars ``C``, or X-form ``X`` with ``C``.  ``pad_factors`` of the JAX
+    package pads the last two axes to 128 lanes for the TPU's DMA engine;
+    pass ``n``, the unpadded block size, to strip that padding from the
+    arrays of blocks.  A bf16 array (``np.asarray`` of a JAX bf16 array is
+    an ``ml_dtypes`` array, which torch cannot read) crosses as its bits,
+    a uint16 view, and comes out as ``torch.bfloat16`` laid out as
+    ``banded.compress_factors`` stores it (rows on a stride of 8
+    elements); other arrays come out in ``dtype``."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        if n is not None and a.ndim >= 2 and a.shape[-1] > n:
+            a = a[..., :n, :n]
+        if a.dtype.name == "bfloat16":
+            bits = np.array(a).view(np.uint16).view(np.int16)
+            t = torch.from_numpy(bits).view(torch.bfloat16).to(device)
+            out.append(compress_factors(t)[0])
+        else:
+            out.append(torch.as_tensor(np.array(a), dtype=dtype,
+                                       device=device))
+    return tuple(out)

@@ -66,7 +66,25 @@
    ``SolverConfig()`` (the CG method, adaptive rho, its polish) at N=20 on
    CG_B scenarios in float32 and in float64, the SCP loop cut to one
    iteration: valid statuses, equal on at least 90% of the lanes, and no
-   hand-written kernel launched.
+   hand-written kernel launched;
+11. the bf16 kernel phase (``SolverConfig.factor_dtype="bf16"``): the four
+   factor-streaming kernels on factors stored in bf16
+   (``banded.compress_factors``, rows on a stride of 8 elements), each
+   against its plain version on the same bf16 factors with the tolerances
+   of the float32 checks and timed beside its float32 self, its bound at 2
+   bytes an element: the three sweeps at N=20 (B=512, 64, 1), N=21 and
+   N=30 (B=128, padded rows), the L-form fused interval at N=20 (B=128,
+   64);
+12. the bf16 paths: production with bf16 factors at N=20 (1024 scenarios,
+   chunk 512, the grouped X route; at least 99% ok, printed beside the f32
+   path), and the ``SCP`` class's solver in bf16 on its three kernel
+   routes (B=64, the SCP loop cut to BF16_FACADE_SCP), printed beside the
+   f32 routes;
+13. the parallel phase: two ranks share the card over gloo on CUDA tensors
+   (``parallel_phase``): the scenario-parallel ``solve_compacted``, the
+   pair-sharded solve and ``rollout_ksharded``, each against its one-rank
+   counterpart; a rank that fails or outlasts PARALLEL_TIMEOUT fails the
+   run.
 
 The launch counters are set to 0 just before each path and read just after:
 each path must launch the kernels of its route and no other.  Any failed
@@ -413,11 +431,12 @@ def _interval_f64(plain, kw, state, n_iters):
 
 
 def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
-                needed_floats=None):
+                needed_floats=None, factor_bytes=4):
     """A fused ADMM-interval kernel against its plain version on the
     arguments ``kw`` (factors included; ``factor_floats`` is their size per
-    scenario, ``needed_floats`` what of it has to be read, where that is
-    less: Linv without its zero half, X as its upper triangle).  The
+    scenario in elements of ``factor_bytes`` bytes, ``needed_floats`` what
+    of it has to be read, where that is less: Linv without its zero half,
+    X as its upper triangle).  The
     interval starts from a warm state, as
     an SCP iteration finds it: one float64 plain interval from x at rest,
     z = clip(A x, l, u) and y = 0.  Returns the kernel's stats."""
@@ -451,7 +470,7 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
     fu_plain_ms = _time_ms(lambda: plain(**kw, **state, n_iters=25), reps=2)
     B, K = kw["eta"].shape[:2]
     n, P = 6 * n_veh, n_veh * (n_veh - 1) // 2
-    stream = 25 * B * 2 * factor_floats * 4
+    stream = 25 * B * 2 * factor_floats * factor_bytes
     gbs = stream / (fu_ms * 1e-3) / 1e9
     stream_ms = stream / HBM_BYTES_S * 1e3
     sparse = "" if needed_floats is None else (
@@ -484,9 +503,10 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
     # in: factors, eta, two static bound planes, collision bounds, and the
     # state (x, static z and y, collision z and y); out: the state
     rows = K * (12 * n_veh * 2 + 2 * P)
-    io = factor_floats + K * (2 * P + 2 * 12 * n_veh + P) + 2 * (K * n + rows)
+    io = (factor_floats * factor_bytes
+          + 4 * (K * (2 * P + 2 * 12 * n_veh + P) + 2 * (K * n + rows)))
     stats = _stat(abs_err, fu_ms, fu_plain_ms,
-                  f"N={n_veh} K={K} B={B}, 25 iterations", B * io * 4,
+                  f"N={n_veh} K={K} B={B}, 25 iterations", B * io,
                   25 * B * 2 * 2 * factor_floats, stream)
     if needed_floats is not None:
         stats["nonzero_stream_bound_ms"] = (
@@ -716,11 +736,17 @@ def _production_route(n_veh):
             else {"ns_chain", "group_solve_x"})
 
 
-def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
+# the summary of each main path by its label, for the bf16 paths' lines
+PATH_STATS = {}
+
+
+def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
+              solver=None, label=None):
     """``solve_compacted`` over B scenarios at the bench.py configuration
     (``latency``: with ``SolverConfig.latency()``, three 9-iteration
-    intervals with early exit, for the production solver); returns the
-    launch counts of this path alone."""
+    intervals with early exit, for the production solver; ``solver``:
+    another solver of the production route); returns the launch counts of
+    this path alone and records its summary in PATH_STATS[label]."""
     import numpy as np
     import torch
     from ba_path_planning_torch.models.double_integrator import (
@@ -730,8 +756,9 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
         generate_scenario_batch)
     from ba_path_planning_torch.utils.config import SolverConfig
     problem = _problem(n_veh)
-    solver = (SolverConfig.latency() if latency
-              else SolverConfig.production(problem=problem))
+    if solver is None:
+        solver = (SolverConfig.latency() if latency
+                  else SolverConfig.production(problem=problem))
     sh = ShardedSCPSolver(problem, solver, dtype=torch.float32, device=dev)
 
     def scenarios(seed, n):
@@ -770,17 +797,24 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False):
     ff = out.feasible_final
     ok = int((ff & (goal_err < 0.05)).sum())
     status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
-    print(f"main path{' (latency solver)' if latency else ''}: B={B} "
+    mean_scp = float(out.iterations.float().mean())
+    mean_qp = float(out.qp_iterations.float().mean())
+    PATH_STATS[label or ("latency" if latency else f"N={n_veh}")] = dict(
+        ok=ok, B=B, statuses=status, mean_scp_iters=mean_scp,
+        mean_qp_iters=mean_qp, wall=wall)
+    name = f" ({label})" if label else (" (latency solver)" if latency
+                                         else "")
+    print(f"main path{name}: B={B} "
           f"chunk={chunk} N={n_veh} K={K} R={R} f32 on "
           f"{card}: wall={wall:.3f} s solves/s={ok / wall:.1f} "
           f"ok={ok}/{B} collision_free={int(ff.sum())} "
           f"goal<5cm={int((goal_err < 0.05).sum())} statuses={status} "
-          f"mean_scp_iters={float(out.iterations.float().mean()):.3f} "
-          f"mean_qp_iters={float(out.qp_iterations.float().mean()):.2f} "
+          f"mean_scp_iters={mean_scp:.3f} mean_qp_iters={mean_qp:.2f} "
           f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
           f"timing={json.dumps(sh.last_timing)} launches={launches}",
           flush=True)
-    _check_route(f"N={n_veh} main path", launches, _production_route(n_veh))
+    _check_route(f"N={n_veh} main path{name}", launches,
+                 _production_route(n_veh))
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
     return launches
@@ -1027,12 +1061,14 @@ FACADE_ROUTES = {
 }
 
 
-def facade_path(dev, card, route, counters, adaptive=False):
+def facade_path(dev, card, route, counters, adaptive=False,
+                factor_dtype="f32", max_iterations=None):
     """The reference-compatible path on one kernel route: one
     ``SCPEngine.solve_batch`` over FACADE_B scenarios at N=20 with the
     ``SCP`` class's problem and solver (no device given: the engine runs on
-    the card), with ``adaptive`` its rho adaptive.  Returns the result and
-    the launch counts of this path."""
+    the card), with ``adaptive`` its rho adaptive, its factors stored in
+    ``factor_dtype`` and its SCP loop cut to ``max_iterations``.  Returns
+    the result and the launch counts of this path."""
     import numpy as np
     import torch
     from ba_path_planning_torch.scenarios.generator import (
@@ -1042,7 +1078,10 @@ def facade_path(dev, card, route, counters, adaptive=False):
     n_veh, B = 20, FACADE_B
     change, kernel = FACADE_ROUTES[route]
     problem = _problem(n_veh, facade=True)
-    solver = _facade_solver(**change, adaptive_rho=adaptive)
+    if max_iterations is not None:
+        problem = problem.replace(max_iterations=max_iterations)
+    solver = _facade_solver(**change, adaptive_rho=adaptive,
+                            factor_dtype=factor_dtype)
     took = qp_route(solver.static_part(), n_vehicles=n_veh, n_steps=K_STEPS,
                     dtype=torch.float32, col_enabled=True)
     if took != route:
@@ -1069,7 +1108,10 @@ def facade_path(dev, card, route, counters, adaptive=False):
         raise AssertionError("non-finite output")
     status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
     print(f"reference-compatible path, route {route}"
-          f"{', adaptive rho' if adaptive else ''}: B={B} N={n_veh} "
+          f"{', adaptive rho' if adaptive else ''}"
+          f"{', bf16 factors' if factor_dtype == 'bf16' else ''}"
+          f"{'' if max_iterations is None else f', SCP loop cut to {max_iterations}'}"
+          f": B={B} N={n_veh} "
           f"K={K_STEPS} R={R} f32 on {card}: wall={wall:.3f} s "
           f"statuses={status} "
           f"collision_free={int(out.feasible_final.sum())}/{B} "
@@ -1257,6 +1299,371 @@ def facade_agreement(results):
             raise AssertionError(f"routes {names[0]} and {other} disagree")
 
 
+# bf16 factor storage: the sweeps at (N, B) (the N=20 paths' chunk, the
+# reference-compatible batch and the SCP class's single scenario; N=21
+# and N=30, whose rows lie on a padded stride), the L-form fused interval
+# at N=20 and these batches
+BF16_SWEEPS = ((20, 512), (20, 64), (20, 1), (21, 128), (30, 128))
+BF16_FUSED_B = (128, 64)
+
+
+def _bf16_sweep(form, factors, C, b, b_admm, n_veh):
+    """A sweep kernel on bf16 factors (``compress_factors`` of the float32
+    ``factors``) against its plain version on the same bf16 factors, as
+    :func:`_sweep_check` holds the float32 ones; the kernel on the float32
+    factors is timed beside it.  Returns the bf16 kernel's stats, with its
+    bound at 2 bytes an element and ``f32_ms``."""
+    import torch
+    from ba_path_planning_torch.ops import banded_solve, group_solve
+    from ba_path_planning_torch.solvers import banded
+    kernel, plain = {
+        "X": (group_solve.solve_factorized_grouped_X,
+              group_solve.solve_factorized_grouped_X_plain),
+        "L": (group_solve.solve_factorized_grouped_L,
+              group_solve.solve_factorized_grouped_L_plain),
+        "dense": (banded_solve.solve_factorized_dense,
+                  banded_solve.solve_factorized_dense_plain)}[form]
+    stored = banded.compress_factors(*factors)
+    ops = stored + (() if form == "dense" else (C,))
+    B, K, n = b.shape
+    ld = stored[0].stride(-2)
+    err, ms, plain_ms = _sweep_check(
+        f"bf16 phase B={B} N={n_veh} K={K} (rows of {ld}): {kernel.__name__} "
+        f"on bf16 factors ({_plan(b, form)}; bf16 plan: "
+        f"{group_solve.sweep_plan(B, K, n, form, esize=2)})", kernel, plain,
+        ops, b, b_admm)
+    f32_ms = _time_ms(lambda: kernel(*factors, *ops[len(stored):], b),
+                      reps=20)
+    # factor blocks read once (X, L: K; dense: K + K - 1) and streamed at
+    # every sweep step (X, L: 2K - 1; dense: 4K - 3), 2 bytes an element
+    # on rows of ld; b read and x written in FP32
+    blocks, chain = ((K, 2 * K - 1) if form != "dense"
+                     else (2 * K - 1, 4 * K - 3))
+    vec = 2 * K * n * 4
+    flops = {"X": 2 * K * 2, "L": 4 * K * 2, "dense": (4 * K - 2) * 2}[form]
+    stats = _stat(err, ms, plain_ms, f"N={n_veh} K={K} B={B}",
+                  B * (blocks * n * ld * 2 + vec), B * flops * n * n,
+                  B * (chain * n * ld * 2 + vec))
+    stats.update(f32_ms=f32_ms, factor_dtype="bf16", row_stride=ld)
+    print(f"  {kernel.__name__} B={B} N={n_veh}: bf16 {ms:.3f} ms beside "
+          f"f32 {f32_ms:.3f} ms ({f32_ms / ms:.2f}x); bound at 2 bytes an "
+          f"element {stats['bound_ms']:.3f} ms, streamed "
+          f"{stats['stream_bound_ms']:.3f} ms ({stats['stream_bound_ms'] / ms:.0%}"
+          " of the kernel)", flush=True)
+    return stats
+
+
+def bf16_kernel_phase(dev):
+    """The four factor-streaming kernels on bf16 factors: the X-form sweep
+    on the production factors (the NS chain route), the L-only and dense
+    sweeps and the L-form fused interval on the reference-compatible
+    solver's block Cholesky, each against its plain version on the same
+    bf16 factors, timed beside its float32 self.  Returns the stats of
+    each kernel at its main-path shape (sweeps N=20 B=512, fused B=128),
+    with the other shapes' times beside."""
+    import torch
+    from ba_path_planning_torch.ops import admm_fused, ns_chain
+    from ba_path_planning_torch.solvers import banded
+    out = {}
+    for n_veh, B in BF16_SWEEPS:
+        D, C, b, b_admm, _ = _case(n_veh, B, dev, seed=3000 + n_veh + B)
+        X = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2)
+        del D
+        row = {"group_solve_x": _bf16_sweep("X", (X,), C, b, b_admm, n_veh)}
+        del X
+        D, C, b, b_admm, _ = _case(n_veh, B, dev, seed=4000 + n_veh + B,
+                                   solver=_facade_solver())
+        Linv, Eb = banded.factorize(D, banded.slot_dense(C, 2 * n_veh))
+        del D
+        row["group_solve_l"] = _bf16_sweep("L", (Linv,), C, b, b_admm,
+                                           n_veh)
+        row["banded_solve"] = _bf16_sweep("dense", (Linv, Eb), C, b, b_admm,
+                                          n_veh)
+        del Linv, Eb
+        for key, stats in row.items():
+            if (n_veh, B) == BF16_SWEEPS[0]:
+                out[key] = stats
+            else:
+                at = f"N{n_veh}_B{B}" if n_veh != 20 else f"B{B}"
+                out[key][f"ms_at_{at}"] = stats["ms"]
+                out[key][f"f32_ms_at_{at}"] = stats["f32_ms"]
+    n_veh, K, n = 20, K_STEPS, 120
+    for B in BF16_FUSED_B:
+        D, C, _, _, kw = _case(n_veh, B, dev, seed=5000 + B,
+                               solver=_facade_solver())
+        Linv, Eb = banded.factorize(D, banded.slot_dense(C, 2 * n_veh))
+        del D, kw["C"]
+        L16, E16 = banded.compress_factors(Linv, Eb)
+        ld = L16.stride(-2)
+        x = kw["x"]
+        z = banded.tree_map(torch.clamp,
+                            banded.apply_A(x, kw["eta"], kw["E"], H),
+                            kw["lower"], kw["upper"])
+        y = banded.tree_map(torch.zeros_like, z)
+        f32_ms = _time_ms(lambda: admm_fused.admm_interval_fused(
+            Linv, Eb, **{k: v for k, v in kw.items() if k != "x"}, x=x, z=z,
+            y=y, n_iters=25))
+        stats = fused_check(
+            f"bf16 phase: admm_interval_fused on bf16 factors (rows of {ld}, "
+            f"{admm_fused.fused_plan(K, n_veh, 'L', esize=2)})",
+            admm_fused.admm_interval_fused,
+            admm_fused.admm_interval_fused_plain,
+            dict(kw, Linv=L16, Eb=E16), n_veh, (2 * K - 1) * n * ld,
+            needed_floats=K * n * (n + 1) // 2 + (K - 1) * n * n,
+            factor_bytes=2)
+        stats.update(f32_ms=f32_ms, factor_dtype="bf16", row_stride=ld)
+        print(f"  admm_interval_fused B={B} N={n_veh}: bf16 "
+              f"{stats['ms']:.3f} ms beside f32 {f32_ms:.3f} ms "
+              f"({f32_ms / stats['ms']:.2f}x); bound at 2 bytes an element "
+              f"{stats['bound_ms']:.3f} ms, streamed "
+              f"{stats['stream_bound_ms']:.3f} ms", flush=True)
+        if B == BF16_FUSED_B[0]:
+            out["admm_fused_l"] = stats
+        else:
+            out["admm_fused_l"][f"ms_at_B{B}"] = stats["ms"]
+            out["admm_fused_l"][f"f32_ms_at_B{B}"] = f32_ms
+        del Linv, Eb, L16, E16
+    return out
+
+
+# the SCP loop of the reference-compatible solver in bf16: its QPs do not
+# reach eps 1e-3 on bf16 factors, so every lane runs every SCP iteration at
+# the full 2000 ADMM iterations; the loop is cut to this depth
+BF16_FACADE_SCP = 2
+
+
+def bf16_paths(dev, card, counters, f32_facade):
+    """The bf16 paths: production with ``factor_dtype="bf16"`` at N=20
+    (B=1024, chunk 512; the grouped X route: at least 99% ok, beside the
+    f32 path's numbers) and the ``SCP`` class's solver in bf16 on its three
+    kernel routes (B=64, its SCP loop cut to BF16_FACADE_SCP iterations,
+    beside the f32 routes' statuses).  Returns the launch counts of each
+    kernel on these paths."""
+    import numpy as np
+    from ba_path_planning_torch.utils.config import SolverConfig
+    launches = {}
+
+    def add(path):
+        for key, n in path.items():
+            launches[key] = launches.get(key, 0) + n
+    n_veh, B, chunk = MAIN_PATHS[0]
+    solver = SolverConfig.production(problem=_problem(n_veh)).replace(
+        factor_dtype="bf16")
+    add(main_path(dev, card, n_veh, B, chunk, counters, solver=solver,
+                  label="bf16"))
+    got, f32 = PATH_STATS["bf16"], PATH_STATS[f"N={n_veh}"]
+    print(f"  bf16 beside f32: ok {got['ok']} / {f32['ok']}, statuses "
+          f"{got['statuses']} / {f32['statuses']}, mean SCP iterations "
+          f"{got['mean_scp_iters']:.3f} / {f32['mean_scp_iters']:.3f}, mean "
+          f"QP iterations {got['mean_qp_iters']:.2f} / "
+          f"{f32['mean_qp_iters']:.2f}, wall {got['wall']:.3f} / "
+          f"{f32['wall']:.3f} s", flush=True)
+    for route in FACADE_ROUTES:
+        res, path = facade_path(dev, card, route, counters,
+                                factor_dtype="bf16",
+                                max_iterations=BF16_FACADE_SCP)
+        add(path)
+        ref = f32_facade[route]
+        same = int((res.status == ref.status).sum())
+        print(f"  route {route}, bf16 beside f32: statuses "
+              f"{np.bincount(res.status.cpu().numpy(), minlength=3).tolist()}"
+              f" / {np.bincount(ref.status.cpu().numpy(), minlength=3).tolist()}"
+              f", equal status on {same}/{res.status.numel()} lanes, mean QP "
+              f"iterations {float(res.qp_iterations.float().mean()):.1f} / "
+              f"{float(ref.qp_iterations.float().mean()):.1f}", flush=True)
+        if not all(bool(t.isfinite().all()) for t in res
+                   if t.is_floating_point() and t is not res.rel_step):
+            raise AssertionError(f"bf16 {route}: non-finite output")
+    return launches
+
+
+# two ranks share the card over gloo (NCCL refuses two ranks on one device)
+PARALLEL_RANKS, PARALLEL_TIMEOUT = 2, 300.0
+PARALLEL_PATH = (20, 512, 512)     # N, global scenarios, global chunk
+PAIR_N, ROLLOUT_K = 20, 500
+PAIR_TOL = 1e-6                    # metres, float64
+
+
+def _pair_solver():
+    """The pair-sharded solver of the JAX package's test
+    (``tests/test_pair_sharded.py``)."""
+    from ba_path_planning_torch.utils.config import SolverConfig
+    return SolverConfig(method="direct", adaptive_rho=False, polish=False,
+                        max_iter=60, check_interval=30, rho=1.6,
+                        collision_margin=0.05)
+
+
+def _parallel_rank(rank, world, port, inp, out_dir):
+    """One rank of the parallel phase, on the card: the scenario-parallel
+    ``solve_compacted``, the pair-sharded solve and the K-sharded rollout;
+    rank 0 writes what it got."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ba_path_planning_torch.ops.cuda_build import load_kernels
+    from ba_path_planning_torch.parallel import horizon_sharded as hs
+    from ba_path_planning_torch.parallel.distributed import init_distributed
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.parallel.pair_sharded import (
+        PairShardedSCPSolver)
+    from ba_path_planning_torch.utils.config import SolverConfig
+    dev = torch.device("cuda", 0)
+    init_distributed("gloo", f"tcp://127.0.0.1:{port}", world, rank,
+                     timeout_s=PARALLEL_TIMEOUT)
+    load_kernels()
+    out = {}
+    n_veh, B, chunk = PARALLEL_PATH
+    problem = _problem(n_veh)
+    sh = ShardedSCPSolver(problem, SolverConfig.production(problem=problem),
+                          dtype=torch.float32, device=dev)
+    warm, args = ([torch.as_tensor(inp[pre + k], device=dev)
+                   for k in ("p0", "pf")] for pre in ("warm_", ""))
+    z = torch.zeros_like(args[0])
+    sh.solve_compacted(warm[0], z, warm[1], z, chunk=chunk)   # warm-up
+
+    torch.cuda.synchronize()
+    dist.all_reduce(torch.zeros(1, device=dev))             # start together
+    t0 = time.perf_counter()
+    res = sh.solve_compacted(args[0], z, args[1], z, chunk=chunk)
+    torch.cuda.synchronize()
+    out["wall"] = np.array(time.perf_counter() - t0)
+    for name in ("status", "iterations", "positions", "feasible_final"):
+        out["scenario_" + name] = getattr(res, name).cpu().numpy()
+    ps = PairShardedSCPSolver(_problem(PAIR_N), _pair_solver(),
+                              dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    res = ps.solve(*(inp["pair_" + k] for k in ("p0", "v0", "pf", "vf")))
+    torch.cuda.synchronize()
+    out["pair_wall"] = np.array(time.perf_counter() - t0)
+    for name in ("status", "iterations", "positions"):
+        out["pair_" + name] = getattr(res, name).cpu().numpy()
+    a, p0 = (torch.as_tensor(inp[k], device=dev) for k in ("roll_a", "roll_p0"))
+    pos, vel = hs.rollout_ksharded(a, p0, torch.zeros_like(p0), H)
+    out["roll_pos"] = hs.gather_k(pos, -2).cpu().numpy()
+    out["roll_vel"] = hs.gather_k(vel, -2).cpu().numpy()
+    if rank == 0:
+        np.savez(f"{out_dir}/parallel.npz", **out)
+    dist.destroy_process_group()
+
+
+def parallel_phase(dev, card):
+    """Two gloo ranks share the card, on CUDA tensors, through the entry
+    points of ``parallel/``: the scenario-parallel
+    ``ShardedSCPSolver.solve_compacted`` (N=20, B=512 global, chunk 512)
+    against a one-rank solve (statuses and SCP counts equal on at least
+    ROUTE_SHARE of the lanes, positions within ROUTE_TOL there: the sweep
+    plans differ with the batch); ``PairShardedSCPSolver`` on one N=20
+    scenario in float64 against ``SCPEngine`` on the dense route (equal
+    status and SCP iterations, positions within PAIR_TOL); and
+    ``rollout_ksharded`` at K=500 against ``rollout``.  Fails if a rank
+    fails or outlasts PARALLEL_TIMEOUT."""
+    import multiprocessing as mp
+    import shutil
+    import socket
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.ops.rollout import rollout
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    from ba_path_planning_torch.utils.config import SolverConfig
+    n_veh, B, chunk = PARALLEL_PATH
+    sc, warm = (generate_scenario_batch(seed, B, n_vehicles=n_veh,
+                                        min_distance=R, dtype=torch.float32,
+                                        device="cpu") for seed in (600, 603))
+    pair = generate_scenario_batch(601, 1, n_vehicles=PAIR_N, min_distance=R,
+                                   dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(602)
+    inp = {"p0": sc.initial.numpy(), "pf": sc.final.numpy(),
+           "warm_p0": warm.initial.numpy(), "warm_pf": warm.final.numpy(),
+           "pair_p0": pair.initial[0].numpy(),
+           "pair_v0": np.zeros((PAIR_N, 2)), "pair_pf": pair.final[0].numpy(),
+           "pair_vf": np.zeros((PAIR_N, 2)),
+           "roll_a": rng.normal(size=(n_veh, ROLLOUT_K, 2)).astype(np.float32),
+           "roll_p0": rng.uniform(2, 18, (n_veh, 2)).astype(np.float32)}
+    out_dir = ROOT / "build" / "smoke_parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, PARALLEL_RANKS, port, inp, str(out_dir)))
+             for r in range(PARALLEL_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(
+            f"parallel phase: exit codes {[p.exitcode for p in procs]}, "
+            f"{len(hung)} rank(s) past {PARALLEL_TIMEOUT:g} s")
+    got = dict(np.load(out_dir / "parallel.npz"))
+    ranks_s = time.perf_counter() - t0
+
+    # one rank, here: the same scenarios, the same solvers
+    problem = _problem(n_veh)
+    one = ShardedSCPSolver(problem, SolverConfig.production(problem=problem),
+                           dtype=torch.float32, device=dev)
+    p0, pf = sc.initial.to(dev), sc.final.to(dev)
+    z = torch.zeros_like(p0)
+    t1 = time.perf_counter()
+    ref = one.solve_compacted(p0, z, pf, z, chunk=chunk)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t1
+    same = ((ref.status.cpu().numpy() == got["scenario_status"])
+            & (ref.iterations.cpu().numpy() == got["scenario_iterations"]))
+    diff = np.abs(ref.positions.cpu().numpy()
+                  - got["scenario_positions"]).reshape(B, -1).max(-1)
+    close = same & (diff <= ROUTE_TOL)
+    print(f"parallel phase ({PARALLEL_RANKS} gloo ranks sharing {card}; "
+          f"ranks up and done in {ranks_s:.1f} s): scenario-parallel "
+          f"solve_compacted N={n_veh} B={B} chunk={chunk}: wall "
+          f"{float(got['wall']):.3f} s (one rank: {one_wall:.3f} s), "
+          f"collision-free {int(got['scenario_feasible_final'].sum())}/{B}; "
+          f"equal status and SCP iterations on {int(same.sum())}/{B} lanes, "
+          f"max position difference on those {diff[same].max():.3e} m "
+          f"(tol {ROUTE_TOL:g} m on {ROUTE_SHARE:.0%})", flush=True)
+    if int(close.sum()) < ROUTE_SHARE * B:
+        raise AssertionError("scenario-parallel solve disagrees with one "
+                             "rank")
+    eng = SCPEngine(_problem(PAIR_N), _pair_solver().replace(
+        kernels=False, group=-1, fused=False), dtype=torch.float64,
+        device=dev)
+    pref = eng.solve(*(torch.as_tensor(inp["pair_" + k], device=dev)
+                       for k in ("p0", "v0", "pf", "vf")))
+    pdiff = float(np.abs(pref.positions.cpu().numpy()
+                         - got["pair_positions"]).max())
+    print(f"  pair-sharded N={PAIR_N} float64 (dense route): status "
+          f"{int(got['pair_status'])} / {int(pref.status)}, SCP iterations "
+          f"{int(got['pair_iterations'])} / {int(pref.iterations)}, max "
+          f"position difference {pdiff:.3e} m (tol {PAIR_TOL:g}), "
+          f"{float(got['pair_wall']):.2f} s", flush=True)
+    if (int(got["pair_status"]) != int(pref.status)
+            or int(got["pair_iterations"]) != int(pref.iterations)
+            or not pdiff <= PAIR_TOL):
+        raise AssertionError("pair-sharded solve disagrees with the engine")
+    a, rp0 = (torch.as_tensor(inp[k], device=dev)
+              for k in ("roll_a", "roll_p0"))
+    pos, vel = rollout(a, rp0, torch.zeros_like(rp0), H)
+    rdiff = float(np.abs(pos.cpu().numpy() - got["roll_pos"]).max())
+    vdiff = float(np.abs(vel.cpu().numpy() - got["roll_vel"]).max())
+    scale = float(pos.abs().max())
+    print(f"  rollout_ksharded K={ROLLOUT_K} f32: max |position "
+          f"difference| {rdiff:.3e} m of {scale:.1f} m, velocity "
+          f"{vdiff:.3e} m/s", flush=True)
+    if not (np.isfinite(got["roll_pos"]).all() and rdiff <= 1e-5 * scale):
+        raise AssertionError("rollout_ksharded disagrees with rollout")
+
+
 def main():
     if not (ROOT / "ba_path_planning_torch").is_dir():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repo")
@@ -1324,6 +1731,8 @@ def main():
     lform_phase(dev, 90, 8, fused=True, l_only=False, n_steps=3)
     lane = lane_rho_phase(dev)
     lap("kernel phases")
+    bstats = bf16_kernel_phase(dev)
+    lap("bf16 kernel phase")
     for n_veh in (20, 30):
         reference_phase(dev, n_veh)
     reference_phase(dev, 20, facade=True)
@@ -1365,6 +1774,12 @@ def main():
     add(path)
     lane_launches["admm_fused_l"] += path["admm_fused_l"]
     lap("adaptive-rho paths")
+    # the bf16 paths; their launches are those of the bf16 entries
+    bf16_launches = bf16_paths(dev, card, counters, results)
+    add(bf16_launches)
+    lap("bf16 paths")
+    parallel_phase(dev, card)
+    lap("parallel phase")
     add(parity_phase(counters))
     lap("parity phase")
     add(cg_phase(dev, counters))
@@ -1401,19 +1816,30 @@ def main():
         "admm_fused_l": ("admm_interval_fused", "admm_fused_l.cu",
                          ["admm_fused.py:162"], lane["admm_fused_l"]),
     }
+    # the four factor-streaming kernels again, on bf16 factors
+    bf16_rows = {key: rows[key][:3] + (bstats[key],)
+                 for key in ("group_solve_x", "group_solve_l", "banded_solve",
+                             "admm_fused_l")}
     kernels = []
     for key, (wrapper, src, replaces, stats) in (
             list(rows.items()) + [(k + "_lane_rho", v)
-                                  for k, v in lane_rows.items()]):
+                                  for k, v in lane_rows.items()]
+            + [(k + "_bf16", v) for k, v in bf16_rows.items()]):
         lane_rho = key.endswith("_lane_rho")
-        n_launch = (lane_launches[key[:-len("_lane_rho")]] if lane_rho
-                    else launches[key])
+        if key.endswith("_bf16"):
+            n_launch = bf16_launches.get(key[:-len("_bf16")], 0)
+        else:
+            n_launch = (lane_launches[key[:-len("_lane_rho")]] if lane_rho
+                        else launches[key])
         entry = {"name": wrapper, "route": "cuda", "source": csrc + src,
                  "replaces": pallas + replaces[0], "launches": n_launch,
                  **stats}
         if lane_rho:
             entry["rho"] = ("one rho a lane (adaptive rho); launches: the "
                             "adaptive-rho paths'")
+        if key.endswith("_bf16"):
+            entry["factors"] = ("bf16, widened in registers; launches: the "
+                                "bf16 paths'")
         if len(replaces) > 1:
             entry["also_replaces"] = [pallas + r for r in replaces[1:]]
         if n_launch < 1:

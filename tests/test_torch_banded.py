@@ -285,12 +285,18 @@ def test_qp_route_matches_the_jax_router_or_raises(N, change, expect):
     kernel and the fused X route where it takes the fused ADMM-interval
     kernel, N >= 22 in float32 (banded.py:1210-1259); the L-only, dense and
     L-form fused routes where it takes those; adaptive rho routes as the
-    shared rho does; bf16 factors, not ported, raise, naming their ROADMAP
-    item, instead of running another route."""
+    shared rho does; bf16 factors (refused before their ROADMAP item was
+    done) route as f32 factors do, since the JAX router's gates count the
+    working dtype, and their factors are stored in bf16 there."""
     from ba_path_planning_torch.utils.config import SolverConfig
     static = SolverConfig.production().replace(**change).static_part()
     kw = dict(n_vehicles=N, n_steps=50, dtype=torch.float32)
-    if expect is None:
+    if expect == "bf16":
+        assert static.factor_dtype == "bf16"
+        assert tb.qp_route(static, col_enabled=False, **kw) == "channel"
+        route = tb.qp_route(static, col_enabled=True, **kw)
+        assert route == "grouped_X" and route in tb.BF16_ROUTES
+    elif expect is None:
         assert tb.qp_route(static, col_enabled=False, **kw) == "channel"
         assert tb.qp_route(static, col_enabled=True, **kw) == (
             "fused_X" if N >= 22 else "grouped_X")

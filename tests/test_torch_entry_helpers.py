@@ -232,8 +232,10 @@ def _cg_engine(engine):
     # the JAX solve_qp_state routes these options to its dense route
     (lambda: _route(cfg.SolverConfig(method="direct")), "adaptive rho",
      lambda route: route == "dense"),
+    # bf16 factors are stored on the routes JAX stores them on
     (lambda: _route(cfg.SolverConfig(method="direct", adaptive_rho=False,
-                                     factor_dtype="bf16")), "bf16", None),
+                                     factor_dtype="bf16")), "bf16",
+     lambda route: route in banded.BF16_ROUTES),
 ], ids=["cg", "polish", "adaptive_rho", "bf16"])
 def test_refusals_name_the_roadmap_item_of_their_option(make, topic, check):
     """An option not ported raises, naming the ROADMAP Queue 1 item that

@@ -122,9 +122,16 @@ def test_plan_layout_matches_the_kernel_header():
     for K, N in ((2, 2), (50, 20), (50, 40), (330, 30), (3, 147), (9, 23)):
         for band, stages, plane in ((2, 2, 0), (40, 4, 1), (12, 8, 1)):
             for packed, xform in ((0, 0), (0, 1), (1, 1)):
+                row = 4 * ring_width(6 * N, packed)
+                assert af.fused_row_bytes(6 * N, packed) == row
                 assert af.fused_smem_bytes(K, N, band, stages, plane,
                                            packed, xform) == smem(
-                    K, N, band, stages, plane, packed, xform)
+                    K, N, band, stages, plane, packed, xform, row)
+            # the L form's bf16 factors: rows on the padded stride
+            row = af.fused_row_bytes(6 * N, 0, esize=2)
+            assert af.fused_smem_bytes(K, N, band, stages, plane, 0, 0,
+                                       row) == smem(
+                K, N, band, stages, plane, 0, 0, row)
     packed_off = _c_function(xsrc, "packed_off", {})
     for n in (12, 18, 120, 180, 240, 246, 510, 512):
         width = -(-n // 4) * 4

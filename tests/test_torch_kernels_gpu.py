@@ -397,9 +397,12 @@ def _interval_rows(out, K):
     return tb.to_stacked(x), rows(z), rows(y)
 
 
-def _check_interval(cuda, B, K, N, n_iters, form, hard, lane_rho=None):
+def _check_interval(cuda, B, K, N, n_iters, form, hard, lane_rho=None,
+                    bf16=False):
     args, kw = _interval_case(B, K, N, seed=N, device=cuda, form=form,
                               hard=hard, lane_rho=lane_rho)
+    if bf16:        # the factors stored in bf16, as the solver stores them
+        args = tb.compress_factors(*args[:2]) + args[2:]
     kernel, plain = _FUSED[form]
     before = kernel.launches
     got = kernel(*args, n_iters=n_iters, **kw)
@@ -581,3 +584,120 @@ def test_cg_method_on_the_card_matches_the_cpu(cuda):
     for name in ("status", "iterations", "qp_iterations"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
     assert float((gpu.positions.cpu() - cpu.positions).abs().max()) <= 1e-6
+
+
+# bf16 factor storage (SolverConfig.factor_dtype="bf16"): the plans of the
+# main paths (N = 20 at B = 512, 64 and 1) and n = 6N no multiple of 8
+# (N = 21, 30), where the rows lie on a padded stride
+BF16_SWEEP_CASES = [(512, 50, 20), (64, 50, 20), (1, 50, 20), (128, 50, 21),
+                    (128, 50, 30), (3, 9, 4)]
+
+
+def _bf16_sweep(form, B, K, N, cuda):
+    """(kernel wrapper, plain version, bf16 factors, the other operand,
+    b) of a sweep form on the card, the factors stored by
+    ``compress_factors``."""
+    if form == "X":
+        X, C, b = _sweep_case(min(B, SWEEP_PERIOD), K, N, seed=N,
+                              dtype=torch.float32)
+        factors = (X,)
+    else:
+        Linv, Eb, C, b = _dense_case(min(B, SWEEP_PERIOD), K, N, seed=N)
+        factors = (Linv,) if form == "L" else (Linv, Eb)
+    if B > SWEEP_PERIOD:
+        *factors, b = _tiled(factors, B, K, N, seed=B)
+    stored = tb.compress_factors(*(f.to(cuda) for f in factors))
+    second = stored[1] if form == "dense" else C.to(cuda)
+    kernel, plain = {
+        "X": (group_solve.solve_factorized_grouped_X,
+              group_solve.solve_factorized_grouped_X_plain),
+        "L": (group_solve.solve_factorized_grouped_L,
+              group_solve.solve_factorized_grouped_L_plain),
+        "dense": (banded_solve.solve_factorized_dense,
+                  banded_solve.solve_factorized_dense_plain)}[form]
+    return kernel, plain, stored[0], second, b.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["X", "L", "dense"])
+@pytest.mark.parametrize("B,K,N", BF16_SWEEP_CASES)
+def test_sweep_kernels_read_bf16_factors(cuda, form, B, K, N):
+    """The three sweep forms on bf16 factors (2-byte loads, widened in
+    registers, FP32 sums) against the plain version on the same bf16
+    factors (widened to float32 block by block): relative 1e-5 in every
+    (b, k) block, as on float32 factors."""
+    kernel, plain, F_, G, b = _bf16_sweep(form, B, K, N, cuda)
+    assert F_.dtype == torch.bfloat16 and F_.stride(-2) % 8 == 0
+    before = kernel.launches
+    got = kernel(F_, G, b)
+    assert kernel.launches == before + 1
+    want = plain(F_, G, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _block_rel(got, want, 1) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,K,N", [(128, 50, 20), (64, 50, 20), (3, 9, 4),
+                                   (2, 50, 21), (3, 3, 90)])
+def test_admm_fused_l_kernel_reads_bf16_factors(cuda, B, K, N, n_iters):
+    """The L-form fused interval on bf16 (Linv, Eb), held to the plain
+    version on the same bf16 factors as on float32 ones; N = 21 has padded
+    rows, and K = 3, N = 90 runs the widest instantiation."""
+    _check_interval(cuda, B, K, N, n_iters, "L", hard=False, bf16=True)
+
+
+@pytest.mark.gpu
+def test_f32_factors_take_the_f32_instantiation(cuda, monkeypatch):
+    """float32 factors launch the ``_f32`` entry points, bf16 ones the
+    ``_bf16`` ones; and on factors whose float32 values are bf16 values the
+    two instantiations of the X-form sweep give the same bits (its row
+    products do not depend on the plan's bands), so the bf16 kernel reads
+    the same numbers the float32 one does."""
+    from ba_path_planning_torch.ops import cuda_build
+    called = []
+
+    class Spy:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            called.append(name)
+            return getattr(self.lib, name)
+    lib = cuda_build.load_kernels()
+    monkeypatch.setattr(group_solve, "load_kernels", lambda: Spy(lib))
+    X, C, b = _sweep_case(64, 50, 20, seed=3, dtype=torch.float32)
+    X16, = tb.compress_factors(X.to(cuda))
+    X32 = X16.float()
+    C, b = C.to(cuda), b.to(cuda)
+    x32 = group_solve.solve_factorized_grouped_X(X32, C, b)
+    x16 = group_solve.solve_factorized_grouped_X(X16, C, b)
+    Linv, _, CL, bL = (t.to(cuda) for t in _dense_case(3, 9, 4, seed=4))
+    group_solve.solve_factorized_grouped_L(Linv, CL, bL)
+    group_solve.solve_factorized_grouped_L(*tb.compress_factors(Linv), CL,
+                                           bL)
+    torch.cuda.synchronize()
+    assert called == ["group_solve_x_f32", "group_solve_x_bf16",
+                      "group_solve_l_f32", "group_solve_l_bf16"]
+    assert torch.equal(x32, x16)
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_raise_on_unsupported_layouts(cuda):
+    """bf16 factors that do not lie on the rows of ``compress_factors``, or
+    a pair of mixed types, are refused before any launch."""
+    Linv, Eb, C, b = (t.to(cuda) for t in _dense_case(2, 9, 3, seed=2))
+    with pytest.raises(ValueError):         # n = 18, rows of 18, not 24
+        group_solve.solve_factorized_grouped_L(Linv.bfloat16(), C, b)
+    L16, E16 = tb.compress_factors(Linv, Eb)
+    with pytest.raises(TypeError):
+        banded_solve.solve_factorized_dense(L16, Eb, b)
+    args, kw = _interval_case(2, 10, 3, seed=1, device=cuda, form="L")
+    with pytest.raises(ValueError):
+        admm_fused.admm_interval_fused(args[0].bfloat16(), args[1].bfloat16(),
+                                       *args[2:], n_iters=1, **kw)
+    args, kw = _interval_case(2, 10, 3, seed=1, device=cuda, form="X")
+    with pytest.raises(ValueError):          # the X form keeps float32
+        admm_fused.admm_interval_fused_X(*tb.compress_factors(args[0]),
+                                         *args[1:], n_iters=1, **kw)

@@ -178,7 +178,8 @@ def test_plan_layout_matches_the_kernel_header():
     assert gs.SMEM_BLOCK_MAX == k["kSmemMax"]
     row_lo = _c_function(src, "row_lo", ("c", "cluster", "n"), k)
     smem = _c_function(src, "smem_bytes",
-                       ("n", "cluster", "band_rows", "stages", "part"), k)
+                       ("n", "cluster", "band_rows", "stages", "part",
+                        "row_bytes"), k)
     # part_rows(form, n): none for the X form, kWarps for the others, one
     # row above kMaxN
     forms = {"X": k["kFormX"], "L": k["kFormL"], "dense": k["kFormDense"]}
@@ -196,9 +197,14 @@ def test_plan_layout_matches_the_kernel_header():
                 row_lo(q, c, n) for q in range(c + 1)]
             for band, stages in ((2, 2), (30, 7), (24, 8)):
                 for part in (0, 1, k["kWarps"]):
+                    # float32 rows of n, and bf16 rows on the padded stride
                     assert gs.sweep_smem_bytes(n, c, band, stages,
                                                part) == smem(
-                        n, c, band, stages, part)
+                        n, c, band, stages, part, 4 * n)
+                    row = gs.sweep_row_bytes(n, 2)
+                    assert gs.sweep_smem_bytes(n, c, band, stages, part,
+                                               row) == smem(
+                        n, c, band, stages, part, row)
 
 
 def _slot_b(c, w, n2):
