@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..solvers.banded import (RowVals, StateVars, admm_iterations,
                               from_stacked, solve_factorized,
                               solve_factorized_X, to_stacked)
+from ..utils import debug
 from .cuda_build import (bf16_row_stride, check, load_kernels,
                          require_f32_cuda)
 
@@ -267,6 +268,7 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
             torch.cuda.current_stream(eta.device).cuda_stream)
     check(err, what)
     wrapper.launches += 1
+    debug.report(entry, xs, zs, ys, zc, yc)
     return (from_stacked(xs, N), planes_to_rows(zs, zc, N),
             planes_to_rows(ys, yc, N))
 

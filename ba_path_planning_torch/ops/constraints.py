@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the JAX module's leafwise map over ConstraintBlocks
+from ..solvers.banded import tree_map  # noqa: F401
 from .rollout import (reverse_cumsum, rollout_positions_zero_ic,
                       rollout_positions_zero_ic_adjoint)
 
@@ -34,6 +36,11 @@ class ConstraintBlocks(NamedTuple):
     vel: torch.Tensor    # (..., N, K, 2)
     pos: torch.Tensor    # (..., N, K, 2)
     col: torch.Tensor    # (..., K, P)
+
+
+class Bounds(NamedTuple):
+    lower: ConstraintBlocks
+    upper: ConstraintBlocks
 
 
 def apply_static(a: torch.Tensor, h: float):

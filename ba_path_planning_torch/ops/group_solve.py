@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..solvers.banded import solve_factorized_L, solve_factorized_X
+from ..utils import debug
 from .cuda_build import (bf16_row_stride, check, load_kernels,
                          require_f32_cuda)
 
@@ -196,6 +197,7 @@ def _launch_sweep(what: str, entry: str, F, G, b, form: str,
             plan.band_rows, plan.stages,
             torch.cuda.current_stream(b.device).cuda_stream)
     check(err, what)
+    debug.report(entry, x)
     return x
 
 

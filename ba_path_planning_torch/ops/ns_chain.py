@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..solvers.banded import _spd_inv, bxbt, factorize_X
+from ..utils import debug
 from .cuda_build import check, load_kernels, require_f32_cuda
 
 
@@ -67,6 +68,7 @@ def chain_interior(D, C, X, *, ns_iters: int, ns_precision: str):
             torch.cuda.current_stream(D.device).cuda_stream)
     check(err, "factorize_X_chain_batched")
     factorize_X_chain_batched.launches += 1
+    debug.report("ns_chain", X)
     return X
 
 

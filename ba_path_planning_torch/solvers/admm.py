@@ -36,7 +36,8 @@ from ..ops.matmul_ops import (apply_collision_adjoint_matmul,
                               apply_collision_matmul,
                               apply_static_adjoint_matmul,
                               apply_static_matmul)
-from ..utils.config import SolverConfig, SolverParams, SolverStatic
+from ..utils.config import (SolverConfig, SolverParams, SolverStatic,
+                            make_solver_params)
 from ..utils.graphs import graphed
 from .banded import (_LOOSE_RHO, RHO_ADAPT_RATIO, RHO_MAX, RHO_MIN,
                      _inf_norm, lane_mask, tree_map)
@@ -334,6 +335,24 @@ def solve_qp_impl(data: QPData, E, Minv: Preconditioner, x_init,
 
 # ADMM iterations run by the batches, summed over calls
 solve_qp_impl.iterations = 0
+
+
+def solve_qp(data: QPData, E, Minv: Preconditioner, x_init, *, h: float,
+             cfg: SolverConfig,
+             params: SolverParams | None = None) -> QPState:
+    """One full ADMM solve for a single scenario (the JAX package's
+    ``solve_qp``): ``data`` with eta (K, P, 2) and bounds without a batch
+    axis, ``x_init`` (N, K, 2); the result has no batch axis.  The numeric
+    settings come from ``cfg`` unless ``params`` is given; for a batch call
+    :func:`solve_qp_impl`."""
+    if params is None:
+        params = make_solver_params(cfg, x_init.dtype, x_init.device)
+    batched = QPData(eta=data.eta[None], col_mask=data.col_mask,
+                     lower=tree_map(lambda t: t[None], data.lower),
+                     upper=tree_map(lambda t: t[None], data.upper))
+    out = solve_qp_impl(batched, E, Minv, x_init[None], params, h=h,
+                        static=cfg.static_part())
+    return tree_map(lambda t: t[0], out)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.blocked_chol import chol_inv, exact_fp32
 from ..ops.collisions import PairIndex, pairwise_diffs
 from ..utils.config import SolverParams, SolverStatic
 from ..utils.dist import all_reduce
@@ -212,6 +213,32 @@ def row_scaling_state(n_steps: int, h: float, dtype=torch.float32,
                    vbox=d(one), pbox=d(one), col=d(col))
 
 
+def rho_pattern(lower: RowVals, upper: RowVals, scaling: RowVals,
+                static: SolverStatic, rho, col_boost, col_shape) -> RowVals:
+    """Per-row rho from the bounds (the JAX package's ``rho_pattern``):
+    rho / norm^2, boosted by ``rho_eq_scale`` on rows whose bounds are
+    equal; the collision rows get ``col_boost``, their vacuous k = 0 row
+    the loose rho.  :func:`rho_pattern_masks` gives the same from the
+    structural equality pattern, which the solver uses."""
+    def box(lo, up, d):
+        base = rho * d * d
+        return torch.where(lo == up, static.rho_eq_scale * base, base)
+
+    eq = static.rho_eq_scale * rho
+    K = col_shape[-2]
+    col = col_boost * rho * scaling.col * scaling.col
+    col = torch.where((torch.arange(K, device=col.device) == 0).reshape(K, 1),
+                      _LOOSE_RHO, col)
+    return RowVals(
+        dyn_p=eq * scaling.dyn_p * scaling.dyn_p * torch.ones_like(lower.dyn_p),
+        dyn_v=eq * scaling.dyn_v * scaling.dyn_v * torch.ones_like(lower.dyn_v),
+        jerk=box(lower.jerk, upper.jerk, scaling.jerk),
+        acc=box(lower.acc, upper.acc, scaling.acc),
+        vbox=box(lower.vbox, upper.vbox, scaling.vbox),
+        pbox=box(lower.pbox, upper.pbox, scaling.pbox),
+        col=col.expand(col_shape))
+
+
 def rho_pattern_masks(scaling: RowVals, static: SolverStatic, rho, col_boost,
                       *, n_steps: int, n_pairs: int, col_enabled: bool,
                       dtype=torch.float32) -> RowVals:
@@ -316,6 +343,13 @@ def b_slot_mats(s: dict) -> torch.Tensor:
     ], dim=-2)
 
 
+def b_scalar_stack(s: dict) -> torch.Tensor:
+    """The six B_k slot scalars as (..., K-1, 6) in the fixed order
+    (aa_b, ap_pk, av_bk, pp_b, pv_b, vv_b)."""
+    return torch.stack([s["aa_b"], s["ap_pk"], s["av_bk"], s["pp_b"],
+                        s["pv_b"], s["vv_b"]], dim=-1)
+
+
 def assemble_channel(rho: RowVals, *, h: float, sigma):
     """Collision-free normal blocks in per-channel form: D (K, 3, 3) and
     B (K-1, 3, 3), shared by every channel and, for a batch-shared rho,
@@ -329,26 +363,61 @@ def assemble_channel(rho: RowVals, *, h: float, sigma):
     return D, b_slot_mats(s)
 
 
+def _cholesky(S):
+    """Cholesky factor of SPD S (..., n, n), NaN-filled where a matrix is
+    not positive definite, as JAX's ``lax.linalg.cholesky`` returns it: a
+    lane that fails (a NaN input) poisons itself and not its batch, where
+    ``torch.linalg.cholesky`` would raise for the whole batch."""
+    L, info = torch.linalg.cholesky_ex(S)
+    return L.masked_fill((info != 0)[..., None, None], float("nan"))
+
+
 def factorize(D, B):
     """Block Cholesky of the SPD block-tridiagonal [D_k; B_k], in inverted
     factor form (Linv (..., K, n, n), Eb (..., K-1, n, n)):
 
         L_0 L_0^T = D_0,  E_k = B_k L_{k-1}^{-T},  L_k L_k^T = D_k - E_k E_k^T
 
-    D (..., K, n, n); B (K-1, n, n) shared, or with D's batch axes."""
+    D (..., K, n, n); B (K-1, n, n) shared, or with D's batch axes.  The
+    Cholesky factors and triangular solves are the library's (cuSOLVER on
+    the card); :func:`factorize_matmul` is the matmul form."""
     K, n = D.shape[-3], D.shape[-1]
-    L = [torch.linalg.cholesky(D[..., 0, :, :])]
+    L = [_cholesky(D[..., 0, :, :])]
     Es = []
     for k in range(1, K):
         Ek = torch.linalg.solve_triangular(L[-1].mT, B[..., k - 1, :, :],
                                            upper=True, left=False)
-        L.append(torch.linalg.cholesky(D[..., k, :, :] - Ek @ Ek.mT))
+        L.append(_cholesky(D[..., k, :, :] - Ek @ Ek.mT))
         Es.append(Ek)
     L = torch.stack(L, dim=-3)
     eye = torch.eye(n, dtype=D.dtype, device=D.device).expand(L.shape)
     # the solve returns column-major blocks; the kernels take row-major
     Linv = torch.linalg.solve_triangular(L, eye, upper=False).contiguous()
     return Linv, torch.stack(Es, dim=-3)
+
+
+# the JAX package's name of this factorization (its XLA-primitive form)
+factorize_xla = factorize
+
+
+def factorize_matmul(D, B):
+    """The factorization of :func:`factorize` in pure matmul form (the JAX
+    package's ``factorize_matmul``): carrying the inverted factor through
+    the steps turns each into matmuls and one matmul-form Cholesky,
+
+        E_k = B_k Linv_{k-1}^T,   S_k = D_k - E_k E_k^T,
+        Linv_k = chol_inv(S_k)[1]   (``ops/blocked_chol.py``),
+
+    every product in exact FP32.  No route of the solver takes it: the
+    port's factorizations stay on cuSOLVER (ROADMAP, Decided)."""
+    with exact_fp32():
+        Linv = [chol_inv(D[..., 0, :, :])[1]]
+        Es = []
+        for k in range(1, D.shape[-3]):
+            Ek = B[..., k - 1, :, :] @ Linv[-1].mT
+            Linv.append(chol_inv(D[..., k, :, :] - Ek @ Ek.mT)[1])
+            Es.append(Ek)
+    return torch.stack(Linv, dim=-3), torch.stack(Es, dim=-3)
 
 
 def _mv(M, t):
@@ -557,7 +626,7 @@ def _spd_inv(S):
     """Symmetric inverse of SPD S as Linv^T Linv (Cholesky, then a
     triangular solve)."""
     n = S.shape[-1]
-    L = torch.linalg.cholesky(S)
+    L = _cholesky(S)
     eye = torch.eye(n, dtype=S.dtype, device=S.device).expand(S.shape)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     return Linv.mT @ Linv
@@ -620,6 +689,15 @@ def solve_factorized_X(X, C, b):
         x[k] = w[k] - _mv(X[..., k, :, :],
                           slot_apply_vec(C[..., k, :, :].mT, x[k + 1]))
     return torch.stack(x, dim=-2)
+
+
+def apply_M(xv: StateVars, rho: RowVals, eta, E, *, h: float, sigma):
+    """Reference application of M = P + sigma I + A^T rho A (for tests)."""
+    rAx = tree_map(lambda a, r: a * r, apply_A(xv, eta, E, h), rho)
+    ATrAx = apply_AT(rAx, eta, E, h)
+    Px = StateVars(a=2.0 * xv.a, p=torch.zeros_like(xv.p),
+                   v=torch.zeros_like(xv.v))
+    return tree_map(lambda p_, s_, at: p_ + sigma * s_ + at, Px, xv, ATrAx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Carry state across from the JAX package: its configurations, and its
-solver state as numpy arrays, into the port's types.  The system has no
-weights; these are what starts both engines from the same point.
+"""Carry state across from the JAX package: its configurations, its
+solver state and the collision network's flax parameters, as numpy arrays,
+into the port's types.  These are what start both packages from the same
+point.
 """
 
 from __future__ import annotations
@@ -96,3 +97,33 @@ def factors_from_numpy(*arrays, dtype=torch.float64, device=None, n=None):
             out.append(torch.as_tensor(np.array(a), dtype=dtype,
                                        device=device))
     return tuple(out)
+
+
+def collision_net_from_jax(params) -> dict:
+    """The collision network's flax parameters -> a ``state_dict`` of the
+    port's :class:`~ba_path_planning_torch.models.collision_net.CollisionNet`.
+
+    ``params`` is the flax tree as nested dicts of arrays (with or without
+    its top ``'params'`` key), or the flat npz mapping of either package's
+    ``save_params`` (keys ``"['params']['Dense_0']['kernel']"`` ...).
+    Dense_0 .. Dense_{L-1} are the hidden layers, Dense_L the per-pair
+    score and Dense_{L+1} the head; each (in, out) kernel becomes a torch
+    (out, in) weight.  The tensors are float64 on the CPU; the caller
+    casts them to the net's dtype and device."""
+    from ..models.collision_net import flax_key
+    if flax_key(0, "kernel") in params:
+        flat = params
+    else:
+        tree = params.get("params", params)
+        flat = {flax_key(int(name.split("_")[1]), leaf): arr
+                for name, layer in tree.items() for leaf, arr in layer.items()}
+    n_dense = sum(1 for k in flat if k.endswith("['kernel']"))
+    names = ([f"hidden.{i}" for i in range(n_dense - 2)]
+             + ["score", "head"])
+    state = {}
+    for i, name in enumerate(names):
+        kernel = np.asarray(flat[flax_key(i, "kernel")], dtype=np.float64)
+        state[f"{name}.weight"] = torch.tensor(kernel.T)
+        state[f"{name}.bias"] = torch.tensor(
+            np.asarray(flat[flax_key(i, "bias")], dtype=np.float64))
+    return state

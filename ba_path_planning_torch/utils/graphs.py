@@ -7,11 +7,15 @@ host read, so on the card their time is the host's.  :func:`graphed` runs
 such a function eagerly on its first call (the warm-up), captures it into a
 CUDA graph on its second and replays the graph on every later call.  The
 kernel routes are not graphed: their wrappers count launches on the host.
+Inside a call checked by ``utils/debug.py`` the function runs eagerly, so
+that the sanitizer sees its operations.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import debug
 
 
 def _flatten(tree, out):
@@ -33,7 +37,7 @@ def _unflatten(spec, it):
 def graphed(fn):
     """``fn`` over (nested tuples of) CUDA tensors of fixed shapes, whose
     outputs are (nested tuples of) tensors, and which reads nothing on the
-    host.  On CPU tensors it is ``fn``.  On CUDA tensors the first call runs
+    host.  On CPU tensors, and inside a checked call, it is ``fn``.  On CUDA tensors the first call runs
     ``fn``, the second captures it into a CUDA graph on copies of its
     inputs, and each call from the second on copies the inputs into the
     graph's, replays it and returns copies of its outputs: the same kernels
@@ -43,7 +47,7 @@ def graphed(fn):
     def run(*args):
         flat = []
         spec = _flatten(args, flat)
-        if not flat[0].is_cuda:
+        if not flat[0].is_cuda or debug.active():
             return fn(*args)
         if "graph" not in state:
             if not state.get("warm"):

@@ -41,8 +41,9 @@
    collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
    ``stop_mode="reference"``), once per kernel route (L-only sweeps, dense
    sweeps, L-form fused interval), the routes held against each other, and
-   one ``SCP(...).generate_trajectories()`` call through the single-scenario
-   CLI (``cli/compute_trajectories.py --no-viz``);
+   two ``SCP(...).generate_trajectories()`` calls through the
+   single-scenario CLI (``cli/compute_trajectories.py --no-viz``): N=20 at
+   T=10, and the CLI's own defaults, N=10 at T=100 (K=500);
 7. the entry points: the bench twin ``ba_path_planning_torch.bench`` at its
    own size (N=20, B=4096, chunk 512; its JSON line and summary are printed;
    at least 99% of the lanes ok), and the batch CLI
@@ -84,7 +85,19 @@
    (``parallel_phase``): the scenario-parallel ``solve_compacted``, the
    pair-sharded solve and ``rollout_ksharded``, each against its one-rank
    counterpart; a rank that fails or outlasts PARALLEL_TIMEOUT fails the
-   run.
+   run;
+14. the modules phase (``modules_phase``): ``train-network`` at its defaults
+   (8192 N=10 scenarios labelled by phase 1 on the card, the first 512 also
+   on the CPU, 30 epochs; the rates held to the JAX runs of
+   ``scripts/collision_net_jax_reference.py``; the npz reloaded), the
+   solve and profile of ``plot-collisions`` at its defaults and the N=20
+   main path's profile on the card against the CPU, the sanitizer
+   (``utils/debug.checked``) on a clean and a poisoned N=20 solve and
+   ``find_nan_lanes`` on a batch with one NaN lane, ``profiling.trace`` of
+   an N=20 B=1024 solve (the file names the kernels) with the cost models
+   beside the kernel phases, ``chol_inv`` and ``factorize_matmul`` against
+   cuSOLVER (times of both), and ``NativeQP`` built by g++ against
+   ``solve_qp`` on the card in float64.
 
 The launch counters are set to 0 just before each path and read just after:
 each path must launch the kernels of its route and no other.  Any failed
@@ -105,8 +118,9 @@ MAIN_PATHS = ((20, 1024, 512), (30, 2048, 128), (40, 2048, 128))
 B_LARGE = 128                      # kernel phases at N=30/40: one chunk
 FACADE_B = 64                      # scenarios of the reference-compatible path
 REF_FACADE_ITERS = 500             # QP budget of its reference phase
-HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12    # H100 SXM data sheet
-TF32_FLOP_S = 495e12                         # dense, tensor cores
+# the card's peaks (H100 SXM data sheet, dense): read in main() from the
+# port's one copy, ``utils/profiling.py``, once the checkout is found
+HBM_BYTES_S = FP32_FLOP_S = TF32_FLOP_S = None
 NS_TOL, SWEEP_TOL, REF_TOL = 1e-4, 1e-5, 5e-3
 FUSED_TOL = 2e-4                   # one fused iteration: x, z per block
 ADMM_ERR_RATIO = 4.0
@@ -187,10 +201,11 @@ def _facade_solver(**route):
                         max_iter=2000).replace(**route)
 
 
-def _bound_ms(n_bytes, n_flops, flop_s=FP32_FLOP_S):
+def _bound_ms(n_bytes, n_flops, flop_s=None):
     """The least time the card could take: the bytes over the memory rate
     or the operations over the peak rate of the unit that executes them
     (the FP32 rate unless ``flop_s`` says otherwise), whichever is larger."""
+    flop_s = flop_s or FP32_FLOP_S
     t_b, t_f = n_bytes / HBM_BYTES_S * 1e3, n_flops / flop_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -264,7 +279,7 @@ def _block_rel(got, want, block_dims):
 
 
 def _stat(err, ms, plain_ms, shape, n_bytes, n_flops, stream_bytes,
-          library_ms=None, flop_s=FP32_FLOP_S):
+          library_ms=None, flop_s=None):
     """One kernel's numbers for the ``kernels`` line.  ``n_bytes`` counts
     every input read once and every output written once, ``n_flops`` the
     matrix-vector (or matrix-matrix) operations that the kernel's unit
@@ -738,6 +753,8 @@ def _production_route(n_veh):
 
 # the summary of each main path by its label, for the bf16 paths' lines
 PATH_STATS = {}
+# positions and feasibility of each main path, by the label of PATH_STATS
+PATH_POSITIONS = {}
 
 
 def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
@@ -799,9 +816,11 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
     status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
     mean_scp = float(out.iterations.float().mean())
     mean_qp = float(out.qp_iterations.float().mean())
-    PATH_STATS[label or ("latency" if latency else f"N={n_veh}")] = dict(
+    key = label or ("latency" if latency else f"N={n_veh}")
+    PATH_STATS[key] = dict(
         ok=ok, B=B, statuses=status, mean_scp_iters=mean_scp,
         mean_qp_iters=mean_qp, wall=wall)
+    PATH_POSITIONS[key] = (out.positions, ff)
     name = f" ({label})" if label else (" (latency solver)" if latency
                                          else "")
     print(f"main path{name}: B={B} "
@@ -1125,8 +1144,9 @@ def facade_path(dev, card, route, counters, adaptive=False,
     return out, launches
 
 
-def facade_call(counters):
-    """One ``SCP(...).generate_trajectories()`` call, one scenario of N=20,
+def facade_call(counters, defaults=False):
+    """One ``SCP(...).generate_trajectories()`` call, one scenario of N=20
+    and T=10 (``defaults``: the CLI's own defaults, N=10 and T=100, K=500),
     through the single-scenario CLI with no device given (the card), the
     class's solver on its L-only sweep route.  Returns the launch counts."""
     import numpy as np
@@ -1139,26 +1159,32 @@ def facade_call(counters):
         planners.append(self)
         return solve(self, *args, **kwargs)
     SCP.generate_trajectories = recording
+    shape_args = [] if defaults else ["--n-vehicles", "20", "--time-horizon",
+                                      str(T_HORIZON)]
     _zero(counters)
+    t0 = time.perf_counter()
     try:
-        rc = compute_trajectories.main(
-            ["--n-vehicles", "20", "--time-horizon", str(T_HORIZON),
-             "--no-viz", "--seed", "7"])
+        rc = compute_trajectories.main(shape_args + ["--no-viz", "--seed",
+                                                     "7"])
     finally:
         SCP.generate_trajectories = solve
+    wall = time.perf_counter() - t0
     launches = _read(counters)
     if rc != 0 or len(planners) != 1:
         raise AssertionError(f"compute_trajectories exited {rc}")
     scp = planners[0]
     pos = scp.trajectories["positions"]
-    if pos.shape != (20, K_STEPS, 2) or not np.isfinite(pos).all() \
+    want = (10, 500, 2) if defaults else (20, K_STEPS, 2)
+    if pos.shape != want or not np.isfinite(pos).all() \
             or scp._device.type != "cuda":
         raise AssertionError("the SCP class gave no trajectory on the card")
     _check_route("the SCP class", launches, {"group_solve_l"})
-    print(f"SCP class (compute_trajectories CLI): status="
-          f"{int(scp.result.status)} collision_free="
-          f"{bool(scp.result.feasible_final)} qp_iters="
-          f"{int(scp.result.qp_iterations)} launches={launches}", flush=True)
+    print(f"SCP class (compute_trajectories CLI{', its defaults' if defaults else ''}"
+          f", N={want[0]} K={want[1]}): status="
+          f"{int(scp.result.status)} scp_iters={int(scp.result.iterations)} "
+          f"collision_free={bool(scp.result.feasible_final)} qp_iters="
+          f"{int(scp.result.qp_iterations)} wall={wall:.2f} s "
+          f"launches={launches}", flush=True)
     return launches
 
 
@@ -1664,6 +1690,379 @@ def parallel_phase(dev, card):
         raise AssertionError("rollout_ksharded disagrees with rollout")
 
 
+# the modules phase: train-network, plot-collisions, the sanitizer, the
+# tracer, the matmul-form Cholesky and the native QP
+# The bars of the port's train-network run, from the CPU runs of
+# scripts/collision_net_jax_reference.py: the feasible fraction of the JAX
+# CLI at its defaults, and the eval AUC and loss of JAX's training at the
+# CLI's defaults on the port's own scenarios, the data this run trains on
+# (the eval loss follows the base rate of the held-out split, which depends
+# on the data: 21 positives in the JAX CLI's split, 33 in the port's)
+JAX_TRAIN = dict(feasible_fraction=0.01416015625, eval_auc=0.8464268856792221,
+                 eval_loss=0.07798689603805542)
+TRAIN_FRACTION_TOL, TRAIN_AUC_TOL, TRAIN_LOSS_TOL = 0.03, 0.05, 0.05
+TRAIN_AUC_MIN_CLASS = 50           # lanes of each class for the AUC bar
+LABEL_LANES, LABEL_AGREE = 512, 0.99   # card labels against the CPU's
+PROFILE_TOL = 1e-5                 # metres, collision_profile card vs CPU
+# (B, n) of the NS chain's anchors on the main paths; the L-form shape
+ANCHOR_SHAPES = ((512, 120), (128, 180), (128, 240))
+LFORM_SHAPE = (64, 50, 120)        # B, K, n: N=20 on the reference path
+SANITIZER_N, SANITIZER_B = 20, 64  # one production solve, then a batch
+TRACE_PATH = (20, 1024, 512)       # N, scenarios, chunk of the traced solve
+
+
+def _train_network_part(dev, tmp):
+    """train-network at its defaults on the card, its labels against the
+    CPU's, its rates against the JAX CLI's, its npz reloaded."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.cli import train_collision_network as tcli
+    from ba_path_planning_torch.models.collision_net import (
+        load_params, predict_logits, save_params)
+    from ba_path_planning_torch.utils.config import ProblemConfig
+    args = tcli.build_parser().parse_args(["--out", str(tmp / "net.npz")])
+    problem = ProblemConfig(n_vehicles=args.n_vehicles,
+                            time_horizon=args.time_horizon,
+                            time_step=args.time_step,
+                            min_distance=args.min_distance)
+    t0 = time.perf_counter()
+    p0, pf, y = tcli.label_chunks(problem, args.samples, args.label_chunk,
+                                  args.seed, dev)
+    t_label = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net, ev, losses, steps = tcli.train(p0, pf, y, args, dev,
+                                        log=lambda s: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    m = tcli.evaluate(net, p0[ev], pf[ev], y[ev])
+    t0 = time.perf_counter()
+    _, _, y_cpu = tcli.label_chunks(problem, LABEL_LANES, args.label_chunk,
+                                    args.seed, "cpu")
+    t_cpu = time.perf_counter() - t0
+    agree = float((y_cpu == y[:LABEL_LANES]).mean())
+    frac = float(y.mean())
+    print(f"modules: train-network N={args.n_vehicles} samples="
+          f"{args.samples} epochs={args.epochs} batch={args.batch_size} "
+          f"hidden={args.hidden} f32: feasible fraction {frac:.5f} (JAX CPU "
+          f"{JAX_TRAIN['feasible_fraction']:.5f}); final epoch loss "
+          f"{losses[-1]:.5f}; eval acc {m['acc']:.4f} auc {m['auc']:.4f} "
+          f"loss {m['loss']:.5f} (JAX on the same scenarios, CPU: auc "
+          f"{JAX_TRAIN['eval_auc']:.4f} loss {JAX_TRAIN['eval_loss']:.5f}; "
+          f"n={m['n']} with "
+          f"{m['n_pos']} / {m['n_neg']} of each class); label "
+          f"{t_label:.2f} s, train {t_train:.2f} s, {steps} steps, "
+          f"{steps / t_train:.1f} steps/s; first {LABEL_LANES} labels equal "
+          f"to the CPU's on {agree:.4f} of the lanes ({t_cpu:.1f} s)",
+          flush=True)
+    if agree < LABEL_AGREE:
+        raise AssertionError(f"card and CPU labels agree on {agree:.4f}")
+    if abs(frac - JAX_TRAIN["feasible_fraction"]) > TRAIN_FRACTION_TOL:
+        raise AssertionError(f"feasible fraction {frac} off JAX's")
+    if min(m["n_pos"], m["n_neg"]) >= TRAIN_AUC_MIN_CLASS:
+        if m["auc"] < JAX_TRAIN["eval_auc"] - TRAIN_AUC_TOL:
+            raise AssertionError(f"eval AUC {m['auc']} below JAX's bar")
+    elif m["loss"] > JAX_TRAIN["eval_loss"] + TRAIN_LOSS_TOL:
+        raise AssertionError(f"eval loss {m['loss']} above JAX's bar")
+    save_params(args.out, net)
+    again = load_params(args.out, device=dev)
+    inp = [torch.as_tensor(a[ev], device=dev) for a in (p0, pf)]
+    if not torch.equal(predict_logits(net, *inp),
+                       predict_logits(again, *inp)):
+        raise AssertionError("reloaded network predicts other logits")
+
+
+def _plot_collisions_part(dev, counters):
+    """plot-collisions' solve and profile at its defaults, and the profile
+    of the N=20 main path on the card against the CPU; the closest
+    approach of every lane the solver calls feasible."""
+    import torch
+    from ba_path_planning_torch.viz import plot_collisions
+    args = plot_collisions.build_parser().parse_args([])
+    _zero(counters)
+    t0 = time.perf_counter()
+    _, out, prof = plot_collisions.analyse(args, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    pos, ff = PATH_POSITIONS["N=20"]
+    main_prof = plot_collisions.collision_profile(pos)
+    diff = float((main_prof.cpu() - plot_collisions.collision_profile(
+        pos.cpu())).abs().max())
+    feas = out.feasible_final
+    closest = [float(p[f].min()) if bool(f.any()) else float("inf")
+               for p, f in ((prof, feas), (main_prof, ff))]
+    print(f"modules: plot-collisions N={args.n_vehicles} trials="
+          f"{args.trials}: {int(feas.sum())}/{len(feas)} collision-free, "
+          f"closest approach of those {closest[0]:.4f} m, wall {wall:.2f} s, "
+          f"launches={launches}; N=20 main path profile card vs CPU max "
+          f"|diff| {diff:.3e} m, closest approach of its {int(ff.sum())} "
+          f"feasible lanes {closest[1]:.4f} m", flush=True)
+    if diff > PROFILE_TOL:
+        raise AssertionError(f"collision_profile card vs CPU {diff}")
+    if min(closest) < R - 0.01:
+        raise AssertionError(f"a feasible lane comes within {min(closest)}")
+    return launches
+
+
+def _sanitizer_part(dev, counters):
+    """checked() on one clean N=20 production solve, on one with a NaN
+    input, and find_nan_lanes on a B=64 batch with one poisoned lane."""
+    import torch
+    from ba_path_planning_torch.scenarios import generate_scenario_batch
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    from ba_path_planning_torch.utils.config import SolverConfig
+    from ba_path_planning_torch.utils.debug import checked, find_nan_lanes
+    problem = _problem(SANITIZER_N)
+    eng = SCPEngine(problem, SolverConfig.production(problem=problem),
+                    dtype=torch.float32, device=dev)
+    sc = generate_scenario_batch(7, SANITIZER_B, n_vehicles=SANITIZER_N,
+                                 min_distance=R, device=dev)
+    p0, pf = sc.initial, sc.final
+    v0 = torch.zeros_like(p0)
+    eng.solve(p0[0], v0[0], pf[0], v0[0])        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.solve(p0[0], v0[0], pf[0], v0[0])
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    _zero(counters)
+    t0 = time.perf_counter()
+    err, res = checked(eng.solve_fn())(p0[0], v0[0], pf[0], v0[0])
+    clean = err.get()
+    t_checked = time.perf_counter() - t0
+    launches = _read(counters)
+    # a NaN lane never stops: its SCP loop is cut to one iteration here
+    eng1 = SCPEngine(problem.replace(max_iterations=1),
+                     SolverConfig.production(problem=problem),
+                     dtype=torch.float32, device=dev)
+    bad_p0 = p0[0].clone()
+    bad_p0[3, 0] = float("nan")
+    t0 = time.perf_counter()
+    poisoned = checked(eng1.solve_fn())(bad_p0, v0[0], pf[0], v0[0])[0].get()
+    t_poisoned = time.perf_counter() - t0
+    lane = SANITIZER_B // 4 + 1
+    p0b = p0.clone()
+    p0b[lane, 2, 1] = float("nan")
+    flagged = torch.nonzero(find_nan_lanes(
+        eng.solve_batch(p0b, v0, pf, v0))).flatten().tolist()
+    print(f"modules: sanitizer N={SANITIZER_N} production: clean solve "
+          f"{clean!r} "
+          f"(status {int(res.status)}, {t_checked:.2f} s checked, "
+          f"{t_plain:.2f} s unchecked, launches={launches}); NaN input "
+          f"(one SCP iteration, {t_poisoned:.2f} s): {poisoned!r}; "
+          f"find_nan_lanes on B={SANITIZER_B} with lane {lane} "
+          f"poisoned: "
+          f"{flagged}", flush=True)
+    if clean is not None:
+        raise AssertionError(f"a check fired on a clean solve: {clean}")
+    if poisoned is None:
+        raise AssertionError("no check fired on a NaN input")
+    if flagged != [lane]:
+        raise AssertionError(f"find_nan_lanes flagged {flagged}")
+    return launches
+
+
+def _trace_part(dev, counters, tmp, kstats, lstats):
+    """profiling.trace over one N=20, B=1024 production solve, and the cost
+    models' bounds beside the kernel phases' times of the same shapes."""
+    import torch
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios import generate_scenario_batch
+    from ba_path_planning_torch.utils import profiling
+    from ba_path_planning_torch.utils.config import SolverConfig
+    n_veh, B, chunk = TRACE_PATH
+    problem = _problem(n_veh)
+    sh = ShardedSCPSolver(problem, SolverConfig.production(problem=problem),
+                          dtype=torch.float32, device=dev)
+    sc = generate_scenario_batch(100, B, n_vehicles=n_veh, min_distance=R,
+                                 device=dev)
+    v0 = torch.zeros_like(sc.initial)
+    _zero(counters)
+    t0 = time.perf_counter()
+    with profiling.trace(str(tmp)) as prof:
+        sh.solve_compacted(sc.initial, v0, sc.final, v0, chunk=chunk)
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    path = tmp / "trace.json"
+    text = path.read_text()
+    found = {k: k in text for k in ("ns_chain_kernel", "sweep_kernel")}
+    del text
+
+    def device_us(e):       # the attribute's name differs between versions
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    rows = [(e.key, device_us(e) / 1e3, e.count)
+            for e in prof.key_averages() if device_us(e) > 0]
+    busy = sum(r[1] for r in rows)
+    by_kernel = {k: round(sum(ms for key, ms, _ in rows if k in key), 3)
+                 for k in found}
+    print(f"modules: trace N={n_veh} B={B} production: "
+          f"{path.stat().st_size} bytes, kernels named {found}, their device "
+          f"ms {by_kernel}; traced wall {wall:.2f} s, device busy "
+          f"{busy / 1e3:.3f} s, idle share under tracing "
+          f"{1 - busy / 1e3 / wall:.3f}, {sum(r[2] for r in rows)} device "
+          f"operations, launches={launches}", flush=True)
+    if not all(found.values()):
+        raise AssertionError(f"the trace lacks a kernel: {found}")
+    for what, cost, count, ms in (
+            ("direct_xupdate_cost N=20 B=512",
+             profiling.direct_xupdate_cost(20, K_STEPS), 512,
+             kstats["group_solve_x"]["ms"]),
+            ("factorize_X_cost N=20 B=512 (FP32 count; route time)",
+             profiling.factorize_X_cost(20, K_STEPS), 512,
+             kstats["ns_chain"]["ms"]),
+            ("factorize_X_cost N=40 B=128 (FP32 count; route time)",
+             profiling.factorize_X_cost(40, K_STEPS), 128,
+             lstats[40]["ns_chain"]["ms"]),
+            ("25 x admm_iteration_cost N=40 B=128",
+             profiling.admm_iteration_cost(40, K_STEPS), 25 * 128,
+             lstats[40]["admm_fused_x"]["ms"])):
+        bound, by = profiling.bound_ms(cost, count=count)
+        print(f"modules: cost model {what}: bound {bound:.3f} ms "
+              f"({by}); kernel phase {ms:.3f} ms", flush=True)
+    return launches
+
+
+def _blocked_chol_part(dev):
+    """chol_inv and factorize_matmul against cuSOLVER at the anchor shapes
+    and the L-form shape, with the JAX tests' tolerances; both timed."""
+    import torch
+    from ba_path_planning_torch.ops.blocked_chol import chol_inv
+    from ba_path_planning_torch.solvers.banded import (
+        _spd_inv, factorize_matmul, factorize_xla)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def spd(shape, n, scale):
+        A = torch.randn(shape + (n, n), generator=gen, device=dev)
+        return A @ A.mT / n + scale * torch.eye(n, device=dev)
+    for B, n in ANCHOR_SHAPES:
+        S = spd((B,), n, 1.0)
+        L, Linv = chol_inv(S)
+        L_ref = torch.linalg.cholesky(S)
+        err = float(((L - L_ref).abs() - 2e-4 * L_ref.abs()).max())
+        eye_err = float((L @ Linv - torch.eye(n, device=dev)).abs().max())
+        inv_err = float((Linv.mT @ Linv - _spd_inv(S)).abs().max()
+                        / _spd_inv(S).abs().max())
+        ms = _time_ms(lambda: chol_inv(S), reps=2)
+        spd_ms = _time_ms(lambda: Linv.mT @ chol_inv(S)[1], reps=2)
+        ref_ms = _time_ms(lambda: _spd_inv(S))
+        print(f"modules: chol_inv B={B} n={n} f32: |L - cholesky| - 2e-4|L| "
+              f"max {err:.3e} (tol 2e-5), |L Linv - I| {eye_err:.3e} (tol "
+              f"5e-4), spd inverse rel {inv_err:.3e}; chol_inv {ms:.3f} ms, "
+              f"as the anchors' inverse {spd_ms:.3f} ms, cuSOLVER _spd_inv "
+              f"{ref_ms:.3f} ms", flush=True)
+        if err > 2e-5 or eye_err > 5e-4:
+            raise AssertionError(f"chol_inv B={B} n={n} out of tolerance")
+    B, K, n = LFORM_SHAPE
+    D = spd((B, K), n, 5.0)
+    Bm = 0.1 * torch.randn((K - 1, n, n), generator=gen, device=dev)
+    La, Ea = factorize_matmul(D, Bm)
+    Lb, Eb = factorize_xla(D, Bm)
+    errs = [float(((a - b).abs() - 5e-3 * b.abs()).max())
+            for a, b in ((La, Lb), (Ea, Eb))]
+    mm_ms = _time_ms(lambda: factorize_matmul(D, Bm), reps=1)
+    xla_ms = _time_ms(lambda: factorize_xla(D, Bm), reps=2)
+    print(f"modules: factorize_matmul B={B} K={K} n={n} f32 against "
+          f"factorize (cuSOLVER): Linv, E |diff| - 5e-3|ref| max {errs} (tol "
+          f"5e-4); factorize_matmul {mm_ms:.3f} ms, factorize {xla_ms:.3f} "
+          "ms", flush=True)
+    if max(errs) > 5e-4:
+        raise AssertionError("factorize_matmul out of tolerance")
+
+
+def _native_part(dev):
+    """NativeQP built with g++ on this host, one QP at N=3, K=10, against
+    the port's solve_qp on the card in float64."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch import native
+    from ba_path_planning_torch.ops.collisions import (
+        collision_lower_bounds, linearize, make_pair_index)
+    from ba_path_planning_torch.ops.constraints import (ConstraintBlocks,
+                                                        static_bounds)
+    from ba_path_planning_torch.solvers.admm import (
+        QPData, build_row_scaling, build_static_normal_inverse, solve_qp)
+    from ba_path_planning_torch.utils.config import Limits, SolverConfig
+    f64 = torch.float64
+    N, K, h, R_ = 3, 10, 0.2, 1.0
+    P = N * (N - 1) // 2
+    rng = np.random.default_rng(0)
+    p0 = rng.uniform(4, 16, (N, 2))
+    pf = p0 + rng.uniform(-1, 1, (N, 2))
+    tp0, tpf = (torch.tensor(a, device=dev) for a in (p0, pf))
+    tv0 = torch.zeros_like(tp0)
+    pairs = make_pair_index(N, dtype=f64, device=dev)
+    lo, up = static_bounds(tp0, tv0, tpf, tv0, n_vehicles=N, n_steps=K, h=h,
+                           limits=Limits())
+    t = torch.arange(K, dtype=f64, device=dev) / (K - 1)
+    prev = tp0[:, None] * (1 - t)[None, :, None] + tpf[:, None] * t[
+        None, :, None]
+    eta, dist = linearize(prev, pairs, torch.zeros((K, P), dtype=f64,
+                                                   device=dev))
+    lower = ConstraintBlocks(col=collision_lower_bounds(
+        eta, dist, prev, tp0, tv0, pairs, h=h, min_distance=R_), **lo)
+    upper = ConstraintBlocks(col=torch.full((K, P), float("inf"), dtype=f64,
+                                            device=dev), **up)
+    cfg = SolverConfig(eps_abs=1e-6, eps_rel=1e-6, max_iter=8000,
+                       cg_iters=20, adaptive_rho=False, polish=False)
+    pc = build_static_normal_inverse(K, h, cfg, dtype=f64, device=dev)
+    out = solve_qp(QPData(eta=eta, col_mask=torch.tensor(1.0, dtype=f64,
+                                                           device=dev),
+                          lower=lower, upper=upper),
+                   pairs.E, pc, torch.zeros((N, K, 2), dtype=f64,
+                                            device=dev), h=h, cfg=cfg)
+    t0 = time.perf_counter()
+    nqp = native.NativeQP(N, K, h)
+    t_build = time.perf_counter() - t0
+    nqp.set_settings(rho=cfg.rho, sigma=cfg.sigma, alpha=cfg.alpha,
+                     eps_abs=cfg.eps_abs, eps_rel=cfg.eps_rel,
+                     max_iter=cfg.max_iter, check_interval=cfg.check_interval,
+                     cg_iters=cfg.cg_iters)
+    nqp.set_precond(pc.Q.cpu(), pc.lam.cpu())
+    flat = [torch.cat([b.reshape(-1) for b in bl]).cpu()
+            for bl in (lower, upper)]
+    nqp.set_bounds(*flat)
+    scaling = build_row_scaling(K, h, dtype=f64)
+    shapes = ((N, K - 1, 2), (N, K, 2), (N, K, 2), (N, K, 2), (K, P))
+    d_full = [d.expand(s) for d, s in zip(scaling, shapes)]
+    rho_full = [cfg.rho * d ** 2 for d in d_full]
+    for i in (2, 3):     # terminal vel/pos equality rows
+        rho_full[i] = rho_full[i].clone()
+        rho_full[i][:, K - 1, :] *= cfg.rho_eq_scale
+    nqp.set_scaling(torch.cat([d.reshape(-1) for d in d_full]),
+                    torch.cat([r.reshape(-1) for r in rho_full]))
+    nqp.set_collision(eta.cpu(), 1.0)
+    x_native, info = nqp.solve(np.zeros((N, K, 2)))
+    x_card = out.x.cpu().numpy()
+    diff = np.abs(x_native - x_card) - 5e-3 * np.abs(x_card)
+    print(f"modules: NativeQP N={N} K={K} float64 (g++ build and load "
+          f"{t_build:.2f} s): {info}; against solve_qp on the card "
+          f"({int(out.iters)} iterations, converged {bool(out.converged)}): "
+          f"max |diff| - 5e-3|x| {float(diff.max()):.3e} (tol 5e-4)",
+          flush=True)
+    if not info["converged"] or float(diff.max()) > 5e-4:
+        raise AssertionError("NativeQP disagrees with solve_qp")
+
+
+def modules_phase(dev, counters, kstats, lstats):
+    """The modules the port took over last: train-network, plot-collisions,
+    the sanitizer, the tracer, the matmul-form Cholesky and NativeQP.
+    Returns the kernel launches of its solves."""
+    import tempfile
+    launches = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _train_network_part(dev, tmp)
+        for part in (_plot_collisions_part(dev, counters),
+                     _sanitizer_part(dev, counters),
+                     _trace_part(dev, counters, tmp, kstats, lstats)):
+            for key, n in part.items():
+                launches[key] += n
+    _blocked_chol_part(dev)
+    _native_part(dev)
+    return launches
+
+
 def main():
     if not (ROOT / "ba_path_planning_torch").is_dir():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repo")
@@ -1675,6 +2074,11 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global HBM_BYTES_S, FP32_FLOP_S, TF32_FLOP_S
+    from ba_path_planning_torch.utils.profiling import (
+        H100_PEAK_FP32_FLOPS, H100_PEAK_HBM_BYTES, H100_PEAK_TF32_FLOPS)
+    HBM_BYTES_S, FP32_FLOP_S, TF32_FLOP_S = (
+        H100_PEAK_HBM_BYTES, H100_PEAK_FP32_FLOPS, H100_PEAK_TF32_FLOPS)
     name = torch.cuda.get_device_name(0)
     card = _card_line()
     print(f"device: {name}; nvidia-smi: {card}; torch {torch.__version__} "
@@ -1762,6 +2166,7 @@ def main():
         add(path_launches)
     facade_agreement(results)
     add(facade_call(counters))
+    add(facade_call(counters, defaults=True))
     lap("reference-compatible paths")
     # the adaptive-rho paths; their launches of the fused kernels are those
     # of the per-lane rho planes
@@ -1788,6 +2193,8 @@ def main():
     lap("bench twin")
     add(batch_cli_phase(counters))
     lap("batch CLI")
+    add(modules_phase(dev, counters, kstats, lstats))
+    lap("modules phase")
 
     pallas = "ba_path_planning_tpu/ops/pallas/"
     csrc = "ba_path_planning_torch/csrc/"

@@ -157,3 +157,34 @@ def test_solve_qp_impl_adaptive_rho_and_polish_match_jax_vmap(monkeypatch):
         (rho[:, i] != rho[0, i]).any()) else None for i in range(B)]
     moved = [f for f in first if f is not None]
     assert None in first and len(set(moved)) >= 2, first
+
+
+def test_single_scenario_solve_qp_matches_jax():
+    """``solve_qp`` (one scenario, numeric settings from the config) against
+    the JAX package's: equal iteration count and convergence, x within
+    1e-8; it equals lane 0 of ``solve_qp_impl`` on the batch of one."""
+    jdata, a0, jp = _qp_data([1.0, 1.0, 1.0], seed=1)
+    cfg = jcfg.SolverConfig(max_iter=400, polish=False)
+    pc = ja.build_static_normal_inverse(K, H, cfg, dtype=jnp.float64)
+    one = jax.tree_util.tree_map(lambda t: t[0], jdata._replace(
+        col_mask=None))._replace(col_mask=jnp.asarray(1.0))
+    want = ja.solve_qp(one, jp.E, pc, a0[0], h=H, cfg=cfg)
+    _, tcfg = config_from_jax(_problem(N), cfg)
+    tpc = ta.build_static_normal_inverse(K, H, tcfg, dtype=F64)
+    data = _port_data(jdata, 1.0)
+    got = ta.solve_qp(ta.QPData(eta=data.eta[0], col_mask=data.col_mask,
+                                lower=ConstraintBlocks(*(t[0] for t in
+                                                         data.lower)),
+                                upper=ConstraintBlocks(*(t[0] for t in
+                                                         data.upper))),
+                      T(jp.E), tpc, T(a0[0]), h=H, cfg=tcfg)
+    assert got.x.shape == (N, K, 2) and got.iters.dim() == 0
+    assert int(got.iters) == int(want.iters)
+    assert bool(got.converged) == bool(want.converged)
+    assert _rel(got.x, want.x) <= 1e-8
+    batch = ta.solve_qp_impl(
+        data._replace(eta=data.eta[:1], lower=ConstraintBlocks(
+            *(t[:1] for t in data.lower)), upper=ConstraintBlocks(
+            *(t[:1] for t in data.upper))), T(jp.E), tpc, T(a0[:1]),
+        make_solver_params(tcfg, F64), h=H, static=tcfg.static_part())
+    np.testing.assert_array_equal(got.x.numpy(), batch.x[0].numpy())

@@ -331,3 +331,43 @@ def test_unported_solver_options_raise():
                     device="cpu")
     carry = eng.start(z, z, z + 1.0, z)
     assert int(carry.qp_iters) == (25 if bool(carry.qp_ok) else 50)
+
+
+def test_apply_M_rho_pattern_and_b_scalar_stack_match_jax():
+    """The reference application of M = P + sigma I + A^T rho A, the
+    bound-driven rho pattern and the stacked B_k slot scalars, against the
+    JAX package's, in float64; ``rho_pattern`` on the bounds of one
+    scenario equals the structural ``rho_pattern_masks``."""
+    rng = np.random.default_rng(9)
+    B, N, K, h = 2, 4, 6, 0.2
+    P = N * (N - 1) // 2
+    lim = jcfg.ProblemConfig(n_vehicles=N).limits
+    arrs = [rng.normal(size=(N, 2)) for _ in range(4)]
+    lo, up = tb.build_bounds(*map(T, arrs), n_vehicles=N, n_steps=K, h=h,
+                             limits=lim, n_pairs=P)
+    jlo, jup = jb.build_bounds(*map(jnp.asarray, arrs), n_vehicles=N,
+                               n_steps=K, h=h, limits=lim, n_pairs=P)
+    sc = tb.row_scaling_state(K, h, dtype=F64)
+    jsc = jb.row_scaling_state(K, h, dtype=jnp.float64)
+    rho = tb.rho_pattern(lo, up, sc, STATIC, T(2.6), T(2.5), (K, P))
+    jrho = jb.rho_pattern(jlo, jup, jsc, STATIC, 2.6, 2.5, (K, P))
+    _close_tree(rho, jrho)
+    masks = tb.rho_pattern_masks(sc, STATIC, T(2.6), T(2.5), n_steps=K,
+                                 n_pairs=P, col_enabled=True, dtype=F64)
+    _close_tree(rho, [torch.broadcast_to(m, r.shape)
+                      for m, r in zip(masks, rho)], rtol=1e-15)
+
+    x = _state(rng, B, N, K)
+    eta = _eta(rng, B, K, P)
+    E = np.asarray(jcol.make_pair_index(N, dtype=jnp.float64).E)
+    got = tb.apply_M(tb.StateVars(*map(T, x)), rho, T(eta), T(E), h=h,
+                     sigma=1e-6)
+    want = jax.vmap(lambda xv, e: jb.apply_M(xv, jrho, e, jnp.asarray(E),
+                                             h=h, sigma=1e-6))(
+        jb.StateVars(*map(jnp.asarray, x)), jnp.asarray(eta))
+    _close_tree(got, want)
+
+    jmasks = _rho(STATIC, N, K, True, jnp.float64)
+    s = tb._tridiag_scalars(tb.RowVals(*map(T, jmasks)), h=h, sigma=1e-6)
+    js = jb._tridiag_scalars(jmasks, h=h, sigma=1e-6)
+    _close(tb.b_scalar_stack(s), jb.b_scalar_stack(js))

@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed: no module of
-``ba_path_planning_torch`` (nor ``chip_smoke.py``) may import it.  Nor does
-that machine have matplotlib, and importing a module builds no kernel."""
+``ba_path_planning_torch`` (nor ``chip_smoke.py``) may import it, nor flax
+or optax.  Nor does that machine have matplotlib, and importing a module
+builds no kernel and starts no ``g++``."""
 
 import re
 import subprocess
@@ -16,12 +17,15 @@ import ba_path_planning_torch as p
 for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib",
-                                            "ba_path_planning_tpu")))
+             if m in ("jax", "flax", "optax")
+             or m.startswith(("jax.", "jaxlib", "flax.", "optax.",
+                              "ba_path_planning_tpu")))
 print("LOADED", bad)
+from ba_path_planning_torch import native
 from ba_path_planning_torch.ops import cuda_build
 print("MATPLOTLIB", "matplotlib" in sys.modules)
-print("BUILT", cuda_build._lib is not None or bool(cuda_build.build_info))
+print("BUILT", cuda_build._lib is not None or bool(cuda_build.build_info)
+      or native._lib is not None)
 """
 
 
@@ -40,14 +44,18 @@ def test_importing_every_module_loads_no_matplotlib_and_builds_nothing():
     assert out.returncode == 0, out.stderr
     for module in ("bench", "cli.compute_trajectories_batch",
                    "cli.compute_trajectories", "cli.position_generator",
-                   "cli.boxplot", "viz.plots", "viz.boxplot"):
+                   "cli.boxplot", "viz.plots", "viz.boxplot",
+                   "cli.train_collision_network", "viz.plot_collisions",
+                   "models.collision_net", "utils.debug", "utils.profiling",
+                   "ops.blocked_chol", "native.__init__"):
         assert (PKG / (module.replace(".", "/") + ".py")).is_file(), module
     assert "MATPLOTLIB False" in out.stdout, out.stdout
     assert "BUILT False" in out.stdout, out.stdout
 
 
 def test_sources_do_not_import_jax():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|"
+    pattern = re.compile(r"^\s*(import\s+(jax|flax|optax)|"
+                         r"from\s+(jax|flax|optax)|"
                          r"import\s+ba_path_planning_tpu|"
                          r"from\s+ba_path_planning_tpu)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
