@@ -9,9 +9,10 @@ the interior k = 3..K-2 runs in the kernel.  ``ns_precision`` is the solver
 option of that name: ``"high"`` (the production solver's) takes the products
 on the tensor cores as three TF32 passes over a hi + lo split of each FP32
 operand, ``"highest"`` takes them as FP32 FMAs in the same tiling (the
-exact-FP32 witness of the checks; no production path runs it).  Either keeps
-its matrices in shared memory while they fit and in a per-scenario global
-scratch beyond.
+exact-FP32 witness of the checks; no production path runs it).  The solver's
+third name, ``"default"``, runs ``"high"`` (``banded.NS_KERNEL_PRECISION``).
+Either keeps its matrices in shared memory while they fit and in a
+per-scenario global scratch beyond.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ def factorize_X_chain_plain(D, C, *, ns_iters: int):
     return factorize_X(D, C, ns_iters=ns_iters)
 
 
-# ns_precision -> the kernel's precision argument.  "default" (one TF32
-# pass) is not offered: it leaves the chain outside its tolerance.
+# ns_precision -> the kernel's precision argument.
 PRECISIONS = {"highest": 0, "high": 1}
 
 
@@ -78,8 +78,8 @@ def factorize_X_chain_batched(D, C, *, ns_iters: int,
     C (K-1, 3, 3) batch-shared; returns X (B, K, n, n).  CUDA tensors launch
     the kernel for the interior (float32, contiguous, K >= 6, n = 6N,
     ``ns_precision`` "high" or "highest"; anything else raises); CPU tensors
-    run the plain version, whatever ``ns_precision`` says."""
-    if ns_precision not in PRECISIONS and ns_precision != "default":
+    run the plain version, in FP32 at either ``ns_precision``."""
+    if ns_precision not in PRECISIONS:
         raise ValueError(
             f"factorize_X_chain_batched: unknown ns_precision {ns_precision!r}")
     if not D.is_cuda:
@@ -87,10 +87,6 @@ def factorize_X_chain_batched(D, C, *, ns_iters: int,
             raise ValueError(
                 f"factorize_X_chain_batched: unsupported device {D.device}")
         return factorize_X_chain_plain(D, C, ns_iters=ns_iters)
-    if ns_precision == "default":
-        raise NotImplementedError(
-            "factorize_X_chain_batched: ns_precision='default' (a single "
-            "TF32 pass) is not implemented; use 'high' or 'highest'")
     require_f32_cuda("factorize_X_chain_batched", D=D, C=C)
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
         raise ValueError(

@@ -649,13 +649,28 @@ def ns_anchors(K: int, ns_anchor: int) -> list[int]:
                   | ({1, 2} & set(range(1, K))) | {K - 1})
 
 
-def factorize_X(D, C, *, ns_iters: int = 0, ns_anchor: int = 0):
+# The NS-chain kernel's precision (``ops/ns_chain.py:PRECISIONS``) that
+# serves each ``ns_precision`` of the solver (the JAX package's names).
+# "default" runs the three-pass kernel, and off the kernel every name takes
+# FP32 products: with a single TF32 pass the production path missed its 99%
+# bar at N=40 on either route (ROADMAP, Decided).
+NS_KERNEL_PRECISION = {"highest": "highest", "high": "high",
+                       "default": "high"}
+
+
+def factorize_X(D, C, *, ns_iters: int = 0, ns_anchor: int = 0,
+                ns_precision: str = "highest"):
     """Block factorization storing the symmetric inverses X (..., K, n, n)
     of the Schur complements S_k = D_k - (C_k (x) I) X_{k-1} (C_k (x) I)^T.
 
     ``ns_iters = 0``: exact inverse at every step.  ``ns_iters > 0``:
     interior steps run that many Newton-Schulz iterations warm-started from
-    X_{k-1}; the steps of :func:`ns_anchors` are exact."""
+    X_{k-1}; the steps of :func:`ns_anchors` are exact.  ``ns_precision``
+    is one of JAX's names (:data:`NS_KERNEL_PRECISION`), and each takes the
+    products in FP32 (ROADMAP, Decided)."""
+    if ns_precision not in NS_KERNEL_PRECISION:
+        raise ValueError(f"ns_precision={ns_precision!r}: one of "
+                         f"{tuple(NS_KERNEL_PRECISION)}")
     K = D.shape[-3]
     X = torch.empty_like(D)
     X[..., 0, :, :] = _spd_inv(D[..., 0, :, :])
@@ -922,16 +937,19 @@ def _factorize_X_routed(D, C, static: SolverStatic):
     """X-form factorization: the NS-chain kernel route where the JAX router
     takes its Pallas kernel (``banded.py:_factorize_X_routed``), else
     :func:`factorize_X`.  On the card that route takes float32 only and
-    raises for any other dtype, and computes its products as
-    ``static.ns_precision`` says; on the CPU it is :func:`factorize_X`."""
+    raises for any other dtype, and computes its products at
+    :data:`NS_KERNEL_PRECISION` of ``static.ns_precision``; on the CPU it
+    is :func:`factorize_X`."""
     K = D.shape[-3]
     if (static.kernels and static.ns_iters > 0 and static.ns_anchor == 0
             and K >= 6):
         from ..ops.ns_chain import factorize_X_chain_batched
-        return factorize_X_chain_batched(D, C, ns_iters=static.ns_iters,
-                                         ns_precision=static.ns_precision)
+        return factorize_X_chain_batched(
+            D, C, ns_iters=static.ns_iters,
+            ns_precision=NS_KERNEL_PRECISION[static.ns_precision])
     return factorize_X(D, C, ns_iters=static.ns_iters,
-                       ns_anchor=static.ns_anchor)
+                       ns_anchor=static.ns_anchor,
+                       ns_precision=static.ns_precision)
 
 
 # The values of ``SolverConfig.assemble_precision`` (the JAX package's

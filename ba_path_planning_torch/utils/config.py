@@ -134,6 +134,9 @@ class SolverConfig:
     factor_form: str = "L"
     ns_iters: int = 0
     ns_anchor: int = 0
+    # accepted as in JAX; on the card the NS-chain kernel serves "default"
+    # with its three-pass products, and banded.factorize_X takes the
+    # products in FP32 for each value (banded.NS_KERNEL_PRECISION)
     ns_precision: str = "highest"
     # accepted as in JAX, assembled in FP32 for each value (banded.qp_route)
     assemble_precision: str = "highest"

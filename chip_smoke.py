@@ -11,12 +11,14 @@
    relative error of every (b, k) block, and CUDA-event times of both:
    the NS chain and the sweep at N=20 (B=64, the chunk B=512 and the
    tail chunk B=128 of the compaction's later rounds); the NS
-   chain at N=30 and N=40 (B=128, where its operands are streamed from
-   global memory), each at ``ns_precision`` "high" (tensor cores, what the
-   production solver runs) and "highest" (FP32), with the kernel and the
-   exact anchors timed apart; the fused ADMM interval at N=30 and N=40
-   (B=128), with the bound of its whole blocks and of their upper
-   triangles; on the factors of the reference-compatible solver (rho 0.1,
+   chain at N=30, 40, 50 and 60 (B=128, where its operands are streamed
+   from global memory), each at ``ns_precision`` "high" (three TF32
+   passes on the tensor cores, what the production solver runs, and its
+   "default" too) and "highest" (FP32), with the kernel and the exact
+   anchors timed apart;
+   the fused ADMM interval at N=30, 40, 50 and 60 (B=128), with the bound
+   of its whole blocks and of their upper triangles; on the factors of the
+   reference-compatible solver (rho 0.1,
    hard collision rows) the L-only sweep and the dense (Linv, Eb) sweep at
    N=20 (B=64, 512 and 1, the ``SCP`` class's batch), the L-only sweep at
    N=30 and N=40 (B=128), the L-form fused interval at N=20 (B=64 and 128,
@@ -34,8 +36,13 @@
    solver): N=20 with 1024 scenarios in chunks of 512 (the grouped sweep
    route), N=30 and N=40 with 2048 scenarios in chunks of 128 (the fused
    route), and N=20 once more with ``SolverConfig.latency()`` (early-exit
-   intervals on the grouped sweep route).  At least 99% of a path's
-   scenarios must be collision-free with goal error < 5 cm;
+   intervals on the grouped sweep route) and once with
+   ``ns_precision="default"`` (the three-pass NS kernel serves it).  At
+   least 99% of a path's scenarios must be collision-free with goal error
+   < 5 cm.  Then the soak / N-sweep twin
+   (``scripts/torch_soak_nsweep.py:run_cfg``) at N=50 and N=60 with its
+   batch cut to 256, chunk 128 (the fused route; counts printed, not
+   barred);
 6. the reference-compatible path at N=20: ``SCPEngine.solve_batch`` over
    FACADE_B scenarios with the ``SCP`` class's solver (L-form factors, hard
    collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
@@ -115,7 +122,8 @@ T_HORIZON, H, R = 10.0, 0.2, 0.8
 K_STEPS = int(T_HORIZON / H)
 # (N, scenarios, chunk) of each main path
 MAIN_PATHS = ((20, 1024, 512), (30, 2048, 128), (40, 2048, 128))
-B_LARGE = 128                      # kernel phases at N=30/40: one chunk
+B_LARGE = 128                      # kernel phases at N=30..60: one chunk
+LARGE_NS = (30, 40, 50, 60)        # the fused route's widths in those phases
 FACADE_B = 64                      # scenarios of the reference-compatible path
 REF_FACADE_ITERS = 500             # QP budget of its reference phase
 # the card's peaks (H100 SXM data sheet, dense): read in main() from the
@@ -836,6 +844,40 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
                  _production_route(n_veh))
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
+    return launches
+
+
+# (N, scenarios, chunk) of the soak / N-sweep twin's widest configurations
+# in this run: its batch of 2048 cut to 256
+SWEEP_PATHS = ((50, 256, 128), (60, 256, 128))
+
+
+def sweep_phase(dev, card, counters):
+    """``scripts/torch_soak_nsweep.py``'s ``run_cfg`` at N=50 and N=60 (its
+    timed solve; the main paths above warmed the card): the production
+    solver on the fused X route, with the NS chain's fully streamed layout
+    and the packed-triangle fused interval at n = 300 and 360.  The counts
+    are printed and not barred (the JAX package validated its constants up
+    to N=40); each solve must give finite positions of the batch's shape
+    and launch the kernels of its route and no other.  Returns the launch
+    counts."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_soak_nsweep", ROOT / "scripts" / "torch_soak_nsweep.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    launches = dict.fromkeys(counters, 0)
+    for n_veh, B, chunk in SWEEP_PATHS:
+        _zero(counters)
+        rec = twin.run_cfg(n_veh, B, chunk, device=dev, warmup=False)
+        path = _read(counters)
+        print(f"soak / N-sweep twin N={n_veh} B={B} chunk={chunk} on {card}: "
+              f"{json.dumps(rec)}", flush=True)
+        _check_route(f"N={n_veh} sweep path", path, _production_route(n_veh))
+        if rec["route"] != "fused_X":
+            raise AssertionError(f"N={n_veh} routed {rec['route']}")
+        for key, n in path.items():
+            launches[key] += n
     return launches
 
 
@@ -2088,6 +2130,7 @@ def main():
 
     from ba_path_planning_torch.ops import (admm_fused, banded_solve,
                                             cuda_build, group_solve, ns_chain)
+    from ba_path_planning_torch.utils.config import SolverConfig
 
     t0 = time.perf_counter()
     cuda_build.load_kernels()
@@ -2110,11 +2153,15 @@ def main():
     for B in (128, 64):
         kstats["group_solve_x"][f"ms_at_B{B}"] = (
             kernel_phase(dev, B)["group_solve_x"]["ms"])
-    lstats = {n_veh: large_phase(dev, n_veh) for n_veh in (30, 40)}
-    for key in ("ms", "bound_ms", "stream_bound_ms",
-                "nonzero_stream_bound_ms"):
-        lstats[40]["admm_fused_x"][f"{key}_at_N30"] = (
-            lstats[30]["admm_fused_x"][key])
+    lstats = {n_veh: large_phase(dev, n_veh) for n_veh in LARGE_NS}
+    for n_veh in (30, 50, 60):
+        for key in ("ms", "bound_ms", "stream_bound_ms",
+                    "nonzero_stream_bound_ms"):
+            lstats[40]["admm_fused_x"][f"{key}_at_N{n_veh}"] = (
+                lstats[n_veh]["admm_fused_x"][key])
+        for key in ("ms", "kernel_ms", "bound_ms"):
+            lstats[40]["ns_chain"][f"{key}_at_N{n_veh}"] = (
+                lstats[n_veh]["ns_chain"][key])
     small = lform_phase(dev, 20, FACADE_B, dense=True, fused=True)
     fstats = lform_phase(dev, 20, 512, dense=True)
     fstats.update(admm_fused_l=lform_phase(dev, 20, B_LARGE,
@@ -2159,6 +2206,17 @@ def main():
         add(main_path(dev, card, n_veh, B, chunk, counters))
     add(main_path(dev, card, *MAIN_PATHS[0], counters, latency=True))
     lap("production main paths")
+    # ns_precision="default", served by the three-pass NS kernel
+    default_launches = main_path(
+        dev, card, *MAIN_PATHS[0], counters,
+        solver=SolverConfig.production(problem=_problem(MAIN_PATHS[0][0]))
+        .replace(ns_precision="default"), label="ns_precision=default")
+    add(default_launches)
+    lstats[40]["ns_chain"]["launches_ns_precision_default"] = (
+        default_launches["ns_chain"])
+    lap("ns_precision=default path")
+    add(sweep_phase(dev, card, counters))
+    lap("soak / N-sweep twin at N=50, 60")
     results = {}
     for route in FACADE_ROUTES:
         results[route], path_launches = facade_path(dev, card, route,

@@ -75,9 +75,11 @@ def test_factorize_X_routed_cpu_runs_plain(dtype):
 
 @pytest.mark.parametrize("ns_precision", ["high", "highest", "default"])
 def test_factorize_X_routed_hands_ns_precision_on(monkeypatch, ns_precision):
-    """``_factorize_X_routed`` passes ``static.ns_precision`` to the kernel
-    wrapper; on the CPU the wrapper then runs the plain version for every
-    value the solver options know."""
+    """``_factorize_X_routed`` passes the kernel precision that serves
+    ``static.ns_precision`` to the kernel wrapper ("default" runs the
+    three-pass kernel, ``banded.NS_KERNEL_PRECISION``); on the CPU the
+    wrapper then runs the plain version for every value the solver options
+    know."""
     seen = {}
     real = ns_chain.factorize_X_chain_batched
 
@@ -89,8 +91,50 @@ def test_factorize_X_routed_hands_ns_precision_on(monkeypatch, ns_precision):
     static = SolverConfig.production().replace(
         ns_precision=ns_precision).static_part()
     got = tb._factorize_X_routed(D, C, static)
-    assert seen == dict(ns_iters=static.ns_iters, ns_precision=ns_precision)
+    kernel = {"default": "high"}.get(ns_precision, ns_precision)
+    assert seen == dict(ns_iters=static.ns_iters, ns_precision=kernel)
     assert torch.equal(got, tb.factorize_X(D, C, ns_iters=static.ns_iters))
+
+
+@pytest.mark.parametrize("ns_precision", ["highest", "high", "default"])
+def test_factorize_X_with_anchors_matches_jax(ns_precision):
+    """``ns_anchor > 0`` takes no kernel in either package: the router
+    runs ``factorize_X`` with the solver's ``ns_precision``
+    (JAX ``banded.py:1169-1183``), which takes FP32 products for every name
+    in the port (on the card too) and in JAX on the CPU.  float32, max
+    relative 1e-5."""
+    D, C = _spd_chain(1, 14, 4, seed=9)
+    prec = {"highest": None, "high": jax.lax.Precision.HIGH,
+            "default": jax.lax.Precision.DEFAULT}[ns_precision]
+    want = jb.factorize_X(jnp.asarray(D[0]), jnp.asarray(C), ns_iters=2,
+                          ns_anchor=4, ns_precision=prec)
+    static = SolverConfig.production().replace(
+        ns_anchor=4, ns_precision=ns_precision).static_part()
+    Dt, Ct = torch.as_tensor(D), torch.as_tensor(C)
+    before = ns_chain.factorize_X_chain_batched.launches
+    got = tb._factorize_X_routed(Dt, Ct, static)
+    assert ns_chain.factorize_X_chain_batched.launches == before
+    assert torch.equal(got, tb.factorize_X(Dt, Ct, ns_iters=2, ns_anchor=4,
+                                           ns_precision=ns_precision))
+    assert torch.equal(got, tb.factorize_X(Dt, Ct, ns_iters=2, ns_anchor=4))
+    assert _rel(got[0].numpy(), want) < 1e-5
+    with pytest.raises(ValueError):
+        tb.factorize_X(Dt, Ct, ns_iters=2, ns_anchor=4, ns_precision="tf32")
+
+
+@pytest.mark.parametrize("ns_precision", ["default", "tf32"])
+def test_ns_chain_wrapper_takes_the_kernel_precisions_only(ns_precision):
+    """The wrapper serves the kernel's two precisions, "high" and
+    "highest"; the solver's "default" reaches it as "high"
+    (``banded.NS_KERNEL_PRECISION``), so any other name raises, on the CPU
+    as on the card, and launches nothing."""
+    D, C = map(torch.as_tensor, _spd_chain(2, 9, 3, seed=4))
+    before = ns_chain.factorize_X_chain_batched.launches
+    with pytest.raises(ValueError):
+        ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
+                                           ns_precision=ns_precision)
+    assert ns_chain.factorize_X_chain_batched.launches == before
+    assert set(tb.NS_KERNEL_PRECISION.values()) == set(ns_chain.PRECISIONS)
 
 
 def test_group_solve_plain_matches_jax_f64():

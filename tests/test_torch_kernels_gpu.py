@@ -71,14 +71,16 @@ def _block_rel(got, want, block_dims):
 @pytest.mark.parametrize("ns_precision", ["high", "highest"])
 @pytest.mark.parametrize("B,K,N", [(3, 10, 3), (4, 12, 4), (8, 50, 20),
                                    (2, 9, 23), (2, 50, 28), (2, 50, 29),
-                                   (2, 50, 30), (2, 50, 40), (2, 8, 45)])
+                                   (2, 50, 30), (2, 50, 40), (2, 8, 45),
+                                   (2, 50, 50), (2, 50, 60)])
 def test_ns_chain_kernel_matches_plain(cuda, B, K, N, ns_precision):
     """Relative 1e-4 in every (b, k) block.  "high" takes the products on
     the tensor cores as three TF32 passes of a hi + lo split, "highest" as
     FP32 FMAs (summed in another order than cuBLAS) in the same tiling.
     Both mirror the upper triangle of each update; shared memory up to
     N = 21, a streamed global scratch beyond, in one output tile up to
-    N = 32 and several above."""
+    N = 32 and several above (N = 50 and 60: three row tiles of 128, two
+    column tiles, the second ragged)."""
     D, C = _assembled(B, K, N, seed=N)
     D, C = D.float().to(cuda), C.float().to(cuda)
     before = ns_chain.factorize_X_chain_batched.launches
@@ -106,6 +108,38 @@ def test_ns_chain_tensor_core_kernel_iteration_counts(cuda, ns_iters):
                 D, C, ns_iters=ns_iters, ns_precision=ns_precision)
             torch.cuda.synchronize()
             assert _block_rel(got, want, 2) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns_iters", [1, 3])
+@pytest.mark.parametrize("B,K,N", [(3, 10, 3), (4, 50, 20), (2, 50, 30),
+                                   (2, 9, 45)])
+def test_solver_default_ns_precision_runs_the_three_pass_kernel(cuda, B, K, N,
+                                                                ns_iters):
+    """The solver's ``ns_precision="default"`` on the card: the NS-chain
+    route launches the three-pass ("high") kernel, bit for bit, in the
+    three layouts (shared memory at N = 3 and 20, S and T' streamed at
+    N = 30, every operand streamed at N = 45).  Off the kernel
+    (``ns_anchor > 0``) every name takes FP32 products, so "default" and
+    "high" give what "highest" gives, bit for bit."""
+    D, C = _assembled(B, K, N, seed=N + ns_iters)
+    D, C = D.float().to(cuda), C.float().to(cuda)
+
+    def static(ns_precision, ns_anchor=0):
+        return SolverConfig.production().replace(
+            ns_iters=ns_iters, ns_anchor=ns_anchor,
+            ns_precision=ns_precision).static_part()
+    before = ns_chain.factorize_X_chain_batched.launches
+    got = tb._factorize_X_routed(D, C, static("default"))
+    assert ns_chain.factorize_X_chain_batched.launches == before + 1
+    want = ns_chain.factorize_X_chain_batched(D, C, ns_iters=ns_iters,
+                                              ns_precision="high")
+    assert torch.equal(got, want)
+    fp32 = tb._factorize_X_routed(D, C, static("highest", ns_anchor=4))
+    for name in ("default", "high"):
+        assert torch.equal(
+            tb._factorize_X_routed(D, C, static(name, ns_anchor=4)), fp32)
+    assert ns_chain.factorize_X_chain_batched.launches == before + 2
 
 
 # Scenarios with factors of their own; a larger batch repeats theirs.
@@ -207,12 +241,10 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         ns_chain.factorize_X_chain_batched(D.float()[:, :5], C[:4],
                                            ns_iters=2)
-    with pytest.raises(NotImplementedError):    # a single TF32 pass
-        ns_chain.factorize_X_chain_batched(D.float(), C, ns_iters=2,
-                                           ns_precision="default")
-    with pytest.raises(ValueError):
-        ns_chain.factorize_X_chain_batched(D.float(), C, ns_iters=2,
-                                           ns_precision="tf32")
+    for name in ("default", "tf32"):    # the solver's "default" runs "high"
+        with pytest.raises(ValueError):
+            ns_chain.factorize_X_chain_batched(D.float(), C, ns_iters=2,
+                                               ns_precision=name)
     static = SolverConfig.production().static_part()
     with pytest.raises(TypeError):          # the JAX router's f64 XLA chain
         tb._factorize_X_routed(D, C.double(), static)
@@ -428,7 +460,8 @@ def _check_interval(cuda, B, K, N, n_iters, form, hard, lane_rho=None,
 @pytest.mark.parametrize("B,K,N", [(3, 10, 4), (4, 50, 30), (2, 50, 40),
                                    (2, 330, 30), (1, 50, 22), (3, 50, 22),
                                    (1, 50, 40), (33, 9, 30), (3, 9, 20),
-                                   (3, 9, 39), (2, 6, 90)])
+                                   (3, 9, 39), (2, 6, 90), (2, 50, 50),
+                                   (2, 50, 60)])
 def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
     """Every (b, k) row block of x and z within 2e-4 (relative to the
     block's largest entry) of the plain version after one iteration, at
@@ -436,8 +469,9 @@ def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
     path's chunk of 128); the factor ring wraps on other (stage, phase)
     counts for other K, N and n_iters; at K = 330 the sweep plane no
     longer fits in shared memory; the kernel reads packed triangles from
-    N = 39 (N = 39 has padding columns in them, N = 40 none) and whole
-    bands below and at N = 90 (n = 540).  The
+    N = 39 (N = 39 has padding columns in them, N = 40 none; N = 50 and 60,
+    the widest the production sweep runs, too) and whole bands below and
+    at N = 90 (n = 540).  The
     duals y = y + rho (zr - z) multiply the rounding of zr by rho (up to
     ~5e3 on the equality rows), and 25 iterations amplify rounding further
     (alpha = 1.9), so the y blocks, and every block after 25 iterations,

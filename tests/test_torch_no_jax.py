@@ -1,6 +1,6 @@
 """The port runs where JAX is not installed: no module of
-``ba_path_planning_torch`` (nor ``chip_smoke.py``) may import it, nor flax
-or optax.  Nor does that machine have matplotlib, and importing a module
+``ba_path_planning_torch`` (nor ``chip_smoke.py``, nor the soak / N-sweep
+twin it drives) may import it, nor flax or optax.  Nor does that machine have matplotlib, and importing a module
 builds no kernel and starts no ``g++``."""
 
 import re
@@ -58,7 +58,8 @@ def test_sources_do_not_import_jax():
                          r"from\s+(jax|flax|optax)|"
                          r"import\s+ba_path_planning_tpu|"
                          r"from\s+ba_path_planning_tpu)", re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts/torch_soak_nsweep.py"]
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f

@@ -144,3 +144,30 @@ def test_solve_compacted_matches_jax_engine(N, B, chunk):
     assert max(np.asarray(want.iterations)) >= 1     # the SCP loop ran
     assert solver.last_timing["loop_rounds"] == int(
         np.asarray(want.iterations).max())
+
+
+def test_default_ns_precision_matches_jax_engine():
+    """``SolverConfig.production().replace(ns_precision="default")`` (one
+    matrix-unit pass for the Newton-Schulz products where a card runs
+    them) at N=4, K=10 on the CPU, where both packages take those products
+    in full precision: equal statuses and SCP iteration counts, positions
+    within 1e-3, as the production path above."""
+    N, B = 4, 4
+    problem = _problem(N)
+    p0, pf = _scenarios(B, N, seed=11)
+    v0 = np.zeros_like(p0)
+    keys = jax.random.split(jax.random.key(5), B)
+    jsolver = _jax_solver(problem).replace(ns_precision="default")
+    want = JEngine(problem, jsolver,
+                   dtype=jnp.float64).solve_batch(p0, v0, pf, v0, keys)
+    tp, ts = config_from_jax(problem, jsolver)
+    assert ts.ns_precision == "default" and ts.ns_iters > 0
+    got = SCPEngine(tp, ts, dtype=F64, device="cpu").solve_batch(
+        p0, v0, pf, v0, angle_fn=JaxAngles(keys, N, tp.n_steps))
+    for name in ("status", "iterations", "feasible_final"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.positions.numpy(),
+                               np.asarray(want.positions), atol=1e-3)
+    assert max(np.asarray(want.iterations)) >= 1     # the SCP loop ran
