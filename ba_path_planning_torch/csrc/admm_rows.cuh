@@ -4,7 +4,10 @@
 // relaxation, A xt, the clip / exact-penalty prox and the dual update after
 // them.  Every function is called by all threads of the block, or by the
 // first `nthr` of them when it is given (tid, nthr), and leaves the barrier
-// after it to the caller.
+// after it to the caller.  The `_rows` forms take a range [lo, hi) of row
+// indices (k * 2N + q for the static rows, k * P + p for the collision
+// rows): each row k reads rows k - 1 .. k + 1 of its inputs and writes row
+// k only, so the row-stage kernels (admm_steps.cu) split k over blocks.
 //
 // Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p, dyn_v,
 // jerk, acc, vbox, pbox (the jerk block's row K-1 is unused), collision rows
@@ -53,16 +56,16 @@ __host__ __device__ inline long pair_table_bytes(long P) {
   return 2 * P * static_cast<long>(sizeof(unsigned short));
 }
 
-// pi[p], pj[p] = the vehicles of pair p.
+// pi[p], pj[p] = the vehicles of pair p, a thread a pair.
 __device__ __forceinline__ void fill_pair_table(unsigned short* pi,
                                                 unsigned short* pj, int N,
                                                 int tid, int nthr) {
-  for (int i = tid; i < N; i += nthr)
-    for (int j = i + 1; j < N; ++j) {
-      const int p = pair_base(i, N) + j - i - 1;
-      pi[p] = static_cast<unsigned short>(i);
-      pj[p] = static_cast<unsigned short>(j);
-    }
+  for (int p = tid; p < N * (N - 1) / 2; p += nthr) {
+    int i = 0;
+    while (pair_base(i + 1, N) <= p) ++i;
+    pi[p] = static_cast<unsigned short>(i);
+    pj[p] = static_cast<unsigned short>(p - pair_base(i, N) + i + 1);
+  }
 }
 
 __device__ __forceinline__ void fill_pair_table(unsigned short* pi,
@@ -70,15 +73,18 @@ __device__ __forceinline__ void fill_pair_table(unsigned short* pi,
   fill_pair_table(pi, pj, N, threadIdx.x, blockDim.x);
 }
 
-// b = A^T (rho z - y) + sigma x into the sweep plane xt (K, 6N).
-__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt,
-                                          int tid, int nthr) {
+// b = scale (A^T (rho z - y) + sigma x) into the sweep plane xt (K, 6N),
+// on the static rows [lo, hi) (scale 1, or the per-lane 1 / rho of the
+// grouped routes' adaptive rho).
+__device__ __forceinline__ void build_rhs_rows(const Scenario& sc, float* xt,
+                                               int lo, int hi, int tid,
+                                               int nthr, float scale) {
   const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
   const float h = sc.h, sigma = sc.sigma, hh = 0.5f * h * h;
   const float *rho_s = sc.rho_s, *rho_c = sc.rho_c, *eb = sc.eb;
   const float *zsb = sc.zsb, *ysb = sc.ysb, *zcb = sc.zcb, *ycb = sc.ycb;
   const float* xb = sc.xb;
-  for (int idx = tid; idx < K * n2; idx += nthr) {
+  for (int idx = lo + tid; idx < hi; idx += nthr) {
     const int k = idx / n2, q = idx % n2;
     auto rz = [&](int kk, int s) {
       const size_t o = (static_cast<size_t>(kk) * 6 + s) * n2 + q;
@@ -108,33 +114,39 @@ __device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt,
     }
     const float* xk = xb + static_cast<size_t>(k) * n;
     float* bk = xt + k * n;
-    bk[q] = -hh * dp - h * dv + (jr_prev - jr) / h + rz(k, 3)
-            + sigma * xk[q];
-    bk[n2 + q] = dp - dp_next + rz(k, 5) + col + sigma * xk[n2 + q];
-    bk[2 * n2 + q] = -h * dp_next + dv - dv_next + rz(k, 4)
-                     + sigma * xk[2 * n2 + q];
+    bk[q] = (-hh * dp - h * dv + (jr_prev - jr) / h + rz(k, 3)
+             + sigma * xk[q]) * scale;
+    bk[n2 + q] = (dp - dp_next + rz(k, 5) + col + sigma * xk[n2 + q])
+                 * scale;
+    bk[2 * n2 + q] = (-h * dp_next + dv - dv_next + rz(k, 4)
+                      + sigma * xk[2 * n2 + q]) * scale;
   }
+}
+
+// b = A^T (rho z - y) + sigma x into the sweep plane xt (K, 6N).
+__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt,
+                                          int tid, int nthr) {
+  build_rhs_rows(sc, xt, 0, sc.K * 2 * sc.N, tid, nthr, 1.f);
 }
 
 __device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt) {
   build_rhs(sc, xt, threadIdx.x, blockDim.x);
 }
 
-// Relaxation of x, A xt, the z update (clip on the static rows, the
-// exact-penalty soft prox on the collision rows) and the dual update, from
-// the sweep plane xt (K, 6N) = the solution of the x-update.
-__device__ __forceinline__ void update_rows(const Scenario& sc,
-                                            const float* xt,
-                                            const unsigned short* pi,
-                                            const unsigned short* pj,
-                                            int tid, int nthr) {
-  const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
-  const float h = sc.h, alpha = sc.alpha, lam = sc.lam, hh = 0.5f * h * h;
-  const float *rho_s = sc.rho_s, *rho_c = sc.rho_c, *eb = sc.eb;
-  const float *lsb = sc.lsb, *usb = sc.usb, *lcb = sc.lcb;
-  float *zsb = sc.zsb, *ysb = sc.ysb, *zcb = sc.zcb, *ycb = sc.ycb;
+// Relaxation of x, A xt, the z update (clip) and the dual update on the
+// static rows [lo, hi), from the sweep plane xt (K, 6N) = the solution of
+// the x-update.
+__device__ __forceinline__ void update_static_rows(const Scenario& sc,
+                                                   const float* xt, int lo,
+                                                   int hi, int tid,
+                                                   int nthr) {
+  const int K = sc.K, N = sc.N, n2 = 2 * N, n = 3 * n2;
+  const float h = sc.h, alpha = sc.alpha, hh = 0.5f * h * h;
+  const float* rho_s = sc.rho_s;
+  const float *lsb = sc.lsb, *usb = sc.usb;
+  float *zsb = sc.zsb, *ysb = sc.ysb;
   float* xb = sc.xb;
-  for (int idx = tid; idx < K * n2; idx += nthr) {
+  for (int idx = lo + tid; idx < hi; idx += nthr) {
     const int k = idx / n2, q = idx % n2;
     const float* t = xt + k * n;
     const float at = t[q], pt = t[n2 + q], vt = t[2 * n2 + q];
@@ -162,8 +174,18 @@ __device__ __forceinline__ void update_rows(const Scenario& sc,
     xk[n2 + q] = alpha * pt + (1.f - alpha) * xk[n2 + q];
     xk[2 * n2 + q] = alpha * vt + (1.f - alpha) * xk[2 * n2 + q];
   }
-  // ---- collision rows: A xt, then the exact-penalty soft prox
-  for (int idx = tid; idx < K * P; idx += nthr) {
+}
+
+// A xt, then the exact-penalty soft prox and the dual update on the
+// collision rows [lo, hi); (pi, pj) the pair table.
+__device__ __forceinline__ void update_collision_rows(
+    const Scenario& sc, const float* xt, const unsigned short* pi,
+    const unsigned short* pj, int lo, int hi, int tid, int nthr) {
+  const int N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
+  const float alpha = sc.alpha, lam = sc.lam;
+  const float *rho_c = sc.rho_c, *eb = sc.eb, *lcb = sc.lcb;
+  float *zcb = sc.zcb, *ycb = sc.ycb;
+  for (int idx = lo + tid; idx < hi; idx += nthr) {
     const int k = idx / P, p = idx % P;
     float colv = 0.f;
     if (k > 0) {
@@ -175,11 +197,24 @@ __device__ __forceinline__ void update_rows(const Scenario& sc,
     const float rho = rho_c[idx];
     const float zr = alpha * colv + (1.f - alpha) * zcb[idx];
     const float w = zr + ycb[idx] / rho;
-    const float lo = lcb[idx];
-    const float zn = w >= lo ? w : fminf(w + lam / rho, lo);
+    const float lb = lcb[idx];
+    const float zn = w >= lb ? w : fminf(w + lam / rho, lb);
     ycb[idx] = ycb[idx] + rho * (zr - zn);
     zcb[idx] = zn;
   }
+}
+
+// Relaxation of x, A xt, the z update (clip on the static rows, the
+// exact-penalty soft prox on the collision rows) and the dual update, from
+// the sweep plane xt (K, 6N) = the solution of the x-update.
+__device__ __forceinline__ void update_rows(const Scenario& sc,
+                                            const float* xt,
+                                            const unsigned short* pi,
+                                            const unsigned short* pj,
+                                            int tid, int nthr) {
+  const int K = sc.K, N = sc.N;
+  update_static_rows(sc, xt, 0, K * 2 * N, tid, nthr);
+  update_collision_rows(sc, xt, pi, pj, 0, K * (N * (N - 1) / 2), tid, nthr);
 }
 
 __device__ __forceinline__ void update_rows(const Scenario& sc,

@@ -165,13 +165,15 @@ def pack_upper(X: torch.Tensor) -> torch.Tensor:
 
 def static_plane(rv: RowVals, n_steps: int) -> torch.Tensor:
     """The static rows of ``rv`` ((B, N, K', 2) leaves) as a new contiguous
-    plane (B, K, 6, 2N); the jerk block is padded with a zero row at K-1."""
-    planes = []
-    for name in SLOTS:
+    plane (B, K, 6, 2N); the jerk block is padded with a zero row at K-1.
+    One copy a leaf and one fill: seven launches on the card."""
+    batch, (N, _, two) = rv.acc.shape[:-3], rv.acc.shape[-3:]
+    out = rv.acc.new_empty(batch + (n_steps, len(SLOTS), N, two))
+    for i, name in enumerate(SLOTS):
         t = getattr(rv, name).transpose(-3, -2)
-        t = t.reshape(t.shape[:-2] + (-1,))
-        planes.append(F.pad(t, (0, 0, 0, n_steps - t.shape[-2])))
-    return torch.stack(planes, dim=-2)
+        out[..., :t.shape[-3], i, :, :].copy_(t)
+    out[..., rv.jerk.shape[-2]:, SLOTS.index("jerk"), :, :].zero_()
+    return out.view(batch + (n_steps, len(SLOTS), N * two))
 
 
 def planes_to_rows(static, col, n_vehicles: int) -> RowVals:
@@ -190,7 +192,9 @@ def rho_planes(rho: RowVals, n_steps: int, n_pairs: int):
     """Rho from :func:`banded.rho_pattern_masks` -> per-(k, slot) scalars
     (K, 6) (the jerk row K-1 is padding) and (K, P), batch-shared, or
     (B, K, 6) and (B, K, P), one plane a lane, from per-lane leaves
-    (B, 1, K', 1) (adaptive rho)."""
+    (B, 1, K', 1) (adaptive rho); a per-lane ``col`` (B, K, P) beside
+    batch-shared static leaves (the loose rho of disabled rows) stays
+    per-lane."""
     cols = []
     for name in SLOTS:
         leaf = getattr(rho, name)
@@ -202,7 +206,8 @@ def rho_planes(rho: RowVals, n_steps: int, n_pairs: int):
                 "leaves (banded.rho_pattern_masks)")
         cols.append(F.pad(leaf, (0, 0, 0, n_steps - leaf.shape[-2]),
                           value=1.0))
-    rho_c = rho.col.expand(cols[0].shape[:-2] + (n_steps, n_pairs))
+    rho_c = rho.col.expand(torch.broadcast_shapes(
+        cols[0].shape[:-2] + (n_steps, n_pairs), rho.col.shape))
     return torch.cat(cols, dim=-1).contiguous(), rho_c.contiguous()
 
 

@@ -23,7 +23,8 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu",
-           "group_solve_l.cu", "banded_solve.cu", "admm_fused_l.cu")
+           "group_solve_l.cu", "banded_solve.cu", "admm_fused_l.cu",
+           "admm_steps.cu")
 # included by the sources above
 HEADERS = ("sweeps.cuh", "admm_rows.cuh", "factor_ring.cuh",
            "group_sweep.cuh", "admm_fused.cuh")
@@ -129,6 +130,15 @@ def load_kernels() -> ctypes.CDLL:
     for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32,
                   lib.admm_fused_l_bf16):
         fused.restype = i
+    # the ADMM row stages and the channel interval (admm_steps.cu)
+    lib.admm_rhs_f32.argtypes = [p] * 11 + [i] * 6 + [p]
+    lib.admm_update_f32.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.admm_channel_interval_f32.argtypes = [p] * 15 + [i] * 7 + [p]
+    lib.admm_channel_smem_bytes.argtypes = [i] * 3
+    lib.admm_channel_smem_bytes.restype = ctypes.c_long
+    for stage in (lib.admm_rhs_f32, lib.admm_update_f32,
+                  lib.admm_channel_interval_f32):
+        stage.restype = i
     _lib = lib
     return lib
 

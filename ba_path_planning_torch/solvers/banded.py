@@ -974,6 +974,13 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
       ``group=-1``, N <= 20 at K = 50 in float32);
     * "dense": plain :func:`solve_factorized`, no kernel, in either form.
 
+    On the card the ADMM iterations of "grouped_X", "grouped_L" and
+    "resident" run as the hand-written stages of ``ops/admm_steps.py``
+    around the sweep kernel, and each interval of "channel" as one kernel
+    launch, in float32; "channel" in float64 (the parity and CG phases'
+    phase 1) replays the plain interval as a CUDA graph
+    (``utils/graphs.graphed``), as "dense" does (:func:`interval_kind`).
+
     The gates are the JAX router's as they stand: its 12 MiB and 96 MiB are
     byte budgets of the TPU's VMEM, kept so that the port routes where JAX
     routes.  They count the working dtype's item size, also for bf16
@@ -1032,6 +1039,9 @@ def qp_route(static: SolverStatic, *, n_vehicles: int, n_steps: int,
 
 
 SHARED_C_ROUTES = ("grouped_X", "grouped_L", "fused_X")
+# the routes whose ADMM iterations run on the planes of ops/admm_steps.py
+# (:func:`_interval_fn`)
+ROW_STAGE_ROUTES = ("grouped_X", "grouped_L", "resident", "channel")
 # the routes whose factors bf16 factor storage compresses (JAX
 # ``banded.py:1306-1317``): not "channel", not "fused_X"
 BF16_ROUTES = ("grouped_X", "grouped_L", "resident", "dense", "fused_L")
@@ -1093,54 +1103,103 @@ def _route_factors_wide(route: str, rho_b: RowVals, eta, E,
                                       n_vehicles=N, group=group))
 
 
+def interval_kind(route: str, dtype, device, group=None) -> str:
+    """How :func:`_interval_fn` runs a check interval of ``route`` for a
+    state of ``dtype`` on ``device``:
+
+    * "fused": one fused kernel an interval (``fused_X``, ``fused_L``);
+    * "rows": the routes of :data:`ROW_STAGE_ROUTES` on the planes of
+      ``ops/admm_steps.py``: a sweep route as three launches an iteration
+      (the right-hand side, the route's sweep, the update), the channel
+      route as one launch an interval; on the CPU their plain versions;
+    * "graph": :func:`admm_iterations`, replayed as a CUDA graph on the
+      card (``utils/graphs.graphed``): the dense route, and the channel
+      route on the card in another dtype than float32 (its kernel is
+      float32 only; the float64 phase 1 of the parity and CG phases);
+    * "eager": :func:`admm_iterations` as it runs, for every other route
+      when ``group`` shards the collision rows over its ranks: A^T sums
+      them over the group between the stages, and a graph's capture would
+      hold the group's collectives (only the routes without a kernel then
+      run, as JAX's pair-sharded solver forces)."""
+    if route in ("fused_X", "fused_L"):
+        return "fused"
+    if group is not None:
+        return "eager"
+    if route in ROW_STAGE_ROUTES and not (
+            route == "channel" and torch.device(device).type == "cuda"
+            and dtype != torch.float32):
+        return "rows"
+    return "graph"
+
+
 def _interval_fn(route: str, factors: tuple, rho_b: RowVals, lower: RowVals,
                  upper: RowVals, eta, E, n_vehicles: int, step: dict,
                  C1=None, inv_rho=None, group=None):
     """The function (x, z, y) -> (x, z, y) that runs one check interval on
     ``route`` from the factors of :func:`_route_factors` (``C1`` and the
-    per-lane ``inv_rho`` (B,) where those are of M / rho).  ``group``: the
-    collision rows are sharded over its ranks (only the routes without a
-    kernel then run, as JAX's pair-sharded solver forces), and the dense
-    route is not replayed as a CUDA graph, whose capture would hold the
-    group's collectives."""
+    per-lane ``inv_rho`` (B,) where those are of M / rho), in the way
+    :func:`interval_kind` names."""
     N = n_vehicles
-
-    def per_iteration(solve):
-        return lambda x, z, y: admm_iterations(x, z, y, solve, eta, E, lower,
-                                               upper, rho_b, **step,
-                                               group=group)
-
-    def scaled(sb):
-        return sb if inv_rho is None else sb * inv_rho[:, None, None]
-
-    if route == "channel":
-        L, Eb = factors
-        return per_iteration(lambda sb: solve_factorized_channel(
-            L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))).reshape(sb.shape))
+    kind = interval_kind(route, eta.dtype, eta.device, group)
     if route == "fused_X":
         from ..ops.admm_fused import admm_interval_fused_X
         Xf, C = factors
         return lambda x, z, y: admm_interval_fused_X(
             Xf, C, eta, E, lower, upper, x, z, y, rho_b, **step)
-    if route in ("grouped_X", "grouped_L"):
+    if route == "fused_L":
+        from ..ops.admm_fused import admm_interval_fused
+        Linv, Eb = factors
+        return lambda x, z, y: admm_interval_fused(
+            Linv, Eb, eta, E, lower, upper, x, z, y, rho_b, **step)
+
+    # the x-update of the route: b (B, K, 6N) -> M^{-1} b
+    if route == "channel":
+        L, Eb = factors
+
+        def solve(sb):
+            return solve_factorized_channel(
+                L, Eb, sb.reshape(sb.shape[:-1] + (3, 2 * N))).reshape(
+                    sb.shape)
+    elif route in ("grouped_X", "grouped_L"):
         from ..ops.group_solve import (solve_factorized_grouped_L,
                                        solve_factorized_grouped_X)
         F_ = factors[0]
         C = factors[1] if C1 is None else C1
-        solve = (solve_factorized_grouped_X if route == "grouped_X"
-                 else solve_factorized_grouped_L)
-        return per_iteration(lambda sb: solve(F_, C, scaled(sb)))
-    Linv, Eb = factors
-    if route == "fused_L":
-        from ..ops.admm_fused import admm_interval_fused
-        return lambda x, z, y: admm_interval_fused(
-            Linv, Eb, eta, E, lower, upper, x, z, y, rho_b, **step)
-    if route == "resident":
+        kernel = (solve_factorized_grouped_X if route == "grouped_X"
+                  else solve_factorized_grouped_L)
+
+        def solve(sb):
+            return kernel(F_, C, sb)
+    elif route == "resident":
         from ..ops.banded_solve import solve_factorized_dense
-        return per_iteration(lambda sb: solve_factorized_dense(Linv, Eb, sb))
-    # no kernel on this route: on the card its intervals replay as a graph
-    interval = per_iteration(lambda sb: solve_factorized(Linv, Eb, sb))
-    return interval if group is not None else graphed(interval)
+        Linv, Eb = factors
+
+        def solve(sb):
+            return solve_factorized_dense(Linv, Eb, sb)
+    else:
+        Linv, Eb = factors
+
+        def solve(sb):
+            return solve_factorized(Linv, Eb, sb)
+
+    if kind == "rows":
+        from ..ops import admm_steps
+        consts = admm_steps.row_consts(
+            eta, E, lower, upper, rho_b, h=step["h"], sigma=step["sigma"],
+            alpha=step["alpha"], lam=step["lam"])
+        if route == "channel":
+            return admm_steps.channel_interval(*factors, consts,
+                                               step["n_iters"])
+        return admm_steps.sweep_interval(solve, consts, step["n_iters"],
+                                         inv_rho)
+
+    def interval(x, z, y):
+        return admm_iterations(
+            x, z, y,
+            solve if inv_rho is None
+            else lambda sb: solve(sb * inv_rho[:, None, None]),
+            eta, E, lower, upper, rho_b, **step, group=group)
+    return graphed(interval) if kind == "graph" else interval
 
 
 # OSQP's adaptive-rho rule (JAX ``banded.py:1432-1448``): after a check

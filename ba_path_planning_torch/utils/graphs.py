@@ -1,9 +1,10 @@
 """Replay a function of CUDA tensors as a CUDA graph.
 
 The ADMM check intervals that launch no hand-written kernel (the dense
-route of ``solvers/banded.py`` and the CG method of ``solvers/admm.py``)
-are hundreds to thousands of small PyTorch launches an iteration and no
-host read, so on the card their time is the host's.  :func:`graphed` runs
+route of ``solvers/banded.py``, its channel route in float64, and the CG
+method of ``solvers/admm.py``) are hundreds to thousands of small PyTorch
+launches an iteration and no host read, so on the card their time is the
+host's.  :func:`graphed` runs
 such a function eagerly on its first call (the warm-up), captures it into a
 CUDA graph on its second and replays the graph on every later call.  The
 kernel routes are not graphed: their wrappers count launches on the host.

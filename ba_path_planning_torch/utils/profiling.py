@@ -117,6 +117,41 @@ def admm_iteration_cost(n_vehicles: int, n_steps: int,
             "hbm_bytes": xup["hbm_bytes"] + row_bytes}
 
 
+ADMM_STAGES = ("admm_rhs", "admm_update", "admm_channel_interval")
+
+
+def admm_stage_cost(stage: str, n_vehicles: int, n_steps: int,
+                    n_iters: int = 25) -> dict:
+    """Cost model of one call of a kernel of ``ops/admm_steps.py`` for one
+    scenario: the bytes it must move, each input read once and each output
+    written once in float32 (the collision rows' rho one plane a lane, as
+    the sweep routes lay it out), and its FP32 operations as
+    ``csrc/admm_rows.cuh`` counts them (about 40 a static row and 4 a pair
+    term of A^T, 75 a static row and 15 a collision row of the update, 78 a
+    step and channel column of the per-channel sweeps):
+
+    * "admm_rhs": x, z, y (static and collision rows), eta and rho read, b
+      written;
+    * "admm_update": xt, x, z, y, the bounds, eta and rho read; x, z and y
+      written;
+    * "admm_channel_interval": ``n_iters`` iterations of both stages and
+      the sweeps; the state read and written once, the bounds, eta and
+      the batch-shared rho read once."""
+    N, K = n_vehicles, n_steps
+    P = N * (N - 1) // 2
+    nk, kp = N * K, K * P
+    rhs = 2 * nk * (40 + 4 * (N - 1))
+    update = 2 * nk * 75 + kp * 15
+    if stage == "admm_rhs":
+        return {"flops": rhs, "hbm_bytes": 4 * (36 * nk + 5 * kp)}
+    if stage == "admm_update":
+        return {"flops": update, "hbm_bytes": 4 * (90 * nk + 8 * kp)}
+    if stage == "admm_channel_interval":
+        return {"flops": n_iters * (rhs + update + 2 * nk * 78),
+                "hbm_bytes": 4 * (84 * nk + 7 * kp)}
+    raise ValueError(f"admm_stage_cost: unknown stage {stage!r}")
+
+
 def factorize_X_cost(n_vehicles: int, n_steps: int, ns_iters: int = 2,
                      n_anchors: int = 4, itemsize: int = 4) -> dict:
     """Cost model of the X-form factorization for one scenario QP

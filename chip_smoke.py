@@ -26,7 +26,13 @@
    sweeps print the launch plan they ran (``group_solve.sweep_plan``); both
    fused intervals again with one rho a lane (adaptive rho), read through
    their per-lane strides (the X form at N=30, B=128, the L form at N=20,
-   B=64);
+   B=64); the steps phase (``steps_phase``): the ADMM stages of
+   ``ops/admm_steps.py``, admm_rhs and admm_update around the X-form sweep
+   kernel (the grouped routes' iteration) at N=20 (B=512, 64, 1), N=21
+   (B=128) and N=10 (B=1024), and the channel interval at the same shapes
+   and N=20 B=1024, each also with one rho a lane, against their plain
+   versions after 1 and 25 iterations; each stage timed alone; the device
+   launches per ADMM iteration of one grouped X interval (at most 4);
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
    N=30 with the production solver and at N=20 with the
@@ -107,9 +113,12 @@
    ``solve_qp`` on the card in float64.
 
 The launch counters are set to 0 just before each path and read just after:
-each path must launch the kernels of its route and no other.  Any failed
-phase raises, so the exit code is not 0.  The last two lines are one JSON
-object on the kernels and ``{"ok": true, "device": {...}}``.
+each path must launch the kernels of its route and no other (every
+float32 solve on the direct method also runs phase 1 on the channel
+interval).  Any failed phase raises, so the exit code is not 0.  The last
+four lines are the card's name and power limit, one JSON object on the
+hand-written kernels with no Pallas body (``glue_kernels``), one on the
+kernels of the nine Pallas bodies and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -611,6 +620,297 @@ def lane_rho_phase(dev):
     return out
 
 
+# (N, B) of the ADMM stages' checks: the N=20 main path's chunk, the
+# reference-compatible batch, one scenario, the widest grouped route at its
+# tail chunk, and the round record's N=10 batch
+STEP_SHAPES = ((20, 512), (20, 64), (20, 1), (21, 128), (10, 1024))
+# (N, B) of the channel interval's checks: the same, and the N=20 main
+# path's phase 1 over its 1024 lanes
+CHANNEL_SHAPES = ((20, 1024),) + STEP_SHAPES
+
+
+def _plane_rows(rows):
+    """(B, K, .) rows of a Rows state: x, and z and y as their static plane
+    and collision rows side by side."""
+    import torch
+    return (rows.x, torch.cat([rows.zs.flatten(-2), rows.zc], -1),
+            torch.cat([rows.ys.flatten(-2), rows.yc], -1))
+
+
+def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
+    """Inputs of one check interval as the path lays them out, float32 on
+    the card: the rows, rho and bounds of :func:`_case` (collision rows
+    disabled by a -inf lower bound take the loose rho, as on the sweep
+    routes), and the grouped X route's factors from the NS-chain kernel
+    (``lane_rho``: of M / rho with the unit slot scalars, as the solver
+    factorizes them, and each lane's 1 / rho); with ``phase1`` the
+    collision-free QP's (eta = 0, every collision row disabled, the
+    per-channel factors, per lane with ``lane_rho``).  The state is warm,
+    as a solve finds it: one float64 plain interval of 25 iterations from
+    x at rest, z = clip(A x, l, u), y = 0.  Returns (factors, consts,
+    rows, inv_rho, consts64)."""
+    import torch
+    from ba_path_planning_torch.ops import admm_steps, ns_chain
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.utils.config import (SolverConfig,
+                                                     make_solver_params)
+    D, C, _, _, kw = _case(n_veh, B, dev, seed=seed, lane_rho=lane_rho)
+    solver = SolverConfig.production(problem=_problem(n_veh))
+    static = solver.static_part()
+    P, f32 = n_veh * (n_veh - 1) // 2, torch.float32
+    lower, upper, eta = kw["lower"], kw["upper"], kw["eta"]
+    inv_rho = None
+    if phase1:
+        prm = make_solver_params(solver, f32, dev)
+        eta = torch.zeros_like(eta)
+        lower = lower._replace(col=torch.full_like(lower.col, -float("inf")))
+        rho = banded.rho_pattern_masks(
+            banded.row_scaling_state(K_STEPS, H, dtype=f32, device=dev),
+            static, prm.rho if lane_rho is None else lane_rho,
+            prm.col_rho_boost, n_steps=K_STEPS, n_pairs=P, col_enabled=False,
+            dtype=f32)
+        factors = banded.factorize(*banded.assemble_channel(
+            rho, h=H, sigma=kw["sigma"]))
+    else:
+        rho = kw["rho"]
+        rho = rho._replace(col=torch.where(
+            torch.isinf(lower.col), torch.full_like(lower.col, 1e-6),
+            rho.col.expand_as(lower.col)))
+        if lane_rho is None:
+            factors = (ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
+                                                          ns_precision="high"),
+                       C)
+        else:
+            C1 = banded.unit_slot_scalars(static, n_steps=K_STEPS, h=H,
+                                          device=dev)
+            factors = (ns_chain.factorize_X_chain_batched(
+                D / lane_rho.reshape(-1, 1, 1, 1), C1, ns_iters=2,
+                ns_precision="high"), C1)
+            inv_rho = 1.0 / lane_rho
+    del D
+    step = dict(h=H, sigma=kw["sigma"], alpha=kw["alpha"], lam=kw["lam"])
+    consts = admm_steps.row_consts(eta, kw["E"], lower, upper, rho, **step)
+
+    def up(v):
+        return banded.tree_map(lambda t: t.double(), v)
+    consts64 = admm_steps.row_consts(
+        eta.double(), kw["E"].double(), up(lower), up(upper), up(rho),
+        **{k: (v.double() if hasattr(v, "double") else v)
+           for k, v in step.items()})
+    x = kw["x"]
+    z = banded.tree_map(torch.clamp, banded.apply_A(x, eta, kw["E"], H),
+                        lower, upper)
+    rows = admm_steps.pack_state(up(x), up(z),
+                                 banded.tree_map(torch.zeros_like, up(z)))
+    f64 = tuple(t.double() for t in factors)
+    _steps_run(rows, consts64, f64, 25, inv_rho, phase1, kernel=False)
+    rows = admm_steps.Rows(*(t.float() for t in rows))
+    return factors, consts, rows, inv_rho, consts64
+
+
+def _steps_run(rows, c, factors, n_iters, inv_rho, phase1, kernel=True):
+    """``n_iters`` ADMM iterations on ``rows`` in place: with ``kernel``
+    the path's launches (admm_rhs, the X-form sweep kernel, admm_update;
+    or the channel interval), else the plain versions (for float64 inputs
+    too)."""
+    import torch
+    from ba_path_planning_torch.ops import admm_steps, group_solve
+    from ba_path_planning_torch.solvers import banded
+    if phase1:
+        run = (admm_steps.admm_channel_interval if kernel
+               else admm_steps.admm_channel_interval_plain)
+        return run(*factors, rows, c, n_iters)
+    rhs, solve, update = (
+        (admm_steps.admm_rhs, group_solve.solve_factorized_grouped_X,
+         admm_steps.admm_update) if kernel else
+        (admm_steps.admm_rhs_plain, banded.solve_factorized_X,
+         admm_steps.admm_update_plain))
+    inv = None if inv_rho is None else inv_rho.to(rows.x.dtype)
+    for _ in range(n_iters):
+        update(solve(*factors, rhs(rows, c, inv)), rows, c)
+
+
+def _steps_check(tag, n_veh, B, dev, phase1=False, lane_rho=None):
+    """The path's launches for 1 and 25 iterations against the plain
+    versions on the same float32 inputs on the card: x and z within
+    FUSED_TOL of plain after one iteration, and after 1 and 25 iterations
+    every block no further from the float64 plain interval than
+    ADMM_ERR_RATIO times the plain float32 version is.  Returns the
+    largest absolute difference from plain after one iteration."""
+    import torch
+    from ba_path_planning_torch.ops import admm_steps
+    factors, c, rows0, inv_rho, c64 = _steps_case(
+        n_veh, B, dev, seed=2000 + n_veh + B, phase1=phase1,
+        lane_rho=lane_rho)
+    errs, k64, p64 = {}, {}, {}
+    for n_iters in (1, 25):
+        got, want = (admm_steps.Rows(*(t.clone() for t in rows0))
+                     for _ in range(2))
+        ref = admm_steps.Rows(*(t.double() for t in rows0))
+        _steps_run(got, c, factors, n_iters, inv_rho, phase1)
+        _steps_run(want, c, factors, n_iters, inv_rho, phase1, kernel=False)
+        _steps_run(ref, c64, tuple(t.double() for t in factors), n_iters,
+                   inv_rho, phase1, kernel=False)
+        torch.cuda.synchronize()
+        got, want, ref = (_plane_rows(r) for r in (got, want, ref))
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"{tag}: non-finite output")
+        errs[n_iters] = [_block_rel(g, w, 1) for g, w in zip(got, want)]
+        k64[n_iters] = [_block_rel(g.double(), r, 1)
+                        for g, r in zip(got, ref)]
+        p64[n_iters] = [_block_rel(w.double(), r, 1)
+                        for w, r in zip(want, ref)]
+        if n_iters == 1:
+            abs_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+
+    def fmt(v):
+        return "[" + ", ".join(f"{e:.3e}" for e in v) + "]"
+    print(f"{tag} N={n_veh} B={B} K={K_STEPS} f32: block errors of (x, z, y) "
+          f"after 1 and 25 iterations against plain {fmt(errs[1])} (x, z tol "
+          f"{FUSED_TOL:g}), {fmt(errs[25])}, max_abs={abs_err:.3e}; against "
+          f"float64 kernels {fmt(k64[1])}, {fmt(k64[25])}, plain f32 "
+          f"{fmt(p64[1])}, {fmt(p64[25])} (limit {ADMM_ERR_RATIO:g}x plain)",
+          flush=True)
+    if not max(errs[1][:2]) <= FUSED_TOL:
+        raise AssertionError(f"{tag} N={n_veh} B={B} disagrees: "
+                             f"{fmt(errs[1])}")
+    for n_iters in (1, 25):
+        for ek, ep in zip(k64[n_iters], p64[n_iters]):
+            if not ek <= ADMM_ERR_RATIO * ep:
+                raise AssertionError(
+                    f"{tag} N={n_veh} B={B} is off after {n_iters} "
+                    f"iterations: {fmt(k64[n_iters])} vs plain "
+                    f"{fmt(p64[n_iters])}")
+    return abs_err, factors, c, rows0, inv_rho
+
+
+def _launches_per_iteration(fn, n_iters):
+    """Device kernels of one call of ``fn`` (after a warm-up call), counted
+    by ``torch.profiler``, divided by ``n_iters``; "not measured" where
+    the profiler records no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernels / n_iters if kernels else "not measured"
+
+
+def steps_phase(dev):
+    """The ADMM stages (``ops/admm_steps.py``): admm_rhs and admm_update
+    with the X-form sweep kernel between them (the grouped X route's
+    iteration) and the channel interval, each against its plain version
+    (:func:`_steps_check`) at STEP_SHAPES and CHANNEL_SHAPES, and with one
+    rho a lane (N=20, B=64); each stage timed alone at N=20, B=512 (the
+    channel interval also at B=1024, phase 1's batch) beside its plain
+    version; the device launches per ADMM iteration of one grouped X
+    interval of 25 iterations (``banded._interval_fn``, the packing of the
+    state included) and of one channel interval.  Returns the stats of
+    the ``glue_kernels`` line."""
+    import torch
+    from ba_path_planning_torch.ops import admm_steps, group_solve
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.utils import profiling
+    out = {}
+    for n_veh, B in STEP_SHAPES:
+        got = _steps_check("steps phase: admm_rhs + sweep + admm_update",
+                           n_veh, B, dev)
+        if (n_veh, B) == (20, 512):
+            abs_err, factors, c, rows, inv_rho = got
+    _steps_check("steps phase: admm_rhs + sweep + admm_update, one rho a "
+                 "lane", 20, FACADE_B, dev,
+                 lane_rho=_lane_rho(FACADE_B, seed=20))
+    # each stage alone at the main path's chunk
+    b = admm_steps.admm_rhs(rows, c)
+    xt = group_solve.solve_factorized_grouped_X(*factors, b)
+    bp = admm_steps.admm_rhs_plain(rows, c)
+    torch.cuda.synchronize()
+    rhs_err = float((b - bp).abs().max())
+    work = admm_steps.Rows(*(t.clone() for t in rows))
+    plain = admm_steps.Rows(*(t.clone() for t in rows))
+    admm_steps.admm_update(xt, work, c)
+    admm_steps.admm_update_plain(xt, plain, c)
+    torch.cuda.synchronize()
+    upd_err = max(float((g - w).abs().max())
+                  for g, w in zip(_plane_rows(work), _plane_rows(plain)))
+    timed = {
+        "admm_rhs": (rhs_err,
+                     _time_ms(lambda: admm_steps.admm_rhs(rows, c), 20),
+                     _time_ms(lambda: admm_steps.admm_rhs_plain(rows, c), 5)),
+        "admm_update": (
+            upd_err, _time_ms(lambda: admm_steps.admm_update(xt, work, c), 20),
+            _time_ms(lambda: admm_steps.admm_update_plain(xt, plain, c), 5))}
+    for key, (err, ms, plain_ms) in timed.items():
+        cost = profiling.admm_stage_cost(key, 20, K_STEPS)
+        out[key] = _stat(err, ms, plain_ms, f"N=20 K={K_STEPS} B=512",
+                         512 * cost["hbm_bytes"], 512 * cost["flops"], 0)
+        del out[key]["stream_bound_ms"]
+        print(f"steps phase: {key} alone N=20 B=512 max_abs={err:.3e} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.3f} ms bound "
+              f"{out[key]['bound_ms']:.4f} ms ({out[key]['bound_by']}; "
+              f"{out[key]['bound_ms'] / ms:.0%} of the kernel); k-tile "
+              f"{admm_steps.row_plan(512, K_STEPS, 20)}", flush=True)
+    lane = _lane_rho(FACADE_B, seed=21)
+    for n_veh, B in CHANNEL_SHAPES:
+        got = _steps_check("steps phase: admm_channel_interval", n_veh, B,
+                           dev, phase1=True)
+        if (n_veh, B) == (20, 1024):
+            ch = got
+    _steps_check("steps phase: admm_channel_interval, one rho a lane", 20,
+                 FACADE_B, dev, phase1=True, lane_rho=lane)
+    ch_err, ch_factors, ch_c, ch_rows, _ = ch
+    work = admm_steps.Rows(*(t.clone() for t in ch_rows))
+    ms = _time_ms(lambda: admm_steps.admm_channel_interval(
+        *ch_factors, work, ch_c, 25))
+    plain_ms = _time_ms(lambda: admm_steps.admm_channel_interval_plain(
+        *ch_factors, work, ch_c, 25), reps=1)
+    cost = profiling.admm_stage_cost("admm_channel_interval", 20, K_STEPS)
+    out["admm_channel_interval"] = _stat(
+        ch_err, ms, plain_ms, f"N=20 K={K_STEPS} B=1024, 25 iterations",
+        1024 * cost["hbm_bytes"], 1024 * cost["flops"], 0)
+    del out["admm_channel_interval"]["stream_bound_ms"]
+    st = out["admm_channel_interval"]
+    print(f"steps phase: admm_channel_interval N=20 B=1024 25 iterations "
+          f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound "
+          f"{st['bound_ms']:.4f} ms ({st['bound_by']}; "
+          f"{st['bound_ms'] / ms:.0%} of the kernel); plane in shared "
+          f"memory: {admm_steps.channel_plane_in_smem(K_STEPS, 20)}",
+          flush=True)
+    # device launches per ADMM iteration of the path's intervals
+    kw = _case(20, 512, dev, seed=77)[4]
+    rho = kw["rho"]._replace(col=torch.where(
+        torch.isinf(kw["lower"].col), torch.full_like(kw["lower"].col, 1e-6),
+        kw["rho"].col.expand_as(kw["lower"].col)))
+    z = banded.tree_map(torch.clamp,
+                        banded.apply_A(kw["x"], kw["eta"], kw["E"], H),
+                        kw["lower"], kw["upper"])
+    y = banded.tree_map(torch.zeros_like, z)
+    step = dict(h=H, sigma=kw["sigma"], alpha=kw["alpha"], lam=kw["lam"],
+                n_iters=25)
+    interval = banded._interval_fn("grouped_X", factors, rho, kw["lower"],
+                                   kw["upper"], kw["eta"], kw["E"], 20, step)
+    per_it = _launches_per_iteration(lambda: interval(kw["x"], z, y), 25)
+    chan = banded._interval_fn("channel", ch_factors, rho, kw["lower"],
+                               kw["upper"], kw["eta"], kw["E"], 20, step)
+    per_ch = _launches_per_iteration(lambda: chan(kw["x"], z, y), 1)
+    print(f"steps phase: device launches per ADMM iteration of one grouped_X "
+          f"interval (N=20 B=512, 25 iterations, packing included): "
+          f"{per_it if isinstance(per_it, str) else f'{per_it:.2f}'}; "
+          f"device launches of one channel interval (25 iterations, packing "
+          f"included): {per_ch}", flush=True)
+    if not isinstance(per_it, str) and per_it > 4:
+        raise AssertionError(f"{per_it} device launches per ADMM iteration")
+    out["admm_rhs"]["launches_per_iteration_grouped_X"] = per_it
+    out["admm_channel_interval"]["launches_per_interval"] = per_ch
+    return out
+
+
 def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
                 n_steps=K_STEPS):
     """The L-form family on the factors of the reference-compatible solver
@@ -752,11 +1052,18 @@ def reference_phase(dev, n_veh, facade=False):
         raise AssertionError(f"card and CPU reference disagree: {err:.3e}")
 
 
+# the ADMM stages beside every sweep kernel (ops/admm_steps.py), and the
+# phase-1 interval that every float32 solve on the direct method starts with
+ROW_STAGES = {"admm_rhs", "admm_update"}
+PHASE1 = {"admm_channel_interval"}
+
+
 def _production_route(n_veh):
     """The kernels of the production solver at N=n_veh, as the JAX router
-    routes: grouped sweeps up to N=21, the fused interval above."""
-    return ({"ns_chain", "admm_fused_x"} if n_veh >= 22
-            else {"ns_chain", "group_solve_x"})
+    routes: grouped sweeps with the ADMM stages up to N=21, the fused
+    interval above; phase 1 on the channel interval."""
+    return PHASE1 | ({"ns_chain", "admm_fused_x"} if n_veh >= 22
+                     else {"ns_chain", "group_solve_x"} | ROW_STAGES)
 
 
 # the summary of each main path by its label, for the bf16 paths' lines
@@ -1076,7 +1383,6 @@ def _cg_launches_per_iteration(problem, sc, v0):
     counted by ``torch.profiler``, per ADMM iteration; "not measured" where
     the profiler records no device kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from ba_path_planning_torch.ops.constraints import (ConstraintBlocks,
                                                         static_bounds)
     from ba_path_planning_torch.solvers import admm
@@ -1102,23 +1408,18 @@ def _cg_launches_per_iteration(problem, sc, v0):
             data, eng.pairs.E, eng.Minv,
             torch.zeros((B, problem.n_vehicles, K, 2), device=p0.device),
             eng.solver_params, h=H, static=eng.solver_static)
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return f"{kernels / n_iters:.0f}" if kernels else "not measured"
+    per = _launches_per_iteration(run, n_iters)
+    return per if isinstance(per, str) else f"{per:.0f}"
 
 
 
-# route of the reference-compatible path -> (solver options, its kernel)
+# route of the reference-compatible path -> (solver options, its kernels)
 FACADE_ROUTES = {
-    "grouped_L": (dict(kernels=True), "group_solve_l"),
-    "resident": (dict(kernels=True, group=-1), "banded_solve"),
-    "fused_L": (dict(kernels=True, group=-1, fused=True), "admm_fused_l"),
+    "grouped_L": (dict(kernels=True), {"group_solve_l"} | ROW_STAGES | PHASE1),
+    "resident": (dict(kernels=True, group=-1),
+                 {"banded_solve"} | ROW_STAGES | PHASE1),
+    "fused_L": (dict(kernels=True, group=-1, fused=True),
+                {"admm_fused_l"} | PHASE1),
 }
 
 
@@ -1137,7 +1438,7 @@ def facade_path(dev, card, route, counters, adaptive=False,
     from ba_path_planning_torch.solvers.banded import qp_route
     from ba_path_planning_torch.solvers.scp import SCPEngine
     n_veh, B = 20, FACADE_B
-    change, kernel = FACADE_ROUTES[route]
+    change, kernels = FACADE_ROUTES[route]
     problem = _problem(n_veh, facade=True)
     if max_iterations is not None:
         problem = problem.replace(max_iterations=max_iterations)
@@ -1182,7 +1483,7 @@ def facade_path(dev, card, route, counters, adaptive=False,
           f"qp_converged_all={int(out.qp_converged_all.sum())}/{B} "
           f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
           f"launches={launches}", flush=True)
-    _check_route(f"route {route}", launches, {kernel})
+    _check_route(f"route {route}", launches, kernels)
     return out, launches
 
 
@@ -1220,7 +1521,7 @@ def facade_call(counters, defaults=False):
     if pos.shape != want or not np.isfinite(pos).all() \
             or scp._device.type != "cuda":
         raise AssertionError("the SCP class gave no trajectory on the card")
-    _check_route("the SCP class", launches, {"group_solve_l"})
+    _check_route("the SCP class", launches, FACADE_ROUTES["grouped_L"][1])
     print(f"SCP class (compute_trajectories CLI{', its defaults' if defaults else ''}"
           f", N={want[0]} K={want[1]}): status="
           f"{int(scp.result.status)} scp_iters={int(scp.result.iterations)} "
@@ -1904,7 +2205,7 @@ def _sanitizer_part(dev, counters):
     return launches
 
 
-def _trace_part(dev, counters, tmp, kstats, lstats):
+def _trace_part(dev, counters, tmp, kstats, lstats, gstats):
     """profiling.trace over one N=20, B=1024 production solve, and the cost
     models' bounds beside the kernel phases' times of the same shapes."""
     import torch
@@ -1927,7 +2228,9 @@ def _trace_part(dev, counters, tmp, kstats, lstats):
     launches = _read(counters)
     path = tmp / "trace.json"
     text = path.read_text()
-    found = {k: k in text for k in ("ns_chain_kernel", "sweep_kernel")}
+    found = {k: k in text for k in ("ns_chain_kernel", "sweep_kernel",
+                                    "admm_rhs_kernel", "admm_update_kernel",
+                                    "admm_channel_kernel")}
     del text
 
     def device_us(e):       # the attribute's name differs between versions
@@ -1958,7 +2261,12 @@ def _trace_part(dev, counters, tmp, kstats, lstats):
              lstats[40]["ns_chain"]["ms"]),
             ("25 x admm_iteration_cost N=40 B=128",
              profiling.admm_iteration_cost(40, K_STEPS), 25 * 128,
-             lstats[40]["admm_fused_x"]["ms"])):
+             lstats[40]["admm_fused_x"]["ms"]),
+            *((f"admm_stage_cost {key} N=20 B={B}",
+               profiling.admm_stage_cost(key, 20, K_STEPS), B,
+               gstats[key]["ms"])
+              for key, B in (("admm_rhs", 512), ("admm_update", 512),
+                             ("admm_channel_interval", 1024)))):
         bound, by = profiling.bound_ms(cost, count=count)
         print(f"modules: cost model {what}: bound {bound:.3f} ms "
               f"({by}); kernel phase {ms:.3f} ms", flush=True)
@@ -2086,7 +2394,7 @@ def _native_part(dev):
         raise AssertionError("NativeQP disagrees with solve_qp")
 
 
-def modules_phase(dev, counters, kstats, lstats):
+def modules_phase(dev, counters, kstats, lstats, gstats):
     """The modules the port took over last: train-network, plot-collisions,
     the sanitizer, the tracer, the matmul-form Cholesky and NativeQP.
     Returns the kernel launches of its solves."""
@@ -2097,7 +2405,8 @@ def modules_phase(dev, counters, kstats, lstats):
         _train_network_part(dev, tmp)
         for part in (_plot_collisions_part(dev, counters),
                      _sanitizer_part(dev, counters),
-                     _trace_part(dev, counters, tmp, kstats, lstats)):
+                     _trace_part(dev, counters, tmp, kstats, lstats,
+                                 gstats)):
             for key, n in part.items():
                 launches[key] += n
     _blocked_chol_part(dev)
@@ -2128,8 +2437,9 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    from ba_path_planning_torch.ops import (admm_fused, banded_solve,
-                                            cuda_build, group_solve, ns_chain)
+    from ba_path_planning_torch.ops import (admm_fused, admm_steps,
+                                            banded_solve, cuda_build,
+                                            group_solve, ns_chain)
     from ba_path_planning_torch.utils.config import SolverConfig
 
     t0 = time.perf_counter()
@@ -2182,6 +2492,8 @@ def main():
     lform_phase(dev, 90, 8, fused=True, l_only=False, n_steps=3)
     lane = lane_rho_phase(dev)
     lap("kernel phases")
+    gstats = steps_phase(dev)
+    lap("steps phase")
     bstats = bf16_kernel_phase(dev)
     lap("bf16 kernel phase")
     for n_veh in (20, 30):
@@ -2196,7 +2508,10 @@ def main():
                 "admm_fused_x": admm_fused.admm_interval_fused_X,
                 "group_solve_l": group_solve.solve_factorized_grouped_L,
                 "banded_solve": banded_solve.solve_factorized_dense,
-                "admm_fused_l": admm_fused.admm_interval_fused}
+                "admm_fused_l": admm_fused.admm_interval_fused,
+                "admm_rhs": admm_steps.admm_rhs,
+                "admm_update": admm_steps.admm_update,
+                "admm_channel_interval": admm_steps.admm_channel_interval}
     launches = dict.fromkeys(counters, 0)
 
     def add(path_launches):
@@ -2251,7 +2566,7 @@ def main():
     lap("bench twin")
     add(batch_cli_phase(counters))
     lap("batch CLI")
-    add(modules_phase(dev, counters, kstats, lstats))
+    add(modules_phase(dev, counters, kstats, lstats, gstats))
     lap("modules phase")
 
     pallas = "ba_path_planning_tpu/ops/pallas/"
@@ -2310,9 +2625,21 @@ def main():
         if n_launch < 1:
             raise AssertionError(f"no path launched {wrapper} ({key})")
         kernels.append(entry)
+    # the hand-written kernels with no Pallas body: the ADMM loop body that
+    # XLA fuses in the JAX package
+    glue = []
+    for key, stats in gstats.items():
+        if launches[key] < 1:
+            raise AssertionError(f"no path launched {key}")
+        glue.append({"name": key, "route": "cuda",
+                     "source": csrc + "admm_steps.cu",
+                     "replaces": "ba_path_planning_tpu/solvers/banded.py:1319 "
+                                 "(admm_iter, XLA-fused)",
+                     "launches": launches[key], **stats})
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)
+    print(json.dumps({"glue_kernels": glue}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))

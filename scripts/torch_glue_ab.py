@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""The host-bound paths of the PyTorch/CUDA port in two checkouts, in
+turns, on one GPU: what running the ADMM iteration in hand-written kernels
+(``ops/admm_steps.py``) changes end to end.
+
+    python3 scripts/torch_glue_ab.py --roots <parent> <change> \
+        [--turns 0,1,1,0] [--out build/glue_ab.json]
+
+For each turn, in the checkout it names (every measurement a process of
+its own, started in that checkout, so each runs the code it finds there):
+
+* ``scripts/torch_profile_lform.py --route production -N 20``: the N=20,
+  B=1024 production solve (chunk 512), three untraced walls and one traced
+  solve: device launches, device busy time, idle share under tracing;
+* ``--route latency -N 20``: the bench twin's single latency solve, the
+  same numbers;
+* ``python -m ba_path_planning_torch.bench``: the bench twin (N=20,
+  B=4096, chunk 512): its rate, p50 single-scenario latency and the slope
+  of sequential solves;
+* this script's ``--facade ROUTE`` for ``grouped_L`` and ``resident``: the
+  reference-compatible path as ``chip_smoke.py`` runs it (one
+  ``SCPEngine.solve_batch`` of 64 N=20 scenarios): wall, statuses, mean
+  and max QP iterations.
+
+Prints one line a measurement and writes every record to ``--out``.
+"""
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def facade(route, root):
+    """One reference-compatible solve on ``route`` with the code of the
+    checkout ``root``; prints one JSON line."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import chip_smoke
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.solvers.scp import SCPEngine
+    change = chip_smoke.FACADE_ROUTES[route][0]
+    eng = SCPEngine(chip_smoke._problem(20, facade=True),
+                    chip_smoke._facade_solver(**change), dtype=torch.float32)
+    sc = generate_scenario_batch(100, chip_smoke.FACADE_B, n_vehicles=20,
+                                 min_distance=chip_smoke.R,
+                                 dtype=torch.float32)
+    v0 = torch.zeros_like(sc.initial)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.solve_batch(sc.initial, v0, sc.final, v0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(json.dumps({
+        "route": route, "wall_s": wall,
+        "statuses": np.bincount(out.status.cpu().numpy(),
+                                minlength=3).tolist(),
+        "mean_scp_iters": float(out.iterations.float().mean()),
+        "mean_qp_iters": float(out.qp_iterations.float().mean()),
+        "max_qp_iters": int(out.qp_iterations.max())}))
+
+
+def _run(root, argv, timeout=1200):
+    proc = subprocess.run(argv, cwd=root, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{argv} in {root} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr
+
+
+def _profile(root, route):
+    out, _ = _run(root, [sys.executable, "scripts/torch_profile_lform.py",
+                         "--route", route, "-N", "20", "--top", "8"])
+    m = re.search(r"untraced walls \(s\): \[([^\]]*)\]; traced wall "
+                  r"([\d.]+) s; device busy ([\d.]+) s; idle share under "
+                  r"tracing ([\d.]+); device launches (\d+)", out)
+    walls = [float(w) for w in m.group(1).split(",")]
+    return dict(walls_s=walls, traced_wall_s=float(m.group(2)),
+                busy_s=float(m.group(3)), idle_share=float(m.group(4)),
+                device_launches=int(m.group(5)), text=out)
+
+
+def _bench(root):
+    out, err = _run(root, [sys.executable, "-m", "ba_path_planning_torch.bench"])
+    line = json.loads(out.strip().splitlines()[-1])
+    summary = err.strip().splitlines()[-1]
+    num = {k: float(v) for k, v in re.findall(
+        r"(wall|p50_single_scenario_latency_ms|p50_ondevice_solve_ms|"
+        r"mean_scp_iters)=([\d.]+)", summary)}
+    ok = re.search(r" ok=(\d+)/(\d+)", summary)
+    return dict(solves_per_s=line["value"], ok=int(ok.group(1)),
+                batch=int(ok.group(2)), **num, summary=summary)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--roots", nargs="+")
+    ap.add_argument("--turns", default="0,1,1,0")
+    ap.add_argument("--out", default="build/glue_ab.json")
+    ap.add_argument("--facade", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.facade:
+        return facade(args.facade, args.roots[0])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    here = Path(__file__).resolve()
+    records = []
+    for turn in (int(t) for t in args.turns.split(",")):
+        root = str(Path(args.roots[turn]).resolve())
+        rec = dict(turn=turn, root=root, card=card)
+        for route in ("production", "latency"):
+            rec[route] = _profile(root, route)
+            r = rec[route]
+            print(f"[{turn}] {route}: walls {r['walls_s']} s, traced "
+                  f"{r['traced_wall_s']} s, busy {r['busy_s']} s, idle "
+                  f"{r['idle_share']}, device launches "
+                  f"{r['device_launches']}", flush=True)
+        rec["bench"] = _bench(root)
+        print(f"[{turn}] bench twin: {rec['bench']['summary']} "
+              f"solves/s={rec['bench']['solves_per_s']}", flush=True)
+        for route in ("grouped_L", "resident"):
+            out, _ = _run(root, [sys.executable, str(here), "--facade",
+                                 route, "--roots", root])
+            rec[route] = json.loads(out.strip().splitlines()[-1])
+            print(f"[{turn}] reference-compatible {route}: "
+                  f"{json.dumps(rec[route])}", flush=True)
+        records.append(rec)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(dict(card=card, records=records),
+                                         indent=1))
+    print(f"card: {card}; records in {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,10 @@ on the block Cholesky factors of the reference-compatible solver, through
 CUDA-event times of both, the check at the ADMM loop's scale); the X-form
 fused ADMM interval (F, 25 iterations) and the L-form one (FL, on the
 factors of the reference-compatible solver) through
-``chip_smoke.fused_check``.
+``chip_smoke.fused_check``; the ADMM stages of ``ops/admm_steps.py``
+through ``chip_smoke._steps_check``, then timed alone: ``admm_rhs`` and
+``admm_update`` (S) and the channel interval of 25 iterations (C), beside
+the bounds of ``utils/profiling.admm_stage_cost``.
 Each case prints one JSON line: the launch plan, the kernel's ms, its
 stream bound (every block read in both sweeps, ``chip_smoke._bound_ms``)
 and its share of it, and the bound that counts only what the sweeps need
@@ -50,17 +53,61 @@ def main():
         raise SystemExit("torch_sweep_bench.py: no CUDA device")
     import inspect
     import chip_smoke as cs
+    from ba_path_planning_torch.utils import profiling
+    # the card's peaks, which chip_smoke.main() sets before its phases
+    cs.HBM_BYTES_S, cs.FP32_FLOP_S, cs.TF32_FLOP_S = (
+        profiling.H100_PEAK_HBM_BYTES, profiling.H100_PEAK_FP32_FLOPS,
+        profiling.H100_PEAK_TF32_FLOPS)
     from ba_path_planning_torch.ops import (admm_fused, banded_solve,
                                             group_solve, ns_chain)
     from ba_path_planning_torch.solvers import banded
     card = cs._card_line()
     print(f"card: {card}; root {args.root}", flush=True)
+    from ba_path_planning_torch.ops import cuda_build
+    cuda_build.load_kernels()
+    # what ptxas reports of each kernel (registers, spills, shared memory)
+    print("ptxas: " + " | ".join(
+        ln.strip() for ln in cuda_build.build_info["log"].splitlines()
+        if ln.endswith(".cu:") or "Compiling entry" in ln
+        or "registers" in ln or "spill" in ln), flush=True)
     dev, K = torch.device("cuda", 0), cs.K_STEPS
     plan_fn = getattr(group_solve, "sweep_plan", None)
     for case in args.cases.split(","):
         form, N, B = case.split(":")
         N, B = int(N), int(B)
         n = 6 * N
+        if form in ("S", "C"):
+            from ba_path_planning_torch.ops import admm_steps
+            err, factors, c, rows, _ = cs._steps_check(
+                f"{form} N={N} B={B}", N, B, dev, phase1=form == "C")
+            work = admm_steps.Rows(*(t.clone() for t in rows))
+            if form == "S":
+                b = admm_steps.admm_rhs(rows, c)
+                xt = group_solve.solve_factorized_grouped_X(*factors, b)
+                timed = {"admm_rhs": lambda: admm_steps.admm_rhs(rows, c),
+                         "admm_update": lambda: admm_steps.admm_update(
+                             xt, work, c)}
+            else:
+                timed = {"admm_channel_interval":
+                         lambda: admm_steps.admm_channel_interval(
+                             *factors, work, c, 25)}
+                one = cs._time_ms(lambda: admm_steps.admm_channel_interval(
+                    *factors, work, c, 1), 20)
+            for key, fn in timed.items():
+                ms = cs._time_ms(fn, 20)
+                cost = profiling.admm_stage_cost(key, N, K)
+                bound = cs._bound_ms(B * cost["hbm_bytes"],
+                                     B * cost["flops"])[0]
+                line = {"form": form, "kernel": key, "N": N, "B": B,
+                        "K": K, "ms": ms, "bound_ms": bound,
+                        "share": bound / ms, "max_abs_err": err,
+                        "card": card}
+                if form == "C":     # one iteration, and each further one
+                    line.update(ms_1_iteration=one,
+                                ms_per_further_iteration=(ms - one) / 24)
+                print(json.dumps(line), flush=True)
+            del factors, c, rows, work
+            continue
         if form == "F":
             D, C, _, _, kw = cs._case(N, B, dev, seed=N)
             kw["X"] = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)

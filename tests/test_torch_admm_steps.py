@@ -1,0 +1,324 @@
+"""PyTorch port, the ADMM stages of ``ops/admm_steps.py``: the plain
+versions of ``admm_rhs``, ``admm_update`` and ``admm_channel_interval`` on
+their packed planes against ``banded.admm_iterations`` (float64, 1e-12 of
+each leaf's scale), and ``solve_qp_state`` on the routes that run them
+(``grouped_X``, ``grouped_L``, ``resident``, ``channel``) against the JAX
+package's ``solve_qp_state`` (its sweeps in plain JAX, ``pallas=False``;
+1e-8, equal iteration counts and convergence flags).  Inputs from numpy
+seeds at N=4-5, K=6-10.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ba_path_planning_tpu.utils import config as jcfg
+
+from ba_path_planning_torch.ops import admm_fused, admm_steps
+from ba_path_planning_torch.ops.collisions import make_pair_index
+from ba_path_planning_torch.solvers import banded as tb
+from ba_path_planning_torch.utils.config import (ProblemConfig, SolverConfig,
+                                                 make_solver_params)
+from ba_path_planning_torch.utils.convert import (config_from_jax,
+                                                  rowvals_from_numpy)
+
+from test_torch_adaptive_rho import _jax_lanes, _port
+from test_torch_admm_fused import _iteration_qp
+from test_torch_banded import _check_qp, _close_tree, _qp_inputs
+
+F64 = torch.float64
+H = 0.2
+
+# route -> the port's solver options that take it (N=5, K=8, float64)
+ROUTE_SOLVERS = {
+    "grouped_X": dict(),
+    "grouped_L": dict(factor_form="L", fused=False, group=2),
+    "resident": dict(factor_form="L", fused=False, group=-1),
+    "channel": dict(),
+}
+
+
+def _stage_case(route, lane, lam, seed, N=5, K=8, B=3):
+    """One check interval's inputs on ``route``, float64: bounds of random
+    start and goal positions; on the sweep routes collision rows of random
+    unit directions (row 0 and a few more disabled by -inf), on the channel
+    route phase 1's (eta = 0, every row disabled); rho shared or, with
+    ``lane``, one a lane (the grouped routes then factorize M / rho, as the
+    solver does); a random state.  Returns the arguments of
+    ``banded._interval_fn`` and the route's plain x-update."""
+    rng = np.random.default_rng(seed)
+    P = N * (N - 1) // 2
+    problem = ProblemConfig(n_vehicles=N, time_horizon=K * H, time_step=H,
+                            min_distance=0.8)
+    solver = SolverConfig.production(problem=problem).replace(
+        col_penalty=lam, **ROUTE_SOLVERS[route])
+    static = solver.static_part()
+    col = route != "channel"
+    assert tb.qp_route(static, n_vehicles=N, n_steps=K, dtype=F64,
+                       col_enabled=col) == route
+    prm = make_solver_params(solver, F64)
+    p0, pf = (torch.as_tensor(rng.uniform(2.0, 18.0, (B, N, 2)))
+              for _ in range(2))
+    v0 = torch.zeros_like(p0)
+    pairs = make_pair_index(N, F64)
+    lower, upper = tb.build_bounds(p0, v0, pf, v0, n_vehicles=N, n_steps=K,
+                                   h=H, limits=problem.limits, n_pairs=P)
+    if col:
+        eta = torch.as_tensor(rng.normal(size=(B, K, P, 2)))
+        eta = eta / torch.linalg.vector_norm(eta, dim=-1, keepdim=True)
+        l_col = torch.as_tensor(rng.normal(size=(B, K, P)))
+        l_col[:, 0] = -np.inf
+        l_col[:, 3, ::2] = -np.inf
+        lower = lower._replace(col=l_col)
+    else:
+        eta = torch.zeros((B, K, P, 2), dtype=F64)
+    scaling = tb.row_scaling_state(K, H, dtype=F64)
+    rho_l = (torch.as_tensor(2.6 * np.exp(rng.uniform(-2, 2, B)))
+             if lane else None)
+    rho_b = tb.rho_pattern_masks(scaling, static,
+                                 prm.rho if rho_l is None else rho_l,
+                                 prm.col_rho_boost, n_steps=K, n_pairs=P,
+                                 col_enabled=col, dtype=F64)
+    if col:
+        rho_b = rho_b._replace(col=torch.where(
+            torch.isinf(lower.col), torch.full_like(lower.col, 1e-6),
+            rho_b.col))
+    scaled = lane and route in ("grouped_X", "grouped_L")
+    C1 = (tb.unit_slot_scalars(static, n_steps=K, h=H, dtype=F64,
+                               device="cpu")
+          if lane and route in tb.SHARED_C_ROUTES else None)
+    factors = tb._route_factors(route, rho_b, eta, pairs.E, static, N, H,
+                                prm.sigma, rho_lane=rho_l, C1=C1)
+    x = tb.StateVars(*(torch.as_tensor(rng.normal(size=(B, N, K, 2)) * s)
+                       for s in (1.0, 5.0, 2.0)))
+    z = tb.tree_map(torch.clamp, tb.apply_A(x, eta, pairs.E, H), lower,
+                    upper)
+    y = tb.tree_map(lambda t: torch.as_tensor(
+        rng.normal(size=t.shape)), z)
+    step = dict(h=H, sigma=prm.sigma, alpha=prm.alpha, lam=prm.col_penalty)
+    inv_rho = 1.0 / rho_l if scaled else None
+
+    if route == "channel":
+        def solve(sb):
+            return tb.solve_factorized_channel(
+                *factors, sb.reshape(B, K, 3, 2 * N)).reshape(sb.shape)
+    elif route == "resident":
+        def solve(sb):
+            return tb.solve_factorized(*factors, sb)
+    else:
+        plain = (tb.solve_factorized_X if route == "grouped_X"
+                 else tb.solve_factorized_L)
+        C = C1 if lane else factors[1]
+
+        def solve(sb):
+            return plain(factors[0], C, sb if inv_rho is None
+                         else sb * inv_rho[:, None, None])
+    args = dict(route=route, factors=factors, rho_b=rho_b, lower=lower,
+                upper=upper, eta=eta, E=pairs.E, n_vehicles=N, C1=C1,
+                inv_rho=inv_rho)
+    return args, step, (x, z, y), solve
+
+
+@pytest.mark.parametrize("n_iters", [1, 9])
+@pytest.mark.parametrize("lam", [50.0, np.inf])
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("route", list(ROUTE_SOLVERS))
+def test_plain_stages_match_admm_iterations(route, lane, lam, n_iters):
+    """The interval of ``_interval_fn`` on the CPU (the plain stages on the
+    packed planes) against ``admm_iterations`` with the route's plain
+    x-update; finite and +inf penalty weights, rows disabled by -inf lower
+    bounds, shared and per-lane rho."""
+    args, step, state, solve = _stage_case(route, lane, lam, seed=7)
+    assert tb.interval_kind(route, F64, torch.device("cpu")) == "rows"
+    before = [tb.tree_map(torch.clone, v) for v in state]
+    got = tb._interval_fn(**args, step=dict(step, n_iters=n_iters))(*state)
+    want = tb.admm_iterations(*state, solve, args["eta"], args["E"],
+                              args["lower"], args["upper"], args["rho_b"],
+                              **step, n_iters=n_iters)
+    for g, w in zip(got, want):
+        _close_tree(g, w, rtol=1e-12)
+    # the interval's inputs are not modified
+    for v, w in zip(state, before):
+        assert all(torch.equal(a, b) for a, b in zip(v, w))
+
+
+@pytest.mark.parametrize("lane", [False, True])
+def test_plain_stages_one_by_one(lane):
+    """admm_rhs and admm_update alone against the steps of
+    ``admm_iterations`` on the grouped X route."""
+    args, step, (x, z, y), solve = _stage_case("grouped_X", lane, np.inf,
+                                               seed=3)
+    c = admm_steps.row_consts(args["eta"], args["E"], args["lower"],
+                              args["upper"], args["rho_b"], **step)
+    rows = admm_steps.pack_state(x, z, y)
+    b = admm_steps.admm_rhs(rows, c, args["inv_rho"])
+    rzy = tb.tree_map(lambda zz, yy, rr: rr * zz - yy, z, y, args["rho_b"])
+    want_b = tb.to_stacked(tb.apply_AT(rzy, args["eta"], args["E"], H)) \
+        + step["sigma"] * tb.to_stacked(x)
+    if args["inv_rho"] is not None:
+        want_b = want_b * args["inv_rho"][:, None, None]
+    _close_tree((b,), (want_b,), rtol=1e-12)
+    xt = torch.as_tensor(np.random.default_rng(4).normal(size=b.shape))
+    admm_steps.admm_update(xt, rows, c)
+    want = tb.admm_iterations(x, z, y, lambda sb: xt, args["eta"],
+                              args["E"], args["lower"], args["upper"],
+                              args["rho_b"], **step, n_iters=1)
+    for g, w in zip(admm_steps.unpack(rows, x.a.shape[-3]), want):
+        _close_tree(g, w, rtol=1e-12)
+
+
+def test_row_and_channel_plans():
+    """The row stages' k-tiles fill the card at B = 1 and take about two
+    rows a thread at the production chunk; the channel plane leaves shared
+    memory only where it does not fit; the pair table the stages keep in
+    shared memory serves N <= 341."""
+    assert admm_steps.row_plan(1, 50, 20) == 1
+    assert admm_steps.row_plan(512, 50, 20) == 2
+    assert admm_steps.row_plan(1024, 50, 10) == 7
+    assert admm_steps.row_plan(4, 3, 2) == 1
+    assert admm_steps.channel_plane_in_smem(50, 60)
+    assert admm_steps.channel_plane_in_smem(500, 10)
+    assert not admm_steps.channel_plane_in_smem(500, 20)
+    assert admm_steps.pair_table_fits(341)
+    assert not admm_steps.pair_table_fits(342)
+
+
+def test_admm_stage_cost_counts_by_hand():
+    """The tracer's cost model of the stages at N=3, K=4 (P=3): 12 static
+    (vehicle, axis, step) rows and 12 collision rows."""
+    from ba_path_planning_torch.utils.profiling import admm_stage_cost
+    assert admm_stage_cost("admm_rhs", 3, 4) == {
+        "flops": 2 * 12 * (40 + 8), "hbm_bytes": 4 * (36 * 12 + 5 * 12)}
+    assert admm_stage_cost("admm_update", 3, 4) == {
+        "flops": 2 * 12 * 75 + 12 * 15, "hbm_bytes": 4 * (90 * 12 + 8 * 12)}
+    assert admm_stage_cost("admm_channel_interval", 3, 4, n_iters=2) == {
+        "flops": 2 * (2 * 12 * 48 + 2 * 12 * 75 + 12 * 15 + 2 * 12 * 78),
+        "hbm_bytes": 4 * (84 * 12 + 7 * 12)}
+    with pytest.raises(ValueError):
+        admm_stage_cost("admm_sweep", 3, 4)
+
+
+def test_interval_kind_names_the_float64_channel_rule():
+    """On the card the channel route in float64 replays the plain interval
+    as a CUDA graph; in float32, and on the CPU in either dtype, it runs on
+    the planes; the sweep routes always do (their kernels raise for
+    float64); a pair-sharded group keeps admm_iterations."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert tb.interval_kind("channel", F64, cuda) == "graph"
+    assert tb.interval_kind("channel", torch.float32, cuda) == "rows"
+    assert tb.interval_kind("channel", F64, cpu) == "rows"
+    for route in ("grouped_X", "grouped_L", "resident"):
+        assert tb.interval_kind(route, F64, cuda) == "rows"
+    assert tb.interval_kind("dense", torch.float32, cuda) == "graph"
+    assert tb.interval_kind("fused_X", torch.float32, cuda) == "fused"
+    assert tb.interval_kind("channel", torch.float32, cuda,
+                            group=object()) == "eager"
+
+
+def test_static_plane_round_trip():
+    """static_plane and planes_to_rows invert each other; the jerk block's
+    row K-1 is zero."""
+    rng = np.random.default_rng(0)
+    B, N, K = 2, 3, 5
+    rv = tb.RowVals(*(torch.as_tensor(rng.normal(size=(B, N, K - (
+        name == "jerk"), 2))) for name in tb.RowVals._fields[:-1]),
+        col=torch.zeros((B, K, 3), dtype=F64))
+    plane = admm_fused.static_plane(rv, K)
+    assert plane.shape == (B, K, 6, 2 * N) and plane.is_contiguous()
+    assert bool((plane[:, K - 1, 2] == 0).all())
+    back = admm_fused.planes_to_rows(plane, rv.col, N)
+    for g, w in zip(back, rv):
+        assert torch.equal(g, w)
+
+
+# route -> (the JAX options of the reference route, the port's change)
+JAX_ROUTES = {
+    "grouped_X": (dict(group=2), dict()),
+    "grouped_L": (dict(factor_form="L", group=2), dict()),
+    "resident": (dict(factor_form="L"), dict(kernels=True, group=-1)),
+    "channel": (dict(group=2), dict()),
+}
+
+
+def _port_solve(route, problem, jsolver, tchange, lo, up, eta, x0, y0,
+                col):
+    N, K = problem.n_vehicles, problem.n_steps
+    _, tsolver = config_from_jax(problem, jsolver)
+    tsolver = tsolver.replace(**tchange)
+    assert tb.qp_route(tsolver.static_part(), n_vehicles=N, n_steps=K,
+                       dtype=F64, col_enabled=col) == route
+    E = torch.as_tensor(np.array(make_pair_index(N, F64).E))
+    return tb.solve_qp_state(
+        rowvals_from_numpy(lo), rowvals_from_numpy(up),
+        torch.as_tensor(np.array(eta), dtype=F64),
+        tb.StateVars(*(torch.as_tensor(np.array(t), dtype=F64) for t in x0)),
+        make_solver_params(tsolver, F64), E, h=problem.time_step,
+        static=tsolver.static_part(), n_vehicles=N,
+        y_init=rowvals_from_numpy(y0), col_enabled=col)
+
+
+def _jax_solve(problem, jsolver, lo, up, eta, x0, y0, col):
+    from ba_path_planning_tpu.ops import collisions as jcol
+    from ba_path_planning_tpu.solvers import banded as jb
+    from ba_path_planning_tpu.solvers.admm import make_solver_params as jp
+    N = problem.n_vehicles
+    E = jcol.make_pair_index(N, dtype=jnp.float64).E
+    prm = jp(jsolver, jnp.float64)
+    return jax.vmap(lambda l, u, e, x, y: jb.solve_qp_state(
+        l, u, e, x, prm, E, h=problem.time_step,
+        static=jsolver.static_part(), n_vehicles=N, y_init=y,
+        col_enabled=col))(lo, up, eta, x0, y0)
+
+
+@pytest.mark.parametrize("lam", [np.inf, 50.0])
+@pytest.mark.parametrize("check", [1, 9])
+@pytest.mark.parametrize("route", list(JAX_ROUTES))
+def test_solve_qp_state_matches_jax(route, check, lam):
+    """One QP on each route that runs the stages, against JAX: phase 1 on
+    the channel route, else the QP of an SCP iteration (rows at k = 0
+    disabled, hard rows at lam = +inf); check intervals of 1 and 9."""
+    jchange, tchange = JAX_ROUTES[route]
+    if route == "channel":
+        problem, p0, v0, pf, lo, up, x0 = _qp_inputs(N=4, K=10, B=3, seed=5)
+        B, K, P = p0.shape[0], problem.n_steps, problem.n_pairs
+        eta = jnp.zeros((B, K, P, 2))
+        y0 = jax.tree.map(jnp.zeros_like, lo)
+        col = False
+    else:
+        problem, lo, up, eta, x0, y0 = _iteration_qp(N=4, K=10, B=3, seed=5)
+        col = True
+    jsolver = jcfg.SolverConfig.production(
+        pallas=False, problem=problem).replace(
+            check_interval=check, max_iter=27, col_penalty=lam, **jchange)
+    res = _port_solve(route, problem, jsolver, tchange, lo, up, eta, x0, y0, col)
+    _check_qp(res, _jax_solve(problem, jsolver, lo, up, eta, x0, y0, col))
+
+
+@pytest.mark.parametrize("route", list(JAX_ROUTES))
+def test_solve_qp_state_lane_rho_matches_jax(route):
+    """Adaptive rho (one rho a lane, the adapting lanes refactorized) on
+    each route that runs the stages, against JAX lane by lane."""
+    from test_torch_adaptive_rho import B, K, N, RHO
+    jchange, tchange = JAX_ROUTES[route]
+    if route == "channel":
+        problem, p0, v0, pf, lo, up, x0 = _qp_inputs(N=N, K=K, B=B, seed=5)
+        eta = jnp.zeros((B, K, problem.n_pairs, 2))
+        y0 = jax.tree.map(jnp.zeros_like, lo)
+        col, rho = False, 0.02
+    else:
+        problem, lo, up, eta, x0, y0 = _iteration_qp(N=N, K=K, B=B, seed=5)
+        col, rho = True, RHO
+    jsolver = jcfg.SolverConfig.production(
+        pallas=False, problem=problem).replace(
+            adaptive_rho=True, rho=rho, max_iter=90, check_interval=9,
+            **jchange)
+    _, tsolver = config_from_jax(problem, jsolver)
+    res = _port(tsolver.replace(**tchange), lo, up, eta, x0, y0,
+                col_enabled=col)
+    want = _jax_lanes(jsolver, lo, up, eta, x0, y0, col_enabled=col)
+    np.testing.assert_array_equal(res.iters.numpy(), want.iters)
+    np.testing.assert_array_equal(res.converged.numpy(), want.converged)
+    _close_tree(res.x, want.x, rtol=1e-8)
+    _close_tree(res.y, want.y, rtol=1e-8)

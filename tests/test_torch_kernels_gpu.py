@@ -735,3 +735,226 @@ def test_bf16_wrappers_raise_on_unsupported_layouts(cuda):
     with pytest.raises(ValueError):          # the X form keeps float32
         admm_fused.admm_interval_fused_X(*tb.compress_factors(args[0]),
                                          *args[1:], n_iters=1, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The ADMM stages and the channel interval (ops/admm_steps.py)
+# ---------------------------------------------------------------------------
+
+def _stage_rows(rows):
+    """(B, K, .) rows of a Rows state: x, and z and y as their static plane
+    and collision rows side by side."""
+    return (rows.x, torch.cat([rows.zs.flatten(-2), rows.zc], dim=-1),
+            torch.cat([rows.ys.flatten(-2), rows.yc], dim=-1))
+
+
+def _stages_case(cuda, B, K, N, lane=False, hard=False, phase1=False):
+    """One check interval's operands on the grouped X route (``phase1``:
+    the channel route's), float32 on the card, from :func:`_interval_case`
+    (its warm state and bounds): the factors (``lane``: one rho a lane, the
+    grouped route's factors of M / rho with the unit slot scalars and
+    1 / rho; the channel route's per-lane 3x3 factors), the row constants
+    in float32 and float64, and the packed state."""
+    from ba_path_planning_torch.ops import admm_steps
+    lane_rho = (torch.as_tensor(2.6 * np.exp(np.random.default_rng(B + N)
+                                             .uniform(-2.3, 2.3, B)),
+                                dtype=torch.float32) if lane else None)
+    args, kw = _interval_case(B, K, N, seed=N + B, device=cuda, form="X",
+                              hard=hard, lane_rho=lane_rho)
+    X, C, eta, E, lower, upper, x, z, y, rho = args
+    static = SolverConfig.production().static_part()
+    inv_rho = None
+    if phase1:
+        f32 = torch.float32
+        prm = make_solver_params(SolverConfig.production(), f32, cuda)
+        eta = torch.zeros_like(eta)
+        lower = lower._replace(col=torch.full_like(lower.col, -np.inf))
+        rho = tb.rho_pattern_masks(
+            tb.row_scaling_state(K, 0.2, dtype=f32, device=cuda), static,
+            prm.rho if lane_rho is None else lane_rho.to(cuda),
+            prm.col_rho_boost, n_steps=K, n_pairs=eta.shape[2],
+            col_enabled=False, dtype=f32)
+        factors = tb.factorize(*tb.assemble_channel(rho, h=0.2,
+                                                    sigma=kw["sigma"]))
+        z = tb.tree_map(torch.clamp, tb.apply_A(x, eta, E, 0.2), lower,
+                        upper)
+    elif lane:
+        lr = lane_rho.to(cuda)
+        factors = (X * lr.reshape(-1, 1, 1, 1),
+                   tb.unit_slot_scalars(static, n_steps=K, h=0.2,
+                                        device=cuda))
+        inv_rho = 1.0 / lr
+    else:
+        factors = (X, C)
+    c = admm_steps.row_consts(eta, E, lower, upper, rho, **kw)
+    c64 = admm_steps.row_consts(
+        eta.double(), E.double(), *(tb.tree_map(lambda t: t.double(), v)
+                                    for v in (lower, upper, rho)),
+        **_to64(kw))
+    return factors, c, c64, admm_steps.pack_state(x, z, y), inv_rho
+
+
+def _run_stages(rows, c, factors, n_iters, inv_rho, phase1, kernel):
+    from ba_path_planning_torch.ops import admm_steps
+    if phase1:
+        run = (admm_steps.admm_channel_interval if kernel
+               else admm_steps.admm_channel_interval_plain)
+        return run(*factors, rows, c, n_iters)
+    rhs, solve, update = (
+        (admm_steps.admm_rhs, group_solve.solve_factorized_grouped_X,
+         admm_steps.admm_update) if kernel else
+        (admm_steps.admm_rhs_plain, tb.solve_factorized_X,
+         admm_steps.admm_update_plain))
+    inv = None if inv_rho is None else inv_rho.to(rows.x.dtype)
+    for _ in range(n_iters):
+        update(solve(*factors, rhs(rows, c, inv)), rows, c)
+
+
+def _check_stages(cuda, B, K, N, n_iters, lane=False, hard=False,
+                  phase1=False):
+    """The kernels' iterations against the plain versions on the same
+    float32 inputs: x and z within 2e-4 of each (b, k) block after one
+    iteration, and every block no further from the float64 plain
+    iterations than 4x the plain float32 version is (y = y + rho (zr - z)
+    multiplies the rounding of zr by rho)."""
+    from ba_path_planning_torch.ops import admm_steps
+    factors, c, c64, rows, inv_rho = _stages_case(cuda, B, K, N, lane, hard,
+                                                  phase1)
+    got, want = (admm_steps.Rows(*(t.clone() for t in rows))
+                 for _ in range(2))
+    ref = admm_steps.Rows(*(t.double() for t in rows))
+    counter = (admm_steps.admm_channel_interval if phase1
+               else admm_steps.admm_rhs)
+    before = counter.launches
+    _run_stages(got, c, factors, n_iters, inv_rho, phase1, True)
+    assert counter.launches == before + (1 if phase1 else n_iters)
+    _run_stages(want, c, factors, n_iters, inv_rho, phase1, False)
+    _run_stages(ref, c64, tuple(t.double() for t in factors), n_iters,
+                inv_rho, phase1, False)
+    torch.cuda.synchronize()
+    got, want, ref = (_stage_rows(r) for r in (got, want, ref))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    errs = [_block_rel(g, w, 1) for g, w in zip(got, want)]
+    if n_iters == 1:
+        assert max(errs[:2]) < 2e-4, errs
+    for g, w, r in zip(got, want, ref):
+        kernel_err = _block_rel(g.double(), r, 1)
+        plain_err = _block_rel(w.double(), r, 1)
+        assert kernel_err <= 4.0 * plain_err, (kernel_err, plain_err, errs)
+
+
+# (B, K, N): the main path's chunk at N=20, the reference-compatible batch,
+# one scenario, the widest grouped route at its tail chunk, the round
+# record's N=10 batch, and small odd shapes
+STAGE_CASES = [(512, 50, 20), (64, 50, 20), (1, 50, 20), (128, 50, 21),
+               (1024, 50, 10), (3, 9, 4), (2, 6, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,K,N", STAGE_CASES)
+def test_admm_stages_match_plain(cuda, B, K, N, n_iters):
+    """admm_rhs, the X-form sweep kernel and admm_update, iteration after
+    iteration, against the plain stages and the plain sweep."""
+    _check_stages(cuda, B, K, N, n_iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,N", [(64, 20), (1, 20), (3, 4)])
+def test_admm_stages_with_lane_rho_and_hard_rows(cuda, B, N, n_iters):
+    """One rho a lane (per-lane rho planes through the strides, the grouped
+    route's 1 / rho folded into the right-hand side), and hard collision
+    rows (lam = +inf) beside shared rho."""
+    _check_stages(cuda, B, 50, N, n_iters, lane=True)
+    _check_stages(cuda, B, 50, N, n_iters, hard=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,K,N", STAGE_CASES + [(1, 500, 10), (2, 500, 20),
+                                                 (4, 50, 60)])
+def test_admm_channel_interval_matches_plain(cuda, B, K, N, n_iters):
+    """The collision-free interval in one launch against the plain
+    iterations; the plane in shared memory, and at K=500, N=20 in the
+    global scratch (the single CLI's default horizon)."""
+    _check_stages(cuda, B, K, N, n_iters, phase1=True)
+    _check_stages(cuda, B, K, N, n_iters, lane=True, phase1=True)
+
+
+@pytest.mark.gpu
+def test_solver_routes_run_the_stages_on_the_card(cuda, monkeypatch):
+    """solve_qp_state in float32 on the grouped X route and on the channel
+    route never reaches admm_iterations: three launches an iteration, one
+    a channel interval; in float64 the channel route replays the plain
+    interval as a graph and launches no kernel, and agrees with the CPU."""
+    from ba_path_planning_torch.ops import admm_steps
+    args, kw = _interval_case(4, 20, 5, seed=9, device=cuda)
+    X, C, eta, E, lower, upper, x, z, y, rho = args
+    solver = SolverConfig.production().replace(max_iter=20, check_interval=10)
+    prm = make_solver_params(solver, torch.float32, cuda)
+    plain = tb.admm_iterations
+
+    def refuse(*a, **k):
+        raise AssertionError("admm_iterations reached")
+    monkeypatch.setattr(tb, "admm_iterations", refuse)
+    counts = [f.launches for f in (admm_steps.admm_rhs, admm_steps.admm_update,
+                                   admm_steps.admm_channel_interval)]
+    for col in (True, False):
+        low = lower if col else lower._replace(
+            col=torch.full_like(lower.col, -np.inf))
+        res = tb.solve_qp_state(low, upper, eta if col else eta * 0, x, prm,
+                                E, h=0.2, static=solver.static_part(),
+                                n_vehicles=5, col_enabled=col)
+        assert bool(torch.isfinite(res.x.a).all())
+    done = [f.launches - n for f, n in zip(
+        (admm_steps.admm_rhs, admm_steps.admm_update,
+         admm_steps.admm_channel_interval), counts)]
+    assert done[0] == done[1] and done[0] in (10, 20) and done[2] in (1, 2)
+    monkeypatch.setattr(tb, "admm_iterations", plain)
+    f64 = torch.float64
+    low = lower._replace(col=torch.full_like(lower.col, -np.inf))
+    args64 = [tb.tree_map(lambda t: t.to(f64), v) for v in (low, upper)]
+    before = admm_steps.admm_channel_interval.launches
+    res = tb.solve_qp_state(*args64, (eta * 0).double(),
+                            tb.tree_map(lambda t: t.double(), x),
+                            make_solver_params(solver, f64, cuda), E.double(),
+                            h=0.2, static=solver.static_part(), n_vehicles=5,
+                            col_enabled=False)
+    assert admm_steps.admm_channel_interval.launches == before
+    cpu = tb.solve_qp_state(
+        *(tb.tree_map(lambda t: t.cpu(), v) for v in args64),
+        (eta * 0).double().cpu(), tb.tree_map(lambda t: t.double().cpu(), x),
+        make_solver_params(solver, f64), E.double().cpu(), h=0.2,
+        static=solver.static_part(), n_vehicles=5, col_enabled=False)
+    assert torch.equal(res.iters.cpu(), cpu.iters)
+    for g, w in zip(res.x, cpu.x):
+        assert float((g.cpu() - w).abs().max()) <= 1e-9 * float(
+            w.abs().max())
+
+
+@pytest.mark.gpu
+def test_admm_steps_wrappers_raise_on_unsupported_cuda_input(cuda):
+    """Float64 planes, planes of other shapes and factors of other shapes
+    are refused before any launch."""
+    from ba_path_planning_torch.ops import admm_steps
+    factors, c, c64, rows, _ = _stages_case(cuda, 2, 10, 3)
+    rows64 = admm_steps.Rows(*(t.double() for t in rows))
+    with pytest.raises(TypeError):
+        admm_steps.admm_rhs(rows64, c64)
+    with pytest.raises(TypeError):
+        admm_steps.admm_update(rows64.x, rows64, c64)
+    with pytest.raises(ValueError):
+        admm_steps.admm_rhs(rows._replace(zc=rows.zc[:, :-1].contiguous()),
+                            c)
+    with pytest.raises(ValueError):
+        admm_steps.admm_update(rows.x[:1].contiguous(), rows, c)
+    with pytest.raises(ValueError):
+        admm_steps.admm_rhs(rows, c, torch.ones(3, device=cuda))
+    pf, pc, _, prows, _ = _stages_case(cuda, 2, 10, 3, phase1=True)
+    with pytest.raises(ValueError):
+        admm_steps.admm_channel_interval(pf[0][:-1].contiguous(), pf[1],
+                                         prows, pc, 1)
+    with pytest.raises(TypeError):
+        admm_steps.admm_channel_interval(*(t.double() for t in pf), prows,
+                                         pc, 1)
