@@ -2,12 +2,12 @@
 // fused ADMM-interval kernels (admm_fused_x.cu, admm_fused_l.cu): the
 // right-hand side b = A^T (rho z - y) + sigma x before the sweeps, and the
 // relaxation, A xt, the clip / exact-penalty prox and the dual update after
-// them.  Every function is called by all threads of the block, or by the
-// first `nthr` of them when it is given (tid, nthr), and leaves the barrier
-// after it to the caller.  The `_rows` forms take a range [lo, hi) of row
-// indices (k * 2N + q for the static rows, k * P + p for the collision
-// rows): each row k reads rows k - 1 .. k + 1 of its inputs and writes row
-// k only, so the row-stage kernels (admm_steps.cu) split k over blocks.
+// them.  Every function is called by the first `nthr` threads of the
+// block (tid, nthr), and leaves the barrier after it to the caller.  The
+// `_rows` forms take a range [lo, hi) of row indices (k * 2N + q for the
+// static rows, k * P + p for the collision rows): each row k reads rows
+// k - 1 .. k + 1 of its inputs and writes row k only, so admm_rhs
+// (admm_steps.cu) splits k over blocks.
 //
 // Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p, dyn_v,
 // jerk, acc, vbox, pbox (the jerk block's row K-1 is unused), collision rows
@@ -68,11 +68,6 @@ __device__ __forceinline__ void fill_pair_table(unsigned short* pi,
   }
 }
 
-__device__ __forceinline__ void fill_pair_table(unsigned short* pi,
-                                                unsigned short* pj, int N) {
-  fill_pair_table(pi, pj, N, threadIdx.x, blockDim.x);
-}
-
 // b = scale (A^T (rho z - y) + sigma x) into the sweep plane xt (K, 6N),
 // on the static rows [lo, hi) (scale 1, or the per-lane 1 / rho of the
 // grouped routes' adaptive rho).
@@ -127,10 +122,6 @@ __device__ __forceinline__ void build_rhs_rows(const Scenario& sc, float* xt,
 __device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt,
                                           int tid, int nthr) {
   build_rhs_rows(sc, xt, 0, sc.K * 2 * sc.N, tid, nthr, 1.f);
-}
-
-__device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt) {
-  build_rhs(sc, xt, threadIdx.x, blockDim.x);
 }
 
 // Relaxation of x, A xt, the z update (clip) and the dual update on the
@@ -215,13 +206,6 @@ __device__ __forceinline__ void update_rows(const Scenario& sc,
   const int K = sc.K, N = sc.N;
   update_static_rows(sc, xt, 0, K * 2 * N, tid, nthr);
   update_collision_rows(sc, xt, pi, pj, 0, K * (N * (N - 1) / 2), tid, nthr);
-}
-
-__device__ __forceinline__ void update_rows(const Scenario& sc,
-                                            const float* xt,
-                                            const unsigned short* pi,
-                                            const unsigned short* pj) {
-  update_rows(sc, xt, pi, pj, threadIdx.x, blockDim.x);
 }
 
 }  // namespace admm_rows

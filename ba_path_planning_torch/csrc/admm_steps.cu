@@ -19,53 +19,83 @@
 //                       exact-penalty prox
 //                  y += rho (zr - z)
 //
-// The arithmetic is that of admm_rows.cuh, which the fused interval
-// kernels (admm_fused_x.cu, admm_fused_l.cu) run inside their loop; the
-// rows lie as planes, as there: x (B, K, 6N), static rows (B, K, 6, 2N),
-// collision rows (B, K, P).
+// The rows lie as planes, as in the fused interval kernels
+// (admm_fused_x.cu, admm_fused_l.cu, whose loop runs admm_rows.cuh): x
+// (B, K, 6N), static rows (B, K, 6, 2N) in the slot order dyn_p, dyn_v,
+// jerk, acc, vbox, pbox, collision rows (B, K, P).
 //
-// What bounds them: memory bandwidth.  Each stage reads every row of a
-// lane once or twice (eta, the state, the bounds, rho) and writes b, or x,
-// z and y, once, at about 1.3 flops a byte: at N = 20, K = 50, B = 512 the
-// two stages move ~0.5 GB, ~0.15 ms at 3.35 TB/s, beside the sweep's
-// ~1.1 ms.  Row k reads rows k - 1 .. k + 1 of its inputs and writes row k
-// only, so the stages split k over blocks: a grid of (lane, k-tile)
-// blocks (ops/admm_steps.py row_plan) fills the 132 SMs also at B = 1,
-// where one block a lane would leave 131 of them idle.  The pair table of
-// admm_update lies in shared memory, as in the fused kernels, filled a
-// thread a pair; its static and collision rows start on different threads,
-// so that both spread over the block.  A^T's column sum reads each pair's
-// term from the threads of both vehicles; for one of them the threads of a
-// warp read addresses about N floats apart, so admm_rhs moves more sectors
-// than bytes (47% of its bound at N = 20, B = 512).
+// admm_rhs (admm_rows.cuh build_rhs_rows on blocks of (lane, k-tile)):
+// bound by memory bandwidth; A^T's column sum reads each pair's term from
+// the threads of both vehicles, and for one of them the threads of a warp
+// read addresses about N floats apart, so it moves more sectors than bytes.
 //
-// The channel interval (one block a lane, n_iters iterations in one
-// launch): build_rhs over the lane's rows by all threads, then the
-// per-channel 3x3 forward and backward sweeps of
-// banded.solve_factorized_channel on the (K, 3, 3) factors, one thread a
-// channel column walking k, then update_rows.  The (K, 6N) plane lies in
-// shared memory, or in a global scratch where it does not fit.  The
-// collision rows are carried as admm_iterations carries them (phase 1
-// disables them all with -inf lower bounds and eta = 0).  Plain FP32.
-// Its time is that of the pair gather above, done by every lane at every
-// iteration: at N = 20 one block alone takes ~0.12 ms an iteration, and
-// the lanes of an SM share its load units.  Staging the terms in shared
-// memory two steps at a time, the plane in global memory and a larger L1
-// were each measured no faster (PERF.md).
+// admm_update: bound by memory bandwidth (each row read once or twice and
+// written once, about 1 flop a byte; at N = 20, K = 50, B = 512 0.34 GB,
+// 0.10 ms at 3.35 TB/s).  A block takes k_tile steps of one lane
+// (ops/admm_steps.py update_plan) and a thread one item at a time: two
+// neighbouring slots (k, s, q), (k, s, q + 1) of a static row, moved as
+// float2, or a collision row (k, p), so that every thread does about the
+// same few loads and stores, all of them coalesced along q or p.  The
+// slots' thread computes their entries of A xt from xt's rows k - 1 ..
+// k + 1 (the acc, vbox and pbox threads also relax their entries of x); a
+// collision row's thread finds its pair (i, j) in closed form and reads
+// the two positions at step k - 1.  No shared memory, no
+// barrier; the reciprocals of rho instead of divisions, and the indices
+// from a float reciprocal instead of integer division.  The rows are
+// loaded and stored with the streaming cache hint: a call touches each
+// once.
+//
+// admm_channel_interval: n_iters iterations of the collision-free phase-1
+// QP in one launch.  Its route is defined by eta = 0 (JAX
+// ba_path_planning_tpu/solvers/banded.py:1192-1202: phase 1 disables every
+// collision row and keeps its loose rho through the k = 0 pattern with
+// eta = 0), so for a finite state A's collision rows are exactly 0 and
+// A^T's collision term is exactly 0: the kernel reads neither eta nor the
+// pairs, and
+//   * the static rows split into 2N B independent channels (lane, q), each
+//     x (K, 3) and six static rows a step, on one shared 3x3
+//     block-tridiagonal factor (Linv (K, 3, 3), Eb (K - 1, 3, 3), or one
+//     set a lane under adaptive rho);
+//   * each collision row is an elementwise recurrence with A xt = 0: zr =
+//     (1 - alpha) z, the exact-penalty prox, y += rho (zr - z), read once
+//     and written once, n_iters times in registers.
+// What bounds it: operations.  25 iterations at N = 20, K = 50, B = 1024
+// are 9.9 GFLOP in FP32, 0.15 ms at 67 TFLOP/s; the state read and written
+// once, 0.58 GB with the collision rows, 0.17 ms.  Design: a warp a
+// channel, its state held on the chip for the whole interval.  Thread t
+// owns S consecutive steps (k = t S + j; S = 1 for K <= 32, 2 for K <= 64,
+// in registers; above, S = ceil(K / 32) steps in shared memory, or in a
+// global scratch where they do not fit: "the memory form", for the single
+// CLI's K = 500 at B = 1).  Neighbouring steps come through warp shuffles.
+// In the register form the two block sweeps are affine
+// recurrences, y_k = M_k y_{k-1} + L_k b_k (M_k = -L_k E_{k-1}) forward and
+// x_k = N_k x_{k+1} + L_k^T y_k (N_k = -L_k^T E_k^T) backward: each thread
+// folds its own steps, a Kogge-Stone scan over the warp's 32 threads
+// (5 levels) joins the folds, and each thread unfolds its steps from its
+// neighbour's result.  The scan's matrices do not change within an
+// interval, so a block builds them once (per lane under adaptive rho) into
+// tables in shared memory, thread-fastest, beside L_k, M_k and N_k.  The
+// memory form walks the sweeps serially in one thread a channel, as the
+// plain version does: over its windows of up to 256 steps the scan
+// reassociated too far (at K = 500 the y rows came 4.1x further from
+// float64 than the plain float32 version's, against a bar of 4x).  A
+// block holds W (4, 2 or 1) channels of one lane and loads and stores
+// their planes through a staging buffer in shared memory, so that global
+// accesses run along q; the grid is persistent (as many blocks as fit the
+// SMs), taking the channel groups, then chunks of the collision rows.
+// Plain FP32; the scans reassociate the sweeps' sums.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "admm_rows.cuh"
 
 namespace {
 
 constexpr int kRowThreads = 256;      // admm_rhs, admm_update
-constexpr int kChannelThreads = 256;  // admm_channel_interval
-// channel blocks resident an SM that its register budget is set for:
-// 4 took 16.1 ms at N=20, B=1024 against 21.4 for the compiler's choice
-// and 20.3 for 8 (PERF.md)
-constexpr int kChannelBlocksPerSm = 4;
 constexpr long kSmemMax = 232448;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Lane `lane`'s rows and the solver scalars fpar = (h, sigma, alpha, lam).
 __device__ __forceinline__ admm_rows::Scenario lane_rows(
@@ -107,6 +137,54 @@ __global__ void __launch_bounds__(kRowThreads)
                             inv_rho ? inv_rho[lane] : 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// admm_update
+// ---------------------------------------------------------------------------
+
+// i / d for 0 <= i < 2^22: the float quotient is within 1/2 of i / d, so
+// truncating it and one correction give the integer quotient.
+struct SmallDiv {
+  int d;
+  float inv;
+  __device__ explicit SmallDiv(int d_)
+      : d(d_), inv(1.f / static_cast<float>(d_)) {}
+  __device__ __forceinline__ int operator()(int i) const {
+    int q = __float2int_rz(static_cast<float>(i) * inv);
+    const int r = i - q * d;
+    return q + (r >= d) - (r < 0);
+  }
+};
+
+// The first vehicle i of pair p (pair_base(i) <= p < pair_base(i + 1)):
+// the root of i^2 - (2N - 1) i + 2p = 0, then a step either way for the
+// rounding of the square root.
+__device__ __forceinline__ int pair_first(int p, int N) {
+  const float m = 2.f * N - 1.f;
+  int i = static_cast<int>(0.5f * (m - sqrtf(m * m - 8.f * p)));
+  i = max(0, min(i, N - 2));
+  while (i > 0 && admm_rows::pair_base(i, N) > p) --i;
+  while (admm_rows::pair_base(i + 1, N) <= p) ++i;
+  return i;
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+// the same with the streaming (evict-first) cache hint: admm_update touches
+// each row once a call
+__device__ __forceinline__ float2 ldcs2(const float* p) {
+  return __ldcs(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ void stcs2(float* p, float2 v) {
+  __stcs(reinterpret_cast<float2*>(p), v);
+}
+
 __global__ void __launch_bounds__(kRowThreads)
     admm_update_kernel(const float* __restrict__ fpar,
                        const float* __restrict__ eta,
@@ -115,116 +193,750 @@ __global__ void __launch_bounds__(kRowThreads)
                        const float* __restrict__ l_c,
                        const float* __restrict__ rho_s,
                        const float* __restrict__ rho_c,
-                       const float* __restrict__ xt, float* x, float* zs,
-                       float* ys, float* zc, float* yc, int K, int N,
-                       int k_tile, int n_tiles, int rho_s_stride,
+                       const float* __restrict__ xt, float* __restrict__ x,
+                       float* __restrict__ zs, float* __restrict__ ys,
+                       float* __restrict__ zc, float* __restrict__ yc, int K,
+                       int N, int k_tile, int n_tiles, int rho_s_stride,
                        int rho_c_stride) {
-  extern __shared__ unsigned short pair_table[];
-  const int P = N * (N - 1) / 2, n2 = 2 * N, tid = threadIdx.x;
-  unsigned short *pi = pair_table, *pj = pair_table + P;
-  admm_rows::fill_pair_table(pi, pj, N);
-  const int lane = blockIdx.x / n_tiles, tile = blockIdx.x % n_tiles;
-  const int k0 = tile * k_tile, k1 = min(K, k0 + k_tile);
-  const admm_rows::Scenario sc =
-      lane_rows(fpar, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
-                lane, K, N, rho_s_stride, rho_c_stride);
-  const float* t = xt + static_cast<size_t>(lane) * K * 3 * n2;
-  __syncthreads();
-  admm_rows::update_static_rows(sc, t, k0 * n2, k1 * n2, tid, blockDim.x);
-  // the collision rows start on the threads after the static rows' last,
-  // so that both kinds of rows spread over all threads
-  const int shift = (k1 - k0) * n2 % blockDim.x;
-  admm_rows::update_collision_rows(
-      sc, t, pi, pj, k0 * P, k1 * P,
-      (tid + blockDim.x - shift) % blockDim.x, blockDim.x);
-}
-
-// Forward and backward sweeps of one channel column (banded.py
-// solve_factorized_channel) over the plane: col[k * 6N + s * 2N] is entry
-// s of b_k on entry, of xt_k on exit.  L (K, 3, 3) and E (K - 1, 3, 3)
-// row-major.
-__device__ __forceinline__ void channel_sweeps(const float* __restrict__ L,
-                                               const float* __restrict__ E,
-                                               float* col, int K, int n2) {
-  const int n = 3 * n2;
-  float y0 = 0.f, y1 = 0.f, y2 = 0.f;
-  for (int k = 0; k < K; ++k) {     // y_k = L_k (b_k - E_{k-1} y_{k-1})
-    float* ck = col + static_cast<size_t>(k) * n;
-    float r0 = ck[0], r1 = ck[n2], r2 = ck[2 * n2];
-    if (k > 0) {
-      const float* e = E + 9 * (k - 1);
-      r0 -= e[0] * y0 + e[1] * y1 + e[2] * y2;
-      r1 -= e[3] * y0 + e[4] * y1 + e[5] * y2;
-      r2 -= e[6] * y0 + e[7] * y1 + e[8] * y2;
-    }
-    const float* l = L + 9 * k;
-    y0 = l[0] * r0 + l[1] * r1 + l[2] * r2;
-    y1 = l[3] * r0 + l[4] * r1 + l[5] * r2;
-    y2 = l[6] * r0 + l[7] * r1 + l[8] * r2;
-    ck[0] = y0;
-    ck[n2] = y1;
-    ck[2 * n2] = y2;
-  }
-  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  for (int k = K - 1; k >= 0; --k) {  // x_k = L_k^T (y_k - E_k^T x_{k+1})
-    float* ck = col + static_cast<size_t>(k) * n;
-    float r0 = ck[0], r1 = ck[n2], r2 = ck[2 * n2];
-    if (k < K - 1) {
-      const float* e = E + 9 * k;
-      r0 -= e[0] * x0 + e[3] * x1 + e[6] * x2;
-      r1 -= e[1] * x0 + e[4] * x1 + e[7] * x2;
-      r2 -= e[2] * x0 + e[5] * x1 + e[8] * x2;
-    }
-    const float* l = L + 9 * k;
-    x0 = l[0] * r0 + l[3] * r1 + l[6] * r2;
-    x1 = l[1] * r0 + l[4] * r1 + l[7] * r2;
-    x2 = l[2] * r0 + l[5] * r1 + l[8] * r2;
-    ck[0] = x0;
-    ck[n2] = x1;
-    ck[2 * n2] = x2;
-  }
-}
-
-__global__ void __launch_bounds__(kChannelThreads, kChannelBlocksPerSm)
-    admm_channel_kernel(const float* __restrict__ fpar,
-                        const float* __restrict__ Linv,
-                        const float* __restrict__ Eb,
-                        const float* __restrict__ eta,
-                        const float* __restrict__ l_s,
-                        const float* __restrict__ u_s,
-                        const float* __restrict__ l_c,
-                        const float* __restrict__ rho_s,
-                        const float* __restrict__ rho_c, float* x, float* zs,
-                        float* ys, float* zc, float* yc, float* plane, int K,
-                        int N, int n_iters, int rho_s_stride,
-                        int rho_c_stride, int lane_factors) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
   const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
-  const int lane = blockIdx.x, tid = threadIdx.x;
-  float* xt = plane ? plane + static_cast<size_t>(lane) * K * n : sm;
-  unsigned short* pi =
-      reinterpret_cast<unsigned short*>(plane ? sm : sm + K * n);
-  unsigned short* pj = pi + P;
-  admm_rows::fill_pair_table(pi, pj, N);
-  const admm_rows::Scenario sc =
-      lane_rows(fpar, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
-                lane, K, N, rho_s_stride, rho_c_stride);
-  const float* L = Linv + (lane_factors ? static_cast<size_t>(lane) * 9 * K
-                                        : 0);
-  const float* E =
-      Eb + (lane_factors ? static_cast<size_t>(lane) * 9 * (K - 1) : 0);
-  __syncthreads();
-  for (int it = 0; it < n_iters; ++it) {
-    admm_rows::build_rhs(sc, xt);
-    __syncthreads();
-    for (int q = tid; q < n2; q += blockDim.x)
-      channel_sweeps(L, E, xt + q, K, n2);
-    __syncthreads();
-    admm_rows::update_rows(sc, xt, pi, pj);
-    __syncthreads();
+  const int lane = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x - lane * n_tiles) * k_tile;
+  const int steps = min(K, k0 + k_tile) - k0;
+  const float h = fpar[0], alpha = fpar[2], lam = fpar[3];
+  const float oma = 1.f - alpha, hh = 0.5f * h * h, ih = 1.f / h;
+  // the block's rows: k0 .. k0 + steps - 1 of the lane's planes
+  const size_t so = (static_cast<size_t>(lane) * K + k0) * 6 * n2;
+  const size_t co = (static_cast<size_t>(lane) * K + k0) * P;
+  const float* xl = xt + static_cast<size_t>(lane) * K * n;
+  float* xb = x + static_cast<size_t>(lane) * K * n;
+  const float* rs = rho_s + static_cast<size_t>(lane) * rho_s_stride;
+  const float* rc = rho_c + static_cast<size_t>(lane) * rho_c_stride;
+  const SmallDiv by_n(N), by_p(P > 0 ? P : 1);
+  // a static item is a pair of slots (k, s, q), (k, s, q + 1), q even
+  const int n_static = steps * 6 * N, n_all = n_static + steps * P;
+  for (int e = threadIdx.x; e < n_all; e += blockDim.x) {
+    if (e < n_static) {
+      const int r = by_n(e), q = 2 * (e - r * N), kk = r / 6, s = r - 6 * kk;
+      const int k = k0 + kk;
+      if (s == 2 && k == K - 1) continue;   // no jerk row at K - 1
+      const float* t = xl + static_cast<size_t>(k) * n;
+      const float2 zero = make_float2(0.f, 0.f);
+      float2 ax, xv = zero;
+      int xs = -1;                          // the slot of x to relax
+      switch (s) {
+        case 0: {
+          const float2 pp = k > 0 ? ld2(t + n2 + q - n) : zero;
+          const float2 vp = k > 0 ? ld2(t + 2 * n2 + q - n) : zero;
+          const float2 pt = ld2(t + n2 + q), at = ld2(t + q);
+          ax.x = pt.x - pp.x - h * vp.x - hh * at.x;
+          ax.y = pt.y - pp.y - h * vp.y - hh * at.y;
+          break;
+        }
+        case 1: {
+          const float2 vp = k > 0 ? ld2(t + 2 * n2 + q - n) : zero;
+          const float2 vt = ld2(t + 2 * n2 + q), at = ld2(t + q);
+          ax.x = vt.x - vp.x - h * at.x;
+          ax.y = vt.y - vp.y - h * at.y;
+          break;
+        }
+        case 2: {
+          const float2 an = ld2(t + n + q), at = ld2(t + q);
+          ax.x = (an.x - at.x) * ih;
+          ax.y = (an.y - at.y) * ih;
+          break;
+        }
+        case 3:
+          ax = xv = ld2(t + q);
+          xs = 0;
+          break;
+        case 4:
+          ax = xv = ld2(t + 2 * n2 + q);
+          xs = 2;
+          break;
+        default:
+          ax = xv = ld2(t + n2 + q);
+          xs = 1;
+      }
+      const size_t o = so + 2 * e;
+      const float rho = rs[k * 6 + s], irho = __frcp_rn(rho);
+      const float2 z = ldcs2(zs + o), y = ldcs2(ys + o);
+      const float2 lo = ldcs2(l_s + o), hi = ldcs2(u_s + o);
+      const float zr0 = alpha * ax.x + oma * z.x;
+      const float zr1 = alpha * ax.y + oma * z.y;
+      const float zn0 = fminf(fmaxf(zr0 + y.x * irho, lo.x), hi.x);
+      const float zn1 = fminf(fmaxf(zr1 + y.y * irho, lo.y), hi.y);
+      stcs2(ys + o, make_float2(y.x + rho * (zr0 - zn0),
+                                y.y + rho * (zr1 - zn1)));
+      stcs2(zs + o, make_float2(zn0, zn1));
+      if (xs >= 0) {
+        float* xo = xb + static_cast<size_t>(k) * n + xs * n2 + q;
+        const float2 xp = ld2(xo);
+        st2(xo, make_float2(alpha * xv.x + oma * xp.x,
+                            alpha * xv.y + oma * xp.y));
+      }
+    } else {
+      // collision row (k, p)
+      const int c = e - n_static, kk = by_p(c), p = c - kk * P;
+      const int k = k0 + kk;
+      const size_t o = co + c;
+      float colv = 0.f;
+      if (k > 0) {
+        const float* pos = xl + static_cast<size_t>(k - 1) * n + n2;
+        const int i = pair_first(p, N);
+        const int j = p - admm_rows::pair_base(i, N) + i + 1;
+        const float2 et = ldcs2(eta + 2 * o);
+        colv = et.x * (pos[2 * i] - pos[2 * j])
+               + et.y * (pos[2 * i + 1] - pos[2 * j + 1]);
+      }
+      const float rho = __ldcs(rc + k * P + p), irho = __frcp_rn(rho);
+      const float zr = alpha * colv + oma * __ldcs(zc + o);
+      const float yv = __ldcs(yc + o);
+      const float w = zr + yv * irho;
+      const float lb = __ldcs(l_c + o);
+      const float zn = w >= lb ? w : fminf(w + lam * irho, lb);
+      __stcs(yc + o, yv + rho * (zr - zn));
+      __stcs(zc + o, zn);
+    }
   }
 }
+
+// ---------------------------------------------------------------------------
+// admm_channel_interval
+// ---------------------------------------------------------------------------
+
+namespace chan {
+
+constexpr int kWarp = 32;
+constexpr int kLevels = 5;          // the warp scans' levels, log2(32)
+constexpr int kColItems = 8;        // collision rows a thread of a chunk
+// Fields of one step of a thread's channel: x (a, p, v); the six static
+// rows' z, y, lower and upper bounds, rho and 1 / rho; the sweep vector v
+// (b, then the forward sweep's y, then xt).
+enum { FX = 0, FZ = 3, FY = 9, FL = 15, FU = 21, FR = 27, FI = 33, FV = 39,
+       NF = 42 };
+// The tables hold 3x3 matrices, row-major, a thread's entries 0-7 as two
+// float4 and its entry 8 apart: L_k, M_k, N_k a step, then the forward and
+// backward scans' matrices, one a level each.
+constexpr int kTabStep = 3, kTabScan = 2 * kLevels;
+
+// A thread's steps in registers (S steps; every loop over them unrolls).
+template <int S_>
+struct RegSteps {
+  static constexpr int S = S_;
+  static constexpr bool kScan = true;     // the sweeps by the warp scan
+  float f[S_][NF];
+  __device__ __forceinline__ float& operator()(int j, int e) {
+    return f[j][e];
+  }
+};
+
+// ... or in memory: this thread's first float, the warp's 32 threads
+// side by side so that a warp's access falls on 32 banks.
+struct MemSteps {
+  static constexpr bool kScan = false;    // the sweeps serial, by thread 0
+  float* p;
+  int S;
+  __device__ __forceinline__ float& operator()(int j, int e) {
+    return p[(j * NF + e) * kWarp];
+  }
+};
+
+// The block's tables of nm matrices: matrix m of this thread has its
+// entries 0-7 at q[2 kWarp m] and q[2 kWarp m + kWarp] (a warp's loads of
+// one float4 fall on all banks) and entry 8 at e[kWarp m].
+struct Mat {
+  float4* q;
+  float* e;
+};
+
+struct Tab {
+  float4* q;     // this thread's first float4
+  float* e;      // this thread's first entry 8
+  int S;
+  __device__ __forceinline__ Mat at(int m) const {
+    return Mat{q + 2 * kWarp * m, e + kWarp * m};
+  }
+  __device__ __forceinline__ Mat L(int j) const { return at(kTabStep * j); }
+  __device__ __forceinline__ Mat M(int j) const {
+    return at(kTabStep * j + 1);
+  }
+  __device__ __forceinline__ Mat Nm(int j) const {
+    return at(kTabStep * j + 2);
+  }
+  __device__ __forceinline__ Mat Af(int l) const {
+    return at(kTabStep * S + l);
+  }
+  __device__ __forceinline__ Mat Ab(int l) const {
+    return at(kTabStep * S + kLevels + l);
+  }
+};
+
+struct Args {
+  const float *fpar, *Linv, *Eb, *l_s, *u_s, *l_c, *rho_s, *rho_c;
+  float *x, *zs, *ys, *zc, *yc, *scratch;
+  int B, K, N, n_iters, rho_s_stride, rho_c_stride, lane_factors;
+  int W, lw;                 // channels (warps) a block, log2 W
+  int groups_per_lane, chan_groups, col_groups;
+  long region_floats;        // tables + staging (+ the memory form's steps)
+};
+
+// A 3x3 matrix of the tables, row-major in registers.
+struct M3 {
+  float a[9];
+};
+
+__device__ __forceinline__ M3 ldm(const Mat& m) {
+  const float4 q0 = m.q[0], q1 = m.q[kWarp];
+  return M3{{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, m.e[0]}};
+}
+
+__device__ __forceinline__ void stm(const float* a, const Mat& m) {
+  m.q[0] = make_float4(a[0], a[1], a[2], a[3]);
+  m.q[kWarp] = make_float4(a[4], a[5], a[6], a[7]);
+  m.e[0] = a[8];
+}
+
+// o = m v + a
+__device__ __forceinline__ void mv_add(const M3& m, const float* v,
+                                       const float* a, float* o) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    o[r] = m.a[3 * r] * v[0] + m.a[3 * r + 1] * v[1] + m.a[3 * r + 2] * v[2]
+           + a[r];
+}
+
+// o = m v
+__device__ __forceinline__ void mv(const M3& m, const float* v, float* o) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    o[r] = m.a[3 * r] * v[0] + m.a[3 * r + 1] * v[1] + m.a[3 * r + 2] * v[2];
+}
+
+// o = m^T v
+__device__ __forceinline__ void mtv(const M3& m, const float* v, float* o) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    o[c] = m.a[c] * v[0] + m.a[3 + c] * v[1] + m.a[6 + c] * v[2];
+}
+
+// o = a b, 3x3 row-major in registers (o may not alias a or b)
+__device__ __forceinline__ void mm(const float* a, const float* b, float* o) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      o[3 * r + c] = a[3 * r] * b[c] + a[3 * r + 1] * b[3 + c]
+                     + a[3 * r + 2] * b[6 + c];
+}
+
+// The tables of one set of factors (L (K, 3, 3), E (K - 1, 3, 3)), by the
+// 32 threads of one warp.  Steps past K - 1 pass their input through
+// (L = 0, M = N = I), so that every thread folds S steps.
+__device__ void build_tables(const Tab& tb, const float* __restrict__ L,
+                             const float* __restrict__ E, int K, int t) {
+  for (int j = 0; j < tb.S; ++j) {
+    const int k = t * tb.S + j;
+    float l[9], m[9], nm[9];
+    if (k < K) {
+#pragma unroll
+      for (int e = 0; e < 9; ++e) l[e] = L[9 * k + e];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float mr = 0.f, nr = 0.f;
+          if (k > 0) {               // M_k = -L_k E_{k-1}
+            const float* ep = E + 9 * (k - 1);
+            mr = -(l[3 * r] * ep[c] + l[3 * r + 1] * ep[3 + c]
+                   + l[3 * r + 2] * ep[6 + c]);
+          }
+          if (k < K - 1) {           // N_k = -L_k^T E_k^T
+            const float* en = E + 9 * k;
+            nr = -(l[r] * en[3 * c] + l[3 + r] * en[3 * c + 1]
+                   + l[6 + r] * en[3 * c + 2]);
+          }
+          m[3 * r + c] = mr;
+          nm[3 * r + c] = nr;
+        }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 9; ++e) {
+        l[e] = 0.f;
+        m[e] = nm[e] = (e % 4 == 0) ? 1.f : 0.f;
+      }
+    }
+    stm(l, tb.L(j));
+    stm(m, tb.M(j));
+    stm(nm, tb.Nm(j));
+  }
+  __syncwarp();
+  // forward: the thread's map A = M_last ... M_first, then the scan's
+  float a[9], p[9], o[9];
+  M3 q = ldm(tb.M(0));
+#pragma unroll
+  for (int e = 0; e < 9; ++e) a[e] = q.a[e];
+  for (int j = 1; j < tb.S; ++j) {
+    q = ldm(tb.M(j));
+    mm(q.a, a, o);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) a[e] = o[e];
+  }
+#pragma unroll
+  for (int lv = 0; lv < kLevels; ++lv) {
+    const int off = 1 << lv;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) p[e] = __shfl_up_sync(kFull, a[e], off);
+    stm(a, tb.Af(lv));
+    if (t >= off) {
+      mm(a, p, o);
+#pragma unroll
+      for (int e = 0; e < 9; ++e) a[e] = o[e];
+    }
+  }
+  // backward: N_first ... N_last, then the scan's
+  q = ldm(tb.Nm(tb.S - 1));
+#pragma unroll
+  for (int e = 0; e < 9; ++e) a[e] = q.a[e];
+  for (int j = tb.S - 2; j >= 0; --j) {
+    q = ldm(tb.Nm(j));
+    mm(q.a, a, o);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) a[e] = o[e];
+  }
+#pragma unroll
+  for (int lv = 0; lv < kLevels; ++lv) {
+    const int off = 1 << lv;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) p[e] = __shfl_down_sync(kFull, a[e], off);
+    stm(a, tb.Ab(lv));
+    if (t + off < kWarp) {
+      mm(a, p, o);
+#pragma unroll
+      for (int e = 0; e < 9; ++e) a[e] = o[e];
+    }
+  }
+}
+
+// rho z - y of step j, slot s
+template <class St>
+__device__ __forceinline__ float rz(St& st, int j, int s) {
+  return st(j, FR + s) * st(j, FZ + s) - st(j, FY + s);
+}
+
+struct Scalars {
+  float h, sigma, alpha, oma, hh, ih;
+};
+
+// The warp's suffix scan of the backward maps x_first = B_t x_after + d
+// (B_t the thread's N_first ... N_last, then the tables' windows), on d.
+__device__ __forceinline__ void backward_scan(const Tab& tb, int t,
+                                              float* d) {
+  float u[3], o[3];
+#pragma unroll
+  for (int lv = 0; lv < kLevels; ++lv) {
+    const int off = 1 << lv;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) u[r] = __shfl_down_sync(kFull, d[r], off);
+    if (t + off < kWarp) {
+      mv_add(ldm(tb.Ab(lv)), u, d, o);
+      d[0] = o[0], d[1] = o[1], d[2] = o[2];
+    }
+  }
+}
+
+// The sweeps by the warp scan (the register form): b in v on entry, xt =
+// M^{-1} b on exit.  The backward boundaries are refined once: the
+// inconsistency of each thread's first step, computed from its
+// neighbour's boundary, with its own boundary is scanned with the same
+// maps and the steps corrected, so that neighbouring steps agree to the
+// rounding of a serial sweep (A xt takes their differences).
+template <class St>
+__device__ __forceinline__ void scan_sweeps(St& st, const Tab& tb, int t) {
+  const int S = st.S;
+  float d[3], u[3], o[3];
+  // c = L b
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const float bj[3] = {st(j, FV), st(j, FV + 1), st(j, FV + 2)};
+    mv(ldm(tb.L(j)), bj, o);
+    st(j, FV) = o[0];
+    st(j, FV + 1) = o[1];
+    st(j, FV + 2) = o[2];
+  }
+  // forward sweep y_k = M_k y_{k-1} + c_k: fold, scan, unfold
+  d[0] = st(0, FV), d[1] = st(0, FV + 1), d[2] = st(0, FV + 2);
+#pragma unroll
+  for (int j = 1; j < S; ++j) {
+    const float cj[3] = {st(j, FV), st(j, FV + 1), st(j, FV + 2)};
+    mv_add(ldm(tb.M(j)), d, cj, o);
+    d[0] = o[0], d[1] = o[1], d[2] = o[2];
+  }
+#pragma unroll
+  for (int lv = 0; lv < kLevels; ++lv) {
+    const int off = 1 << lv;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) u[r] = __shfl_up_sync(kFull, d[r], off);
+    if (t >= off) {
+      mv_add(ldm(tb.Af(lv)), u, d, o);
+      d[0] = o[0], d[1] = o[1], d[2] = o[2];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    u[r] = __shfl_up_sync(kFull, d[r], 1);
+    if (t == 0) u[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const float cj[3] = {st(j, FV), st(j, FV + 1), st(j, FV + 2)};
+    mv_add(ldm(tb.M(j)), u, cj, o);
+    // g = L^T y
+    mtv(ldm(tb.L(j)), o, u);
+    st(j, FV) = u[0];
+    st(j, FV + 1) = u[1];
+    st(j, FV + 2) = u[2];
+    u[0] = o[0], u[1] = o[1], u[2] = o[2];
+  }
+  // backward sweep x_k = N_k x_{k+1} + g_k: fold, scan, unfold
+  d[0] = st(S - 1, FV), d[1] = st(S - 1, FV + 1), d[2] = st(S - 1, FV + 2);
+#pragma unroll
+  for (int j = S - 2; j >= 0; --j) {
+    const float gj[3] = {st(j, FV), st(j, FV + 1), st(j, FV + 2)};
+    mv_add(ldm(tb.Nm(j)), d, gj, o);
+    d[0] = o[0], d[1] = o[1], d[2] = o[2];
+  }
+  backward_scan(tb, t, d);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    u[r] = __shfl_down_sync(kFull, d[r], 1);
+    if (t == kWarp - 1) u[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = S - 1; j >= 0; --j) {
+    const float gj[3] = {st(j, FV), st(j, FV + 1), st(j, FV + 2)};
+    mv_add(ldm(tb.Nm(j)), u, gj, o);
+    st(j, FV) = o[0];
+    st(j, FV + 1) = o[1];
+    st(j, FV + 2) = o[2];
+    u[0] = o[0], u[1] = o[1], u[2] = o[2];
+  }
+  // refinement: the first step's excess over the boundary, scanned
+#pragma unroll
+  for (int r = 0; r < 3; ++r) d[r] = u[r] - d[r];
+  backward_scan(tb, t, d);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    u[r] = __shfl_down_sync(kFull, d[r], 1);
+    if (t == kWarp - 1) u[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = S - 1; j >= 0; --j) {
+    mv(ldm(tb.Nm(j)), u, o);
+    st(j, FV) += o[0];
+    st(j, FV + 1) += o[1];
+    st(j, FV + 2) += o[2];
+    u[0] = o[0], u[1] = o[1], u[2] = o[2];
+  }
+}
+
+// The sweeps of the memory form: thread 0 walks k as
+// banded.solve_factorized_channel does (a scan over windows of up to
+// K / 2 steps lost accuracy at K = 500), y_k = L_k (b_k - E_{k-1} y_{k-1}),
+// x_k = L_k^T (y_k - E_k^T x_{k+1}), on the factors L (K, 3, 3), E
+// (K - 1, 3, 3) of the lane; v of step k = t S + j belongs to thread t.
+__device__ __forceinline__ void serial_sweeps(MemSteps& st, int t, int K,
+                                              const float* __restrict__ L,
+                                              const float* __restrict__ E) {
+  __syncwarp();
+  if (t == 0) {
+    float* p0 = st.p;               // thread 0's floats; thread t's at + t
+    const int S = st.S;
+    float y0 = 0.f, y1 = 0.f, y2 = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float* v = p0 + ((k % S) * NF + FV) * kWarp + k / S;
+      float r0 = v[0], r1 = v[kWarp], r2 = v[2 * kWarp];
+      if (k > 0) {
+        const float* e = E + 9 * (k - 1);
+        r0 -= e[0] * y0 + e[1] * y1 + e[2] * y2;
+        r1 -= e[3] * y0 + e[4] * y1 + e[5] * y2;
+        r2 -= e[6] * y0 + e[7] * y1 + e[8] * y2;
+      }
+      const float* l = L + 9 * k;
+      y0 = l[0] * r0 + l[1] * r1 + l[2] * r2;
+      y1 = l[3] * r0 + l[4] * r1 + l[5] * r2;
+      y2 = l[6] * r0 + l[7] * r1 + l[8] * r2;
+      v[0] = y0;
+      v[kWarp] = y1;
+      v[2 * kWarp] = y2;
+    }
+    float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+    for (int k = K - 1; k >= 0; --k) {
+      float* v = p0 + ((k % S) * NF + FV) * kWarp + k / S;
+      float r0 = v[0], r1 = v[kWarp], r2 = v[2 * kWarp];
+      if (k < K - 1) {
+        const float* e = E + 9 * k;
+        r0 -= e[0] * x0 + e[3] * x1 + e[6] * x2;
+        r1 -= e[1] * x0 + e[4] * x1 + e[7] * x2;
+        r2 -= e[2] * x0 + e[5] * x1 + e[8] * x2;
+      }
+      const float* l = L + 9 * k;
+      x0 = l[0] * r0 + l[3] * r1 + l[6] * r2;
+      x1 = l[1] * r0 + l[4] * r1 + l[7] * r2;
+      x2 = l[2] * r0 + l[5] * r1 + l[8] * r2;
+      v[0] = x0;
+      v[kWarp] = x1;
+      v[2 * kWarp] = x2;
+    }
+  }
+  __syncwarp();
+}
+
+// One ADMM iteration of the warp's channel (thread t, steps t S + j); L, E
+// the lane's factors (read by the memory form's sweeps).
+template <class St>
+__device__ __forceinline__ void iterate(St& st, const Tab& tb, int t, int K,
+                                        const Scalars& c,
+                                        const float* __restrict__ L,
+                                        const float* __restrict__ E) {
+  const int S = st.S;
+  // b = A^T (rho z - y) + sigma x into v
+  const float jr_in = __shfl_up_sync(kFull, rz(st, S - 1, 2), 1);
+  const float dp_in = __shfl_down_sync(kFull, rz(st, 0, 0), 1);
+  const float dv_in = __shfl_down_sync(kFull, rz(st, 0, 1), 1);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int k = t * S + j;
+    float b0 = 0.f, b1 = 0.f, b2 = 0.f;
+    if (k < K) {
+      const bool last = k == K - 1;
+      const float dp = rz(st, j, 0), dv = rz(st, j, 1);
+      const float jr = last ? 0.f : rz(st, j, 2);
+      const float jr_prev = k == 0 ? 0.f : j > 0 ? rz(st, j - 1, 2) : jr_in;
+      const float dp_next = last ? 0.f : j + 1 < S ? rz(st, j + 1, 0) : dp_in;
+      const float dv_next = last ? 0.f : j + 1 < S ? rz(st, j + 1, 1) : dv_in;
+      b0 = -c.hh * dp - c.h * dv + (jr_prev - jr) * c.ih + rz(st, j, 3)
+           + c.sigma * st(j, FX);
+      b1 = dp - dp_next + rz(st, j, 5) + c.sigma * st(j, FX + 1);
+      b2 = -c.h * dp_next + dv - dv_next + rz(st, j, 4)
+           + c.sigma * st(j, FX + 2);
+    }
+    st(j, FV) = b0;
+    st(j, FV + 1) = b1;
+    st(j, FV + 2) = b2;
+  }
+  if constexpr (St::kScan)
+    scan_sweeps(st, tb, t);
+  else
+    serial_sweeps(st, t, K, L, E);
+  // relaxation, A xt, clip and dual step on the static rows; x relaxed
+  const float p_in = __shfl_up_sync(kFull, st(S - 1, FV + 1), 1);
+  const float v_in = __shfl_up_sync(kFull, st(S - 1, FV + 2), 1);
+  const float a_in = __shfl_down_sync(kFull, st(0, FV), 1);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int k = t * S + j;
+    if (k >= K) continue;
+    const float at = st(j, FV), pt = st(j, FV + 1), vt = st(j, FV + 2);
+    const float pp = k == 0 ? 0.f : j > 0 ? st(j - 1, FV + 1) : p_in;
+    const float vp = k == 0 ? 0.f : j > 0 ? st(j - 1, FV + 2) : v_in;
+    const float an = j + 1 < S ? st(j + 1, FV) : a_in;
+    float ax[6];
+    ax[0] = pt - pp - c.h * vp - c.hh * at;
+    ax[1] = vt - vp - c.h * at;
+    ax[2] = k < K - 1 ? (an - at) * c.ih : 0.f;
+    ax[3] = at;
+    ax[4] = vt;
+    ax[5] = pt;
+#pragma unroll
+    for (int s = 0; s < 6; ++s) {
+      if (s == 2 && k == K - 1) continue;     // no jerk row at K-1
+      const float zr = c.alpha * ax[s] + c.oma * st(j, FZ + s);
+      const float yv = st(j, FY + s);
+      const float zn = fminf(fmaxf(zr + yv * st(j, FI + s), st(j, FL + s)),
+                             st(j, FU + s));
+      st(j, FY + s) = yv + st(j, FR + s) * (zr - zn);
+      st(j, FZ + s) = zn;
+    }
+    st(j, FX) = c.alpha * at + c.oma * st(j, FX);
+    st(j, FX + 1) = c.alpha * pt + c.oma * st(j, FX + 1);
+    st(j, FX + 2) = c.alpha * vt + c.oma * st(j, FX + 2);
+  }
+}
+
+// Rows (k, s) of the block's W channels q0 .. q0 + nq - 1 of one plane
+// (rows of n2 floats, NS of them a step) through the staging buffer:
+// rows of W floats, one float of padding a step.
+template <int NS>
+__device__ __forceinline__ int stage_at(int k, int s, int w, int W) {
+  return k * (NS * W + 1) + s * W + w;
+}
+
+template <int F, int NS, class St>
+__device__ __forceinline__ void load_plane(St& st, const float* src,
+                                           float* stage, const Args& a,
+                                           int q0, int nq, int w, int t) {
+  const int n2 = 2 * a.N, rows = a.K * NS;
+  __syncthreads();
+  for (int i = threadIdx.x; i < (rows << a.lw); i += blockDim.x) {
+    const int cq = i & (a.W - 1), r = i >> a.lw;
+    if (cq < nq) {
+      const int k = r / NS;
+      stage[stage_at<NS>(k, r - k * NS, cq, a.W)] =
+          src[static_cast<size_t>(r) * n2 + q0 + cq];
+    }
+  }
+  __syncthreads();
+  if (w >= nq) return;
+#pragma unroll
+  for (int j = 0; j < st.S; ++j) {
+    const int k = t * st.S + j;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      st(j, F + s) = k < a.K ? stage[stage_at<NS>(k, s, w, a.W)] : 0.f;
+  }
+}
+
+template <int F, int NS, class St>
+__device__ __forceinline__ void store_plane(St& st, float* dst, float* stage,
+                                            const Args& a, int q0, int nq,
+                                            int w, int t) {
+  const int n2 = 2 * a.N, rows = a.K * NS;
+  __syncthreads();
+  if (w < nq) {
+#pragma unroll
+    for (int j = 0; j < st.S; ++j) {
+      const int k = t * st.S + j;
+      if (k >= a.K) continue;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        stage[stage_at<NS>(k, s, w, a.W)] = st(j, F + s);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (rows << a.lw); i += blockDim.x) {
+    const int cq = i & (a.W - 1), r = i >> a.lw;
+    if (cq < nq) {
+      const int k = r / NS;
+      dst[static_cast<size_t>(r) * n2 + q0 + cq] =
+          stage[stage_at<NS>(k, r - k * NS, cq, a.W)];
+    }
+  }
+}
+
+// One group: the block's W channels of lane `lane` for the whole interval.
+template <class St>
+__device__ __forceinline__ void run_group(St& st, const Tab& tb,
+                                          float* stage, const Args& a,
+                                          const Scalars& c, int lane, int q0,
+                                          int nq, int w, int t) {
+  const size_t lf = a.lane_factors ? lane : 0;
+  const float* L = a.Linv + lf * 9 * a.K;
+  const float* E = a.Eb + lf * 9 * (a.K - 1);
+  const size_t xo = static_cast<size_t>(lane) * a.K * 6 * a.N;
+  const size_t so = 2 * xo;
+  load_plane<FX, 3>(st, a.x + xo, stage, a, q0, nq, w, t);
+  load_plane<FZ, 6>(st, a.zs + so, stage, a, q0, nq, w, t);
+  load_plane<FY, 6>(st, a.ys + so, stage, a, q0, nq, w, t);
+  load_plane<FL, 6>(st, a.l_s + so, stage, a, q0, nq, w, t);
+  load_plane<FU, 6>(st, a.u_s + so, stage, a, q0, nq, w, t);
+  if (w < nq) {
+    const float* rs = a.rho_s + static_cast<size_t>(lane) * a.rho_s_stride;
+#pragma unroll
+    for (int j = 0; j < st.S; ++j) {
+      const int k = t * st.S + j;
+#pragma unroll
+      for (int s = 0; s < 6; ++s) {
+        const float r = k < a.K ? rs[6 * k + s] : 1.f;
+        st(j, FR + s) = r;
+        st(j, FI + s) = 1.f / r;
+      }
+    }
+    for (int it = 0; it < a.n_iters; ++it)
+      iterate(st, tb, t, a.K, c, L, E);
+  }
+  store_plane<FX, 3>(st, a.x + xo, stage, a, q0, nq, w, t);
+  store_plane<FZ, 6>(st, a.zs + so, stage, a, q0, nq, w, t);
+  store_plane<FY, 6>(st, a.ys + so, stage, a, q0, nq, w, t);
+}
+
+// Chunk `chunk` of the collision rows (B, K, P), flattened: each row's
+// n_iters steps of the prox and dual update with A xt = 0.
+__device__ __forceinline__ void collision_chunk(const Args& a, int chunk,
+                                                float oma, float lam) {
+  const int KP = a.K * (a.N * (a.N - 1) / 2), total = a.B * KP;
+  const int base = chunk * blockDim.x * kColItems + threadIdx.x;
+  for (int i = 0; i < kColItems; ++i) {
+    const int idx = base + i * blockDim.x;
+    if (idx >= total) return;
+    const int lane = idx / KP;
+    const float rho = a.rho_c[static_cast<size_t>(lane) * a.rho_c_stride
+                              + (idx - lane * KP)];
+    const float irho = 1.f / rho, lr = lam * irho, lb = a.l_c[idx];
+    float z = a.zc[idx], y = a.yc[idx];
+    for (int it = 0; it < a.n_iters; ++it) {
+      const float zr = oma * z, w = zr + y * irho;
+      const float zn = w >= lb ? w : fminf(w + lr, lb);
+      y = y + rho * (zr - zn);
+      z = zn;
+    }
+    a.zc[idx] = z;
+    a.yc[idx] = y;
+  }
+}
+
+// S > 0: S steps a thread in registers (K <= 32 S), the tables and the
+// staging buffer in shared memory; S = 0: the memory form, ceil(K / 32)
+// steps a thread and the staging buffer in the block's region (no tables),
+// which lies in shared memory, or in a.scratch (a region a block) where it
+// does not fit.
+template <int S>
+__global__ void __launch_bounds__(256, 2) admm_channel_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* region = reinterpret_cast<float*>(smem4);
+  if constexpr (S == 0) {
+    if (a.scratch) region = a.scratch + blockIdx.x * a.region_floats;
+  }
+  const int Sd = S > 0 ? S : (a.K + kWarp - 1) / kWarp;
+  const int t = threadIdx.x & (kWarp - 1), w = threadIdx.x / kWarp;
+  // the register form's tables: nm matrices, 8 floats each a thread, then
+  // their entries 8
+  const int nm = kTabStep * Sd + kTabScan;
+  const Tab tb{reinterpret_cast<float4*>(region) + t, region + 8 * kWarp * nm
+               + t, Sd};
+  float* stage = region + (S > 0 ? 9 * kWarp * nm : 0);
+  const float h = a.fpar[0], alpha = a.fpar[2];
+  const Scalars c{h, a.fpar[1], alpha, 1.f - alpha, 0.5f * h * h, 1.f / h};
+  int tab_lane = -1;
+  for (int g = blockIdx.x; g < a.chan_groups + a.col_groups;
+       g += gridDim.x) {
+    if (g >= a.chan_groups) {
+      collision_chunk(a, g - a.chan_groups, c.oma, a.fpar[3]);
+      continue;
+    }
+    const int lane = g / a.groups_per_lane;
+    const int q0 = (g - lane * a.groups_per_lane) * a.W;
+    const int nq = min(a.W, 2 * a.N - q0);
+    if constexpr (S > 0) {
+      if (tab_lane < 0 || (a.lane_factors && lane != tab_lane)) {
+        __syncthreads();        // the table's readers are done
+        if (w == 0) {
+          const size_t lf = a.lane_factors ? lane : 0;
+          build_tables(tb, a.Linv + lf * 9 * a.K, a.Eb + lf * 9 * (a.K - 1),
+                       a.K, t);
+        }
+        tab_lane = lane;        // load_plane's barrier publishes it
+      }
+      RegSteps<S> st;
+      run_group(st, tb, stage, a, c, lane, q0, nq, w, t);
+    } else {
+      float* mem = stage + a.K * (6 * a.W + 1);
+      MemSteps st{mem + w * Sd * NF * kWarp + t, Sd};
+      run_group(st, tb, stage, a, c, lane, q0, nq, w, t);
+    }
+  }
+}
+
+}  // namespace chan
 
 template <typename Kernel>
 int allow_smem(Kernel kernel, long smem) {
@@ -238,16 +950,44 @@ bool row_args_ok(int B, int K, int N, int k_tile) {
          admm_rows::pair_table_bytes(N * (N - 1L) / 2) <= kSmemMax;
 }
 
+// Floats of one admm_channel_interval block's region: the staging buffer
+// and the tables of the register form (steps 1, 2), or the staging buffer
+// and the steps of its `warps` channels in the memory form (steps 0).
+long admm_channel_region_floats(int K, int warps, int steps) {
+  const long stage = static_cast<long>(K) * (6 * warps + 1);
+  if (steps > 0)
+    return stage + 9 * chan::kWarp * (chan::kTabStep * steps + chan::kTabScan);
+  const long Sd = (K + chan::kWarp - 1) / chan::kWarp;
+  return stage + static_cast<long>(warps) * chan::kWarp * chan::NF * Sd;
+}
+
+// The persistent grid of the channel kernel S: as many blocks as fit the
+// SMs, at most `max_blocks` and the groups.
+template <int S>
+int launch_channel(const chan::Args& a, long smem, int max_blocks,
+                   cudaStream_t stream) {
+  auto kernel = chan::admm_channel_kernel<S>;
+  int err = allow_smem(kernel, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (!err) err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err)
+    err = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (!err)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, chan::kWarp * a.W, smem));
+  if (err) return err;
+  const long groups = static_cast<long>(a.chan_groups) + a.col_groups;
+  const long fit = std::max(1L, 1L * per_sm * sms);
+  const long grid = std::min(groups, std::min(1L * max_blocks, fit));
+  kernel<<<static_cast<int>(grid), chan::kWarp * a.W, a.scratch ? 0 : smem,
+           stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
-
-// Bytes of dynamic shared memory of an admm_channel_interval block: the
-// (K, 6N) plane where `plane` is 1, and the pair table.
-long admm_channel_smem_bytes(int K, int N, int plane) {
-  return 4L * K * 6 * N * plane +
-         admm_rows::pair_table_bytes(N * (N - 1L) / 2);
-}
 
 // b (B, K, 6N) = A^T (rho z - y) + sigma x, times inv_rho[lane] where
 // inv_rho (B,) is given (else null).  fpar (4,) = h, sigma, alpha,
@@ -274,49 +1014,69 @@ int admm_rhs_f32(const float* fpar, const float* eta, const float* rho_s,
 // From the sweep's solution xt (B, K, 6N), update x (B, K, 6N), zs, ys
 // (B, K, 6, 2N) and zc, yc (B, K, P) in place; l_s, u_s (B, K, 6, 2N) the
 // static bounds, l_c (B, K, P) the collision lower bounds; the rest as in
-// admm_rhs_f32.
+// admm_rhs_f32 (blocks of k_tile steps of one lane, ops/admm_steps.py
+// update_plan).
 int admm_update_f32(const float* fpar, const float* eta, const float* l_s,
                     const float* u_s, const float* l_c, const float* rho_s,
                     const float* rho_c, const float* xt, float* x, float* zs,
                     float* ys, float* zc, float* yc, int B, int K, int N,
                     int k_tile, int rho_s_stride, int rho_c_stride,
                     cudaStream_t stream) {
-  if (!row_args_ok(B, K, N, k_tile))
+  // a block's element indices stay below 2^22 (SmallDiv)
+  if (!row_args_ok(B, K, N, k_tile) ||
+      static_cast<long>(k_tile) * (12L * N + N * (N - 1L) / 2) >= (1L << 22))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long smem = admm_rows::pair_table_bytes(N * (N - 1L) / 2);
-  const int err = allow_smem(admm_update_kernel, smem);
-  if (err != 0) return err;
   const int n_tiles = (K + k_tile - 1) / k_tile;
-  admm_update_kernel<<<B * n_tiles, kRowThreads, smem, stream>>>(
+  admm_update_kernel<<<B * n_tiles, kRowThreads, 0, stream>>>(
       fpar, eta, l_s, u_s, l_c, rho_s, rho_c, xt, x, zs, ys, zc, yc, K, N,
       k_tile, n_tiles, rho_s_stride, rho_c_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// n_iters ADMM iterations of the collision-free QP on the per-channel
-// factors Linv (K, 3, 3) and Eb (K - 1, 3, 3), shared, or one set a lane
-// where lane_factors is 1 ((B, K, 3, 3), (B, K - 1, 3, 3)); the rows and
-// state as in admm_update_f32, x, zs, ys, zc, yc updated in place; plane
-// (B, K, 6N) the scratch of the sweep plane, or null where it lies in
-// shared memory (admm_channel_smem_bytes).  One block a lane.
+// n_iters ADMM iterations of the collision-free QP (eta = 0: eta and the
+// pairs are not read) on the per-channel factors Linv (K, 3, 3) and Eb
+// (K - 1, 3, 3), shared, or one set a lane where lane_factors is 1
+// ((B, K, 3, 3), (B, K - 1, 3, 3)); l_s, u_s, l_c, rho_s, rho_c and the
+// state x, zs, ys, zc, yc as in admm_update_f32, the state updated in
+// place.  The plan (ops/admm_steps.py channel_plan): `steps` 1 or 2 (the
+// steps a thread in registers, K <= 32 steps) or 0 (the memory form),
+// `warps` the channels a block (1, 2 or 4; 1 in the memory form);
+// scratch null (each block's region in shared memory) or, in the memory
+// form only, max_blocks regions of admm_channel_region_floats floats, one
+// a block.
 int admm_channel_interval_f32(const float* fpar, const float* Linv,
-                              const float* Eb, const float* eta,
-                              const float* l_s, const float* u_s,
-                              const float* l_c, const float* rho_s,
-                              const float* rho_c, float* x, float* zs,
-                              float* ys, float* zc, float* yc, float* plane,
-                              int B, int K, int N, int n_iters,
-                              int rho_s_stride, int rho_c_stride,
-                              int lane_factors, cudaStream_t stream) {
-  const long smem = admm_channel_smem_bytes(K, N, plane == nullptr);
-  if (!row_args_ok(B, K, N, 1) || n_iters < 0 || smem > kSmemMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int err = allow_smem(admm_channel_kernel, smem);
-  if (err != 0) return err;
-  admm_channel_kernel<<<B, kChannelThreads, smem, stream>>>(
-      fpar, Linv, Eb, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
-      plane, K, N, n_iters, rho_s_stride, rho_c_stride, lane_factors);
-  return static_cast<int>(cudaGetLastError());
+                              const float* Eb, const float* l_s,
+                              const float* u_s, const float* l_c,
+                              const float* rho_s, const float* rho_c,
+                              float* x, float* zs, float* ys, float* zc,
+                              float* yc, float* scratch, int B, int K, int N,
+                              int n_iters, int rho_s_stride,
+                              int rho_c_stride, int lane_factors, int steps,
+                              int warps, int max_blocks,
+                              cudaStream_t stream) {
+  int lw = 0;
+  while ((1 << lw) < warps) ++lw;
+  const long P = N * (N - 1L) / 2;
+  const long region = admm_channel_region_floats(K, warps, steps);
+  const long smem = 4 * region;
+  const bool ok =
+      B >= 1 && K >= 2 && N >= 1 && n_iters >= 0 && max_blocks >= 1 &&
+      (1 << lw) == warps && warps <= 4 && steps >= 0 && steps <= 2 &&
+      (steps == 0 ? warps == 1 : K <= chan::kWarp * steps && !scratch) &&
+      (scratch || smem <= kSmemMax) &&
+      1L * B * K * P < (1L << 31) && 2L * B * N < (1L << 31);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  chan::Args a{fpar, Linv, Eb, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc,
+               yc, scratch, B, K, N, n_iters, rho_s_stride, rho_c_stride,
+               lane_factors, warps, lw};
+  a.groups_per_lane = (2 * N + warps - 1) / warps;
+  a.chan_groups = B * a.groups_per_lane;
+  const long chunk = 1L * chan::kWarp * warps * chan::kColItems;
+  a.col_groups = static_cast<int>((B * K * P + chunk - 1) / chunk);
+  a.region_floats = region;
+  if (steps == 1) return launch_channel<1>(a, smem, max_blocks, stream);
+  if (steps == 2) return launch_channel<2>(a, smem, max_blocks, stream);
+  return launch_channel<0>(a, scratch ? 0 : smem, max_blocks, stream);
 }
 
 }  // extern "C"

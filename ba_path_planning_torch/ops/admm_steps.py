@@ -14,14 +14,17 @@ routes that launch a sweep kernel per iteration (``grouped_X``,
 * :func:`admm_update`: from the sweep's xt, x, z and y in place (the
   relaxation, A xt, the clip, the exact-penalty prox, the dual step);
 
-and the collision-free phase-1 QP (``"channel"``) runs each check interval
-in one launch, :func:`admm_channel_interval`.  The state lies on the planes
-of the fused kernels (``ops/admm_fused.py``): x stacked (B, K, 6N), the
-static rows of z and y as (B, K, 6, 2N), their collision rows (B, K, P);
-it is packed once an interval (:func:`pack_state`) and the interval returns
-views of it.  CUDA tensors launch the kernels (float32; anything else
-raises), CPU tensors run the plain versions, which compute on the same
-planes what :func:`banded.admm_iterations` computes.
+and the collision-free phase-1 QP (``"channel"``, eta = 0) runs each check
+interval in one launch, :func:`admm_channel_interval`: 2N independent
+channel problems a lane and an elementwise recurrence a collision row.
+The state lies on the planes of the fused kernels (``ops/admm_fused.py``):
+x stacked (B, K, 6N), the static rows of z and y as (B, K, 6, 2N), their
+collision rows (B, K, P); it is packed once an interval
+(:func:`pack_state`) and the interval returns views of it.  CUDA tensors
+launch the kernels (float32; anything else raises), CPU tensors run the
+plain versions, which compute on the same planes what
+:func:`banded.admm_iterations` computes (the channel interval: its
+collision-free function, equal to it on eta = 0).
 """
 
 from __future__ import annotations
@@ -30,21 +33,35 @@ from typing import NamedTuple
 
 import torch
 
-from ..solvers.banded import (RowVals, StateVars, apply_A, apply_AT,
-                              from_stacked, solve_factorized_channel,
-                              to_stacked)
+from ..solvers.banded import (RowVals, StateVars, apply_A, apply_A_static,
+                              apply_AT, apply_AT_static, from_stacked,
+                              solve_factorized_channel, to_stacked)
 from ..utils import debug
 from .admm_fused import _on_cpu, planes_to_rows, rho_planes, static_plane
 from .cuda_build import check, load_kernels, require_f32_cuda
 
 # The row stages' launch layout (csrc/admm_steps.cu): a block of
 # ROW_THREADS threads takes k_tile steps of one lane, at most about
-# ROW_ITEMS rows, and the grid has at least ROW_MIN_BLOCKS blocks where
-# B * K allows (two a streaming multiprocessor of the H100)
+# ROW_ITEMS rows (admm_rhs) or UPDATE_ITEMS items (admm_update: two
+# neighbouring slots of a static row, or a collision row), and the grid
+# has at least ROW_MIN_BLOCKS blocks where B * K allows (two a streaming
+# multiprocessor of the H100)
 ROW_THREADS = 256
 ROW_ITEMS = 2 * ROW_THREADS
-ROW_MIN_BLOCKS = 2 * 132
+UPDATE_ITEMS = 5 * ROW_THREADS
+SMS = 132
+ROW_MIN_BLOCKS = 2 * SMS
 SMEM_MAX = 232448
+# The channel interval (csrc/admm_steps.cu admm_channel_interval_f32): a
+# thread keeps up to CHANNEL_REG_STEPS steps in registers (K <= 64), the
+# memory form ceil(K / 32) in its block's region (K <= 1184 in shared
+# memory); a region that does not fit shared memory lies in a global
+# scratch of CHANNEL_SCRATCH_BLOCKS regions.  The register form's tables:
+# 3x3 matrices, L, M, N a step and the scans' ten, a thread of the warp;
+# the memory form's steps: 42 floats a step.
+CHANNEL_REG_STEPS = 2
+CHANNEL_SCRATCH_BLOCKS = 2 * SMS
+_WARP, _TAB_STEP, _TAB_SCAN, _STEP_FLOATS = 32, 3 * 9, 10 * 9, 42
 
 
 class Rows(NamedTuple):
@@ -118,34 +135,72 @@ def unpack(rows: Rows, n_vehicles: int):
 
 
 def row_plan(B: int, K: int, N: int) -> int:
-    """Steps of k a block of :func:`admm_rhs` and :func:`admm_update` takes:
-    about ROW_ITEMS rows (2N static and P collision rows a step), fewer
-    where the grid would have less than ROW_MIN_BLOCKS blocks, at least
-    one."""
+    """Steps of k a block of :func:`admm_rhs` takes: about ROW_ITEMS rows
+    (2N static and P collision rows a step), fewer where the grid would
+    have less than ROW_MIN_BLOCKS blocks, at least one."""
     per_step = 2 * N + N * (N - 1) // 2
     by_work = max(1, ROW_ITEMS // per_step)
     by_fill = max(1, B * K // ROW_MIN_BLOCKS)
     return min(K, by_work, by_fill)
 
 
+def update_plan(B: int, K: int, N: int) -> int:
+    """Steps of k a block of :func:`admm_update` takes: about UPDATE_ITEMS
+    items (6N pairs of static slots and P collision rows a step), fewer
+    where the grid would have less than ROW_MIN_BLOCKS blocks, at least
+    one."""
+    per_step = 6 * N + N * (N - 1) // 2
+    by_work = max(1, UPDATE_ITEMS // per_step)
+    by_fill = max(1, B * K // ROW_MIN_BLOCKS)
+    return min(K, by_work, by_fill)
+
+
 def pair_table_fits(N: int) -> bool:
     """Whether the pair table of N vehicles (two 16-bit indices a pair),
-    which admm_update and the channel interval keep in shared memory,
-    fits there: N <= 341."""
+    which the fused interval kernels keep in shared memory, fits there: N
+    <= 341 (the row stages serve the same N)."""
     return 2 * N * (N - 1) <= SMEM_MAX
 
 
-def channel_smem_bytes(K: int, N: int, plane: bool) -> int:
-    """Dynamic shared memory of an :func:`admm_channel_interval` block (the
-    kernel's ``admm_channel_smem_bytes``): the (K, 6N) float32 plane where
-    ``plane``, and the pair table."""
-    return 4 * K * 6 * N * int(plane) + 2 * N * (N - 1)
+class ChannelPlan(NamedTuple):
+    """The launch of :func:`admm_channel_interval`: ``steps`` a thread in
+    registers (1 or 2), or 0 for the memory form; ``warps`` the channels
+    (warps) a block; ``in_smem``: each block's region lies in shared
+    memory (else in a global scratch)."""
+    steps: int
+    warps: int
+    in_smem: bool
 
 
-def channel_plane_in_smem(K: int, N: int) -> bool:
-    """Whether the channel interval keeps its sweep plane in shared memory
-    (else in a global scratch)."""
-    return channel_smem_bytes(K, N, True) <= SMEM_MAX
+def channel_region_floats(K: int, warps: int, steps: int) -> int:
+    """Floats of one channel block's region (the kernel's
+    ``admm_channel_region_floats``): the staging buffer of K (6 warps + 1)
+    floats, and the register form's tables or the memory form's steps."""
+    stage = K * (6 * warps + 1)
+    if steps > 0:
+        return stage + _WARP * (_TAB_STEP * steps + _TAB_SCAN)
+    return stage + warps * _WARP * _STEP_FLOATS * -(-K // _WARP)
+
+
+def channel_plan(B: int, K: int, N: int) -> ChannelPlan:
+    """The channel interval's plan for B lanes of N vehicles and K steps:
+    the steps in registers up to K = 64; the widest block of 4 or 2
+    channels of one lane that leaves at most an eighth of its warps idle
+    on the lane's 2N channels and still gives every streaming
+    multiprocessor a block, else one channel a block (the memory form
+    always)."""
+    steps = next((s for s in range(1, CHANNEL_REG_STEPS + 1)
+                  if K <= _WARP * s), 0)
+    warps = 1
+    if steps:
+        n2 = 2 * N
+        for w in (4, 2):
+            slots = -(-n2 // w) * w
+            if 8 * (slots - n2) <= slots and B * (slots // w) >= SMS:
+                warps = w
+                break
+    return ChannelPlan(steps, warps, 4 * channel_region_floats(
+        K, warps, steps) <= SMEM_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -163,62 +218,92 @@ def admm_rhs_plain(rows: Rows, c: RowConsts, inv_rho=None) -> torch.Tensor:
     return b if inv_rho is None else b * inv_rho[:, None, None]
 
 
-def admm_update_plain(xt, rows: Rows, c: RowConsts) -> None:
-    """Plain version of :func:`admm_update`: the update of
-    :func:`banded.admm_iterations` from the sweep's solution xt
-    (B, K, 6N), on the planes, in place."""
-    N, K = rows.x.shape[-1] // 6, rows.x.shape[-2]
-    alpha, lam = c.alpha, c.lam
-    Ax = apply_A(from_stacked(xt, N), c.eta, c.E, c.h)
+def _update_static(xt, Ax: RowVals, rows: Rows, c: RowConsts) -> None:
+    """The relaxation of x and the clip and dual step of the static rows,
+    from the sweep's solution xt and A xt's static rows, in place."""
+    K = rows.x.shape[-2]
+    alpha = c.alpha
     rows.x.copy_(alpha * xt + (1 - alpha) * rows.x)
     rho_s = c.rho_s[..., None]
     zr = alpha * static_plane(Ax, K) + (1 - alpha) * rows.zs
     zn = torch.clamp(zr + rows.ys / rho_s, c.l_s, c.u_s)
     rows.ys.copy_(rows.ys + rho_s * (zr - zn))
     rows.zs.copy_(zn)
-    # exact-penalty soft prox on the collision rows
-    zr = alpha * Ax.col + (1 - alpha) * rows.zc
+
+
+def _update_collision(zr, rows: Rows, c: RowConsts) -> None:
+    """The exact-penalty soft prox and dual step of the collision rows
+    from their relaxed rows zr, in place."""
     w = zr + rows.yc / c.rho_c
     zn = torch.where(w >= c.l_c, w,
-                     torch.minimum(w + lam / c.rho_c, c.l_c))
+                     torch.minimum(w + c.lam / c.rho_c, c.l_c))
     rows.yc.copy_(rows.yc + c.rho_c * (zr - zn))
     rows.zc.copy_(zn)
 
 
+def admm_update_plain(xt, rows: Rows, c: RowConsts) -> None:
+    """Plain version of :func:`admm_update`: the update of
+    :func:`banded.admm_iterations` from the sweep's solution xt
+    (B, K, 6N), on the planes, in place."""
+    N = rows.x.shape[-1] // 6
+    Ax = apply_A(from_stacked(xt, N), c.eta, c.E, c.h)
+    _update_static(xt, Ax, rows, c)
+    _update_collision(c.alpha * Ax.col + (1 - c.alpha) * rows.zc, rows, c)
+
+
 def admm_channel_interval_plain(Linv, Eb, rows: Rows, c: RowConsts,
                                 n_iters: int) -> None:
-    """Plain version of :func:`admm_channel_interval`: ``n_iters`` times
-    :func:`admm_rhs_plain`, ``banded.solve_factorized_channel`` and
-    :func:`admm_update_plain`, in place."""
+    """Plain version of :func:`admm_channel_interval`: ``n_iters``
+    iterations of the collision-free QP, in place.  The static rows by
+    channel: b = A^T (rho z - y) + sigma x over the static rows alone
+    (``banded.apply_AT_static``), ``banded.solve_factorized_channel``, and
+    the update of :func:`admm_update_plain` from A xt's static rows; each
+    collision row its recurrence with A xt = 0 (zr = (1 - alpha) z).
+    ``c.eta`` is not read: on eta = 0, where A^T's collision term and A's
+    collision rows are exactly 0 for a finite state, this equals
+    ``n_iters`` times :func:`admm_rhs_plain`,
+    ``banded.solve_factorized_channel`` and :func:`admm_update_plain`
+    exactly."""
     B, K, n = rows.x.shape
+    N = n // 6
     for _ in range(n_iters):
-        b = admm_rhs_plain(rows, c)
-        xt = solve_factorized_channel(Linv, Eb, b.reshape(B, K, 3, n // 3))
-        admm_update_plain(xt.reshape(B, K, n), rows, c)
+        rz = planes_to_rows(c.rho_s[..., None] * rows.zs - rows.ys, None, N)
+        b = to_stacked(apply_AT_static(rz, c.h)) + c.sigma * rows.x
+        xt = solve_factorized_channel(
+            Linv, Eb, b.reshape(B, K, 3, n // 3)).reshape(B, K, n)
+        _update_static(xt, apply_A_static(from_stacked(xt, N), c.h), rows,
+                       c)
+        _update_collision((1 - c.alpha) * rows.zc, rows, c)
 
 
 # ---------------------------------------------------------------------------
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _operands(what: str, rows: Rows, c: RowConsts, **extra) -> tuple:
+def _operands(what: str, rows: Rows, c: RowConsts, channel: bool = False,
+              **extra) -> tuple:
     """Check the planes of a stage (float32, contiguous, on one card, of
-    the shapes of :class:`Rows` and :class:`RowConsts`); returns (B, K, N)
-    and the per-lane strides of rho_s and rho_c (0: batch-shared)."""
-    require_f32_cuda(what, **rows._asdict(), eta=c.eta, l_s=c.l_s,
-                     u_s=c.u_s, l_c=c.l_c, rho_s=c.rho_s, rho_c=c.rho_c,
-                     fpar=c.fpar, **extra)
+    the shapes of :class:`Rows` and :class:`RowConsts`; the channel
+    interval reads no eta and no pairs); returns (B, K, N) and the
+    per-lane strides of rho_s and rho_c (0: batch-shared)."""
+    if not channel:
+        extra = dict(extra, eta=c.eta)
+    require_f32_cuda(what, **rows._asdict(), l_s=c.l_s, u_s=c.u_s,
+                     l_c=c.l_c, rho_s=c.rho_s, rho_c=c.rho_c, fpar=c.fpar,
+                     **extra)
     B, K, n = rows.x.shape
     N = n // 6
     P = N * (N - 1) // 2
     sp, cp = (B, K, 6, 2 * N), (B, K, P)
-    want = dict(zs=sp, ys=sp, zc=cp, yc=cp, eta=(B, K, P, 2), l_s=sp,
-                u_s=sp, l_c=cp, fpar=(4,))
-    got = dict(rows._asdict(), eta=c.eta, l_s=c.l_s, u_s=c.u_s, l_c=c.l_c,
-               fpar=c.fpar)
+    want = dict(zs=sp, ys=sp, zc=cp, yc=cp, l_s=sp, u_s=sp, l_c=cp,
+                fpar=(4,))
+    got = dict(rows._asdict(), l_s=c.l_s, u_s=c.u_s, l_c=c.l_c, fpar=c.fpar)
+    if not channel:
+        want.update(eta=(B, K, P, 2))
+        got.update(eta=c.eta)
     bad = [name for name, shape in want.items()
            if tuple(got[name].shape) != shape]
-    if (n % 6 or K < 2 or bad or not pair_table_fits(N)
+    if (n % 6 or K < 2 or bad or not (channel or pair_table_fits(N))
             or tuple(c.rho_s.shape) not in ((K, 6), (B, K, 6))
             or tuple(c.rho_c.shape) not in ((K, P), (B, K, P))):
         raise ValueError(f"{what}: unsupported shapes: x {tuple(rows.x.shape)}"
@@ -276,13 +361,18 @@ def admm_update(xt, rows: Rows, c: RowConsts) -> None:
     if xt.shape != rows.x.shape:
         raise ValueError(f"admm_update: xt {tuple(xt.shape)}, not "
                          f"{tuple(rows.x.shape)}")
+    # the kernel moves neighbouring static slots as float2
+    if any(t.data_ptr() % 8 for t in (xt, rows.x, rows.zs, rows.ys, c.l_s,
+                                      c.u_s)):
+        raise ValueError("admm_update: the x and static planes must start "
+                         "8-byte aligned")
     lib = load_kernels()
     with torch.cuda.device(xt.device):
         err = lib.admm_update_f32(
             c.fpar.data_ptr(), c.eta.data_ptr(), c.l_s.data_ptr(),
             c.u_s.data_ptr(), c.l_c.data_ptr(), c.rho_s.data_ptr(),
             c.rho_c.data_ptr(), xt.data_ptr(),
-            *(t.data_ptr() for t in rows), B, K, N, row_plan(B, K, N),
+            *(t.data_ptr() for t in rows), B, K, N, update_plan(B, K, N),
             *strides, _stream(xt))
     check(err, "admm_update")
     admm_update.launches += 1
@@ -298,29 +388,44 @@ def admm_channel_interval(Linv, Eb, rows: Rows, c: RowConsts,
     per-channel factors of ``banded.factorize(*assemble_channel(...))``:
     Linv (K, 3, 3) and Eb (K-1, 3, 3) shared by every lane, or
     (B, K, 3, 3) and (B, K-1, 3, 3) one set a lane (adaptive rho); the
-    planes are updated in place.  CUDA tensors launch the kernel (float32,
+    planes are updated in place.
+
+    The function is the one ``banded.admm_iterations`` computes on the
+    channel route, which phase 1 defines by eta = 0 (JAX
+    ``ba_path_planning_tpu/solvers/banded.py:1192-1202``): with eta = 0
+    A^T's collision term and A's collision rows are exactly 0 for a finite
+    state, so ``c.eta`` and the pairs are not read, the static rows are 2N
+    independent channel problems a lane, and each collision row runs its
+    exact-penalty prox and dual step with A xt = 0 (any finite collision
+    state, any lower bounds).  CUDA tensors launch the kernel (float32,
     contiguous; anything else raises), CPU tensors run the plain
     version."""
     if _on_cpu("admm_channel_interval", rows.x):
         return admm_channel_interval_plain(Linv, Eb, rows, c, n_iters)
     (B, K, N), strides = _operands("admm_channel_interval", rows, c,
-                                   Linv=Linv, Eb=Eb)
+                                   channel=True, Linv=Linv, Eb=Eb)
     lane = Linv.dim() == 4
     if (Linv.shape != ((B,) if lane else ()) + (K, 3, 3)
             or Eb.shape != Linv.shape[:-3] + (K - 1, 3, 3)):
         raise ValueError(f"admm_channel_interval: unsupported factors "
                          f"{tuple(Linv.shape)}, {tuple(Eb.shape)} for "
                          f"B={B}, K={K}")
-    plane = None if channel_plane_in_smem(K, N) else torch.empty_like(rows.x)
+    plan = channel_plan(B, K, N)
+    scratch, blocks = None, 2 ** 31 - 1
+    if not plan.in_smem:
+        blocks = CHANNEL_SCRATCH_BLOCKS
+        scratch = rows.x.new_empty(
+            blocks * channel_region_floats(K, plan.warps, plan.steps))
     lib = load_kernels()
     with torch.cuda.device(Linv.device):
         err = lib.admm_channel_interval_f32(
             c.fpar.data_ptr(), Linv.data_ptr(), Eb.data_ptr(),
-            c.eta.data_ptr(), c.l_s.data_ptr(), c.u_s.data_ptr(),
-            c.l_c.data_ptr(), c.rho_s.data_ptr(), c.rho_c.data_ptr(),
+            c.l_s.data_ptr(), c.u_s.data_ptr(), c.l_c.data_ptr(),
+            c.rho_s.data_ptr(), c.rho_c.data_ptr(),
             *(t.data_ptr() for t in rows),
-            None if plane is None else plane.data_ptr(), B, K, N,
-            int(n_iters), *strides, int(lane), _stream(Linv))
+            None if scratch is None else scratch.data_ptr(), B, K, N,
+            int(n_iters), *strides, int(lane), plan.steps, plan.warps,
+            blocks, _stream(Linv))
     check(err, "admm_channel_interval")
     admm_channel_interval.launches += 1
     debug.report("admm_channel_interval", *rows)

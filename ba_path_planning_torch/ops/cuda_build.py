@@ -133,9 +133,7 @@ def load_kernels() -> ctypes.CDLL:
     # the ADMM row stages and the channel interval (admm_steps.cu)
     lib.admm_rhs_f32.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.admm_update_f32.argtypes = [p] * 13 + [i] * 6 + [p]
-    lib.admm_channel_interval_f32.argtypes = [p] * 15 + [i] * 7 + [p]
-    lib.admm_channel_smem_bytes.argtypes = [i] * 3
-    lib.admm_channel_smem_bytes.restype = ctypes.c_long
+    lib.admm_channel_interval_f32.argtypes = [p] * 14 + [i] * 10 + [p]
     for stage in (lib.admm_rhs_f32, lib.admm_update_f32,
                   lib.admm_channel_interval_f32):
         stage.restype = i

@@ -90,7 +90,8 @@ def _inf_norm(t, batch_dims: int = 0, group=None) -> torch.Tensor:
 # Constraint operator (all local in time)
 # ---------------------------------------------------------------------------
 
-def apply_A(xv: StateVars, eta, E, h: float) -> RowVals:
+def apply_A_static(xv: StateVars, h: float) -> RowVals:
+    """A's static rows (dynamics, jerk, boxes) of ``xv``; ``col`` None."""
     a, p, v = xv.a, xv.p, xv.v
     p_prev = p[..., :-1, :]
     v_prev = v[..., :-1, :]
@@ -105,19 +106,20 @@ def apply_A(xv: StateVars, eta, E, h: float) -> RowVals:
     dyn_v = torch.cat([dyn_v0, dyn_vk], dim=-2)
 
     jerk = (a[..., 1:, :] - a[..., :-1, :]) / h
+    return RowVals(dyn_p=dyn_p, dyn_v=dyn_v, jerk=jerk, acc=a, vbox=v,
+                   pbox=p, col=None)
 
+
+def apply_A(xv: StateVars, eta, E, h: float) -> RowVals:
     # collision rows: k = 0 vacuous, k >= 1 uses p[k] (index k-1)
-    dp = torch.einsum('np,...nkc->...kpc', E, p)
+    dp = torch.einsum('np,...nkc->...kpc', E, xv.p)
     col_k = torch.sum(eta[..., 1:, :, :] * dp[..., :-1, :, :], dim=-1)
     col = torch.cat([torch.zeros_like(col_k[..., 0:1, :]), col_k], dim=-2)
-    return RowVals(dyn_p=dyn_p, dyn_v=dyn_v, jerk=jerk, acc=a, vbox=v,
-                   pbox=p, col=col)
+    return apply_A_static(xv, h)._replace(col=col)
 
 
-def apply_AT(y: RowVals, eta, E, h: float, group=None) -> StateVars:
-    """A^T y.  ``group``: the collision rows are this rank's share of the
-    pairs, and their contribution to p is summed over the group (JAX's
-    ``psum``)."""
+def apply_AT_static(y: RowVals, h: float) -> StateVars:
+    """A^T y over the static rows of ``y`` (``y.col`` is not read)."""
     yj = F.pad(y.jerk, (0, 0, 1, 1))
     a = (-0.5 * h * h * y.dyn_p - h * y.dyn_v
          + (yj[..., :-1, :] - yj[..., 1:, :]) / h + y.acc)
@@ -125,16 +127,23 @@ def apply_AT(y: RowVals, eta, E, h: float, group=None) -> StateVars:
     dyn_p_next = torch.cat(
         [y.dyn_p[..., 1:, :], torch.zeros_like(y.dyn_p[..., 0:1, :])], dim=-2)
     p = y.dyn_p - dyn_p_next + y.pbox
-    w = y.col[..., None] * eta
-    w_shift = torch.cat(
-        [w[..., 1:, :, :], torch.zeros_like(w[..., 0:1, :, :])], dim=-3)
-    p = p + all_reduce(torch.einsum('np,...kpc->...nkc', E, w_shift), "sum",
-                       group)
 
     dyn_v_next = torch.cat(
         [y.dyn_v[..., 1:, :], torch.zeros_like(y.dyn_v[..., 0:1, :])], dim=-2)
     v = -h * dyn_p_next + y.dyn_v - dyn_v_next + y.vbox
     return StateVars(a=a, p=p, v=v)
+
+
+def apply_AT(y: RowVals, eta, E, h: float, group=None) -> StateVars:
+    """A^T y.  ``group``: the collision rows are this rank's share of the
+    pairs, and their contribution to p is summed over the group (JAX's
+    ``psum``)."""
+    st = apply_AT_static(y, h)
+    w = y.col[..., None] * eta
+    w_shift = torch.cat(
+        [w[..., 1:, :, :], torch.zeros_like(w[..., 0:1, :, :])], dim=-3)
+    return st._replace(p=st.p + all_reduce(
+        torch.einsum('np,...kpc->...nkc', E, w_shift), "sum", group))
 
 
 # ---------------------------------------------------------------------------

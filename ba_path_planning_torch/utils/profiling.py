@@ -121,7 +121,7 @@ ADMM_STAGES = ("admm_rhs", "admm_update", "admm_channel_interval")
 
 
 def admm_stage_cost(stage: str, n_vehicles: int, n_steps: int,
-                    n_iters: int = 25) -> dict:
+                    n_iters: int = 25, eta_terms: bool = True) -> dict:
     """Cost model of one call of a kernel of ``ops/admm_steps.py`` for one
     scenario: the bytes it must move, each input read once and each output
     written once in float32 (the collision rows' rho one plane a lane, as
@@ -136,7 +136,12 @@ def admm_stage_cost(stage: str, n_vehicles: int, n_steps: int,
       written;
     * "admm_channel_interval": ``n_iters`` iterations of both stages and
       the sweeps; the state read and written once, the bounds, eta and
-      the batch-shared rho read once."""
+      the batch-shared rho read once.  With ``eta_terms=False`` the
+      collision-free function the channel kernel computes (eta = 0): 40 +
+      75 + 78 operations a static row and iteration, no pair terms (the
+      collision rows' prox is not counted); the static rows' state and
+      bounds (84 floats a vehicle and step) and the collision rows' z, y,
+      lower bound and rho (6 floats a row) moved once."""
     N, K = n_vehicles, n_steps
     P = N * (N - 1) // 2
     nk, kp = N * K, K * P
@@ -146,6 +151,9 @@ def admm_stage_cost(stage: str, n_vehicles: int, n_steps: int,
         return {"flops": rhs, "hbm_bytes": 4 * (36 * nk + 5 * kp)}
     if stage == "admm_update":
         return {"flops": update, "hbm_bytes": 4 * (90 * nk + 8 * kp)}
+    if stage == "admm_channel_interval" and not eta_terms:
+        return {"flops": n_iters * 2 * nk * (40 + 75 + 78),
+                "hbm_bytes": 4 * (84 * nk + 6 * kp)}
     if stage == "admm_channel_interval":
         return {"flops": n_iters * (rhs + update + 2 * nk * 78),
                 "hbm_bytes": 4 * (84 * nk + 7 * kp)}

@@ -28,11 +28,16 @@
    their per-lane strides (the X form at N=30, B=128, the L form at N=20,
    B=64); the steps phase (``steps_phase``): the ADMM stages of
    ``ops/admm_steps.py``, admm_rhs and admm_update around the X-form sweep
-   kernel (the grouped routes' iteration) at N=20 (B=512, 64, 1), N=21
-   (B=128) and N=10 (B=1024), and the channel interval at the same shapes
-   and N=20 B=1024, each also with one rho a lane, against their plain
-   versions after 1 and 25 iterations; each stage timed alone; the device
-   launches per ADMM iteration of one grouped X interval (at most 4);
+   kernel (the grouped routes' iteration) at N=20 (B=512, 128, 64, 1),
+   N=21 (B=128) and N=10 (B=1024), and the collision-free channel
+   interval (a random finite collision state, half its lower bounds
+   finite) at N=20 (B=1024, 512, 132, 8, 64, 1), N=21 (B=128), N=10
+   (B=1024) and N=40 (B=2048), each also with one rho a lane (B=64),
+   against their plain versions after 1 and 25 iterations; each stage
+   timed alone at each shape, the channel interval beside its bound on
+   the collision-free count and on the count with eta's pair terms; the
+   device launches per ADMM iteration of one grouped X interval (at most
+   4);
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
    N=30 with the production solver and at N=20 with the
@@ -620,13 +625,18 @@ def lane_rho_phase(dev):
     return out
 
 
-# (N, B) of the ADMM stages' checks: the N=20 main path's chunk, the
-# reference-compatible batch, one scenario, the widest grouped route at its
-# tail chunk, and the round record's N=10 batch
-STEP_SHAPES = ((20, 512), (20, 64), (20, 1), (21, 128), (10, 1024))
-# (N, B) of the channel interval's checks: the same, and the N=20 main
-# path's phase 1 over its 1024 lanes
-CHANNEL_SHAPES = ((20, 1024),) + STEP_SHAPES
+# (N, B) of the ADMM stages' checks: the N=20 main path's chunk and its
+# tail chunk, the reference-compatible batch, one scenario, the widest
+# grouped route at its tail chunk, and the round record's N=10 batch; each
+# stage is timed alone at each
+STEP_SHAPES = ((20, 512), (20, 128), (20, 64), (20, 1), (21, 128),
+               (10, 1024))
+# (N, B) of the channel interval's checks and times: the N=20 main path's
+# phase 1 over its 1024 lanes and its chunks, one batch a lane an SM, a few
+# lanes, the reference-compatible batch, one scenario, the widest grouped
+# route's tail chunk, the round record's N=10 batch and the N=40 path's
+CHANNEL_SHAPES = ((20, 1024), (20, 512), (20, 132), (20, 8), (20, 64),
+                  (20, 1), (21, 128), (10, 1024), (40, 2048))
 
 
 def _plane_rows(rows):
@@ -637,6 +647,50 @@ def _plane_rows(rows):
             torch.cat([rows.ys.flatten(-2), rows.yc], -1))
 
 
+def _channel_case(n_veh, B, dev, seed, lane_rho=None):
+    """Phase 1's operands, float32 on the card, without collision blocks:
+    bounds of random start and goal positions, x at rest, eta = 0, the
+    collision-free QP's rho (``lane_rho``: one a lane) and its per-channel
+    factors; the collision lower bounds about half -inf and half finite
+    (phase 1 disables them all, and the kernel must serve any)."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.ops.collisions import make_pair_index
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.solvers.scp import _warm_state
+    from ba_path_planning_torch.utils.config import (SolverConfig,
+                                                     make_solver_params)
+    P, f32 = n_veh * (n_veh - 1) // 2, torch.float32
+    problem = _problem(n_veh)
+    solver = SolverConfig.production(problem=problem)
+    prm = make_solver_params(solver, f32, dev)
+    rng = np.random.default_rng(seed)
+    p0, pf = (torch.as_tensor(rng.uniform(2.0, 18.0, (B, n_veh, 2)),
+                              dtype=f32, device=dev) for _ in range(2))
+    v0 = torch.zeros_like(p0)
+    lower, upper = banded.build_bounds(p0, v0, pf, v0, n_vehicles=n_veh,
+                                       n_steps=K_STEPS, h=H,
+                                       limits=problem.limits, n_pairs=P)
+    l_col = torch.as_tensor(rng.normal(size=(B, K_STEPS, P)), dtype=f32,
+                            device=dev)
+    off = torch.as_tensor(rng.uniform(size=(B, K_STEPS, P)) < 0.5,
+                          device=dev)
+    lower = lower._replace(col=l_col.masked_fill(off, -float("inf")))
+    rho = banded.rho_pattern_masks(
+        banded.row_scaling_state(K_STEPS, H, dtype=f32, device=dev),
+        solver.static_part(), prm.rho if lane_rho is None else lane_rho,
+        prm.col_rho_boost, n_steps=K_STEPS, n_pairs=P, col_enabled=False,
+        dtype=f32)
+    factors = banded.factorize(*banded.assemble_channel(rho, h=H,
+                                                        sigma=prm.sigma))
+    x = _warm_state(torch.zeros((B, n_veh, K_STEPS, 2), dtype=f32,
+                                device=dev), p0, v0, H)
+    return (factors, lower, upper, rho, torch.zeros((B, K_STEPS, P, 2),
+                                                    dtype=f32, device=dev),
+            make_pair_index(n_veh, f32, dev).E, x,
+            dict(h=H, sigma=prm.sigma, alpha=prm.alpha, lam=prm.col_penalty))
+
+
 def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
     """Inputs of one check interval as the path lays them out, float32 on
     the card: the rows, rho and bounds of :func:`_case` (collision rows
@@ -644,34 +698,27 @@ def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
     routes), and the grouped X route's factors from the NS-chain kernel
     (``lane_rho``: of M / rho with the unit slot scalars, as the solver
     factorizes them, and each lane's 1 / rho); with ``phase1`` the
-    collision-free QP's (eta = 0, every collision row disabled, the
-    per-channel factors, per lane with ``lane_rho``).  The state is warm,
-    as a solve finds it: one float64 plain interval of 25 iterations from
-    x at rest, z = clip(A x, l, u), y = 0.  Returns (factors, consts,
-    rows, inv_rho, consts64)."""
+    collision-free QP's (:func:`_channel_case`; per-lane factors with
+    ``lane_rho``).  The state is warm, as a solve finds it: one float64
+    plain interval of 25 iterations from x at rest, z = clip(A x, l, u),
+    y = 0; with ``phase1`` the collision rows of z and y are then drawn at
+    random (the kernel must serve any finite collision state).  Returns
+    (factors, consts, rows, inv_rho, consts64)."""
+    import numpy as np
     import torch
     from ba_path_planning_torch.ops import admm_steps, ns_chain
     from ba_path_planning_torch.solvers import banded
-    from ba_path_planning_torch.utils.config import (SolverConfig,
-                                                     make_solver_params)
-    D, C, _, _, kw = _case(n_veh, B, dev, seed=seed, lane_rho=lane_rho)
-    solver = SolverConfig.production(problem=_problem(n_veh))
-    static = solver.static_part()
-    P, f32 = n_veh * (n_veh - 1) // 2, torch.float32
-    lower, upper, eta = kw["lower"], kw["upper"], kw["eta"]
+    from ba_path_planning_torch.utils.config import SolverConfig
     inv_rho = None
     if phase1:
-        prm = make_solver_params(solver, f32, dev)
-        eta = torch.zeros_like(eta)
-        lower = lower._replace(col=torch.full_like(lower.col, -float("inf")))
-        rho = banded.rho_pattern_masks(
-            banded.row_scaling_state(K_STEPS, H, dtype=f32, device=dev),
-            static, prm.rho if lane_rho is None else lane_rho,
-            prm.col_rho_boost, n_steps=K_STEPS, n_pairs=P, col_enabled=False,
-            dtype=f32)
-        factors = banded.factorize(*banded.assemble_channel(
-            rho, h=H, sigma=kw["sigma"]))
+        factors, lower, upper, rho, eta, E, x, step = _channel_case(
+            n_veh, B, dev, seed, lane_rho)
     else:
+        D, C, _, _, kw = _case(n_veh, B, dev, seed=seed, lane_rho=lane_rho)
+        static = SolverConfig.production(problem=_problem(n_veh)).static_part()
+        lower, upper, eta, E, x = (kw[k] for k in ("lower", "upper", "eta",
+                                                   "E", "x"))
+        step = dict(h=H, sigma=kw["sigma"], alpha=kw["alpha"], lam=kw["lam"])
         rho = kw["rho"]
         rho = rho._replace(col=torch.where(
             torch.isinf(lower.col), torch.full_like(lower.col, 1e-6),
@@ -687,24 +734,27 @@ def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
                 D / lane_rho.reshape(-1, 1, 1, 1), C1, ns_iters=2,
                 ns_precision="high"), C1)
             inv_rho = 1.0 / lane_rho
-    del D
-    step = dict(h=H, sigma=kw["sigma"], alpha=kw["alpha"], lam=kw["lam"])
-    consts = admm_steps.row_consts(eta, kw["E"], lower, upper, rho, **step)
+        del D
+    consts = admm_steps.row_consts(eta, E, lower, upper, rho, **step)
 
     def up(v):
         return banded.tree_map(lambda t: t.double(), v)
     consts64 = admm_steps.row_consts(
-        eta.double(), kw["E"].double(), up(lower), up(upper), up(rho),
+        eta.double(), E.double(), up(lower), up(upper), up(rho),
         **{k: (v.double() if hasattr(v, "double") else v)
            for k, v in step.items()})
-    x = kw["x"]
-    z = banded.tree_map(torch.clamp, banded.apply_A(x, eta, kw["E"], H),
+    z = banded.tree_map(torch.clamp, banded.apply_A(x, eta, E, H),
                         lower, upper)
     rows = admm_steps.pack_state(up(x), up(z),
                                  banded.tree_map(torch.zeros_like, up(z)))
     f64 = tuple(t.double() for t in factors)
     _steps_run(rows, consts64, f64, 25, inv_rho, phase1, kernel=False)
     rows = admm_steps.Rows(*(t.float() for t in rows))
+    if phase1:
+        rng = np.random.default_rng(seed + 1)
+        rows = rows._replace(**{k: torch.as_tensor(
+            rng.normal(size=tuple(rows.zc.shape)), dtype=torch.float32,
+            device=dev) for k in ("zc", "yc")})
     return factors, consts, rows, inv_rho, consts64
 
 
@@ -713,7 +763,6 @@ def _steps_run(rows, c, factors, n_iters, inv_rho, phase1, kernel=True):
     the path's launches (admm_rhs, the X-form sweep kernel, admm_update;
     or the channel interval), else the plain versions (for float64 inputs
     too)."""
-    import torch
     from ba_path_planning_torch.ops import admm_steps, group_solve
     from ba_path_planning_torch.solvers import banded
     if phase1:
@@ -736,7 +785,8 @@ def _steps_check(tag, n_veh, B, dev, phase1=False, lane_rho=None):
     FUSED_TOL of plain after one iteration, and after 1 and 25 iterations
     every block no further from the float64 plain interval than
     ADMM_ERR_RATIO times the plain float32 version is.  Returns the
-    largest absolute difference from plain after one iteration."""
+    largest absolute difference from plain after one iteration, and the
+    inputs (factors, consts, rows, inv_rho)."""
     import torch
     from ba_path_planning_torch.ops import admm_steps
     factors, c, rows0, inv_rho, c64 = _steps_case(
@@ -802,33 +852,76 @@ def _launches_per_iteration(fn, n_iters):
     return kernels / n_iters if kernels else "not measured"
 
 
+def _channel_stat(tag, err, ms, plain_ms, n_veh, B):
+    """The channel interval's numbers at (N, B), 25 iterations: its bound
+    on the collision-free count (``admm_stage_cost(...,
+    eta_terms=False)``) and, beside it, the bound of the count with the
+    pair terms of eta (the function of the kernel before eta = 0 was
+    used)."""
+    from ba_path_planning_torch.ops import admm_steps
+    from ba_path_planning_torch.utils import profiling
+    cost = profiling.admm_stage_cost("admm_channel_interval", n_veh, K_STEPS,
+                                     eta_terms=False)
+    eta_cost = profiling.admm_stage_cost("admm_channel_interval", n_veh,
+                                         K_STEPS)
+    st = _stat(err, ms, plain_ms, f"N={n_veh} K={K_STEPS} B={B}, 25 "
+               "iterations", B * cost["hbm_bytes"], B * cost["flops"], 0)
+    del st["stream_bound_ms"]
+    st["bound_ms_with_eta_terms"], st["bound_by_with_eta_terms"] = _bound_ms(
+        B * eta_cost["hbm_bytes"], B * eta_cost["flops"])
+    st["plan"] = admm_steps.channel_plan(B, K_STEPS, n_veh)._asdict()
+    print(f"steps phase: {tag} N={n_veh} B={B} 25 iterations kernel={ms:.4f}"
+          f" ms plain="
+          f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}; "
+          f"bound {st['bound_ms']:.4f} ms ({st['bound_by']}, collision-free "
+          f"count; {st['bound_ms'] / ms:.1%} of the kernel), with the eta "
+          f"terms {st['bound_ms_with_eta_terms']:.4f} ms "
+          f"({st['bound_by_with_eta_terms']}; "
+          f"{st['bound_ms_with_eta_terms'] / ms:.1%}); plan {st['plan']}",
+          flush=True)
+    return st
+
+
 def steps_phase(dev):
     """The ADMM stages (``ops/admm_steps.py``): admm_rhs and admm_update
     with the X-form sweep kernel between them (the grouped X route's
     iteration) and the channel interval, each against its plain version
     (:func:`_steps_check`) at STEP_SHAPES and CHANNEL_SHAPES, and with one
-    rho a lane (N=20, B=64); each stage timed alone at N=20, B=512 (the
-    channel interval also at B=1024, phase 1's batch) beside its plain
-    version; the device launches per ADMM iteration of one grouped X
-    interval of 25 iterations (``banded._interval_fn``, the packing of the
-    state included) and of one channel interval.  Returns the stats of
-    the ``glue_kernels`` line."""
+    rho a lane (N=20, B=64); admm_rhs and admm_update timed alone at each
+    of STEP_SHAPES (their plain versions at N=20, B=512), the channel
+    interval at each of CHANNEL_SHAPES and with one rho a lane (its plain
+    version at N=20, B=1024, phase 1's batch); the device launches per
+    ADMM iteration of one grouped X interval of 25 iterations
+    (``banded._interval_fn``, the packing of the state included) and of
+    one channel interval.  Returns the stats of the ``glue_kernels``
+    line."""
     import torch
     from ba_path_planning_torch.ops import admm_steps, group_solve
     from ba_path_planning_torch.solvers import banded
     from ba_path_planning_torch.utils import profiling
-    out = {}
+    out, rhs_ms, upd_ms = {}, {}, {}
     for n_veh, B in STEP_SHAPES:
-        got = _steps_check("steps phase: admm_rhs + sweep + admm_update",
-                           n_veh, B, dev)
+        abs_err, factors, c, rows, inv_rho = _steps_check(
+            "steps phase: admm_rhs + sweep + admm_update", n_veh, B, dev)
+        # each stage alone
+        b = admm_steps.admm_rhs(rows, c)
+        xt = group_solve.solve_factorized_grouped_X(*factors, b)
+        work = admm_steps.Rows(*(t.clone() for t in rows))
+        shape = f"N={n_veh} B={B}"
+        rhs_ms[shape] = _time_ms(lambda: admm_steps.admm_rhs(rows, c), 20)
+        upd_ms[shape] = _time_ms(lambda: admm_steps.admm_update(xt, work, c),
+                                 20)
+        print(f"steps phase: {shape} alone: admm_rhs={rhs_ms[shape]:.4f} ms "
+              f"(k-tile {admm_steps.row_plan(B, K_STEPS, n_veh)}) "
+              f"admm_update={upd_ms[shape]:.4f} ms (k-tile "
+              f"{admm_steps.update_plan(B, K_STEPS, n_veh)})", flush=True)
         if (n_veh, B) == (20, 512):
-            abs_err, factors, c, rows, inv_rho = got
+            main = factors, c, rows, b, xt
+        del factors, c, rows, b, xt, work
     _steps_check("steps phase: admm_rhs + sweep + admm_update, one rho a "
                  "lane", 20, FACADE_B, dev,
                  lane_rho=_lane_rho(FACADE_B, seed=20))
-    # each stage alone at the main path's chunk
-    b = admm_steps.admm_rhs(rows, c)
-    xt = group_solve.solve_factorized_grouped_X(*factors, b)
+    factors, c, rows, b, xt = main
     bp = admm_steps.admm_rhs_plain(rows, c)
     torch.cuda.synchronize()
     rhs_err = float((b - bp).abs().max())
@@ -840,48 +933,47 @@ def steps_phase(dev):
     upd_err = max(float((g - w).abs().max())
                   for g, w in zip(_plane_rows(work), _plane_rows(plain)))
     timed = {
-        "admm_rhs": (rhs_err,
-                     _time_ms(lambda: admm_steps.admm_rhs(rows, c), 20),
-                     _time_ms(lambda: admm_steps.admm_rhs_plain(rows, c), 5)),
-        "admm_update": (
-            upd_err, _time_ms(lambda: admm_steps.admm_update(xt, work, c), 20),
-            _time_ms(lambda: admm_steps.admm_update_plain(xt, plain, c), 5))}
-    for key, (err, ms, plain_ms) in timed.items():
+        "admm_rhs": (rhs_err, rhs_ms, _time_ms(
+            lambda: admm_steps.admm_rhs_plain(rows, c), 5)),
+        "admm_update": (upd_err, upd_ms, _time_ms(
+            lambda: admm_steps.admm_update_plain(xt, plain, c), 5))}
+    for key, (err, times, plain_ms) in timed.items():
+        ms = times["N=20 B=512"]
         cost = profiling.admm_stage_cost(key, 20, K_STEPS)
         out[key] = _stat(err, ms, plain_ms, f"N=20 K={K_STEPS} B=512",
                          512 * cost["hbm_bytes"], 512 * cost["flops"], 0)
         del out[key]["stream_bound_ms"]
+        out[key]["ms_at"] = times
         print(f"steps phase: {key} alone N=20 B=512 max_abs={err:.3e} "
               f"kernel={ms:.4f} ms plain={plain_ms:.3f} ms bound "
               f"{out[key]['bound_ms']:.4f} ms ({out[key]['bound_by']}; "
-              f"{out[key]['bound_ms'] / ms:.0%} of the kernel); k-tile "
-              f"{admm_steps.row_plan(512, K_STEPS, 20)}", flush=True)
-    lane = _lane_rho(FACADE_B, seed=21)
-    for n_veh, B in CHANNEL_SHAPES:
-        got = _steps_check("steps phase: admm_channel_interval", n_veh, B,
-                           dev, phase1=True)
-        if (n_veh, B) == (20, 1024):
-            ch = got
-    _steps_check("steps phase: admm_channel_interval, one rho a lane", 20,
-                 FACADE_B, dev, phase1=True, lane_rho=lane)
-    ch_err, ch_factors, ch_c, ch_rows, _ = ch
-    work = admm_steps.Rows(*(t.clone() for t in ch_rows))
-    ms = _time_ms(lambda: admm_steps.admm_channel_interval(
-        *ch_factors, work, ch_c, 25))
-    plain_ms = _time_ms(lambda: admm_steps.admm_channel_interval_plain(
-        *ch_factors, work, ch_c, 25), reps=1)
-    cost = profiling.admm_stage_cost("admm_channel_interval", 20, K_STEPS)
-    out["admm_channel_interval"] = _stat(
-        ch_err, ms, plain_ms, f"N=20 K={K_STEPS} B=1024, 25 iterations",
-        1024 * cost["hbm_bytes"], 1024 * cost["flops"], 0)
-    del out["admm_channel_interval"]["stream_bound_ms"]
-    st = out["admm_channel_interval"]
-    print(f"steps phase: admm_channel_interval N=20 B=1024 25 iterations "
-          f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound "
-          f"{st['bound_ms']:.4f} ms ({st['bound_by']}; "
-          f"{st['bound_ms'] / ms:.0%} of the kernel); plane in shared "
-          f"memory: {admm_steps.channel_plane_in_smem(K_STEPS, 20)}",
-          flush=True)
+              f"{out[key]['bound_ms'] / ms:.0%} of the kernel)", flush=True)
+    del main, c, rows, b, xt, work, plain
+    ch_times = {}
+    for n_veh, B, lane in ([s + (False,) for s in CHANNEL_SHAPES]
+                           + [(20, FACADE_B, True)]):
+        tag = ("admm_channel_interval, one rho a lane" if lane
+               else "admm_channel_interval")
+        err, ch_factors, ch_c, ch_rows, _ = _steps_check(
+            f"steps phase: {tag}", n_veh, B, dev, phase1=True,
+            lane_rho=_lane_rho(B, seed=21) if lane else None)
+        work = admm_steps.Rows(*(t.clone() for t in ch_rows))
+        ms = _time_ms(lambda: admm_steps.admm_channel_interval(
+            *ch_factors, work, ch_c, 25))
+        plain_ms = None
+        if (n_veh, B, lane) == (20, 1024, False):
+            plain_ms = _time_ms(lambda: admm_steps.admm_channel_interval_plain(
+                *ch_factors, work, ch_c, 25), reps=1)
+            ch = err, ch_factors
+        st = _channel_stat(tag, err, ms, plain_ms, n_veh, B)
+        key = f"N={n_veh} B={B}" + (" one rho a lane" if lane else "")
+        ch_times[key] = {k: st[k] for k in ("ms", "bound_ms", "bound_by",
+                                            "bound_ms_with_eta_terms")}
+        if plain_ms is not None:
+            out["admm_channel_interval"] = st
+        del ch_factors, ch_c, ch_rows, work
+    out["admm_channel_interval"]["ms_at"] = ch_times
+    ch_err, ch_factors = ch
     # device launches per ADMM iteration of the path's intervals
     kw = _case(20, 512, dev, seed=77)[4]
     rho = kw["rho"]._replace(col=torch.where(
@@ -2265,8 +2357,12 @@ def _trace_part(dev, counters, tmp, kstats, lstats, gstats):
             *((f"admm_stage_cost {key} N=20 B={B}",
                profiling.admm_stage_cost(key, 20, K_STEPS), B,
                gstats[key]["ms"])
-              for key, B in (("admm_rhs", 512), ("admm_update", 512),
-                             ("admm_channel_interval", 1024)))):
+              for key, B in (("admm_rhs", 512), ("admm_update", 512))),
+            ("admm_stage_cost admm_channel_interval N=20 B=1024 "
+             "(collision-free count)",
+             profiling.admm_stage_cost("admm_channel_interval", 20, K_STEPS,
+                                       eta_terms=False), 1024,
+             gstats["admm_channel_interval"]["ms"])):
         bound, by = profiling.bound_ms(cost, count=count)
         print(f"modules: cost model {what}: bound {bound:.3f} ms "
               f"({by}); kernel phase {ms:.3f} ms", flush=True)

@@ -4,7 +4,8 @@ turns, on one GPU: what running the ADMM iteration in hand-written kernels
 (``ops/admm_steps.py``) changes end to end.
 
     python3 scripts/torch_glue_ab.py --roots <parent> <change> \
-        [--turns 0,1,1,0] [--out build/glue_ab.json]
+        [--turns 0,1,1,0] [--parts production,latency,bench,facade,phase1]
+        [--out build/glue_ab.json]
 
 For each turn, in the checkout it names (every measurement a process of
 its own, started in that checkout, so each runs the code it finds there):
@@ -20,9 +21,15 @@ its own, started in that checkout, so each runs the code it finds there):
 * this script's ``--facade ROUTE`` for ``grouped_L`` and ``resident``: the
   reference-compatible path as ``chip_smoke.py`` runs it (one
   ``SCPEngine.solve_batch`` of 64 N=20 scenarios): wall, statuses, mean
-  and max QP iterations.
+  and max QP iterations;
+* this script's ``--round-record``: the round record's N=10 and N=20
+  configurations (B=1024, chunk 512) as ``scripts/torch_soak_nsweep.py``
+  runs them (``run_cfg``: a warm-up solve, then one timed solve): the
+  wall, phase 1's seconds and the loop's (``last_timing``), collision-free
+  lanes and mean SCP iterations.
 
-Prints one line a measurement and writes every record to ``--out``.
+``--parts`` picks the measurements (all by default).  Prints one line a
+measurement and writes every record to ``--out``.
 """
 
 import argparse
@@ -65,6 +72,19 @@ def facade(route, root):
         "max_qp_iters": int(out.qp_iterations.max())}))
 
 
+def round_record(root):
+    """The round record's N=10 and N=20 configurations with the code of the
+    checkout ``root``; prints one JSON line each."""
+    sys.path.insert(0, root)
+    sys.path.insert(0, str(Path(root) / "scripts"))
+    import torch_soak_nsweep
+    for n_veh in (10, 20):
+        rec = torch_soak_nsweep.run_cfg(n_veh, 1024, 512)
+        print(json.dumps({k: rec[k] for k in (
+            "N", "batch", "chunk", "wall_s", "timing", "collision_free",
+            "mean_scp_iters", "mean_qp_iters")}), flush=True)
+
+
 def _run(root, argv, timeout=1200):
     proc = subprocess.run(argv, cwd=root, capture_output=True, text=True,
                           timeout=timeout)
@@ -102,11 +122,18 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--roots", nargs="+")
     ap.add_argument("--turns", default="0,1,1,0")
+    ap.add_argument("--parts", default="production,latency,bench,facade,"
+                    "phase1")
     ap.add_argument("--out", default="build/glue_ab.json")
     ap.add_argument("--facade", help=argparse.SUPPRESS)
+    ap.add_argument("--round-record", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.facade:
         return facade(args.facade, args.roots[0])
+    if args.round_record:
+        return round_record(args.roots[0])
+    parts = set(args.parts.split(","))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
@@ -116,21 +143,39 @@ def main():
         root = str(Path(args.roots[turn]).resolve())
         rec = dict(turn=turn, root=root, card=card)
         for route in ("production", "latency"):
+            if route not in parts:
+                continue
             rec[route] = _profile(root, route)
             r = rec[route]
             print(f"[{turn}] {route}: walls {r['walls_s']} s, traced "
                   f"{r['traced_wall_s']} s, busy {r['busy_s']} s, idle "
                   f"{r['idle_share']}, device launches "
                   f"{r['device_launches']}", flush=True)
-        rec["bench"] = _bench(root)
-        print(f"[{turn}] bench twin: {rec['bench']['summary']} "
-              f"solves/s={rec['bench']['solves_per_s']}", flush=True)
+        if "bench" in parts:
+            rec["bench"] = _bench(root)
+            print(f"[{turn}] bench twin: {rec['bench']['summary']} "
+                  f"solves/s={rec['bench']['solves_per_s']}", flush=True)
         for route in ("grouped_L", "resident"):
+            if "facade" not in parts:
+                continue
             out, _ = _run(root, [sys.executable, str(here), "--facade",
                                  route, "--roots", root])
             rec[route] = json.loads(out.strip().splitlines()[-1])
             print(f"[{turn}] reference-compatible {route}: "
                   f"{json.dumps(rec[route])}", flush=True)
+        if "phase1" in parts:
+            out, _ = _run(root, [sys.executable, str(here), "--round-record",
+                                 "--roots", root])
+            rec["round_record"] = [json.loads(ln) for ln in
+                                   out.strip().splitlines()
+                                   if ln.startswith("{")]
+            for r in rec["round_record"]:
+                print(f"[{turn}] round record N={r['N']} B={r['batch']}: "
+                      f"wall {r['wall_s']:.4f} s, phase 1 "
+                      f"{r['timing']['phase1_s']:.4f} s, loop "
+                      f"{r['timing']['loop_s']:.4f} s, collision-free "
+                      f"{r['collision_free']}, mean SCP "
+                      f"{r['mean_scp_iters']:.4f}", flush=True)
         records.append(rec)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(card=card, records=records),

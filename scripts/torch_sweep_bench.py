@@ -3,7 +3,7 @@
 on one GPU.
 
     python3 scripts/torch_sweep_bench.py [--cases X:20:512,...] [--root DIR]
-                                         [--time-only]
+                                         [--time-only] [--graph]
 
 Each case (form, N, B; K=50) is built and checked as ``chip_smoke.py``
 builds and checks it: the X-form sweep (form X) on the NS factors of
@@ -15,8 +15,10 @@ fused ADMM interval (F, 25 iterations) and the L-form one (FL, on the
 factors of the reference-compatible solver) through
 ``chip_smoke.fused_check``; the ADMM stages of ``ops/admm_steps.py``
 through ``chip_smoke._steps_check``, then timed alone: ``admm_rhs`` and
-``admm_update`` (S) and the channel interval of 25 iterations (C), beside
-the bounds of ``utils/profiling.admm_stage_cost``.
+``admm_update`` (S) and the channel interval of 25 iterations (C; CL with
+one rho a lane), beside the bounds of ``utils/profiling.admm_stage_cost``
+(for the channel interval the collision-free count, and the count with
+eta's pair terms beside it, where the checkout has both).
 Each case prints one JSON line: the launch plan, the kernel's ms, its
 stream bound (every block read in both sweeps, ``chip_smoke._bound_ms``)
 and its share of it, and the bound that counts only what the sweeps need
@@ -29,6 +31,10 @@ the same card, run the script for each checkout in turns in one call.
 ``--time-only`` times the fused interval (F) from the same warm start
 without checking it, for diagnostic builds whose results are not meant to
 be right (say, with the factor copies or the products switched off).
+``--graph`` also times each stage of case S from replays of a CUDA graph
+of 20 calls (``graph_ms``: the fastest and slowest of 5 replays, a call),
+the device's time without the host's launch cost, which sets the CUDA-event
+time at small batches.
 """
 
 import argparse
@@ -41,11 +47,40 @@ CASES = ("X:20:512,X:20:128,X:20:64,X:20:1,L:20:512,L:20:64,L:20:1,"
          "FL:20:128,FL:20:64")
 
 
+def _graph_ms(fn, calls=20, replays=5):
+    """(fastest, slowest) ms a call of ``fn`` over ``replays`` replays of a
+    CUDA graph of ``calls`` calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop) / calls)
+    return min(ms), max(ms)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", default=CASES)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--time-only", action="store_true")
+    ap.add_argument("--graph", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -76,10 +111,11 @@ def main():
         form, N, B = case.split(":")
         N, B = int(N), int(B)
         n = 6 * N
-        if form in ("S", "C"):
+        if form in ("S", "C", "CL"):
             from ba_path_planning_torch.ops import admm_steps
             err, factors, c, rows, _ = cs._steps_check(
-                f"{form} N={N} B={B}", N, B, dev, phase1=form == "C")
+                f"{form} N={N} B={B}", N, B, dev, phase1=form != "S",
+                lane_rho=cs._lane_rho(B, seed=21) if form == "CL" else None)
             work = admm_steps.Rows(*(t.clone() for t in rows))
             if form == "S":
                 b = admm_steps.admm_rhs(rows, c)
@@ -102,9 +138,22 @@ def main():
                         "K": K, "ms": ms, "bound_ms": bound,
                         "share": bound / ms, "max_abs_err": err,
                         "card": card}
-                if form == "C":     # one iteration, and each further one
+                if form == "S" and args.graph:
+                    line["graph_ms"] = _graph_ms(fn)
+                if form != "S":     # one iteration, and each further one
                     line.update(ms_1_iteration=one,
                                 ms_per_further_iteration=(ms - one) / 24)
+                    try:            # the collision-free count, where known
+                        free = profiling.admm_stage_cost(key, N, K,
+                                                         eta_terms=False)
+                    except TypeError:
+                        free = None
+                    if free is not None:
+                        fb = cs._bound_ms(B * free["hbm_bytes"],
+                                          B * free["flops"])
+                        line.update(bound_ms=fb[0], bound_by=fb[1],
+                                    share=fb[0] / ms,
+                                    bound_ms_with_eta_terms=bound)
                 print(json.dumps(line), flush=True)
             del factors, c, rows, work
             continue

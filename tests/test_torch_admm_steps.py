@@ -170,17 +170,37 @@ def test_plain_stages_one_by_one(lane):
 
 
 def test_row_and_channel_plans():
-    """The row stages' k-tiles fill the card at B = 1 and take about two
-    rows a thread at the production chunk; the channel plane leaves shared
-    memory only where it does not fit; the pair table the stages keep in
-    shared memory serves N <= 341."""
+    """admm_rhs's k-tiles fill the card at B = 1 and take about two rows a
+    thread at the production chunk, admm_update's about five items; the
+    channel interval keeps its steps in registers up to K = 64, takes
+    blocks of 4 channels at the production batches, narrower ones where
+    the SMs would idle (B = 8), and puts
+    a block's region in a global scratch only where it does not fit shared
+    memory; the pair table the fused kernels keep in shared memory serves
+    N <= 341."""
     assert admm_steps.row_plan(1, 50, 20) == 1
     assert admm_steps.row_plan(512, 50, 20) == 2
     assert admm_steps.row_plan(1024, 50, 10) == 7
     assert admm_steps.row_plan(4, 3, 2) == 1
-    assert admm_steps.channel_plane_in_smem(50, 60)
-    assert admm_steps.channel_plane_in_smem(500, 10)
-    assert not admm_steps.channel_plane_in_smem(500, 20)
+    assert admm_steps.update_plan(1, 50, 20) == 1
+    assert admm_steps.update_plan(512, 50, 20) == 4
+    assert admm_steps.update_plan(1024, 50, 10) == 12
+    assert admm_steps.update_plan(4, 3, 2) == 1
+    plan = admm_steps.channel_plan
+    assert plan(1024, 50, 20) == (2, 4, True)
+    assert plan(132, 50, 20) == (2, 4, True)
+    assert plan(8, 50, 20) == (2, 2, True)
+    assert plan(1, 50, 20) == (2, 1, True)
+    assert plan(1024, 50, 10) == (2, 4, True)
+    assert plan(128, 50, 21) == (2, 4, True)
+    assert plan(3, 9, 4) == (1, 1, True)
+    assert plan(1, 500, 10) == (0, 1, True)
+    assert plan(1, 1184, 10) == (0, 1, True)
+    assert plan(1, 1185, 10) == (0, 1, False)
+    assert admm_steps.channel_region_floats(50, 4, 2) == 32 * 9 * (
+        3 * 2 + 10) + 50 * 25
+    assert admm_steps.channel_region_floats(500, 1, 0) == 500 * 7 \
+        + 32 * 42 * 16
     assert admm_steps.pair_table_fits(341)
     assert not admm_steps.pair_table_fits(342)
 
@@ -198,6 +218,201 @@ def test_admm_stage_cost_counts_by_hand():
         "hbm_bytes": 4 * (84 * 12 + 7 * 12)}
     with pytest.raises(ValueError):
         admm_stage_cost("admm_sweep", 3, 4)
+
+
+def test_admm_stage_cost_collision_free_counts_by_hand():
+    """The collision-free count of the channel interval at N=3, K=4
+    (P=3), 2 iterations: 40 + 75 + 78 operations a static row and
+    iteration, 84 floats a vehicle and step, 6 a collision row."""
+    from ba_path_planning_torch.utils.profiling import admm_stage_cost
+    assert admm_stage_cost("admm_channel_interval", 3, 4, n_iters=2,
+                           eta_terms=False) == {
+        "flops": 2 * 2 * 12 * (40 + 75 + 78),
+        "hbm_bytes": 4 * (84 * 12 + 6 * 12)}
+
+
+def _channel_case(lane, lam, dtype, seed=11):
+    """Phase 1's operands on the channel route (N=5, K=8, B=3) with a
+    random finite collision state and collision lower bounds of which
+    about half are -inf; returns the factors, the row constants and the
+    packed state in ``dtype``."""
+    args, step, (x, z, y), _ = _stage_case("channel", lane, lam, seed=seed)
+    rng = np.random.default_rng(seed)
+    B, K, P = args["eta"].shape[:3]
+    l_col = torch.as_tensor(rng.normal(size=(B, K, P)))
+    l_col[torch.as_tensor(rng.uniform(size=(B, K, P)) < 0.5)] = -np.inf
+    z = z._replace(col=torch.as_tensor(rng.normal(size=(B, K, P))))
+    y = y._replace(col=torch.as_tensor(rng.normal(size=(B, K, P))))
+
+    def cast(v):
+        return tb.tree_map(lambda t: t.to(dtype), v)
+    c = admm_steps.row_consts(
+        args["eta"].to(dtype), args["E"].to(dtype),
+        cast(args["lower"]._replace(col=l_col)), cast(args["upper"]),
+        cast(args["rho_b"]),
+        **{k: v.to(dtype) if torch.is_tensor(v) else v
+           for k, v in step.items()})
+    factors = tuple(t.to(dtype) for t in args["factors"])
+    return factors, c, admm_steps.pack_state(cast(x), cast(z), cast(y))
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("n_iters", [1, 9])
+@pytest.mark.parametrize("lam", [50.0, np.inf])
+@pytest.mark.parametrize("lane", [False, True])
+def test_channel_plain_equals_full_plain_on_eta_zero(lane, lam, n_iters,
+                                                     dtype):
+    """The collision-free plain interval (static rows by channel, the
+    collision rows' recurrence) equals the full plain iterations (A^T and
+    A with their pair terms, on eta = 0) exactly, on a nonzero finite
+    collision state, finite and -inf collision lower bounds, shared and
+    per-lane rho."""
+    factors, c, rows = _channel_case(lane, lam, dtype)
+    got = admm_steps.Rows(*(t.clone() for t in rows))
+    want = admm_steps.Rows(*(t.clone() for t in rows))
+    admm_steps.admm_channel_interval(*factors, got, c, n_iters)
+    B, K, n = rows.x.shape
+    for _ in range(n_iters):
+        b = admm_steps.admm_rhs_plain(want, c)
+        xt = tb.solve_factorized_channel(*factors, b.reshape(B, K, 3, n // 3))
+        admm_steps.admm_update_plain(xt.reshape(B, K, n), want, c)
+    assert float(want.zc.abs().max()) > 0 and float(want.yc.abs().max()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_channel_plain_reads_no_eta():
+    """The channel interval is the function of eta = 0 whatever ``c.eta``
+    holds: the plain version never reads it."""
+    factors, c, rows = _channel_case(False, 50.0, F64)
+    got = admm_steps.Rows(*(t.clone() for t in rows))
+    want = admm_steps.Rows(*(t.clone() for t in rows))
+    admm_steps.admm_channel_interval(*factors, got, c._replace(
+        eta=torch.full_like(c.eta, np.nan)), 3)
+    admm_steps.admm_channel_interval(*factors, want, c, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _warp_scan_sweeps(Linv, Eb, b, noise=None):
+    """float64 model of the sweeps of the channel kernel
+    (csrc/admm_steps.cu): thread t of a warp of 32 owns steps t S + j,
+    S = ceil(K / 32), steps past K - 1 pass their input through (L = 0,
+    M = N = I); each thread folds its steps, a Kogge-Stone scan over the
+    32 threads with the tables' matrices joins the folds (a thread reads
+    its partner's value of the level before), each thread unfolds from its
+    neighbour's result; then the backward boundaries are refined: each
+    thread's first step minus its boundary, scanned with the same maps,
+    corrects the steps.  ``noise`` (32, 3) is added to the backward
+    boundaries before the refinement, which removes any such error.
+    Linv (K, 3, 3), Eb (K-1, 3, 3), b (K, 3)."""
+    K, W, lv = Linv.shape[0], 32, 5
+    S = -(-K // W)
+    eye, zero = np.eye(3), np.zeros((3, 3))
+
+    def mats(k):
+        if k >= K:
+            return zero, eye, eye
+        Lk = Linv[k]
+        M = -Lk @ Eb[k - 1] if k > 0 else zero
+        Nk = -Lk.T @ Eb[k].T if k < K - 1 else zero
+        return Lk, M, Nk
+    tab = [[mats(t * S + j) for j in range(S)] for t in range(W)]
+    # the scans' tables
+    A, Bc = [], []
+    for t in range(W):
+        a = tab[t][0][1]
+        for j in range(1, S):
+            a = tab[t][j][1] @ a
+        c = tab[t][S - 1][2]
+        for j in range(S - 2, -1, -1):
+            c = tab[t][j][2] @ c
+        A.append(a)
+        Bc.append(c)
+    Af, Ab = [], []
+    for level in range(lv):
+        off = 1 << level
+        Af.append(list(A))
+        Ab.append(list(Bc))
+        A = [A[t] @ A[t - off] if t >= off else A[t] for t in range(W)]
+        Bc = [Bc[t] @ Bc[t + off] if t + off < W else Bc[t]
+              for t in range(W)]
+    # one solve
+    cv = [[tab[t][j][0] @ (b[t * S + j] if t * S + j < K else np.zeros(3))
+           for j in range(S)] for t in range(W)]
+    d = []
+    for t in range(W):
+        v = cv[t][0]
+        for j in range(1, S):
+            v = tab[t][j][1] @ v + cv[t][j]
+        d.append(v)
+    for level in range(lv):
+        off = 1 << level
+        d = [Af[level][t] @ d[t - off] + d[t] if t >= off else d[t]
+             for t in range(W)]
+    g = [[None] * S for _ in range(W)]
+    for t in range(W):
+        u = d[t - 1] if t > 0 else np.zeros(3)
+        for j in range(S):
+            u = tab[t][j][1] @ u + cv[t][j]
+            g[t][j] = tab[t][j][0].T @ u
+    e = []
+    for t in range(W):
+        v = g[t][S - 1]
+        for j in range(S - 2, -1, -1):
+            v = tab[t][j][2] @ v + g[t][j]
+        e.append(v)
+    def suffix_scan(v):
+        for level in range(lv):
+            off = 1 << level
+            v = [Ab[level][t] @ v[t + off] + v[t] if t + off < W else v[t]
+                 for t in range(W)]
+        return v
+
+    def unfold(e):
+        x = np.zeros((W * S, 3))
+        for t in range(W):
+            u = e[t + 1] if t < W - 1 else np.zeros(3)
+            for j in range(S - 1, -1, -1):
+                u = tab[t][j][2] @ u + g[t][j]
+                x[t * S + j] = u
+        return x
+    e = suffix_scan(e)
+    if noise is not None:
+        e = [v + n for v, n in zip(e, noise)]
+    x = unfold(e)
+    fix = suffix_scan([x[t * S] - e[t] for t in range(W)])
+    for t in range(W - 1):
+        u = fix[t + 1]
+        for j in range(S - 1, -1, -1):
+            u = tab[t][j][2] @ u
+            x[t * S + j] += u
+    return x[:K]
+
+
+@pytest.mark.parametrize("K", [2, 9, 17, 32, 33, 40, 50, 64])
+def test_warp_scan_sweeps_model_solves_the_channel_system(K):
+    """The channel kernel's fold / warp scan / unfold of the two block
+    sweeps and its refinement of the backward boundaries (its register
+    form, K <= 64: one or two steps a thread, idle threads past K),
+    modelled in float64, solves the per-channel system as
+    ``banded.solve_factorized_channel`` does, also with errors put into
+    the boundaries before the refinement."""
+    solver = SolverConfig.production(problem=ProblemConfig(
+        n_vehicles=3, time_horizon=K * H, time_step=H, min_distance=0.8))
+    prm = make_solver_params(solver, F64)
+    rho = tb.rho_pattern_masks(tb.row_scaling_state(K, H, dtype=F64),
+                               solver.static_part(), prm.rho,
+                               prm.col_rho_boost, n_steps=K, n_pairs=3,
+                               col_enabled=False, dtype=F64)
+    Linv, Eb = tb.factorize(*tb.assemble_channel(rho, h=H, sigma=prm.sigma))
+    b = np.random.default_rng(K).normal(size=(K, 3))
+    want = tb.solve_factorized_channel(Linv, Eb, torch.as_tensor(b)[..., None])
+    rng = np.random.default_rng(K + 1)
+    for noise in (None, rng.normal(size=(32, 3)) * float(want.abs().max())):
+        got = _warp_scan_sweeps(Linv.numpy(), Eb.numpy(), b, noise)
+        np.testing.assert_allclose(got, want[..., 0].numpy(), rtol=1e-9,
+                                   atol=1e-9 * float(want.abs().max()))
 
 
 def test_interval_kind_names_the_float64_channel_rule():

@@ -748,37 +748,81 @@ def _stage_rows(rows):
             torch.cat([rows.ys.flatten(-2), rows.yc], dim=-1))
 
 
+def _channel_stages_case(cuda, B, K, N, lane_rho=None):
+    """Phase 1's operands on the channel route, float32 on the card,
+    without collision blocks: bounds of random start and goal positions,
+    eta = 0, the collision-free QP's rho (one a lane with ``lane_rho``) and
+    its per-channel factors, about half of the collision lower bounds -inf
+    and the rest finite; the state warm from one float64 plain interval of
+    25 iterations (x at rest, z = clip(A x, l, u), y = 0), then a random
+    finite collision state (the kernel must serve any)."""
+    from ba_path_planning_torch.ops import admm_steps
+    rng = np.random.default_rng(B + K + N)
+    f32, h = torch.float32, 0.2
+    P = N * (N - 1) // 2
+    problem = ProblemConfig(n_vehicles=N, time_horizon=K * h, time_step=h,
+                            min_distance=0.8)
+    solver = SolverConfig.production(problem=problem)
+    prm = make_solver_params(solver, f32, cuda)
+    p0, pf = (torch.as_tensor(rng.uniform(2.0, 18.0, (B, N, 2)), dtype=f32,
+                              device=cuda) for _ in range(2))
+    v0 = torch.zeros_like(p0)
+    lower, upper = tb.build_bounds(p0, v0, pf, v0, n_vehicles=N, n_steps=K,
+                                   h=h, limits=problem.limits, n_pairs=P)
+    l_col = torch.as_tensor(rng.normal(size=(B, K, P)), dtype=f32,
+                            device=cuda)
+    off = torch.as_tensor(rng.uniform(size=(B, K, P)) < 0.5, device=cuda)
+    lower = lower._replace(col=l_col.masked_fill(off, -np.inf))
+    rho = tb.rho_pattern_masks(
+        tb.row_scaling_state(K, h, dtype=f32, device=cuda),
+        solver.static_part(), prm.rho if lane_rho is None else lane_rho,
+        prm.col_rho_boost, n_steps=K, n_pairs=P, col_enabled=False,
+        dtype=f32)
+    factors = tb.factorize(*tb.assemble_channel(rho, h=h, sigma=prm.sigma))
+    eta = torch.zeros((B, K, P, 2), dtype=f32, device=cuda)
+    E = make_pair_index(N, f32, cuda).E
+    x = _warm_state(torch.zeros((B, N, K, 2), dtype=f32, device=cuda), p0,
+                    v0, h)
+    z = tb.tree_map(torch.clamp, tb.apply_A(x, eta, E, h), lower, upper)
+    kw = dict(h=h, sigma=prm.sigma, alpha=prm.alpha, lam=prm.col_penalty)
+    c = admm_steps.row_consts(eta, E, lower, upper, rho, **kw)
+    c64 = admm_steps.row_consts(
+        eta.double(), E.double(), *(tb.tree_map(lambda t: t.double(), v)
+                                    for v in (lower, upper, rho)),
+        **_to64(kw))
+    rows = admm_steps.pack_state(*(tb.tree_map(lambda t: t.double(), v)
+                                   for v in (x, z, tb.tree_map(
+                                       torch.zeros_like, z))))
+    admm_steps.admm_channel_interval_plain(
+        *(t.double() for t in factors), rows, c64, 25)
+    rows = admm_steps.Rows(*(t.float() for t in rows))
+    rows = rows._replace(**{k: torch.as_tensor(
+        rng.normal(size=tuple(rows.zc.shape)), dtype=f32, device=cuda)
+        for k in ("zc", "yc")})
+    return factors, c, c64, rows, None
+
+
 def _stages_case(cuda, B, K, N, lane=False, hard=False, phase1=False):
     """One check interval's operands on the grouped X route (``phase1``:
-    the channel route's), float32 on the card, from :func:`_interval_case`
-    (its warm state and bounds): the factors (``lane``: one rho a lane, the
-    grouped route's factors of M / rho with the unit slot scalars and
-    1 / rho; the channel route's per-lane 3x3 factors), the row constants
-    in float32 and float64, and the packed state."""
+    the channel route's, :func:`_channel_stages_case`), float32 on the
+    card, from :func:`_interval_case` (its warm state and bounds): the
+    factors (``lane``: one rho a lane, the grouped route's factors of
+    M / rho with the unit slot scalars and 1 / rho; the channel route's
+    per-lane 3x3 factors), the row constants in float32 and float64, and
+    the packed state."""
     from ba_path_planning_torch.ops import admm_steps
     lane_rho = (torch.as_tensor(2.6 * np.exp(np.random.default_rng(B + N)
                                              .uniform(-2.3, 2.3, B)),
                                 dtype=torch.float32) if lane else None)
+    if phase1:
+        return _channel_stages_case(
+            cuda, B, K, N, None if lane_rho is None else lane_rho.to(cuda))
     args, kw = _interval_case(B, K, N, seed=N + B, device=cuda, form="X",
                               hard=hard, lane_rho=lane_rho)
     X, C, eta, E, lower, upper, x, z, y, rho = args
     static = SolverConfig.production().static_part()
     inv_rho = None
-    if phase1:
-        f32 = torch.float32
-        prm = make_solver_params(SolverConfig.production(), f32, cuda)
-        eta = torch.zeros_like(eta)
-        lower = lower._replace(col=torch.full_like(lower.col, -np.inf))
-        rho = tb.rho_pattern_masks(
-            tb.row_scaling_state(K, 0.2, dtype=f32, device=cuda), static,
-            prm.rho if lane_rho is None else lane_rho.to(cuda),
-            prm.col_rho_boost, n_steps=K, n_pairs=eta.shape[2],
-            col_enabled=False, dtype=f32)
-        factors = tb.factorize(*tb.assemble_channel(rho, h=0.2,
-                                                    sigma=kw["sigma"]))
-        z = tb.tree_map(torch.clamp, tb.apply_A(x, eta, E, 0.2), lower,
-                        upper)
-    elif lane:
+    if lane:
         lr = lane_rho.to(cuda)
         factors = (X * lr.reshape(-1, 1, 1, 1),
                    tb.unit_slot_scalars(static, n_steps=K, h=0.2,
@@ -843,11 +887,18 @@ def _check_stages(cuda, B, K, N, n_iters, lane=False, hard=False,
         assert kernel_err <= 4.0 * plain_err, (kernel_err, plain_err, errs)
 
 
-# (B, K, N): the main path's chunk at N=20, the reference-compatible batch,
-# one scenario, the widest grouped route at its tail chunk, the round
-# record's N=10 batch, and small odd shapes
-STAGE_CASES = [(512, 50, 20), (64, 50, 20), (1, 50, 20), (128, 50, 21),
-               (1024, 50, 10), (3, 9, 4), (2, 6, 2)]
+# (B, K, N): the main path's chunk at N=20 and its tail chunk, the
+# reference-compatible batch, one scenario, the widest grouped route at its
+# tail chunk, the round record's N=10 batch, and small odd shapes
+STAGE_CASES = [(512, 50, 20), (128, 50, 20), (64, 50, 20), (1, 50, 20),
+               (128, 50, 21), (1024, 50, 10), (3, 9, 4), (2, 6, 2)]
+# the channel interval's besides: the N=20 main path's phase 1, a lane an
+# SM, a few lanes, the N=40 path's batch; the single CLI's K=500 (the
+# memory form in shared memory), K=500 at N=20, K=1200 (the memory form in
+# the global scratch), K=33 (two steps a thread, idle threads), and N=60
+CHANNEL_CASES = STAGE_CASES + [(1024, 50, 20), (132, 50, 20), (8, 50, 20),
+                               (2048, 50, 40), (1, 500, 10), (2, 500, 20),
+                               (1, 1200, 2), (5, 33, 3), (4, 50, 60)]
 
 
 @pytest.mark.gpu
@@ -872,12 +923,17 @@ def test_admm_stages_with_lane_rho_and_hard_rows(cuda, B, N, n_iters):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_iters", [1, 25])
-@pytest.mark.parametrize("B,K,N", STAGE_CASES + [(1, 500, 10), (2, 500, 20),
-                                                 (4, 50, 60)])
+@pytest.mark.parametrize("B,K,N", CHANNEL_CASES)
 def test_admm_channel_interval_matches_plain(cuda, B, K, N, n_iters):
     """The collision-free interval in one launch against the plain
-    iterations; the plane in shared memory, and at K=500, N=20 in the
-    global scratch (the single CLI's default horizon)."""
+    iterations, on a random finite collision state with finite and -inf
+    lower bounds, shared and per-lane rho: the steps in registers
+    (K <= 64), in shared memory (K = 500) and in the global scratch
+    (K = 1200)."""
+    from ba_path_planning_torch.ops import admm_steps
+    plan = admm_steps.channel_plan(B, K, N)
+    assert plan.steps == (0 if K > 64 else 1 if K <= 32 else 2)
+    assert plan.in_smem == (K != 1200)
     _check_stages(cuda, B, K, N, n_iters, phase1=True)
     _check_stages(cuda, B, K, N, n_iters, lane=True, phase1=True)
 
@@ -955,6 +1011,15 @@ def test_admm_steps_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):
         admm_steps.admm_channel_interval(pf[0][:-1].contiguous(), pf[1],
                                          prows, pc, 1)
+    with pytest.raises(ValueError):
+        admm_steps.admm_channel_interval(
+            *pf, prows._replace(yc=prows.yc[:, :-1].contiguous()), pc, 1)
+    with pytest.raises(ValueError):
+        admm_steps.admm_channel_interval(
+            *pf, prows, pc._replace(l_s=pc.l_s[:1].contiguous()), 1)
+    with pytest.raises(TypeError):
+        admm_steps.admm_channel_interval(
+            *pf, prows, pc._replace(rho_c=pc.rho_c.double()), 1)
     with pytest.raises(TypeError):
         admm_steps.admm_channel_interval(*(t.double() for t in pf), prows,
                                          pc, 1)
