@@ -24,10 +24,28 @@
 // (B, K, 6N), static rows (B, K, 6, 2N) in the slot order dyn_p, dyn_v,
 // jerk, acc, vbox, pbox, collision rows (B, K, P).
 //
-// admm_rhs (admm_rows.cuh build_rhs_rows on blocks of (lane, k-tile)):
-// bound by memory bandwidth; A^T's column sum reads each pair's term from
-// the threads of both vehicles, and for one of them the threads of a warp
-// read addresses about N floats apart, so it moves more sectors than bytes.
+// admm_rhs: bound by memory bandwidth (every row read once, b written
+// once; at N = 20, K = 50, B = 512 0.17 GB, 0.051 ms at 3.35 TB/s).  A^T's
+// collision term of vehicle v sums the N - 1 pair rows v belongs to; read
+// where they lie, each pair term is read by the threads of both vehicles
+// and both axes, and for half of them the threads of a warp read
+// addresses about N floats apart.  So a block takes k_tile steps of one
+// lane (ops/admm_steps.py rhs_plan: the static items fill its threads) in
+// two phases around one barrier.  Phase A, a thread a collision row
+// (k + 1, p) of the tile, coalesced along p: rho, z, y and eta read once,
+// w = rho z - y formed once, the pair (i, j) in closed form, and the axis
+// terms w eta written into a transposed pair table in shared memory, whose
+// row (step, vehicle) holds the vehicle's N - 1 partner terms in ascending
+// partner order: + in row i, - in row j.  Phase B, a thread a static row
+// (k, q): the static rows read along q (rz of steps k - 1 .. k + 1, x), as
+// admm_rows.cuh build_rhs_rows reads them, and the table row summed on
+// consecutive entries in ascending partner order, the order and signs of
+// build_rhs_rows' loop (no atomics: deterministic).  The table's rows lie
+// an odd number of float2 apart, so the rows a warp reads at one slot fall
+// on distinct banks.  Where one step's table does not fit shared memory (N
+// > 170), the direct form runs build_rhs_rows on the same blocks: the pair
+// terms read from global memory as above, every thread of the block given
+// static rows.
 //
 // admm_update: bound by memory bandwidth (each row read once or twice and
 // written once, about 1 flop a byte; at N = 20, K = 50, B = 512 0.34 GB,
@@ -114,33 +132,6 @@ __device__ __forceinline__ admm_rows::Scenario lane_rows(
       yc + co, fpar[0], fpar[1], fpar[2], fpar[3], K, N};
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-    admm_rhs_kernel(const float* __restrict__ fpar,
-                    const float* __restrict__ eta,
-                    const float* __restrict__ rho_s,
-                    const float* __restrict__ rho_c,
-                    const float* __restrict__ inv_rho, const float* x,
-                    const float* zs, const float* ys, const float* zc,
-                    const float* yc, float* __restrict__ b, int K, int N,
-                    int k_tile, int n_tiles, int rho_s_stride,
-                    int rho_c_stride) {
-  const int lane = blockIdx.x / n_tiles, tile = blockIdx.x % n_tiles;
-  const int n2 = 2 * N, k0 = tile * k_tile, k1 = min(K, k0 + k_tile);
-  // the stage reads the state only
-  const admm_rows::Scenario sc = lane_rows(
-      fpar, eta, nullptr, nullptr, nullptr, rho_s, rho_c,
-      const_cast<float*>(x), const_cast<float*>(zs), const_cast<float*>(ys),
-      const_cast<float*>(zc), const_cast<float*>(yc), lane, K, N,
-      rho_s_stride, rho_c_stride);
-  admm_rows::build_rhs_rows(sc, b + static_cast<size_t>(lane) * K * 3 * n2,
-                            k0 * n2, k1 * n2, threadIdx.x, blockDim.x,
-                            inv_rho ? inv_rho[lane] : 1.f);
-}
-
-// ---------------------------------------------------------------------------
-// admm_update
-// ---------------------------------------------------------------------------
-
 // i / d for 0 <= i < 2^22: the float quotient is within 1/2 of i / d, so
 // truncating it and one correction give the integer quotient.
 struct SmallDiv {
@@ -166,6 +157,163 @@ __device__ __forceinline__ int pair_first(int p, int N) {
   while (admm_rows::pair_base(i + 1, N) <= p) ++i;
   return i;
 }
+
+// ---------------------------------------------------------------------------
+// admm_rhs
+// ---------------------------------------------------------------------------
+
+// float2 entries between two rows of the transposed pair table: N - 1
+// rounded up to an odd number (ops/admm_steps.py rhs_table_stride)
+__host__ __device__ inline int rhs_table_stride(int N) {
+  return N - (N - 1) % 2;
+}
+
+// Bytes of shared memory the table of k_tile steps takes (rhs_table_bytes)
+__host__ __device__ inline long rhs_table_bytes(int k_tile, int N) {
+  return 8L * k_tile * N * rhs_table_stride(N);
+}
+
+// What static row (k, q) adds to b before the collision term, in the order
+// of build_rhs_rows' sums: b0 and b2 whole (scaled), b1 as (dp - dp_next +
+// rz5) and sigma x apart, the collision term going between them.
+struct RhsStatic {
+  float b0, b1, sx1, b2;
+};
+
+__device__ __forceinline__ RhsStatic rhs_static(
+    const float* __restrict__ rs, const float* __restrict__ zs,
+    const float* __restrict__ ys, const float* __restrict__ xl, int k, int q,
+    int K, int n2, float h, float sigma, float scale) {
+  const float hh = 0.5f * h * h;
+  auto rz = [&](int kk, int s) {
+    const size_t o = (static_cast<size_t>(kk) * 6 + s) * n2 + q;
+    return rs[kk * 6 + s] * zs[o] - ys[o];
+  };
+  const bool last = k == K - 1;
+  const float dp = rz(k, 0), dv = rz(k, 1);
+  const float jr = last ? 0.f : rz(k, 2);
+  const float jr_prev = k > 0 ? rz(k - 1, 2) : 0.f;
+  const float dp_next = last ? 0.f : rz(k + 1, 0);
+  const float dv_next = last ? 0.f : rz(k + 1, 1);
+  const float* xk = xl + static_cast<size_t>(k) * 3 * n2;
+  RhsStatic st;
+  st.b0 = (-hh * dp - h * dv + (jr_prev - jr) / h + rz(k, 3)
+           + sigma * xk[q]) * scale;
+  st.b1 = dp - dp_next + rz(k, 5);
+  st.sx1 = sigma * xk[n2 + q];
+  st.b2 = (-h * dp_next + dv - dv_next + rz(k, 4) + sigma * xk[2 * n2 + q])
+          * scale;
+  return st;
+}
+
+// The table form (the file's head): blocks of k_tile steps of one lane,
+// the table of the tile's collision steps in dynamic shared memory.
+__global__ void __launch_bounds__(kRowThreads)
+    admm_rhs_table_kernel(const float* __restrict__ fpar,
+                          const float* __restrict__ eta,
+                          const float* __restrict__ rho_s,
+                          const float* __restrict__ rho_c,
+                          const float* __restrict__ inv_rho,
+                          const float* __restrict__ x,
+                          const float* __restrict__ zs,
+                          const float* __restrict__ ys,
+                          const float* __restrict__ zc,
+                          const float* __restrict__ yc, float* __restrict__ b,
+                          int K, int N, int k_tile, int n_tiles,
+                          int rho_s_stride, int rho_c_stride) {
+  extern __shared__ float2 rhs_table[];
+  const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
+  const int stride = rhs_table_stride(N);
+  const int lane = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x - lane * n_tiles) * k_tile;
+  const int steps = min(K, k0 + k_tile) - k0;
+  // steps k of the tile with collision rows at k + 1
+  const int col_steps = min(K - 1, k0 + k_tile) - k0;
+  const float h = fpar[0], sigma = fpar[1];
+  const float scale = inv_rho ? inv_rho[lane] : 1.f;
+  const size_t so = static_cast<size_t>(lane) * K * 6 * n2;
+  const float* rs = rho_s + static_cast<size_t>(lane) * rho_s_stride;
+  const float* xl = x + static_cast<size_t>(lane) * K * n;
+  float* bl = b + static_cast<size_t>(lane) * K * n;
+  const int n_static = steps * n2;
+  const SmallDiv by_n2(n2);
+  // the static part of the thread's first row: its loads go out before
+  // phase A's
+  RhsStatic first{};
+  if (threadIdx.x < n_static) {
+    const int kk = by_n2(threadIdx.x);
+    first = rhs_static(rs, zs + so, ys + so, xl, k0 + kk,
+                       threadIdx.x - kk * n2, K, n2, h, sigma, scale);
+  }
+  // phase A: the collision rows (k0 + 1 .. k0 + col_steps, p), contiguous
+  const size_t c0 = (static_cast<size_t>(lane) * K + k0 + 1) * P;
+  const float* rc = rho_c + static_cast<size_t>(lane) * rho_c_stride
+                    + static_cast<size_t>(k0 + 1) * P;
+  const float2* et = reinterpret_cast<const float2*>(eta) + c0;
+  const SmallDiv by_p(P > 0 ? P : 1);
+  for (int c = threadIdx.x; c < col_steps * P; c += blockDim.x) {
+    const float w = rc[c] * zc[c0 + c] - yc[c0 + c];
+    const float2 e = et[c];
+    const int kk = by_p(c), p = c - kk * P;
+    const int i = pair_first(p, N);
+    const int j = p - admm_rows::pair_base(i, N) + i + 1;
+    float2* rows = rhs_table + static_cast<size_t>(kk) * N * stride;
+    const float t0 = w * e.x, t1 = w * e.y;
+    rows[i * stride + j - 1] = make_float2(t0, t1);
+    rows[j * stride + i] = make_float2(-t0, -t1);
+  }
+  __syncthreads();
+  // phase B: a thread a static row (k, q)
+  for (int e = threadIdx.x; e < n_static; e += blockDim.x) {
+    const int kk = by_n2(e), q = e - kk * n2, k = k0 + kk;
+    const RhsStatic st =
+        e == threadIdx.x ? first
+                         : rhs_static(rs, zs + so, ys + so, xl, k, q, K, n2,
+                                      h, sigma, scale);
+    float col = 0.f;
+    if (kk < col_steps) {
+      // vehicle q / 2's row, axis q % 2
+      const float* r = reinterpret_cast<const float*>(
+                           rhs_table + (static_cast<size_t>(kk) * N + (q >> 1))
+                                       * stride) + (q & 1);
+#pragma unroll 4
+      for (int s = 0; s < N - 1; ++s) col += r[2 * s];
+    }
+    float* bk = bl + static_cast<size_t>(k) * n;
+    bk[q] = st.b0;
+    bk[n2 + q] = (st.b1 + col + st.sx1) * scale;
+    bk[2 * n2 + q] = st.b2;
+  }
+}
+
+// The direct form (N > 170): build_rhs_rows on blocks of k_tile steps of
+// one lane.
+__global__ void __launch_bounds__(kRowThreads)
+    admm_rhs_direct_kernel(const float* __restrict__ fpar,
+                           const float* __restrict__ eta,
+                           const float* __restrict__ rho_s,
+                           const float* __restrict__ rho_c,
+                           const float* __restrict__ inv_rho, const float* x,
+                           const float* zs, const float* ys, const float* zc,
+                           const float* yc, float* __restrict__ b, int K,
+                           int N, int k_tile, int n_tiles, int rho_s_stride,
+                           int rho_c_stride) {
+  const int lane = blockIdx.x / n_tiles, tile = blockIdx.x % n_tiles;
+  const int n2 = 2 * N, k0 = tile * k_tile, k1 = min(K, k0 + k_tile);
+  // the stage reads the state only
+  const admm_rows::Scenario sc = lane_rows(
+      fpar, eta, nullptr, nullptr, nullptr, rho_s, rho_c,
+      const_cast<float*>(x), const_cast<float*>(zs), const_cast<float*>(ys),
+      const_cast<float*>(zc), const_cast<float*>(yc), lane, K, N,
+      rho_s_stride, rho_c_stride);
+  admm_rows::build_rhs_rows(sc, b + static_cast<size_t>(lane) * K * 3 * n2,
+                            k0 * n2, k1 * n2, threadIdx.x, blockDim.x,
+                            inv_rho ? inv_rho[lane] : 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// admm_update
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -991,21 +1139,44 @@ extern "C" {
 
 // b (B, K, 6N) = A^T (rho z - y) + sigma x, times inv_rho[lane] where
 // inv_rho (B,) is given (else null).  fpar (4,) = h, sigma, alpha,
-// col_penalty; eta (B, K, P, 2); rho_s (K, 6) and rho_c (K, P) the rho of
-// the first lane, the others' `rho_s_stride` and `rho_c_stride` floats
-// apart (0: batch-shared); x (B, K, 6N), zs, ys (B, K, 6, 2N), zc, yc
-// (B, K, P) are read.  Blocks of k_tile steps of one lane.  All float32,
-// contiguous.  Returns the CUDA error code of the launch, or
-// cudaErrorInvalidValue for arguments it cannot serve.
+// col_penalty; eta (B, K, P, 2), 8-byte aligned; rho_s (K, 6) and rho_c
+// (K, P) the rho of the first lane, the others' `rho_s_stride` and
+// `rho_c_stride` floats apart (0: batch-shared); x (B, K, 6N), zs, ys
+// (B, K, 6, 2N), zc, yc (B, K, P) are read.  The plan (ops/admm_steps.py
+// rhs_plan): blocks of k_tile steps of one lane, `table` 1 for the table
+// form (its table of rhs_table_bytes(k_tile, N) in shared memory), 0 for
+// the direct form.  All float32, contiguous.  Returns the CUDA error code
+// of the launch, or cudaErrorInvalidValue for arguments it cannot serve.
 int admm_rhs_f32(const float* fpar, const float* eta, const float* rho_s,
                  const float* rho_c, const float* inv_rho, const float* x,
                  const float* zs, const float* ys, const float* zc,
                  const float* yc, float* b, int B, int K, int N, int k_tile,
-                 int rho_s_stride, int rho_c_stride, cudaStream_t stream) {
-  if (!row_args_ok(B, K, N, k_tile))
+                 int table, int rho_s_stride, int rho_c_stride,
+                 cudaStream_t stream) {
+  const long smem = table ? rhs_table_bytes(k_tile, N) : 0;
+  if (!row_args_ok(B, K, N, k_tile) || smem > kSmemMax ||
+      (reinterpret_cast<size_t>(eta) & 7) ||
+      static_cast<long>(k_tile) * (2L * N + N * (N - 1L) / 2) >= (1L << 22))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (K + k_tile - 1) / k_tile;
-  admm_rhs_kernel<<<B * n_tiles, kRowThreads, 0, stream>>>(
+  if (!table) {
+    admm_rhs_direct_kernel<<<B * n_tiles, kRowThreads, 0, stream>>>(
+        fpar, eta, rho_s, rho_c, inv_rho, x, zs, ys, zc, yc, b, K, N,
+        k_tile, n_tiles, rho_s_stride, rho_c_stride);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the largest table allowed so far on each device (the attribute is per
+  // device)
+  constexpr int kDevices = 64;
+  static long allowed[kDevices] = {};
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err && (dev >= kDevices || smem > allowed[dev])) {
+    err = allow_smem(admm_rhs_table_kernel, smem);
+    if (!err && dev < kDevices) allowed[dev] = smem;
+  }
+  if (err) return err;
+  admm_rhs_table_kernel<<<B * n_tiles, kRowThreads, smem, stream>>>(
       fpar, eta, rho_s, rho_c, inv_rho, x, zs, ys, zc, yc, b, K, N, k_tile,
       n_tiles, rho_s_stride, rho_c_stride);
   return static_cast<int>(cudaGetLastError());

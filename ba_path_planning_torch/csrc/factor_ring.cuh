@@ -308,6 +308,91 @@ __device__ __forceinline__ void matvec_rows_cols(const RingOf<T>& ring,
   }
 }
 
+// Pairs of a bf16 row that matvec_rows_cols_bf16 keeps in registers
+constexpr int kHoldPairs = 2;
+
+// Both products of a lower triangular block on bf16 rows, as
+// matvec_rows_cols<U, true> with tri, from one read and one widening of
+// each element: lane l reads the columns j = 64 m + 2 l and j + 1 of a row
+// as one __nv_bfloat162 (a warp's load covers 128 bytes, as a float32 load
+// does), widens the pair once into the row dot y_i and keeps it for the
+// column partial sums acc[2 m] (column j) and acc[2 m + 1] (column j + 1),
+// U 32 >= hi.  What lies past the diagonal is taken as 0, the second
+// element of a pair at the diagonal too.  The first kHoldPairs pairs of
+// each row stay in registers; a row longer than 64 kHoldPairs columns is
+// read and widened again past them.  The rows are split over the warps as
+// in matvec_rows; the caller sums the warps' acc.
+template <int U>
+__device__ __forceinline__ void matvec_rows_cols_bf16(
+    const RingOf<__nv_bfloat16>& ring, Cursor& cur, const float* v, int lo,
+    int hi, int band_rows, int warp, int nwarps, float (&acc)[U]) {
+  constexpr int kPairs = U / 2;
+  constexpr int kHold = kPairs < kHoldPairs ? kPairs : kHoldPairs;
+  const int lane = threadIdx.x & 31;
+  // the pair (j, j + 1) of row q, widened; 0 from the diagonal on
+  auto pair = [](const __nv_bfloat162* row, int j, int lim) {
+    float2 e = make_float2(0.f, 0.f);
+    if (j < lim) {
+      e = __bfloat1622float2(row[j >> 1]);
+      if (j + 1 >= lim) e.y = 0.f;
+    }
+    return e;
+  };
+  for (int r0 = lo; r0 < hi; r0 += band_rows) {
+    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
+    const __nv_bfloat16* M = acquire(ring, cur);
+    for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
+      const __nv_bfloat162* row[kRows];
+      int lim[kRows];
+      float y[kRows];
+      float2 held[kRows][kHold];
+      int last = 0;
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const bool ok = i + q * nwarps < r1;
+        const int iq = ok ? i + q * nwarps : i;
+        row[q] = reinterpret_cast<const __nv_bfloat162*>(
+            M + (iq - r0) * ring.ld);
+        lim[q] = ok ? iq + 1 : 0;
+        y[q] = 0.f;
+        last = lim[q] > last ? lim[q] : last;
+      }
+#pragma unroll
+      for (int m = 0; m < kPairs; ++m) {
+        if (64 * m >= last) break;
+        const int j = 64 * m + 2 * lane;
+        // last <= n, both even: v[j + 1] lies in v wherever j < last
+        const float2 vj = j < last ? *reinterpret_cast<const float2*>(v + j)
+                                   : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const float2 e = pair(row[q], j, lim[q]);
+          y[q] = fmaf(e.y, vj.y, fmaf(e.x, vj.x, y[q]));
+          if (m < kHold) held[q][m < kHold ? m : 0] = e;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) y[q] = sweeps::warp_sum(y[q]);
+#pragma unroll
+      for (int m = 0; m < kPairs; ++m) {
+        if (64 * m >= last) break;
+        const int j = 64 * m + 2 * lane;
+        float s0 = acc[2 * m], s1 = acc[2 * m + 1];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const float2 e =
+              m < kHold ? held[q][m < kHold ? m : 0] : pair(row[q], j, lim[q]);
+          s0 = fmaf(e.x, y[q], s0);
+          s1 = fmaf(e.y, y[q], s1);
+        }
+        acc[2 * m] = s0;
+        acc[2 * m + 1] = s1;
+      }
+    }
+    release(ring, cur);
+  }
+}
+
 // Both products of a lower triangular block with one read of its rows
 // [lo, hi), as matvec_rows_cols<U, true> with tri, for blocks too wide for
 // register column sums: the products M[i, j] y_i of kRows rows at a time are

@@ -26,7 +26,10 @@
 //   * L form: both products from one read of each band (matvec_rows_cols):
 //     a warp forms y_i = Linv_k[i, :i+1] . r for its rows and at once adds
 //     Linv_k[i, j] y_i into register partial sums of its lanes' columns;
-//     Linv_k leaves HBM once per step, and both stop at the diagonal.
+//     Linv_k leaves HBM once per step, and both stop at the diagonal.  On
+//     bf16 factors (matvec_rows_cols_bf16) a lane owns column pairs: it
+//     reads two columns as one __nv_bfloat162 and widens them once for
+//     both products.
 //   * dense form: two blocks a step of k.  Forward steps take row products
 //     (to the diagonal on Linv_k); backward steps the transposed products
 //     as column partial sums in registers from the same one read of each
@@ -37,7 +40,10 @@
 // (up to four); small ones (up to 64 scenarios) a thread-block cluster of 2
 // or 4 blocks per scenario, so that the scenario's stream spreads over as
 // many SMs.  The instantiations: n up to 512 (every production N, in 56
-// registers so that four blocks share an SM) and, with launch bounds for
+// registers so that four blocks share an SM; the L form on bf16 factors in
+// 112, two blocks an SM: under 56 it spilled on its per-step chain, and
+// was slower than on float32 factors wherever that chain sets the time)
+// and, with launch bounds for
 // one block an SM, n up to 1536 (N <= 256: the column sums of the L and
 // dense forms, 48 registers a lane) and up to 6144 (the X form, which keeps
 // no column sums; the L form, whose column sums are then added into one
@@ -183,9 +189,14 @@ using Second = std::conditional_t<kForm == kFormDense, T, float>;
 // triangular: what lies above the diagonal is not read), each row's
 // columns n.. ld-1 unread; G: the slot scalars C9 (K-1, 9) (X and L forms)
 // or E (B, K-1, n, ld) (dense form); n <= kTierN.  A grid of B clusters of
-// cluster.num_blocks() blocks of kThreads threads.
+// cluster.num_blocks() blocks of kThreads threads; the launch bounds leave
+// room for four blocks an SM, one in the wide tiers and two in the L form
+// on bf16 factors (the file's head).
 template <int kForm, int kTierN, typename T>
-__global__ void __launch_bounds__(kThreads, kTierN > kNarrowN ? 1 : 4)
+__global__ void __launch_bounds__(
+    kThreads, kTierN > kNarrowN                        ? 1
+              : (kForm == kFormL && sizeof(T) == 2) ? 2
+                                                       : 4)
 sweep_kernel(const T* __restrict__ F,
              const Second<kForm, T>* __restrict__ G,
              const float* __restrict__ bvec, float* xout, int K, int n,
@@ -468,13 +479,27 @@ sweep_kernel(const T* __restrict__ F,
         float acc[kColRegs];
 #pragma unroll
         for (int u = 0; u < kColRegs; ++u) acc[u] = 0.f;
-        factor_ring::matvec_rows_cols<kColRegs, true>(
-            ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
         const int lane = tid & 31;
+        if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+          // bf16: a lane owns the column pairs 64 m + 2 lane, + 1
+          factor_ring::matvec_rows_cols_bf16<kColRegs>(
+              ring, cur, r, lo, hi, band_rows, warp, kWarps, acc);
 #pragma unroll
-        for (int u = 0; u < kColRegs; ++u) {
-          if (32 * u >= hi) break;
-          if (32 * u + lane < hi) part[warp * n + 32 * u + lane] = acc[u];
+          for (int m = 0; m < kColRegs / 2; ++m) {
+            const int j = 64 * m + 2 * lane;
+            if (64 * m >= hi) break;
+            if (j < hi)      // hi even: the pair lies below it whole
+              *reinterpret_cast<float2*>(part + warp * n + j) =
+                  make_float2(acc[2 * m], acc[2 * m + 1]);
+          }
+        } else {
+          factor_ring::matvec_rows_cols<kColRegs, true>(
+              ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
+#pragma unroll
+          for (int u = 0; u < kColRegs; ++u) {
+            if (32 * u >= hi) break;
+            if (32 * u + lane < hi) part[warp * n + 32 * u + lane] = acc[u];
+          }
         }
         consumer_sync();
 #pragma unroll

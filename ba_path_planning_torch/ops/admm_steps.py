@@ -41,13 +41,12 @@ from .admm_fused import _on_cpu, planes_to_rows, rho_planes, static_plane
 from .cuda_build import check, load_kernels, require_f32_cuda
 
 # The row stages' launch layout (csrc/admm_steps.cu): a block of
-# ROW_THREADS threads takes k_tile steps of one lane, at most about
-# ROW_ITEMS rows (admm_rhs) or UPDATE_ITEMS items (admm_update: two
-# neighbouring slots of a static row, or a collision row), and the grid
-# has at least ROW_MIN_BLOCKS blocks where B * K allows (two a streaming
-# multiprocessor of the H100)
+# ROW_THREADS threads takes k_tile steps of one lane, at most as many
+# static rows as it has threads (admm_rhs) or about UPDATE_ITEMS items
+# (admm_update: two neighbouring slots of a static row, or a collision
+# row), and the grid has at least ROW_MIN_BLOCKS blocks where B * K allows
+# (two a streaming multiprocessor of the H100)
 ROW_THREADS = 256
-ROW_ITEMS = 2 * ROW_THREADS
 UPDATE_ITEMS = 5 * ROW_THREADS
 SMS = 132
 ROW_MIN_BLOCKS = 2 * SMS
@@ -134,14 +133,44 @@ def unpack(rows: Rows, n_vehicles: int):
             planes_to_rows(rows.ys, rows.yc, n_vehicles))
 
 
-def row_plan(B: int, K: int, N: int) -> int:
-    """Steps of k a block of :func:`admm_rhs` takes: about ROW_ITEMS rows
-    (2N static and P collision rows a step), fewer where the grid would
-    have less than ROW_MIN_BLOCKS blocks, at least one."""
-    per_step = 2 * N + N * (N - 1) // 2
-    by_work = max(1, ROW_ITEMS // per_step)
-    by_fill = max(1, B * K // ROW_MIN_BLOCKS)
-    return min(K, by_work, by_fill)
+class RhsPlan(NamedTuple):
+    """The launch of :func:`admm_rhs`: blocks of ``k_tile`` steps of one
+    lane; ``table``: the table form, the tile's pair terms in a transposed
+    table of ``smem_bytes`` of shared memory (else the direct form, which
+    reads them from global memory)."""
+    k_tile: int
+    table: bool
+    smem_bytes: int
+
+
+def rhs_table_stride(N: int) -> int:
+    """float2 entries between two rows of admm_rhs's pair table (the
+    kernel's ``rhs_table_stride``): a vehicle's N - 1 partner terms,
+    rounded up to an odd number so that a warp's rows fall on distinct
+    banks."""
+    return N - (N - 1) % 2
+
+
+def rhs_table_bytes(k_tile: int, N: int) -> int:
+    """Shared memory of the pair table of ``k_tile`` steps (the kernel's
+    ``rhs_table_bytes``): a row of float2 a vehicle and step."""
+    return 8 * k_tile * N * rhs_table_stride(N)
+
+
+def rhs_plan(B: int, K: int, N: int) -> RhsPlan:
+    """The launch of :func:`admm_rhs` for B lanes of N vehicles and K
+    steps: as many steps a block as its ROW_THREADS threads have static
+    rows (2N a step), fewer where the grid would have less than
+    ROW_MIN_BLOCKS blocks, and fewer until the table leaves room for four
+    blocks an SM; at least one.  The table form wherever one step's table
+    fits a block's shared memory (N <= 170), else the direct form."""
+    k_tile = min(K, max(1, ROW_THREADS // (2 * N)),
+                 max(1, B * K // ROW_MIN_BLOCKS))
+    if rhs_table_bytes(1, N) > SMEM_MAX:
+        return RhsPlan(k_tile, False, 0)
+    while k_tile > 1 and rhs_table_bytes(k_tile, N) > SMEM_MAX // 4:
+        k_tile -= 1
+    return RhsPlan(k_tile, True, rhs_table_bytes(k_tile, N))
 
 
 def update_plan(B: int, K: int, N: int) -> int:
@@ -329,6 +358,10 @@ def admm_rhs(rows: Rows, c: RowConsts, inv_rho=None) -> torch.Tensor:
     if inv_rho is not None and tuple(inv_rho.shape) != (B,):
         raise ValueError(f"admm_rhs: inv_rho {tuple(inv_rho.shape)}, not "
                          f"({B},)")
+    # the kernel reads eta's two axes as float2
+    if c.eta.data_ptr() % 8:
+        raise ValueError("admm_rhs: eta must start 8-byte aligned")
+    plan = rhs_plan(B, K, N)
     b = torch.empty_like(rows.x)
     lib = load_kernels()
     with torch.cuda.device(b.device):
@@ -337,7 +370,7 @@ def admm_rhs(rows: Rows, c: RowConsts, inv_rho=None) -> torch.Tensor:
             c.rho_c.data_ptr(),
             None if inv_rho is None else inv_rho.data_ptr(),
             *(t.data_ptr() for t in rows), b.data_ptr(), B, K, N,
-            row_plan(B, K, N), *strides, _stream(b))
+            plan.k_tile, int(plan.table), *strides, _stream(b))
     check(err, "admm_rhs")
     admm_rhs.launches += 1
     debug.report("admm_rhs", b)

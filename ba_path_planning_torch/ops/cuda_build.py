@@ -131,7 +131,7 @@ def load_kernels() -> ctypes.CDLL:
                   lib.admm_fused_l_bf16):
         fused.restype = i
     # the ADMM row stages and the channel interval (admm_steps.cu)
-    lib.admm_rhs_f32.argtypes = [p] * 11 + [i] * 6 + [p]
+    lib.admm_rhs_f32.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.admm_update_f32.argtypes = [p] * 13 + [i] * 6 + [p]
     lib.admm_channel_interval_f32.argtypes = [p] * 14 + [i] * 10 + [p]
     for stage in (lib.admm_rhs_f32, lib.admm_update_f32,

@@ -34,7 +34,9 @@
    finite) at N=20 (B=1024, 512, 132, 8, 64, 1), N=21 (B=128), N=10
    (B=1024) and N=40 (B=2048), each also with one rho a lane (B=64),
    against their plain versions after 1 and 25 iterations; each stage
-   timed alone at each shape, the channel interval beside its bound on
+   timed alone at each shape (admm_rhs and admm_update: device time under
+   the profiler and CUDA events, beside the bound and the plan, admm_rhs's
+   table or direct form), the channel interval beside its bound on
    the collision-free count and on the count with eta's pair terms; the
    device launches per ADMM iteration of one grouped X interval (at most
    4);
@@ -90,10 +92,11 @@
    factor-streaming kernels on factors stored in bf16
    (``banded.compress_factors``, rows on a stride of 8 elements), each
    against its plain version on the same bf16 factors with the tolerances
-   of the float32 checks and timed beside its float32 self, its bound at 2
-   bytes an element: the three sweeps at N=20 (B=512, 64, 1), N=21 and
-   N=30 (B=128, padded rows), the L-form fused interval at N=20 (B=128,
-   64);
+   of the float32 checks and timed beside its float32 self (the ratio
+   printed), its bound at 2 bytes an element: the three sweeps at N=20
+   (B=512, 64, 1), N=21 and N=30 (B=128, padded rows), the L-form fused
+   interval at N=20 (B=128, 64); first, ptxas's registers and spills of
+   the L-form sweep's instantiations, f32 and bf16, from the build log;
 12. the bf16 paths: production with bf16 factors at N=20 (1024 scenarios,
    chunk 512, the grouped X route; at least 99% ok, printed beside the f32
    path), and the ``SCP`` class's solver in bf16 on its three kernel
@@ -186,6 +189,33 @@ def _time_ms(fn, reps: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _device_us(e):
+    """Device time of a ``torch.profiler`` average, us (the attribute's
+    name differs between versions)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def _device_ms(fn, reps: int = 20):
+    """Device time of one call of ``fn``: its kernels' time under
+    ``torch.profiler`` over ``reps`` calls (after a warm-up call), divided
+    by ``reps``, without the host's launch cost that CUDA events over
+    back-to-back calls include; "not measured" where the profiler records
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us else "not measured"
 
 
 def _zero(counters):
@@ -882,13 +912,24 @@ def _channel_stat(tag, err, ms, plain_ms, n_veh, B):
     return st
 
 
+def _stage_line(key, st, plan):
+    """One stage's times at one shape, as the steps phase prints them."""
+    def ms(v):
+        return v if isinstance(v, str) else f"{v:.4f} ms"
+    share = "not measured" if st["share"] is None else f"{st['share']:.0%}"
+    return (f"{key} {ms(st['ms'])} device (events {ms(st['events_ms'])}), "
+            f"bound {ms(st['bound_ms'])} ({st['bound_by']}; {share} of it), "
+            "plan " + ", ".join(f"{k}={plan[k]}" for k in plan))
+
+
 def steps_phase(dev):
     """The ADMM stages (``ops/admm_steps.py``): admm_rhs and admm_update
     with the X-form sweep kernel between them (the grouped X route's
     iteration) and the channel interval, each against its plain version
     (:func:`_steps_check`) at STEP_SHAPES and CHANNEL_SHAPES, and with one
     rho a lane (N=20, B=64); admm_rhs and admm_update timed alone at each
-    of STEP_SHAPES (their plain versions at N=20, B=512), the channel
+    of STEP_SHAPES (device time, :func:`_device_ms`, and CUDA events;
+    their plain versions at N=20, B=512), with their bound and plan, the
     interval at each of CHANNEL_SHAPES and with one rho a lane (its plain
     version at N=20, B=1024, phase 1's batch); the device launches per
     ADMM iteration of one grouped X interval of 25 iterations
@@ -899,22 +940,35 @@ def steps_phase(dev):
     from ba_path_planning_torch.ops import admm_steps, group_solve
     from ba_path_planning_torch.solvers import banded
     from ba_path_planning_torch.utils import profiling
-    out, rhs_ms, upd_ms = {}, {}, {}
+    out, at = {}, {"admm_rhs": {}, "admm_update": {}}
     for n_veh, B in STEP_SHAPES:
         abs_err, factors, c, rows, inv_rho = _steps_check(
             "steps phase: admm_rhs + sweep + admm_update", n_veh, B, dev)
-        # each stage alone
+        # each stage alone: its device time, and CUDA events over
+        # back-to-back calls (the host's launch cost included)
         b = admm_steps.admm_rhs(rows, c)
         xt = group_solve.solve_factorized_grouped_X(*factors, b)
         work = admm_steps.Rows(*(t.clone() for t in rows))
         shape = f"N={n_veh} B={B}"
-        rhs_ms[shape] = _time_ms(lambda: admm_steps.admm_rhs(rows, c), 20)
-        upd_ms[shape] = _time_ms(lambda: admm_steps.admm_update(xt, work, c),
-                                 20)
-        print(f"steps phase: {shape} alone: admm_rhs={rhs_ms[shape]:.4f} ms "
-              f"(k-tile {admm_steps.row_plan(B, K_STEPS, n_veh)}) "
-              f"admm_update={upd_ms[shape]:.4f} ms (k-tile "
-              f"{admm_steps.update_plan(B, K_STEPS, n_veh)})", flush=True)
+        rhs_plan = admm_steps.rhs_plan(B, K_STEPS, n_veh)
+        plans = {"admm_rhs": dict(
+                     form="table" if rhs_plan.table else "direct",
+                     k_tile=rhs_plan.k_tile),
+                 "admm_update": dict(
+                     k_tile=admm_steps.update_plan(B, K_STEPS, n_veh))}
+        for key, fn in (("admm_rhs", lambda: admm_steps.admm_rhs(rows, c)),
+                        ("admm_update",
+                         lambda: admm_steps.admm_update(xt, work, c))):
+            cost = profiling.admm_stage_cost(key, n_veh, K_STEPS)
+            bound, by = _bound_ms(B * cost["hbm_bytes"], B * cost["flops"])
+            device = _device_ms(fn)
+            at[key][shape] = dict(
+                plans[key], ms=device, events_ms=_time_ms(fn, 20),
+                bound_ms=bound, bound_by=by,
+                share=None if isinstance(device, str) else bound / device)
+        print(f"steps phase: {shape} alone: "
+              + "; ".join(_stage_line(key, at[key][shape], plans[key])
+                          for key in at), flush=True)
         if (n_veh, B) == (20, 512):
             main = factors, c, rows, b, xt
         del factors, c, rows, b, xt, work
@@ -933,17 +987,20 @@ def steps_phase(dev):
     upd_err = max(float((g - w).abs().max())
                   for g, w in zip(_plane_rows(work), _plane_rows(plain)))
     timed = {
-        "admm_rhs": (rhs_err, rhs_ms, _time_ms(
+        "admm_rhs": (rhs_err, _time_ms(
             lambda: admm_steps.admm_rhs_plain(rows, c), 5)),
-        "admm_update": (upd_err, upd_ms, _time_ms(
+        "admm_update": (upd_err, _time_ms(
             lambda: admm_steps.admm_update_plain(xt, plain, c), 5))}
-    for key, (err, times, plain_ms) in timed.items():
-        ms = times["N=20 B=512"]
+    for key, (err, plain_ms) in timed.items():
+        # the device time, or the events' where the profiler saw none
+        main_at = at[key]["N=20 B=512"]
+        ms = (main_at["events_ms"] if isinstance(main_at["ms"], str)
+              else main_at["ms"])
         cost = profiling.admm_stage_cost(key, 20, K_STEPS)
         out[key] = _stat(err, ms, plain_ms, f"N=20 K={K_STEPS} B=512",
                          512 * cost["hbm_bytes"], 512 * cost["flops"], 0)
         del out[key]["stream_bound_ms"]
-        out[key]["ms_at"] = times
+        out[key]["ms_at"] = at[key]
         print(f"steps phase: {key} alone N=20 B=512 max_abs={err:.3e} "
               f"kernel={ms:.4f} ms plain={plain_ms:.3f} ms bound "
               f"{out[key]['bound_ms']:.4f} ms ({out[key]['bound_by']}; "
@@ -1807,11 +1864,29 @@ def _bf16_sweep(form, factors, C, b, b_admm, n_veh):
                   B * (chain * n * ld * 2 + vec))
     stats.update(f32_ms=f32_ms, factor_dtype="bf16", row_stride=ld)
     print(f"  {kernel.__name__} B={B} N={n_veh}: bf16 {ms:.3f} ms beside "
-          f"f32 {f32_ms:.3f} ms ({f32_ms / ms:.2f}x); bound at 2 bytes an "
-          f"element {stats['bound_ms']:.3f} ms, streamed "
-          f"{stats['stream_bound_ms']:.3f} ms ({stats['stream_bound_ms'] / ms:.0%}"
-          " of the kernel)", flush=True)
+          f"f32 {f32_ms:.3f} ms (bf16 / f32 {ms / f32_ms:.3f}); bound at 2 "
+          f"bytes an element {stats['bound_ms']:.3f} ms, streamed "
+          f"{stats['stream_bound_ms']:.3f} ms "
+          f"({stats['stream_bound_ms'] / ms:.0%} of the kernel)", flush=True)
     return stats
+
+
+def _ptxas_of(fragment):
+    """What ptxas reported (registers, spill stores and loads) of each
+    kernel whose mangled name holds ``fragment``, from the build's log:
+    {name: report}; empty where the library came from the cache."""
+    import re
+    from ba_path_planning_torch.ops import cuda_build
+    out, name = {}, None
+    for ln in cuda_build.build_info.get("log", "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            name = entry.group(1) if fragment in entry.group(1) else None
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(
+                ln.split(":", 1)[-1].strip() if "ptxas" in ln
+                else ln.strip())
+    return {key: "; ".join(v) for key, v in out.items()}
 
 
 def bf16_kernel_phase(dev):
@@ -1822,9 +1897,18 @@ def bf16_kernel_phase(dev):
     bf16 factors, timed beside its float32 self.  Returns the stats of
     each kernel at its main-path shape (sweeps N=20 B=512, fused B=128),
     with the other shapes' times beside."""
+    import re
     import torch
     from ba_path_planning_torch.ops import admm_fused, ns_chain
     from ba_path_planning_torch.solvers import banded
+    # the L form's instantiations (sweep_kernel<kFormL, tier, T>)
+    for name, report in _ptxas_of("sweep_kernelILi1E").items():
+        tier = re.search(r"ILi1ELi(\d+)E(13__nv_bfloat16|f)E", name)
+        what = (f"tier n <= {tier.group(1)}, "
+                f"{'bf16' if tier.group(2) != 'f' else 'f32'}" if tier
+                else name)
+        print(f"bf16 phase: ptxas, L-form sweep {what}: {report}",
+              flush=True)
     out = {}
     for n_veh, B in BF16_SWEEPS:
         D, C, b, b_admm, _ = _case(n_veh, B, dev, seed=3000 + n_veh + B)
@@ -2321,15 +2405,13 @@ def _trace_part(dev, counters, tmp, kstats, lstats, gstats):
     path = tmp / "trace.json"
     text = path.read_text()
     found = {k: k in text for k in ("ns_chain_kernel", "sweep_kernel",
-                                    "admm_rhs_kernel", "admm_update_kernel",
+                                    "admm_rhs_table_kernel",
+                                    "admm_update_kernel",
                                     "admm_channel_kernel")}
     del text
 
-    def device_us(e):       # the attribute's name differs between versions
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    rows = [(e.key, device_us(e) / 1e3, e.count)
-            for e in prof.key_averages() if device_us(e) > 0]
+    rows = [(e.key, _device_us(e) / 1e3, e.count)
+            for e in prof.key_averages() if _device_us(e) > 0]
     busy = sum(r[1] for r in rows)
     by_kernel = {k: round(sum(ms for key, ms, _ in rows if k in key), 3)
                  for k in found}

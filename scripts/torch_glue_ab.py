@@ -4,7 +4,8 @@ turns, on one GPU: what running the ADMM iteration in hand-written kernels
 (``ops/admm_steps.py``) changes end to end.
 
     python3 scripts/torch_glue_ab.py --roots <parent> <change> \
-        [--turns 0,1,1,0] [--parts production,latency,bench,facade,phase1]
+        [--turns 0,1,1,0]
+        [--parts production,latency,bench,facade,facade_bf16,phase1]
         [--out build/glue_ab.json]
 
 For each turn, in the checkout it names (every measurement a process of
@@ -19,9 +20,16 @@ its own, started in that checkout, so each runs the code it finds there):
   B=4096, chunk 512): its rate, p50 single-scenario latency and the slope
   of sequential solves;
 * this script's ``--facade ROUTE`` for ``grouped_L`` and ``resident``: the
-  reference-compatible path as ``chip_smoke.py`` runs it (one
-  ``SCPEngine.solve_batch`` of 64 N=20 scenarios): wall, statuses, mean
-  and max QP iterations;
+  reference-compatible path as ``chip_smoke.py`` runs it
+  (``SCPEngine.solve_batch`` of 64 N=20 scenarios, three times in one
+  process): the first and a warm solve's wall, a traced solve's device
+  time in the sweep kernels and in all kernels, statuses, mean and max QP
+  iterations;
+* ``--facade grouped_L --bf16`` (part ``facade_bf16``): the same on bf16
+  factors with the SCP loop cut to ``chip_smoke.BF16_FACADE_SCP``, as
+  ``chip_smoke.py``'s bf16 paths run it (its QPs do not converge on bf16
+  factors, so every lane runs the whole ADMM budget of each SCP
+  iteration);
 * this script's ``--round-record``: the round record's N=10 and N=20
   configurations (B=1024, chunk 512) as ``scripts/torch_soak_nsweep.py``
   runs them (``run_cfg``: a warm-up solve, then one timed solve): the
@@ -41,9 +49,15 @@ import time
 from pathlib import Path
 
 
-def facade(route, root):
-    """One reference-compatible solve on ``route`` with the code of the
-    checkout ``root``; prints one JSON line."""
+def facade(route, root, bf16=False):
+    """The reference-compatible solve on ``route`` with the code of the
+    checkout ``root`` (``bf16``: on bf16 factors, the SCP loop cut as
+    ``chip_smoke.py`` cuts it), three times in one process: the first
+    solve's wall (``wall_s``, the process's first use of every kernel and
+    library included), the second's (``warm_wall_s``), and the third under
+    ``torch.profiler``: the device time of its sweep kernels
+    (``sweep_device_s``) and of all its kernels (``busy_s``); prints one
+    JSON line."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -52,19 +66,39 @@ def facade(route, root):
         generate_scenario_batch)
     from ba_path_planning_torch.solvers.scp import SCPEngine
     change = chip_smoke.FACADE_ROUTES[route][0]
-    eng = SCPEngine(chip_smoke._problem(20, facade=True),
-                    chip_smoke._facade_solver(**change), dtype=torch.float32)
+    problem = chip_smoke._problem(20, facade=True)
+    if bf16:
+        change = dict(change, factor_dtype="bf16")
+        problem = problem.replace(
+            max_iterations=chip_smoke.BF16_FACADE_SCP)
+    eng = SCPEngine(problem, chip_smoke._facade_solver(**change),
+                    dtype=torch.float32)
     sc = generate_scenario_batch(100, chip_smoke.FACADE_B, n_vehicles=20,
                                  min_distance=chip_smoke.R,
                                  dtype=torch.float32)
     v0 = torch.zeros_like(sc.initial)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.solve_batch(sc.initial, v0, sc.final, v0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.solve_batch(sc.initial, v0, sc.final, v0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.solve_batch(sc.initial, v0, sc.final, v0)
+        torch.cuda.synchronize()
+    device = [(e.key, getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)))
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     print(json.dumps({
-        "route": route, "wall_s": wall,
+        "route": route, "factors": "bf16" if bf16 else "f32",
+        "wall_s": walls[0], "warm_wall_s": walls[1],
+        "sweep_device_s": sum(us for key, us in device
+                              if "sweep_kernel" in key) / 1e6,
+        "busy_s": sum(us for _, us in device) / 1e6,
         "statuses": np.bincount(out.status.cpu().numpy(),
                                 minlength=3).tolist(),
         "mean_scp_iters": float(out.iterations.float().mean()),
@@ -123,14 +157,15 @@ def main():
     ap.add_argument("--roots", nargs="+")
     ap.add_argument("--turns", default="0,1,1,0")
     ap.add_argument("--parts", default="production,latency,bench,facade,"
-                    "phase1")
+                    "facade_bf16,phase1")
     ap.add_argument("--out", default="build/glue_ab.json")
     ap.add_argument("--facade", help=argparse.SUPPRESS)
+    ap.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--round-record", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.facade:
-        return facade(args.facade, args.roots[0])
+        return facade(args.facade, args.roots[0], args.bf16)
     if args.round_record:
         return round_record(args.roots[0])
     parts = set(args.parts.split(","))
@@ -155,14 +190,18 @@ def main():
             rec["bench"] = _bench(root)
             print(f"[{turn}] bench twin: {rec['bench']['summary']} "
                   f"solves/s={rec['bench']['solves_per_s']}", flush=True)
-        for route in ("grouped_L", "resident"):
-            if "facade" not in parts:
+        for route, part in (("grouped_L", "facade"), ("resident", "facade"),
+                            ("grouped_L", "facade_bf16")):
+            if part not in parts:
                 continue
+            bf16 = part == "facade_bf16"
             out, _ = _run(root, [sys.executable, str(here), "--facade",
-                                 route, "--roots", root])
-            rec[route] = json.loads(out.strip().splitlines()[-1])
-            print(f"[{turn}] reference-compatible {route}: "
-                  f"{json.dumps(rec[route])}", flush=True)
+                                 route, "--roots", root]
+                          + (["--bf16"] if bf16 else []))
+            key = route + ("_bf16" if bf16 else "")
+            rec[key] = json.loads(out.strip().splitlines()[-1])
+            print(f"[{turn}] reference-compatible {key}: "
+                  f"{json.dumps(rec[key])}", flush=True)
         if "phase1" in parts:
             out, _ = _run(root, [sys.executable, str(here), "--round-record",
                                  "--roots", root])

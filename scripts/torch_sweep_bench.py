@@ -3,7 +3,7 @@
 on one GPU.
 
     python3 scripts/torch_sweep_bench.py [--cases X:20:512,...] [--root DIR]
-                                         [--time-only] [--graph]
+                                         [--time-only] [--graph] [--bf16]
 
 Each case (form, N, B; K=50) is built and checked as ``chip_smoke.py``
 builds and checks it: the X-form sweep (form X) on the NS factors of
@@ -34,7 +34,14 @@ be right (say, with the factor copies or the products switched off).
 ``--graph`` also times each stage of case S from replays of a CUDA graph
 of 20 calls (``graph_ms``: the fastest and slowest of 5 replays, a call),
 the device's time without the host's launch cost, which sets the CUDA-event
-time at small batches.
+time at small batches; its lines name admm_rhs's plan (``rhs_plan``: the
+table or the direct form, the k-tile).  ``--bf16`` runs the sweep cases
+(X, L, D) on their factors stored in bf16 (``banded.compress_factors``,
+as ``SolverConfig.factor_dtype="bf16"`` stores them), checked against the
+plain version on the same bf16 factors, and times the kernel on the bf16
+and on the float32 factors in turns (bf16, f32, bf16, f32: ``ms`` and
+``f32_ms`` the fastest of each, ``bf16_ms_runs`` and ``f32_ms_runs`` all
+four); the bounds then count 2 bytes an element on the padded rows.
 """
 
 import argparse
@@ -81,6 +88,7 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--time-only", action="store_true")
     ap.add_argument("--graph", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -140,6 +148,11 @@ def main():
                         "card": card}
                 if form == "S" and args.graph:
                     line["graph_ms"] = _graph_ms(fn)
+                if key == "admm_rhs":
+                    plan = getattr(admm_steps, "rhs_plan", None)
+                    line["plan"] = (plan(B, K, N)._asdict() if plan else
+                                    {"k_tile": admm_steps.row_plan(B, K, N),
+                                     "table": False})
                 if form != "S":     # one iteration, and each further one
                     line.update(ms_1_iteration=one,
                                 ms_per_further_iteration=(ms - one) / 24)
@@ -224,29 +237,51 @@ def main():
                 kernel = banded_solve.solve_factorized_dense
                 plain = banded_solve.solve_factorized_dense_plain
         del D
-        err, ms, _ = cs._sweep_check(f"{form} N={N} B={B}", kernel, plain,
-                                     factors, b, b_admm)
+        # the factor blocks (the slot scalars of X and L stay float32)
+        n_fac = 2 if form == "D" else 1
+        ops, esize, ld = factors, 4, n
+        if args.bf16:
+            ops = (banded.compress_factors(*factors[:n_fac])
+                   + tuple(factors[n_fac:]))
+            esize, ld = 2, ops[0].stride(-2)
+        err, ms, _ = cs._sweep_check(
+            f"{form} N={N} B={B}" + (f" bf16 (rows of {ld})" if args.bf16
+                                     else ""), kernel, plain, ops, b, b_admm)
         # blocks streamed: 2K of X_k or Linv_k (X, L), 4K - 2 (D)
         blocks = 4 * K - 2 if form == "D" else 2 * K
         flops = B * (4 if form == "L" else 2) * blocks // 2 * 2 * n * n
-        bound = cs._bound_ms(B * (blocks * n * n + 2 * K * n) * 4, flops)[0]
+        bound = cs._bound_ms(B * (blocks * n * ld * esize + 2 * K * n * 4),
+                             flops)[0]
         line = {"form": form, "N": N, "B": B, "K": K, "ms": ms,
                 "stream_bound_ms": bound, "share": bound / ms,
                 "max_abs_err": err, "card": card}
+        if args.bf16:
+            runs = {"bf16": [], "f32": []}
+            for _ in range(2):
+                for key, fac in (("bf16", ops), ("f32", factors)):
+                    runs[key].append(cs._time_ms(lambda: kernel(*fac, b),
+                                                 reps=20))
+            line.update(ms=min(runs["bf16"]), f32_ms=min(runs["f32"]),
+                        bf16_ms_runs=runs["bf16"], f32_ms_runs=runs["f32"],
+                        factor_dtype="bf16", row_stride=ld)
+            line["share"] = bound / line["ms"]
         if form in ("L", "D"):
             # Linv's lower triangle only
             tri = K * n * (n + 1) // 2
             need = 2 * tri + (2 * (K - 1) * n * n if form == "D" else 0)
             line["nonzero_stream_bound_ms"] = cs._bound_ms(
-                B * (need + 2 * K * n) * 4, flops * need // (blocks * n * n))[0]
+                B * (need * esize * ld // n + 2 * K * n * 4),
+                flops * need // (blocks * n * n))[0]
         if plan_fn is not None:
             pform = {"X": "X", "L": "L", "D": "dense"}[form]
-            if "form" in inspect.signature(plan_fn).parameters:
+            if "esize" in inspect.signature(plan_fn).parameters:
+                line["plan"] = plan_fn(B, K, n, pform, esize=esize)._asdict()
+            elif "form" in inspect.signature(plan_fn).parameters:
                 line["plan"] = plan_fn(B, K, n, pform)._asdict()
             elif form != "D":
                 line["plan"] = plan_fn(B, K, n)._asdict()
         print(json.dumps(line), flush=True)
-        del factors, b, b_admm
+        del factors, ops, b, b_admm
 
 
 if __name__ == "__main__":

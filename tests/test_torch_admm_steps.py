@@ -8,6 +8,8 @@ package's ``solve_qp_state`` (its sweeps in plain JAX, ``pallas=False``;
 seeds at N=4-5, K=6-10.
 """
 
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -170,18 +172,23 @@ def test_plain_stages_one_by_one(lane):
 
 
 def test_row_and_channel_plans():
-    """admm_rhs's k-tiles fill the card at B = 1 and take about two rows a
-    thread at the production chunk, admm_update's about five items; the
+    """admm_rhs's k-tiles fill the card at B = 1 and give a thread a static
+    row at the production chunk (the table form up to N = 170),
+    admm_update's about five items; the
     channel interval keeps its steps in registers up to K = 64, takes
     blocks of 4 channels at the production batches, narrower ones where
     the SMs would idle (B = 8), and puts
     a block's region in a global scratch only where it does not fit shared
     memory; the pair table the fused kernels keep in shared memory serves
     N <= 341."""
-    assert admm_steps.row_plan(1, 50, 20) == 1
-    assert admm_steps.row_plan(512, 50, 20) == 2
-    assert admm_steps.row_plan(1024, 50, 10) == 7
-    assert admm_steps.row_plan(4, 3, 2) == 1
+    rhs = admm_steps.rhs_plan
+    assert rhs(1, 50, 20) == (1, True, 3040)
+    assert rhs(512, 50, 20) == (6, True, 6 * 20 * 19 * 8)
+    assert rhs(1024, 50, 10) == (12, True, 12 * 10 * 9 * 8)
+    assert rhs(128, 50, 21) == (6, True, 6 * 21 * 21 * 8)
+    assert rhs(4, 3, 2) == (1, True, 16)
+    assert rhs(8, 50, 60) == (1, True, 60 * 59 * 8)
+    assert rhs(2, 50, 200) == (1, False, 0)
     assert admm_steps.update_plan(1, 50, 20) == 1
     assert admm_steps.update_plan(512, 50, 20) == 4
     assert admm_steps.update_plan(1024, 50, 10) == 12
@@ -203,6 +210,129 @@ def test_row_and_channel_plans():
         + 32 * 42 * 16
     assert admm_steps.pair_table_fits(341)
     assert not admm_steps.pair_table_fits(342)
+
+
+def _pair_first(p, N):
+    """The kernel's closed form of the first vehicle of pair p
+    (``csrc/admm_steps.cu`` pair_first), in float32 as it computes it."""
+    m = np.float32(2 * N - 1)
+    root = np.sqrt(m * m - np.float32(8) * p.astype(np.float32))
+    i = np.clip((np.float32(0.5) * (m - root)).astype(np.int64), 0, N - 2)
+
+    def base(i):
+        return i * (2 * N - i - 1) // 2
+    while True:
+        down = (i > 0) & (base(i) > p)
+        up = base(i + 1) <= p
+        if not (down.any() or up.any()):
+            return i
+        i = i - down + up
+
+
+def _rhs_table_model(w, eta, N):
+    """float64 model of admm_rhs's collision term (``csrc/admm_steps.cu``):
+    phase A writes each collision row (k + 1, p)'s terms w eta once into
+    the transposed table, row (k, v) holding vehicle v's N - 1 partner
+    terms in ascending partner order (+ in the first vehicle's row, - in
+    the second's); phase B sums each row in that order.  The direct form
+    (N > 170) sums the same terms in the same order from where they lie.
+    w (K, P), eta (K, P, 2) -> (N, K, 2), zero at K - 1."""
+    K, P = w.shape
+    p = np.arange(P)
+    i = _pair_first(p, N)
+    j = p - i * (2 * N - i - 1) // 2 + i + 1
+    assert np.array_equal(i, np.triu_indices(N, 1)[0])
+    table = np.full((K - 1, N, max(N - 1, 1), 2), np.nan)
+    t = w[1:, :, None] * eta[1:]
+    table[:, i, j - 1] = t
+    table[:, j, i] = -t
+    col = np.zeros((N, K, 2))
+    for s in range(N - 1):
+        col[:, :-1] += table[:, :, s].transpose(1, 0, 2)
+    return col
+
+
+@pytest.mark.parametrize("N", [2, 4, 20, 21, 170, 171])
+def test_rhs_table_model_matches_jax_collision_term(N):
+    """The table form's phase A and phase B (N <= 170), and the direct
+    form's order (N = 171, past the switch), against the collision term of
+    JAX's ``apply_AT`` (``ba_path_planning_tpu/solvers/banded.py:133``):
+    1e-12 of the term's scale; the closed form of the pairs equals
+    triu_indices."""
+    from ba_path_planning_tpu.solvers import banded as jb
+    K = 3 if N > 100 else 6
+    P = N * (N - 1) // 2
+    rng = np.random.default_rng(N)
+    w, eta = rng.normal(size=(K, P)), rng.normal(size=(K, P, 2))
+    assert admm_steps.rhs_plan(1, K, N).table == (N <= 170)
+    ii, jj = np.triu_indices(N, 1)
+    E = np.zeros((N, P))
+    E[ii, np.arange(P)], E[jj, np.arange(P)] = 1.0, -1.0
+    zero = jnp.zeros((N, K, 2))
+    y = jb.RowVals(dyn_p=zero, dyn_v=zero, jerk=zero[:, 1:], acc=zero,
+                   vbox=zero, pbox=zero, col=jnp.asarray(w))
+    want = np.asarray(jb.apply_AT(y, jnp.asarray(eta), jnp.asarray(E),
+                                  H).p)
+    got = _rhs_table_model(w, eta, N)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_rhs_pair_first_closed_form_up_to_341():
+    """The kernels' float32 closed form of a pair's first vehicle holds
+    for every pair the stages serve (N <= 341)."""
+    for N in (2, 3, 20, 60, 171, 255, 341):
+        P = N * (N - 1) // 2
+        assert np.array_equal(_pair_first(np.arange(P), N),
+                              np.triu_indices(N, 1)[0])
+
+
+def test_rhs_plan_fills_blocks_and_fits_the_kernel_table():
+    """admm_rhs's plan: a block's static rows (2N a step) fill its
+    ROW_THREADS threads as far as whole steps do; the grid has at least
+    ROW_MIN_BLOCKS blocks where B * K allows; the table (the kernel's own
+    rhs_table_bytes) leaves room for four blocks an SM where a block takes
+    more than one step, and the table form runs wherever one step's table
+    fits a block (N <= 170), the direct form above (to N = 341)."""
+    from test_torch_sweep_plan import _c_function, _constants
+    src = (Path(admm_steps.__file__).resolve().parents[1] / "csrc"
+           / "admm_steps.cu").read_text()
+    # the row stages' constants (the channel kernel's follow them)
+    k = _constants(src[:src.index("namespace chan")])
+    assert k["kRowThreads"] == admm_steps.ROW_THREADS
+    assert k["kSmemMax"] == admm_steps.SMEM_MAX
+    stride = _c_function(src, "rhs_table_stride", ("N",), k)
+    table = _c_function(src, "rhs_table_bytes", ("k_tile", "N"),
+                        dict(k, rhs_table_stride=stride))
+    for N in (1, 2, 3, 10, 20, 21, 60, 170):
+        assert admm_steps.rhs_table_stride(N) == stride(N)
+        assert stride(N) % 2 == 1 and stride(N) >= N - 1
+        for kt in (1, 2, 6, 12):
+            assert admm_steps.rhs_table_bytes(kt, N) == table(kt, N)
+    switch = max(N for N in range(2, 342)
+                 if table(1, N) <= k["kSmemMax"])
+    assert switch == 170
+    threads, min_blocks = admm_steps.ROW_THREADS, admm_steps.ROW_MIN_BLOCKS
+    for N in (2, 4, 10, 20, 21, 30, 40, 60, 100, 170, 171, 200, 341):
+        for B in (1, 2, 8, 64, 128, 512, 1024, 4096):
+            for K in (2, 6, 50):
+                plan = admm_steps.rhs_plan(B, K, N)
+                kt = plan.k_tile
+                assert 1 <= kt <= K
+                assert plan.table == (N <= switch)
+                assert plan.smem_bytes == (table(kt, N) if plan.table
+                                           else 0)
+                assert plan.smem_bytes <= k["kSmemMax"]
+                if kt > 1:
+                    assert kt * 2 * N <= threads
+                    assert 4 * plan.smem_bytes <= k["kSmemMax"]
+                # no whole step more fits the threads, the grid's fill
+                # or the shared memory
+                assert (kt == K or (kt + 1) * 2 * N > threads
+                        or B * K // (kt + 1) < min_blocks
+                        or 4 * table(kt + 1, N) > k["kSmemMax"]), (
+                    B, K, N, plan)
+                grid = B * -(-K // kt)
+                assert grid >= min_blocks or kt == 1
 
 
 def test_admm_stage_cost_counts_by_hand():

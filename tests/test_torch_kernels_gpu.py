@@ -889,9 +889,12 @@ def _check_stages(cuda, B, K, N, n_iters, lane=False, hard=False,
 
 # (B, K, N): the main path's chunk at N=20 and its tail chunk, the
 # reference-compatible batch, one scenario, the widest grouped route at its
-# tail chunk, the round record's N=10 batch, and small odd shapes
+# tail chunk, the round record's N=10 batch, small odd shapes, and one
+# shape on each side of admm_rhs's switch from its table form to its
+# direct form (N = 60, N = 200)
 STAGE_CASES = [(512, 50, 20), (128, 50, 20), (64, 50, 20), (1, 50, 20),
-               (128, 50, 21), (1024, 50, 10), (3, 9, 4), (2, 6, 2)]
+               (128, 50, 21), (1024, 50, 10), (3, 9, 4), (2, 6, 2),
+               (8, 50, 60), (2, 50, 200)]
 # the channel interval's besides: the N=20 main path's phase 1, a lane an
 # SM, a few lanes, the N=40 path's batch; the single CLI's K=500 (the
 # memory form in shared memory), K=500 at N=20, K=1200 (the memory form in
@@ -905,8 +908,11 @@ CHANNEL_CASES = STAGE_CASES + [(1024, 50, 20), (132, 50, 20), (8, 50, 20),
 @pytest.mark.parametrize("n_iters", [1, 25])
 @pytest.mark.parametrize("B,K,N", STAGE_CASES)
 def test_admm_stages_match_plain(cuda, B, K, N, n_iters):
-    """admm_rhs, the X-form sweep kernel and admm_update, iteration after
-    iteration, against the plain stages and the plain sweep."""
+    """admm_rhs (its table form up to N = 170, its direct form above),
+    the X-form sweep kernel and admm_update, iteration after iteration,
+    against the plain stages and the plain sweep."""
+    from ba_path_planning_torch.ops import admm_steps
+    assert admm_steps.rhs_plan(B, K, N).table == (N <= 170)
     _check_stages(cuda, B, K, N, n_iters)
 
 
@@ -1007,6 +1013,11 @@ def test_admm_steps_wrappers_raise_on_unsupported_cuda_input(cuda):
         admm_steps.admm_update(rows.x[:1].contiguous(), rows, c)
     with pytest.raises(ValueError):
         admm_steps.admm_rhs(rows, c, torch.ones(3, device=cuda))
+    # eta is read as float2
+    odd = torch.empty(c.eta.numel() + 1, device=cuda)[1:].view(c.eta.shape)
+    odd.copy_(c.eta)
+    with pytest.raises(ValueError):
+        admm_steps.admm_rhs(rows, c._replace(eta=odd))
     pf, pc, _, prows, _ = _stages_case(cuda, 2, 10, 3, phase1=True)
     with pytest.raises(ValueError):
         admm_steps.admm_channel_interval(pf[0][:-1].contiguous(), pf[1],
