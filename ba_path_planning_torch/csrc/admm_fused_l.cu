@@ -63,7 +63,13 @@
 //   * The factors come as float or as bf16 (SolverConfig.factor_dtype,
 //     the element type T: half the bytes of the stream, rows stored ld
 //     elements apart, a multiple of 8); bf16 elements are widened to FP32
-//     as the matvecs read them, and every sum and vector is FP32.
+//     as the matvecs read them, and every sum and vector is FP32.  On bf16
+//     both matvecs read each element once, as part of a __nv_bfloat162
+//     widened once, so that a consumer's load moves as many bytes as on
+//     float rows: by rows a lane takes the column pairs 64 m + 2 l and a
+//     warp sums its four rows in one joint reduction; transposed a lane
+//     takes a column pair of an octet and every eighth row (the bf16
+//     overloads of factor_ring's matvec_rows and matvec_cols).
 
 #include <cuda_runtime.h>
 

@@ -47,13 +47,16 @@ extern "C" {
 // Linv (B, K, n, n) inverted diagonal factors, lower triangular (what lies
 // above the diagonal is not read); Eb (B, K-1, n, n) off-diagonal factors;
 // b and x (B, K, n).  All float32, contiguous, the factors 16-byte aligned,
-// n even up to 1536.  (cluster, band_rows, stages) is the plan of
-// sweep_plan.  Returns the CUDA error code of the launch.
+// n even up to 1536.  (cluster, band_rows, stages,
+// per_sm) is the plan of sweep_plan.  Returns the CUDA error code of the
+// launch.
 int banded_solve_f32(const float* Linv, const float* Eb, const float* b,
                      float* x, int B, int K, int n, int cluster,
-                     int band_rows, int stages, cudaStream_t stream) {
+                     int band_rows, int stages, int per_sm,
+                     cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormDense, float>(
-      Linv, Eb, b, x, B, K, n, n, cluster, band_rows, stages, stream);
+      Linv, Eb, b, x, B, K, n, n, cluster, band_rows, stages, per_sm,
+      stream);
 }
 
 // As banded_solve_f32 on bf16 factors Linv (B, K, n, ld) and
@@ -63,9 +66,10 @@ int banded_solve_f32(const float* Linv, const float* Eb, const float* b,
 int banded_solve_bf16(const __nv_bfloat16* Linv, const __nv_bfloat16* Eb,
                       const float* b, float* x, int B, int K, int n, int ld,
                       int cluster, int band_rows, int stages,
-                      cudaStream_t stream) {
+                      int per_sm, cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormDense, __nv_bfloat16>(
-      Linv, Eb, b, x, B, K, n, ld, cluster, band_rows, stages, stream);
+      Linv, Eb, b, x, B, K, n, ld, cluster, band_rows, stages, per_sm,
+      stream);
 }
 
 }  // extern "C"

@@ -20,7 +20,10 @@
 //
 // The factors are stored as float or as bf16 (the element type T of the
 // ring): a bf16 element is widened to FP32 in registers as it is read, and
-// every sum, vector and scalar stays FP32.  The rows of a block lie `ld`
+// every sum, vector and scalar stays FP32.  On bf16 rows the products read
+// two neighbouring elements at once, one __nv_bfloat162 widened once (the
+// bf16 overloads of matvec_rows and matvec_cols, matvec_rows_cols_bf16),
+// so that a warp's load moves as many bytes as on float rows.  The rows of a block lie `ld`
 // elements apart (Ring::ld): n for float factors; for bf16 ones n rounded
 // up to a multiple of 8, so that every row is 16 bytes aligned
 // (ops/group_solve.py bf16_row_stride).
@@ -189,6 +192,19 @@ __device__ __forceinline__ void release(const RingOf<T>& ring, Cursor& cur) {
 
 constexpr int kRows = 4;        // rows a warp reduces at a time
 
+// The pair (j, j + 1) of a bf16 row, j even, widened once; what lies from
+// column lim on is taken as 0 (the second element of a pair at the
+// diagonal too).
+__device__ __forceinline__ float2 pair_below(const __nv_bfloat16* row, int j,
+                                             int lim) {
+  float2 e = make_float2(0.f, 0.f);
+  if (j < lim) {
+    e = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + j));
+    if (j + 1 >= lim) e.y = 0.f;
+  }
+  return e;
+}
+
 // a[q] = M[i_q, :lim_q] . v for the rows i_q = i + q nwarps of the band
 // [r0, r1) at M, rows ld apart (lim_q = i_q + 1 if `tri`, else n); a row
 // beyond the band stands in as row i and gets lim 0 and a 0.  Every lane
@@ -254,6 +270,76 @@ __device__ __forceinline__ void matvec_rows(const RingOf<T>& ring,
   }
 }
 
+// The sums over a warp's lanes of kR values a lane (kR a power of two up
+// to 32) in log2(kR) + log2(32 / kR) levels of shuffles, kR - 1 + log2(32 /
+// kR) shuffles in all (kR log2(32) one by one): at each of the first levels
+// the lanes of one half keep the upper half of the values, the others the
+// lower, and each adds its partner's copy of what it keeps.  Lane l returns
+// the sum of value l / (32 / kR).
+template <int kR>
+__device__ __forceinline__ float warp_sum_rows(float (&a)[kR], int lane) {
+#pragma unroll
+  for (int width = kR, s = 16; width > 1; width /= 2, s /= 2) {
+    const bool upper = lane & s;
+#pragma unroll
+    for (int q = 0; q < width / 2; ++q) {
+      const float keep = upper ? a[q + width / 2] : a[q];
+      const float give = upper ? a[q] : a[q + width / 2];
+      a[q] = keep + __shfl_xor_sync(0xffffffffu, give, s);
+    }
+  }
+#pragma unroll
+  for (int s = 16 / kR; s >= 1; s /= 2)
+    a[0] += __shfl_xor_sync(0xffffffffu, a[0], s);
+  return a[0];
+}
+
+// matvec_rows on bf16 rows, each element read once and widened once: a
+// warp takes kRows rows i + q nwarps at a time, lane l the column pairs j =
+// 64 m + 2 l and j + 1 of each as one __nv_bfloat162 (a warp's load covers
+// 128 bytes, as a float32 load does) with v[j], v[j + 1] as one float2 (v
+// 8-byte aligned, n even); warp_sum_rows sums the kRows rows at once, and
+// fn(i_q, sum) runs on the first of the 32 / kRows lanes that hold row q's.
+template <typename Fn>
+__device__ __forceinline__ void matvec_rows(
+    const RingOf<__nv_bfloat16>& ring, Cursor& cur, const float* v, int n,
+    int lo, int hi, int band_rows, bool tri, int warp, int nwarps, Fn fn) {
+  constexpr int kSpan = 32 / kRows;      // lanes that end with one row's sum
+  const int lane = threadIdx.x & 31;
+  for (int r0 = lo; r0 < hi; r0 += band_rows) {
+    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
+    const __nv_bfloat16* M = acquire(ring, cur);
+    for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
+      const __nv_bfloat16* row = M + (i - r0) * ring.ld;
+      int lim[kRows];
+      float a[kRows];
+      int last = 0;
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int iq = i + q * nwarps;
+        lim[q] = iq < r1 ? (tri ? iq + 1 : n) : 0;
+        a[q] = 0.f;
+        last = lim[q] > last ? lim[q] : last;
+      }
+      // j < last <= n, n even: v[j + 1] lies in v
+#pragma unroll 2
+      for (int j = 2 * lane; j < last; j += 64) {
+        const float2 vj = *reinterpret_cast<const float2*>(v + j);
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const float2 e =
+              pair_below(row + q * nwarps * ring.ld, j, lim[q]);
+          a[q] = fmaf(e.y, vj.y, fmaf(e.x, vj.x, a[q]));
+        }
+      }
+      const float sum = warp_sum_rows(a, lane);
+      const int iq = i + lane / kSpan * nwarps;
+      if (lane % kSpan == 0 && iq < r1) fn(iq, sum);
+    }
+    release(ring, cur);
+  }
+}
+
 // Column products of a block with one read of its rows [lo, hi) from the
 // ring: a weight y_i for each row, and at once acc[u] += M[i, j] y_i for
 // the lane's columns j = 32 u + lane (j <= i if `tri`, else j < n), so the
@@ -308,71 +394,68 @@ __device__ __forceinline__ void matvec_rows_cols(const RingOf<T>& ring,
   }
 }
 
-// Pairs of a bf16 row that matvec_rows_cols_bf16 keeps in registers
+// Pairs of a bf16 row that matvec_rows_cols_bf16 keeps in registers unless
+// its caller asks for fewer
 constexpr int kHoldPairs = 2;
 
-// Both products of a lower triangular block on bf16 rows, as
-// matvec_rows_cols<U, true> with tri, from one read and one widening of
-// each element: lane l reads the columns j = 64 m + 2 l and j + 1 of a row
-// as one __nv_bfloat162 (a warp's load covers 128 bytes, as a float32 load
-// does), widens the pair once into the row dot y_i and keeps it for the
-// column partial sums acc[2 m] (column j) and acc[2 m + 1] (column j + 1),
-// U 32 >= hi.  What lies past the diagonal is taken as 0, the second
-// element of a pair at the diagonal too.  The first kHoldPairs pairs of
-// each row stay in registers; a row longer than 64 kHoldPairs columns is
-// read and widened again past them.  The rows are split over the warps as
-// in matvec_rows; the caller sums the warps' acc.
-template <int U>
+// matvec_rows_cols on bf16 rows, each element read once and widened once:
+// lane l reads the columns j = 64 m + 2 l and j + 1 of a row as one
+// __nv_bfloat162 (a warp's load covers 128 bytes, as a float32 load does)
+// and keeps their partial sums in acc[2 m] (column j) and acc[2 m + 1]
+// (column j + 1), U 32 >= hi if `tri`, else >= n.  kDots: y_i is the row
+// dot, formed from the same widened pairs (to the diagonal if `tri`); the
+// first kHeld pairs of each row stay in registers for the column sums, and
+// a row longer than 64 kHeld columns is read and widened again past them.
+// Else y_i = v[i], and each pair is read once, for its column sums.
+// What lies past the diagonal of a `tri` block is taken as 0, the second
+// element of a pair at the diagonal too.  The rows are split over the warps
+// as in matvec_rows; the caller sums the warps' acc.
+template <int U, bool kDots, int kHeld = kHoldPairs>
 __device__ __forceinline__ void matvec_rows_cols_bf16(
-    const RingOf<__nv_bfloat16>& ring, Cursor& cur, const float* v, int lo,
-    int hi, int band_rows, int warp, int nwarps, float (&acc)[U]) {
+    const RingOf<__nv_bfloat16>& ring, Cursor& cur, const float* v, int n,
+    int lo, int hi, int band_rows, bool tri, int warp, int nwarps,
+    float (&acc)[U]) {
   constexpr int kPairs = U / 2;
-  constexpr int kHold = kPairs < kHoldPairs ? kPairs : kHoldPairs;
+  constexpr int kHold = !kDots ? 0 : kPairs < kHeld ? kPairs : kHeld;
   const int lane = threadIdx.x & 31;
-  // the pair (j, j + 1) of row q, widened; 0 from the diagonal on
-  auto pair = [](const __nv_bfloat162* row, int j, int lim) {
-    float2 e = make_float2(0.f, 0.f);
-    if (j < lim) {
-      e = __bfloat1622float2(row[j >> 1]);
-      if (j + 1 >= lim) e.y = 0.f;
-    }
-    return e;
-  };
   for (int r0 = lo; r0 < hi; r0 += band_rows) {
     const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
     const __nv_bfloat16* M = acquire(ring, cur);
     for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
-      const __nv_bfloat162* row[kRows];
+      // row q at row + q nwarps ld (read only where it lies in the band)
+      const __nv_bfloat16* row = M + (i - r0) * ring.ld;
+      const int step = nwarps * ring.ld;
       int lim[kRows];
       float y[kRows];
-      float2 held[kRows][kHold];
+      float2 held[kRows][kHold > 0 ? kHold : 1];
       int last = 0;
 #pragma unroll
       for (int q = 0; q < kRows; ++q) {
         const bool ok = i + q * nwarps < r1;
         const int iq = ok ? i + q * nwarps : i;
-        row[q] = reinterpret_cast<const __nv_bfloat162*>(
-            M + (iq - r0) * ring.ld);
-        lim[q] = ok ? iq + 1 : 0;
-        y[q] = 0.f;
+        lim[q] = ok ? (tri ? iq + 1 : n) : 0;
+        y[q] = kDots || !ok ? 0.f : v[iq];
         last = lim[q] > last ? lim[q] : last;
       }
+      if constexpr (kDots) {
 #pragma unroll
-      for (int m = 0; m < kPairs; ++m) {
-        if (64 * m >= last) break;
-        const int j = 64 * m + 2 * lane;
-        // last <= n, both even: v[j + 1] lies in v wherever j < last
-        const float2 vj = j < last ? *reinterpret_cast<const float2*>(v + j)
-                                   : make_float2(0.f, 0.f);
+        for (int m = 0; m < kPairs; ++m) {
+          if (64 * m >= last) break;
+          const int j = 64 * m + 2 * lane;
+          // j < last <= n, n even: v[j + 1] lies in v wherever j < last
+          const float2 vj = j < last
+                                ? *reinterpret_cast<const float2*>(v + j)
+                                : make_float2(0.f, 0.f);
 #pragma unroll
-        for (int q = 0; q < kRows; ++q) {
-          const float2 e = pair(row[q], j, lim[q]);
-          y[q] = fmaf(e.y, vj.y, fmaf(e.x, vj.x, y[q]));
-          if (m < kHold) held[q][m < kHold ? m : 0] = e;
+          for (int q = 0; q < kRows; ++q) {
+            const float2 e = pair_below(row + q * step, j, lim[q]);
+            y[q] = fmaf(e.y, vj.y, fmaf(e.x, vj.x, y[q]));
+            if (m < kHold) held[q][m < kHold ? m : 0] = e;
+          }
         }
-      }
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) y[q] = sweeps::warp_sum(y[q]);
+        for (int q = 0; q < kRows; ++q) y[q] = sweeps::warp_sum(y[q]);
+      }
 #pragma unroll
       for (int m = 0; m < kPairs; ++m) {
         if (64 * m >= last) break;
@@ -380,8 +463,8 @@ __device__ __forceinline__ void matvec_rows_cols_bf16(
         float s0 = acc[2 * m], s1 = acc[2 * m + 1];
 #pragma unroll
         for (int q = 0; q < kRows; ++q) {
-          const float2 e =
-              m < kHold ? held[q][m < kHold ? m : 0] : pair(row[q], j, lim[q]);
+          const float2 e = m < kHold ? held[q][m < kHold ? m : 0]
+                                     : pair_below(row + q * step, j, lim[q]);
           s0 = fmaf(e.x, y[q], s0);
           s1 = fmaf(e.y, y[q], s1);
         }
@@ -466,6 +549,65 @@ __device__ __forceinline__ void matvec_cols(const RingOf<T>& ring,
     a += __shfl_xor_sync(0xffffffffu, a, 16);
     const int j = (warp + u * nwarps) * 8 + jj;
     if (g == 0 && j < n) fn(j, a);
+  }
+}
+
+// matvec_cols on bf16 rows, each element read once, as part of a
+// __nv_bfloat162, and widened once: a warp owns the column octets warp,
+// warp + nwarps, ... (at most kOct of them: n <= 8 kOct nwarps), as
+// matvec_cols does; a lane owns the column pair j, j + 1 of its octet (j
+// even) and every eighth row, so a warp's load covers eight rows of 16
+// consecutive bytes (rows 240 bytes apart, as at n = 120, fall in distinct
+// banks; a 16-column group and every fourth row would not), and three
+// shuffles sum the row groups.  `tri`: column j starts at row j, so a pair
+// is read from row j on and its second element taken as 0 in row j.  n is
+// even, so a pair never crosses the end of a row.
+template <int kOct, typename Fn>
+__device__ __forceinline__ void matvec_cols(
+    const RingOf<__nv_bfloat16>& ring, Cursor& cur, const float* v, int n,
+    int band_rows, bool tri, int warp, int nwarps, Fn fn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, jj = 2 * (lane & 3);
+  float2 acc[kOct];
+#pragma unroll
+  for (int u = 0; u < kOct; ++u) acc[u] = make_float2(0.f, 0.f);
+  for (int r0 = 0; r0 < n; r0 += band_rows) {
+    const int r1 = r0 + band_rows < n ? r0 + band_rows : n;
+    const __nv_bfloat16* M = acquire(ring, cur);
+#pragma unroll
+    for (int u = 0; u < kOct; ++u) {
+      const int first = (warp + u * nwarps) * 8, j = first + jj;
+      if (j < n && !(tri && first >= r1)) {
+        // rows below the octet's first column hold nothing of it
+        int i = r0 + g;
+        if (tri && first > r0) i += (first - r0) & ~7;
+        const __nv_bfloat16* col = M + (i - r0) * ring.ld + j;
+#pragma unroll 4
+        for (; i < r1; i += 8, col += 8 * ring.ld)
+          if (!tri || i >= j) {
+            float2 e = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(col));
+            if (tri && i == j) e.y = 0.f;
+            const float vi = v[i];
+            acc[u].x = fmaf(e.x, vi, acc[u].x);
+            acc[u].y = fmaf(e.y, vi, acc[u].y);
+          }
+      }
+    }
+    release(ring, cur);
+  }
+#pragma unroll
+  for (int u = 0; u < kOct; ++u) {
+    float2 a = acc[u];
+#pragma unroll
+    for (int s = 4; s < 32; s <<= 1) {
+      a.x += __shfl_xor_sync(0xffffffffu, a.x, s);
+      a.y += __shfl_xor_sync(0xffffffffu, a.y, s);
+    }
+    const int j = (warp + u * nwarps) * 8 + jj;
+    if (g == 0 && j < n) {
+      fn(j, a.x);
+      fn(j + 1, a.y);
+    }
   }
 }
 

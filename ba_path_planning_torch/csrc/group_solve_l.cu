@@ -42,13 +42,16 @@ extern "C" {
 // Linv (B, K, n, n) inverted diagonal factors, lower triangular (what lies
 // above the diagonal is not read); C9 (K-1, 9) upper-triangular slot
 // scalars; b and x (B, K, n).  All float32, contiguous, Linv 16-byte
-// aligned, n a multiple of 6 up to 6144.  (cluster, band_rows, stages) is the
-// plan of sweep_plan.  Returns the CUDA error code of the launch.
+// aligned, n a multiple of 6 up to 6144.  (cluster, band_rows, stages,
+// per_sm) is the plan of sweep_plan.  Returns the CUDA error code of the
+// launch.
 int group_solve_l_f32(const float* Linv, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,
-                      int band_rows, int stages, cudaStream_t stream) {
+                      int band_rows, int stages, int per_sm,
+                     cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormL, float>(
-      Linv, C9, b, x, B, K, n, n, cluster, band_rows, stages, stream);
+      Linv, C9, b, x, B, K, n, n, cluster, band_rows, stages, per_sm,
+      stream);
 }
 
 // As group_solve_l_f32 on bf16 factors Linv (B, K, n, ld), rows ld elements
@@ -57,9 +60,10 @@ int group_solve_l_f32(const float* Linv, const float* C9, const float* b,
 int group_solve_l_bf16(const __nv_bfloat16* Linv, const float* C9,
                        const float* b, float* x, int B, int K, int n, int ld,
                        int cluster, int band_rows, int stages,
-                       cudaStream_t stream) {
+                       int per_sm, cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormL, __nv_bfloat16>(
-      Linv, C9, b, x, B, K, n, ld, cluster, band_rows, stages, stream);
+      Linv, C9, b, x, B, K, n, ld, cluster, band_rows, stages, per_sm,
+      stream);
 }
 
 }  // extern "C"

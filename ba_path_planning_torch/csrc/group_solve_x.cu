@@ -38,13 +38,16 @@ extern "C" {
 
 // X (B, K, n, n) symmetric block inverses; C9 (K-1, 9) upper-triangular slot
 // scalars; b and x (B, K, n).  All float32, contiguous, X 16-byte aligned,
-// n a multiple of 6 up to 6144.  (cluster, band_rows, stages) is the plan of
-// sweep_plan.  Returns the CUDA error code of the launch.
+// n a multiple of 6 up to 6144.  (cluster, band_rows, stages,
+// per_sm) is the plan of sweep_plan.  Returns the CUDA error code of the
+// launch.
 int group_solve_x_f32(const float* X, const float* C9, const float* b,
                       float* x, int B, int K, int n, int cluster,
-                      int band_rows, int stages, cudaStream_t stream) {
+                      int band_rows, int stages, int per_sm,
+                     cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormX, float>(
-      X, C9, b, x, B, K, n, n, cluster, band_rows, stages, stream);
+      X, C9, b, x, B, K, n, n, cluster, band_rows, stages, per_sm,
+      stream);
 }
 
 // As group_solve_x_f32 on bf16 factors X (B, K, n, ld), rows ld elements
@@ -53,9 +56,10 @@ int group_solve_x_f32(const float* X, const float* C9, const float* b,
 int group_solve_x_bf16(const __nv_bfloat16* X, const float* C9,
                        const float* b, float* x, int B, int K, int n, int ld,
                        int cluster, int band_rows, int stages,
-                       cudaStream_t stream) {
+                       int per_sm, cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormX, __nv_bfloat16>(
-      X, C9, b, x, B, K, n, ld, cluster, band_rows, stages, stream);
+      X, C9, b, x, B, K, n, ld, cluster, band_rows, stages, per_sm,
+      stream);
 }
 
 }  // extern "C"

@@ -26,30 +26,32 @@
 //   * L form: both products from one read of each band (matvec_rows_cols):
 //     a warp forms y_i = Linv_k[i, :i+1] . r for its rows and at once adds
 //     Linv_k[i, j] y_i into register partial sums of its lanes' columns;
-//     Linv_k leaves HBM once per step, and both stop at the diagonal.  On
-//     bf16 factors (matvec_rows_cols_bf16) a lane owns column pairs: it
-//     reads two columns as one __nv_bfloat162 and widens them once for
-//     both products.
+//     Linv_k leaves HBM once per step, and both stop at the diagonal.
 //   * dense form: two blocks a step of k.  Forward steps take row products
 //     (to the diagonal on Linv_k); backward steps the transposed products
 //     as column partial sums in registers from the same one read of each
 //     band; the turn, Linv_{K-1}, takes both from one read, as the L form.
+//   * On bf16 factors every product reads a lane's columns in pairs, one
+//     __nv_bfloat162 widened once: the row products of the X and dense
+//     forms (factor_ring's matvec_rows on a bf16 ring, a warp's rows
+//     summed in one joint reduction) and the column products of the L and
+//     dense forms (matvec_rows_cols_bf16: a lane owns column pairs).
 //
 // Occupancy is the launcher's plan (ops/group_solve.py sweep_plan): large
 // batches run one block per scenario, as many to an SM as the batch needs
-// (up to four); small ones (up to 64 scenarios) a thread-block cluster of 2
-// or 4 blocks per scenario, so that the scenario's stream spreads over as
-// many SMs.  The instantiations: n up to 512 (every production N, in 56
-// registers so that four blocks share an SM; the L form on bf16 factors in
-// 112, two blocks an SM: under 56 it spilled on its per-step chain, and
-// was slower than on float32 factors wherever that chain sets the time)
-// and, with launch bounds for
-// one block an SM, n up to 1536 (N <= 256: the column sums of the L and
-// dense forms, 48 registers a lane) and up to 6144 (the X form, which keeps
-// no column sums; the L form, whose column sums are then added into one
-// row of shared memory, four rows of a warp at a time).  Each block of a cluster streams and
-// solves the rows [lo, hi) of every block (even bounds, so the bands stay
-// 16-byte aligned), and the vector of each step meets across the cluster in
+// and blocks_per_sm allows; small ones (up to 64 scenarios) a thread-block
+// cluster of 2 or 4 blocks per scenario, so that the scenario's stream
+// spreads over as many SMs.  The instantiations: n up to 512 (every
+// production N, in 56 registers so that four blocks share an SM; on bf16
+// factors the L form, and the dense form at small batches, in 112, two
+// blocks an SM: blocks_per_sm) and, with launch bounds for one block an
+// SM, n up to 1536 (N <= 256: the column
+// sums of the L and dense forms, 48 registers a lane) and up to 6144 (the
+// X form, which keeps no column sums; the L form, whose column sums are
+// then added into one row of shared memory, four rows of a warp at a
+// time).  Each block of a cluster streams and solves the rows [lo, hi) of
+// every block (even bounds, so the bands stay 16-byte aligned), and the
+// vector of each step meets across the cluster in
 // distributed shared memory: every block stores its part (a row step: its
 // rows of the result; a column step: its column partial sums, in the L form
 // plus w_k of its rows in the backward sweep) into its own exchange buffer
@@ -99,6 +101,24 @@ constexpr int kMaxBandRows = factor_ring::kRows * kWarps;
 // the ring's barriers, then the exchange barriers xfull[2]
 constexpr int kBarrierBytes = factor_ring::kBarrierBytes + 16;
 constexpr long kSmemMax = 232448;
+
+// Blocks an SM that the launch bounds of the instantiation serving a plan
+// of per_sm blocks an SM leave registers for: four in the narrow tier (56
+// registers a thread), two there for the L form on bf16 factors (112: under
+// 56 its per-step chain spilled, and it was no faster than on float32
+// factors wherever that chain sets the time) and for the dense form on
+// bf16 factors where the plan puts at most two blocks on an SM (every batch
+// up to 264, where that chain sets the time; above, four, so that the
+// batch runs in one wave), one in the wide tiers.  ops/group_solve.py
+// sweep_blocks_per_sm mirrors it, and tests/test_torch_sweep_plan.py holds
+// the two copies to each other.
+__host__ __device__ constexpr int blocks_per_sm(int form, int tier_n,
+                                                int esize, int per_sm) {
+  return tier_n > kNarrowN ? 1
+         : esize == 2 && (form == kFormL ||
+                          (form == kFormDense && per_sm <= 2)) ? 2
+                                                               : 4;
+}
 
 // First row that rank c of a cluster of `cluster` blocks streams and
 // solves: shares of whole row pairs, so every bound is even.
@@ -180,6 +200,24 @@ struct Exchanged {
   }
 };
 
+// A warp's column partial sums of a bf16 product (lane l: the pairs
+// 64 m + 2 l and + 1, factor_ring::matvec_rows_cols_bf16) into its row of
+// partials, the columns below `cover` (even, so a pair lies below it
+// whole).
+template <int U>
+__device__ __forceinline__ void store_pair_sums(float* row,
+                                                const float (&acc)[U],
+                                                int cover, int lane) {
+#pragma unroll
+  for (int m = 0; m < U / 2; ++m) {
+    const int j = 64 * m + 2 * lane;
+    if (64 * m >= cover) break;
+    if (j < cover)
+      *reinterpret_cast<float2*>(row + j) =
+          make_float2(acc[2 * m], acc[2 * m + 1]);
+  }
+}
+
 // The type of the kernel's second operand: the FP32 slot scalars C9 of the
 // X and L forms, or the dense form's off-diagonal factors, of type T.
 template <int kForm, typename T>
@@ -189,20 +227,17 @@ using Second = std::conditional_t<kForm == kFormDense, T, float>;
 // triangular: what lies above the diagonal is not read), each row's
 // columns n.. ld-1 unread; G: the slot scalars C9 (K-1, 9) (X and L forms)
 // or E (B, K-1, n, ld) (dense form); n <= kTierN.  A grid of B clusters of
-// cluster.num_blocks() blocks of kThreads threads; the launch bounds leave
-// room for four blocks an SM, one in the wide tiers and two in the L form
-// on bf16 factors (the file's head).
-template <int kForm, int kTierN, typename T>
-__global__ void __launch_bounds__(
-    kThreads, kTierN > kNarrowN                        ? 1
-              : (kForm == kFormL && sizeof(T) == 2) ? 2
-                                                       : 4)
+// cluster.num_blocks() blocks of kThreads threads, kBlocks an SM
+// (blocks_per_sm).
+template <int kForm, int kTierN, typename T, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
 sweep_kernel(const T* __restrict__ F,
              const Second<kForm, T>* __restrict__ G,
              const float* __restrict__ bvec, float* xout, int K, int n,
              int ld, int band_rows, int stages) {
   constexpr bool kL = kForm == kFormL;
   constexpr bool kDense = kForm == kFormDense;
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   // column sums of a lane, or (the L form's widest instantiation) of the
   // block in shared memory
   constexpr bool kSharedCols = kTierN > kMaxN;
@@ -364,18 +399,34 @@ sweep_kernel(const T* __restrict__ F,
         float acc[kColRegs];
 #pragma unroll
         for (int u = 0; u < kColRegs; ++u) acc[u] = 0.f;
-        if (t == turn)
-          factor_ring::matvec_rows_cols<kColRegs, true>(
-              ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
-        else
-          factor_ring::matvec_rows_cols<kColRegs, false>(
-              ring, cur, r, n, lo, hi, band_rows, on_l, warp, kWarps, acc);
+        if constexpr (kBf16) {
+          // bf16: a lane owns the column pairs 64 m + 2 lane, + 1; the turn
+          // keeps no pair in registers, which the dense form's registers
+          // have no room for
+          if (t == turn)
+            factor_ring::matvec_rows_cols_bf16<kColRegs, true, 0>(
+                ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
+          else
+            factor_ring::matvec_rows_cols_bf16<kColRegs, false>(
+                ring, cur, r, n, lo, hi, band_rows, on_l, warp, kWarps, acc);
+        } else {
+          if (t == turn)
+            factor_ring::matvec_rows_cols<kColRegs, true>(
+                ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
+          else
+            factor_ring::matvec_rows_cols<kColRegs, false>(
+                ring, cur, r, n, lo, hi, band_rows, on_l, warp, kWarps, acc);
+        }
         const int cover = on_l ? hi : n;     // the columns of the partials
         const int lane = tid & 31;
+        if constexpr (kBf16) {
+          store_pair_sums(part + warp * n, acc, cover, lane);
+        } else {
 #pragma unroll
-        for (int u = 0; u < kColRegs; ++u) {
-          if (32 * u >= cover) break;
-          if (32 * u + lane < cover) part[warp * n + 32 * u + lane] = acc[u];
+          for (int u = 0; u < kColRegs; ++u) {
+            if (32 * u >= cover) break;
+            if (32 * u + lane < cover) part[warp * n + 32 * u + lane] = acc[u];
+          }
         }
         consumer_sync();
 #pragma unroll
@@ -480,18 +531,11 @@ sweep_kernel(const T* __restrict__ F,
 #pragma unroll
         for (int u = 0; u < kColRegs; ++u) acc[u] = 0.f;
         const int lane = tid & 31;
-        if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        if constexpr (kBf16) {
           // bf16: a lane owns the column pairs 64 m + 2 lane, + 1
-          factor_ring::matvec_rows_cols_bf16<kColRegs>(
-              ring, cur, r, lo, hi, band_rows, warp, kWarps, acc);
-#pragma unroll
-          for (int m = 0; m < kColRegs / 2; ++m) {
-            const int j = 64 * m + 2 * lane;
-            if (64 * m >= hi) break;
-            if (j < hi)      // hi even: the pair lies below it whole
-              *reinterpret_cast<float2*>(part + warp * n + j) =
-                  make_float2(acc[2 * m], acc[2 * m + 1]);
-          }
+          factor_ring::matvec_rows_cols_bf16<kColRegs, true>(
+              ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
+          store_pair_sums(part + warp * n, acc, hi, lane);
         } else {
           factor_ring::matvec_rows_cols<kColRegs, true>(
               ring, cur, r, n, lo, hi, band_rows, true, warp, kWarps, acc);
@@ -520,7 +564,7 @@ sweep_kernel(const T* __restrict__ F,
 }
 
 // Launch one instantiation on a checked plan.
-template <int kForm, int kTierN, typename T>
+template <int kForm, int kTierN, typename T, int kBlocks>
 int launch_tier(const T* F, const Second<kForm, T>* G, const float* b,
                 float* x, int B, int K, int n, int ld, int cluster,
                 int band_rows, int stages, long smem, cudaStream_t stream) {
@@ -531,7 +575,7 @@ int launch_tier(const T* F, const Second<kForm, T>* G, const float* b,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kDevices || smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(sweep_kernel<kForm, kTierN, T>,
+    err = cudaFuncSetAttribute(sweep_kernel<kForm, kTierN, T, kBlocks>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -549,25 +593,27 @@ int launch_tier(const T* F, const Second<kForm, T>* G, const float* b,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sweep_kernel<kForm, kTierN, T>, F, G, b, x,
-                           K, n, ld, band_rows, stages);
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel<kForm, kTierN, T, kBlocks>, F,
+                           G, b, x, K, n, ld, band_rows, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the sweeps of B scenarios on the plan (cluster, band_rows,
-// stages), on the narrow instantiation where n allows, else the wide one
-// (the L form above kMaxN: its column sums in shared memory); returns a
-// CUDA error code, cudaErrorInvalidValue for arguments or a plan it cannot
-// serve.  n is a multiple of 6 (X, L: the slot scalars) or of 2 (dense), up
-// to kMaxNWide (X, L) or kMaxN (dense); the factors' rows lie ld >= n
-// elements apart, with a pair of rows a multiple of 16 bytes (float: ld
-// even; bf16: a multiple of 4).
+// stages, per_sm), on the narrow instantiation where n allows (the one of
+// blocks_per_sm for per_sm), else the wide one (the L form above kMaxN: its
+// column sums in shared memory); returns a CUDA error code,
+// cudaErrorInvalidValue for arguments or a plan it cannot serve.  n is a
+// multiple of 6 (X, L: the slot scalars) or of 2 (dense), up to kMaxNWide
+// (X, L) or kMaxN (dense); the factors' rows lie ld >= n elements apart,
+// with a pair of rows a multiple of 16 bytes (float: ld even; bf16: a
+// multiple of 4).
 template <int kForm, typename T>
 int launch(const T* F, const Second<kForm, T>* G, const float* b, float* x,
            int B, int K, int n, int ld, int cluster, int band_rows,
-           int stages, cudaStream_t stream) {
+           int stages, int per_sm, cudaStream_t stream) {
   constexpr int kWideN = kForm == kFormDense ? kMaxN : kMaxNWide;
+  constexpr int kEsize = static_cast<int>(sizeof(T));
   const int unit = kForm == kFormDense ? 2 : 6;
   const int row_bytes = static_cast<int>(sizeof(T)) * ld;
   if (B < 1 || K < 2 || n < unit || n % unit || n > kWideN || ld < n ||
@@ -580,16 +626,31 @@ int launch(const T* F, const Second<kForm, T>* G, const float* b, float* x,
     return static_cast<int>(cudaErrorInvalidValue);
   const long smem = smem_bytes(n, cluster, band_rows, stages,
                                part_rows(kForm, n), row_bytes);
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= kNarrowN)
-    return launch_tier<kForm, kNarrowN, T>(F, G, b, x, B, K, n, ld, cluster,
-                                           band_rows, stages, smem, stream);
+  const int tier = n <= kNarrowN                   ? kNarrowN
+                   : kForm == kFormL && n <= kMaxN ? kMaxN
+                                                   : kWideN;
+  const int blocks = blocks_per_sm(kForm, tier, kEsize, per_sm);
+  if (smem > kSmemMax || per_sm < 1 || per_sm > blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tier == kNarrowN) {
+    // the narrow instantiations: two blocks an SM (bf16: the L form, the
+    // dense form at small batches), four (the others)
+    constexpr bool kTwo = kEsize == 2 && kForm != kFormX;
+    constexpr bool kFour = !(kEsize == 2 && kForm == kFormL);
+    if constexpr (kTwo)
+      if (blocks == 2)
+        return launch_tier<kForm, kNarrowN, T, 2>(
+            F, G, b, x, B, K, n, ld, cluster, band_rows, stages, smem, stream);
+    if constexpr (kFour)
+      return launch_tier<kForm, kNarrowN, T, 4>(
+          F, G, b, x, B, K, n, ld, cluster, band_rows, stages, smem, stream);
+  }
   if constexpr (kForm == kFormL)
-    if (n <= kMaxN)
-      return launch_tier<kForm, kMaxN, T>(F, G, b, x, B, K, n, ld, cluster,
+    if (tier == kMaxN)
+      return launch_tier<kForm, kMaxN, T, 1>(F, G, b, x, B, K, n, ld, cluster,
+                                             band_rows, stages, smem, stream);
+  return launch_tier<kForm, kWideN, T, 1>(F, G, b, x, B, K, n, ld, cluster,
                                           band_rows, stages, smem, stream);
-  return launch_tier<kForm, kWideN, T>(F, G, b, x, B, K, n, ld, cluster,
-                                       band_rows, stages, smem, stream);
 }
 
 }  // namespace group_sweep

@@ -116,12 +116,12 @@ def load_kernels() -> ctypes.CDLL:
     lib.ns_chain_interior_f32.restype = i
     for sweep in (lib.group_solve_x_f32, lib.group_solve_l_f32,
                   lib.banded_solve_f32):
-        sweep.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        sweep.argtypes = [p, p, p, p] + [i] * 7 + [p]
         sweep.restype = i
     # the bf16 entries also take the factors' row stride
     for sweep in (lib.group_solve_x_bf16, lib.group_solve_l_bf16,
                   lib.banded_solve_bf16):
-        sweep.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        sweep.argtypes = [p, p, p, p] + [i] * 8 + [p]
         sweep.restype = i
     # the X form also takes the plan's packed flag and a slot-scalar stride
     lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 10 + [p]

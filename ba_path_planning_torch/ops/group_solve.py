@@ -37,6 +37,7 @@ SWEEP_FORMS = ("X", "L", "dense")
 # serve
 SWEEP_MAX_N = 1536
 SWEEP_MAX_N_WIDE = 6144
+SWEEP_NARROW_N = 512           # n of the narrow instantiation
 SWEEP_WARPS = 8                # consumer warps of a block
 SWEEP_MAX_BAND = 4 * SWEEP_WARPS   # a warp takes at most 4 rows of a band
 SWEEP_MAX_STAGES = 8
@@ -75,6 +76,21 @@ def sweep_part_rows(form: str, n: int) -> int:
     return 1 if n > SWEEP_MAX_N else SWEEP_WARPS
 
 
+def sweep_blocks_per_sm(form: str, n: int, esize: int = 4,
+                        per_sm: int = 4) -> int:
+    """Blocks an SM that the launch bounds of the instantiation serving n
+    and a plan of ``per_sm`` blocks an SM leave registers for (the kernel's
+    ``blocks_per_sm``): four in the narrow tier, two there for the L form
+    on bf16 factors and for the dense form on bf16 factors at ``per_sm``
+    <= 2, one in the wide tiers.  At the default ``per_sm`` it is the most
+    that any plan may put on an SM."""
+    if n > SWEEP_NARROW_N:
+        return 1
+    if esize == 2 and (form == "L" or (form == "dense" and per_sm <= 2)):
+        return 2
+    return 4
+
+
 def sweep_row_bytes(n: int, esize: int = 4) -> int:
     """Bytes a factor row takes in global memory and in the ring: n floats,
     or n bf16 elements on the stride :func:`cuda_build.bf16_row_stride`."""
@@ -93,13 +109,15 @@ def sweep_smem_bytes(n: int, cluster: int, band_rows: int, stages: int,
             + 4 * n * (2 + 2 * cluster + part))
 
 
-def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int):
+def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int,
+                most: int):
     """(share, band_rows, stages, per_sm) of a cluster size: the largest
     bands that leave SWEEP_WANT_STAGES stages beside as many blocks an SM as
-    B needs, or, where not even two stages fit, fewer blocks an SM."""
+    B needs, at most ``most``, or, where not even two stages fit, fewer
+    blocks an SM."""
     share = max(sweep_rows(c + 1, cluster, n) - sweep_rows(c, cluster, n)
                 for c in range(cluster))
-    per_sm = 2 if cluster > 1 else min(4, -(-B // SMS))
+    per_sm = min(most, 2 if cluster > 1 else -(-B // SMS))
     while True:
         room = (SMEM_SM // per_sm - 1024) - sweep_smem_bytes(n, cluster, 0, 0,
                                                              part)
@@ -123,12 +141,14 @@ def sweep_plan(B: int, K: int, n: int, form: str,
     * B > 64 (the production chunk of 512, the compaction's later chunks):
       one block per scenario, its shared memory sized so that as many
       blocks share an SM as B needs to run in one wave on 132 SMs, up to
-      four (528 blocks hold the chunk of 512); a block alone on its SM
-      takes a ring four times as deep.
+      :func:`sweep_blocks_per_sm` (four: 528 blocks hold the chunk of
+      512; two for the L form on bf16 factors, one for n > 512); a block
+      alone on its SM takes a ring four times as deep.  The kernel runs the
+      instantiation whose launch bounds hold ``per_sm`` blocks an SM.
     * B <= 64 (the reference-compatible path's 64, the ``SCP`` class's 1):
       a cluster of 2 blocks per scenario, 4 up to B = 32, each streaming its
       share of the rows, so that a scenario's stream is spread over as many
-      SMs; two clusters may share an SM.
+      SMs; two clusters may share an SM where the launch bounds allow.
     Bands are an even number of rows, at most 4 a consumer warp, and shrink
     until SWEEP_WANT_STAGES stages fit; the ring is no deeper than the
     bands of the whole chain (2K - 1 blocks; dense: 4K - 3, its two blocks
@@ -148,12 +168,13 @@ def sweep_plan(B: int, K: int, n: int, form: str,
                          f"{max_n}, K >= 2)")
     part = sweep_part_rows(form, n)
     row_bytes = sweep_row_bytes(n, esize)
+    most = sweep_blocks_per_sm(form, n, esize)
     chain = 4 * K - 3 if form == "dense" else 2 * K - 1
     cluster = (4 if B <= SWEEP_CLUSTER_B // 2 else
                2 if B <= SWEEP_CLUSTER_B else 1)
     while True:
         share, band_rows, stages, per_sm = _sweep_ring(B, n, cluster, part,
-                                                       row_bytes)
+                                                       row_bytes, most)
         if stages >= 2 or cluster == 1:
             break
         cluster //= 2
@@ -194,7 +215,7 @@ def _launch_sweep(what: str, entry: str, F, G, b, form: str,
         err = getattr(lib, entry + ("_bf16" if bf16 else "_f32"))(
             F.data_ptr(), G.data_ptr(), b.data_ptr(), x.data_ptr(), B, K, n,
             *((F.stride(-2),) if bf16 else ()), plan.cluster,
-            plan.band_rows, plan.stages,
+            plan.band_rows, plan.stages, plan.per_sm,
             torch.cuda.current_stream(b.device).cuda_stream)
     check(err, what)
     debug.report(entry, x)

@@ -93,10 +93,12 @@
    (``banded.compress_factors``, rows on a stride of 8 elements), each
    against its plain version on the same bf16 factors with the tolerances
    of the float32 checks and timed beside its float32 self (the ratio
-   printed), its bound at 2 bytes an element: the three sweeps at N=20
-   (B=512, 64, 1), N=21 and N=30 (B=128, padded rows), the L-form fused
-   interval at N=20 (B=128, 64); first, ptxas's registers and spills of
-   the L-form sweep's instantiations, f32 and bf16, from the build log;
+   printed), its bound and stream bound at 2 bytes an element at every
+   shape: the three sweeps at N=20 (B=512, 64, 1), N=21 and N=30 (B=128,
+   padded rows), the L-form fused interval at N=20 (B=128, 64); first,
+   ptxas's registers and spills of the instantiations of the L-form and
+   dense sweeps and of the L-form fused interval, f32 and bf16, from the
+   build log;
 12. the bf16 paths: production with bf16 factors at N=20 (1024 scenarios,
    chunk 512, the grouped X route; at least 99% ok, printed beside the f32
    path), and the ``SCP`` class's solver in bf16 on its three kernel
@@ -1901,14 +1903,23 @@ def bf16_kernel_phase(dev):
     import torch
     from ba_path_planning_torch.ops import admm_fused, ns_chain
     from ba_path_planning_torch.solvers import banded
-    # the L form's instantiations (sweep_kernel<kFormL, tier, T>)
-    for name, report in _ptxas_of("sweep_kernelILi1E").items():
-        tier = re.search(r"ILi1ELi(\d+)E(13__nv_bfloat16|f)E", name)
-        what = (f"tier n <= {tier.group(1)}, "
-                f"{'bf16' if tier.group(2) != 'f' else 'f32'}" if tier
-                else name)
-        print(f"bf16 phase: ptxas, L-form sweep {what}: {report}",
-              flush=True)
+    # the instantiations of the L and dense forms (sweep_kernel<form, tier,
+    # T, blocks an SM>) and of the L-form fused interval
+    # (admm_fused_l_kernel<octets, T>)
+    for label, fragment, pattern in (
+            ("L-form sweep, tier n <=", "sweep_kernelILi1E",
+             r"ILi1ELi(\d+)E(13__nv_bfloat16|f)(?:Li(\d+)E)?E"),
+            ("dense sweep, tier n <=", "sweep_kernelILi2E",
+             r"ILi2ELi(\d+)E(13__nv_bfloat16|f)(?:Li(\d+)E)?E"),
+            ("L-form fused interval, column octets", "admm_fused_l_kernel",
+             r"admm_fused_l_kernelILi(\d+)E(13__nv_bfloat16|f)()E")):
+        for name, report in _ptxas_of(fragment).items():
+            tier = re.search(pattern, name)
+            what = (f"{label} {tier.group(1)}, "
+                    f"{'bf16' if tier.group(2) != 'f' else 'f32'}"
+                    + (f", {tier.group(3)} blocks an SM" if tier.group(3)
+                       else "") if tier else name)
+            print(f"bf16 phase: ptxas, {what}: {report}", flush=True)
     out = {}
     for n_veh, B in BF16_SWEEPS:
         D, C, b, b_admm, _ = _case(n_veh, B, dev, seed=3000 + n_veh + B)
@@ -1932,6 +1943,8 @@ def bf16_kernel_phase(dev):
                 at = f"N{n_veh}_B{B}" if n_veh != 20 else f"B{B}"
                 out[key][f"ms_at_{at}"] = stats["ms"]
                 out[key][f"f32_ms_at_{at}"] = stats["f32_ms"]
+                out[key][f"stream_bound_ms_at_{at}"] = stats[
+                    "stream_bound_ms"]
     n_veh, K, n = 20, K_STEPS, 120
     for B in BF16_FUSED_B:
         D, C, _, _, kw = _case(n_veh, B, dev, seed=5000 + B,
@@ -1967,6 +1980,8 @@ def bf16_kernel_phase(dev):
         else:
             out["admm_fused_l"][f"ms_at_B{B}"] = stats["ms"]
             out["admm_fused_l"][f"f32_ms_at_B{B}"] = f32_ms
+            out["admm_fused_l"][f"stream_bound_ms_at_B{B}"] = stats[
+                "stream_bound_ms"]
         del Linv, Eb, L16, E16
     return out
 

@@ -5,7 +5,8 @@ turns, on one GPU: what running the ADMM iteration in hand-written kernels
 
     python3 scripts/torch_glue_ab.py --roots <parent> <change> \
         [--turns 0,1,1,0]
-        [--parts production,latency,bench,facade,facade_bf16,phase1]
+        [--parts production,latency,bench,facade,facade_bf16,
+                 facade_bf16_all,phase1]
         [--out build/glue_ab.json]
 
 For each turn, in the checkout it names (every measurement a process of
@@ -25,11 +26,12 @@ its own, started in that checkout, so each runs the code it finds there):
   process): the first and a warm solve's wall, a traced solve's device
   time in the sweep kernels and in all kernels, statuses, mean and max QP
   iterations;
-* ``--facade grouped_L --bf16`` (part ``facade_bf16``): the same on bf16
-  factors with the SCP loop cut to ``chip_smoke.BF16_FACADE_SCP``, as
+* ``--facade ROUTE --bf16`` for ``grouped_L`` (part ``facade_bf16``),
+  ``resident`` and ``fused_L`` (part ``facade_bf16_all``): the same on
+  bf16 factors with the SCP loop cut to ``chip_smoke.BF16_FACADE_SCP``, as
   ``chip_smoke.py``'s bf16 paths run it (its QPs do not converge on bf16
   factors, so every lane runs the whole ADMM budget of each SCP
-  iteration);
+  iteration); the fused route's kernel time is ``fused_device_s``;
 * this script's ``--round-record``: the round record's N=10 and N=20
   configurations (B=1024, chunk 512) as ``scripts/torch_soak_nsweep.py``
   runs them (``run_cfg``: a warm-up solve, then one timed solve): the
@@ -98,6 +100,8 @@ def facade(route, root, bf16=False):
         "wall_s": walls[0], "warm_wall_s": walls[1],
         "sweep_device_s": sum(us for key, us in device
                               if "sweep_kernel" in key) / 1e6,
+        "fused_device_s": sum(us for key, us in device
+                              if "admm_fused_l_kernel" in key) / 1e6,
         "busy_s": sum(us for _, us in device) / 1e6,
         "statuses": np.bincount(out.status.cpu().numpy(),
                                 minlength=3).tolist(),
@@ -191,10 +195,13 @@ def main():
             print(f"[{turn}] bench twin: {rec['bench']['summary']} "
                   f"solves/s={rec['bench']['solves_per_s']}", flush=True)
         for route, part in (("grouped_L", "facade"), ("resident", "facade"),
-                            ("grouped_L", "facade_bf16")):
-            if part not in parts:
+                            ("grouped_L", "facade_bf16"),
+                            ("resident", "facade_bf16_all"),
+                            ("fused_L", "facade_bf16_all")):
+            if part not in parts and not (part == "facade_bf16"
+                                          and "facade_bf16_all" in parts):
                 continue
-            bf16 = part == "facade_bf16"
+            bf16 = part.startswith("facade_bf16")
             out, _ = _run(root, [sys.executable, str(here), "--facade",
                                  route, "--roots", root]
                           + (["--bf16"] if bf16 else []))

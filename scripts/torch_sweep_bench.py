@@ -28,9 +28,9 @@ names the card and its power limit.
 The package and ``chip_smoke.py`` are imported from the checkout the script
 lies in, or from the one given by ``--root``; to compare two versions on
 the same card, run the script for each checkout in turns in one call.
-``--time-only`` times the fused interval (F) from the same warm start
-without checking it, for diagnostic builds whose results are not meant to
-be right (say, with the factor copies or the products switched off).
+``--time-only`` times the fused intervals (F, FL) without checking them,
+for diagnostic builds whose results are not meant to be right (say, with
+the factor copies or the products switched off).
 ``--graph`` also times each stage of case S from replays of a CUDA graph
 of 20 calls (``graph_ms``: the fastest and slowest of 5 replays, a call),
 the device's time without the host's launch cost, which sets the CUDA-event
@@ -41,7 +41,10 @@ as ``SolverConfig.factor_dtype="bf16"`` stores them), checked against the
 plain version on the same bf16 factors, and times the kernel on the bf16
 and on the float32 factors in turns (bf16, f32, bf16, f32: ``ms`` and
 ``f32_ms`` the fastest of each, ``bf16_ms_runs`` and ``f32_ms_runs`` all
-four); the bounds then count 2 bytes an element on the padded rows.
+four); the bounds then count 2 bytes an element on the padded rows.  With
+``--bf16`` the L-form fused interval (FL) runs on bf16 (Linv, Eb) as well,
+checked as ``chip_smoke.py`` checks it, and is timed on both factor types
+from one state in the same turns.
 """
 
 import argparse
@@ -206,18 +209,53 @@ def main():
                                       solver=cs._facade_solver())
             Linv, Eb = banded.factorize(D, banded.slot_dense(C, 2 * N))
             del D, kw["C"]
-            kw.update(Linv=Linv, Eb=Eb)
-            stats = cs.fused_check(
-                f"FL N={N} B={B}", admm_fused.admm_interval_fused,
-                admm_fused.admm_interval_fused_plain, kw, N,
-                (2 * K - 1) * n * n)
-            print(json.dumps({"form": form, "N": N, "B": B, "K": K,
-                              "iterations": 25, "ms": stats["ms"],
-                              "stream_bound_ms": stats["stream_bound_ms"],
-                              "share": stats["stream_bound_ms"] / stats["ms"],
-                              "max_abs_err": stats["max_abs_err"],
-                              "card": card}), flush=True)
-            del kw, Linv, Eb
+            factors = {"f32": (Linv, Eb)}
+            esize, ld = 4, n
+            if args.bf16:
+                factors["bf16"] = banded.compress_factors(Linv, Eb)
+                esize, ld = 2, factors["bf16"][0].stride(-2)
+            key = "bf16" if args.bf16 else "f32"
+            line = {"form": form, "N": N, "B": B, "K": K, "iterations": 25,
+                    "card": card}
+            if args.time_only:
+                line["checked"] = False
+            else:
+                stats = cs.fused_check(
+                    f"FL N={N} B={B}" + (f" bf16 (rows of {ld})"
+                                         if args.bf16 else ""),
+                    admm_fused.admm_interval_fused,
+                    admm_fused.admm_interval_fused_plain,
+                    dict(kw, Linv=factors[key][0], Eb=factors[key][1]), N,
+                    (2 * K - 1) * n * ld, factor_bytes=esize)
+                line.update(ms=stats["ms"],
+                            stream_bound_ms=stats["stream_bound_ms"],
+                            max_abs_err=stats["max_abs_err"])
+            if args.bf16 or args.time_only:
+                # each factor type from one state, in turns
+                x = kw.pop("x")
+                z = banded.tree_map(torch.clamp, banded.apply_A(
+                    x, kw["eta"], kw["E"], cs.H), kw["lower"], kw["upper"])
+                y = banded.tree_map(torch.zeros_like, z)
+                runs = {name: [] for name in factors}
+                for _ in range(2):
+                    for name, fac in factors.items():
+                        runs[name].append(cs._time_ms(
+                            lambda: admm_fused.admm_interval_fused(
+                                *fac, **kw, x=x, z=z, y=y, n_iters=25)))
+                line.update(ms=min(runs[key]), ms_runs=runs[key])
+                if args.bf16:
+                    line.update(f32_ms=min(runs["f32"]),
+                                f32_ms_runs=runs["f32"],
+                                factor_dtype="bf16", row_stride=ld)
+                del x, z, y
+            line["stream_bound_ms"] = cs._bound_ms(
+                25 * B * 2 * (2 * K - 1) * n * ld * esize, 0)[0]
+            line["share"] = line["stream_bound_ms"] / line["ms"]
+            plan_fn = getattr(admm_fused, "fused_plan", None)
+            if plan_fn is not None:
+                line["plan"] = plan_fn(K, N, "L", esize=esize)._asdict()
+            print(json.dumps(line), flush=True)
+            del kw, Linv, Eb, factors
             continue
         if form == "X":
             D, C, b, b_admm, _ = cs._case(N, B, dev, seed=B)

@@ -117,10 +117,9 @@ def test_sweep_plan_branches_and_refusals():
         shared = gs.sweep_plan(512, 50, 240, form)
         assert (alone.stages * alone.band_rows
                 > 2 * shared.stages * shared.band_rows)
-        # a cluster of blocks of n = 1536 runs alone on its SMs where it
-        # keeps column sums (the X form's exchange leaves room for two)
-        assert gs.sweep_plan(1, 50, 1536, form).per_sm == (
-            2 if form == "X" else 1)
+        # a cluster of blocks of n = 1536 runs alone on its SMs: the wide
+        # instantiations' launch bounds leave registers for one block an SM
+        assert gs.sweep_plan(1, 50, 1536, form).per_sm == 1
     # the ring is no deeper than the bands of the whole chain: 3 blocks
     # (X, L) or 5 (dense) at K = 2
     assert gs.sweep_plan(512, 2, 12, "X").stages == 3
@@ -205,6 +204,80 @@ def test_plan_layout_matches_the_kernel_header():
                     assert gs.sweep_smem_bytes(n, c, band, stages, part,
                                                row) == smem(
                         n, c, band, stages, part, row)
+
+
+def _ternary(expr):
+    """A C expression of right-nested ternaries, && and || as Python."""
+    if "?" not in expr:
+        return expr.replace("&&", " and ").replace("||", " or ")
+    cond, rest = expr.split("?", 1)
+    then, other = rest.split(":", 1)
+    return (f"(({_ternary(then)}) if ({_ternary(cond)}) "
+            f"else ({_ternary(other)}))")
+
+
+def test_sweep_plan_keeps_to_the_launch_bounds():
+    """``sweep_blocks_per_sm`` is the kernel's ``blocks_per_sm``, which
+    picks the instantiation (and with it the launch bounds) that serves a
+    plan, for every form, factor type, tier and blocks an SM; no plan puts
+    more blocks on an SM than the launch bounds of the instantiation it
+    runs leave registers for, and a large batch on the narrow tier puts as
+    many as they allow."""
+    ring = _constants(_header("factor_ring.cuh"))
+    src = _header("group_sweep.cuh")
+    k = _constants(src.replace("factor_ring::kBarrierBytes",
+                               str(ring["kBarrierBytes"])).replace(
+        "factor_ring::kRows", str(ring["kRows"])))
+    # the kernel's launch bounds are its kBlocks, which launch() takes from
+    # blocks_per_sm for the plan's per_sm
+    assert re.search(r"template <int kForm, int kTierN, typename T, int "
+                     r"kBlocks>\s*__global__ void __launch_bounds__\("
+                     r"kThreads, kBlocks\)", src)
+    assert re.search(r"const int blocks = blocks_per_sm\(kForm, tier, kEsize, "
+                     r"per_sm\);\s*if \(smem > kSmemMax \|\| per_sm < 1 \|\| "
+                     r"per_sm > blocks\)", src)
+    body = re.search(r"blocks_per_sm\(int form, int tier_n,\s*int esize, "
+                     r"int per_sm\)\s*\{\s*return ([^;]+);", src).group(1)
+    bound = eval("lambda form, tier_n, esize, per_sm: " + _ternary(body),
+                 dict(k))
+    assert gs.SWEEP_NARROW_N == k["kNarrowN"]
+    forms = {"X": k["kFormX"], "L": k["kFormL"], "dense": k["kFormDense"]}
+    seen = set()
+    for form, code in forms.items():
+        for n in (6, 120, 126, 504, 510, 516, 540, 894, 1536, 1542, 6144):
+            if form == "dense" and n > k["kMaxN"]:
+                continue
+            # the tier group_sweep::launch takes for n
+            tier = (k["kNarrowN"] if n <= k["kNarrowN"] else
+                    k["kMaxN"] if form == "dense" or (
+                        form == "L" and n <= k["kMaxN"]) else k["kMaxNWide"])
+            for esize in (4, 2):
+                for per_sm in (1, 2, 3, 4):
+                    assert gs.sweep_blocks_per_sm(form, n, esize, per_sm) == (
+                        bound(code, tier, esize, per_sm))
+                most = gs.sweep_blocks_per_sm(form, n, esize)
+                assert most == max(bound(code, tier, esize, q)
+                                   for q in (1, 2, 3, 4))
+                for B in (1, 33, 64, 65, 128, 264, 265, 512, 2048):
+                    for K in (2, 50):
+                        plan = gs.sweep_plan(B, K, n, form, esize=esize)
+                        runs = bound(code, tier, esize, plan.per_sm)
+                        seen.add((form, tier, esize, plan.per_sm, runs))
+                        assert 1 <= plan.per_sm <= runs
+                        assert (plan.per_sm * (plan.smem_bytes + 1024)
+                                <= gs.SMEM_SM)
+                        if tier == k["kNarrowN"] and B >= most * gs.SMS:
+                            assert plan.per_sm == most
+    # the narrow tier: four blocks an SM, but on bf16 factors two for the L
+    # form and for the dense form where its plan puts two or fewer on an
+    # SM; one on every wide tier
+    narrow = {(f, e, q, m) for f, t, e, q, m in seen if t == k["kNarrowN"]}
+    assert {(f, e, m) for f, e, q, m in narrow} == {
+        ("X", 4, 4), ("X", 2, 4), ("L", 4, 4), ("L", 2, 2), ("dense", 4, 4),
+        ("dense", 2, 2), ("dense", 2, 4)}
+    assert all(m == (2 if q <= 2 else 4)
+               for f, e, q, m in narrow if (f, e) == ("dense", 2))
+    assert {m for f, t, e, q, m in seen if t > k["kNarrowN"]} == {1}
 
 
 def _slot_b(c, w, n2):
