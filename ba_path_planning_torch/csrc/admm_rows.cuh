@@ -6,8 +6,8 @@
 // block (tid, nthr), and leaves the barrier after it to the caller.  The
 // `_rows` forms take a range [lo, hi) of row indices (k * 2N + q for the
 // static rows, k * P + p for the collision rows): each row k reads rows
-// k - 1 .. k + 1 of its inputs and writes row k only, so admm_rhs
-// (admm_steps.cu) splits k over blocks.
+// k - 1 .. k + 1 of its inputs and writes row k only, so a caller may
+// split k over blocks.
 //
 // Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p, dyn_v,
 // jerk, acc, vbox, pbox (the jerk block's row K-1 is unused), collision rows
@@ -49,11 +49,6 @@ struct Scenario {
 // Index of pair (i, j), i < j, in triu_indices order.
 __device__ __forceinline__ int pair_base(int i, int N) {
   return i * (2 * N - i - 1) / 2;
-}
-
-// Bytes of shared memory the pair table takes.
-__host__ __device__ inline long pair_table_bytes(long P) {
-  return 2 * P * static_cast<long>(sizeof(unsigned short));
 }
 
 // pi[p], pj[p] = the vehicles of pair p, a thread a pair.

@@ -43,9 +43,14 @@
 // build_rhs_rows' loop (no atomics: deterministic).  The table's rows lie
 // an odd number of float2 apart, so the rows a warp reads at one slot fall
 // on distinct banks.  Where one step's table does not fit shared memory (N
-// > 170), the direct form runs build_rhs_rows on the same blocks: the pair
-// terms read from global memory as above, every thread of the block given
-// static rows.
+// > 170, up to the N = 1024 the grouped sweeps serve), the direct form runs
+// on the same blocks: every thread of the block given static rows, the
+// static part as the table form's, and the row's N - 1 pair terms read
+// from global memory where they lie, summed in kRhsAcc interleaved partial
+// sums joined pairwise.  In one serial sum the rounding of up to 1023
+// terms left the grouped route at N = 1024 past 4x the plain version's
+// distance from float64 (whose sum over the pairs is a blocked product);
+// the partial sums also keep a chunk's loads of a thread in flight.
 //
 // admm_update: bound by memory bandwidth (each row read once or twice and
 // written once, about 1 flop a byte; at N = 20, K = 50, B = 512 0.34 GB,
@@ -113,24 +118,10 @@ namespace {
 
 constexpr int kRowThreads = 256;      // admm_rhs, admm_update
 constexpr long kSmemMax = 232448;
+// admm_rhs and admm_update serve every N the grouped sweeps serve: n = 6N
+// up to group_sweep.cuh kMaxNWide (ops/admm_steps.py ROW_STAGES_MAX_N)
+constexpr int kRowStagesMaxN = 1024;
 constexpr unsigned kFull = 0xffffffffu;
-
-// Lane `lane`'s rows and the solver scalars fpar = (h, sigma, alpha, lam).
-__device__ __forceinline__ admm_rows::Scenario lane_rows(
-    const float* fpar, const float* eta, const float* l_s, const float* u_s,
-    const float* l_c, const float* rho_s, const float* rho_c, float* x,
-    float* zs, float* ys, float* zc, float* yc, int lane, int K, int N,
-    int rho_s_stride, int rho_c_stride) {
-  const size_t so = static_cast<size_t>(lane) * K * 12 * N;
-  const size_t co = static_cast<size_t>(lane) * K * (N * (N - 1) / 2);
-  return admm_rows::Scenario{
-      eta + 2 * co, l_s ? l_s + so : nullptr, u_s ? u_s + so : nullptr,
-      l_c ? l_c + co : nullptr,
-      rho_s + static_cast<size_t>(lane) * rho_s_stride,
-      rho_c + static_cast<size_t>(lane) * rho_c_stride,
-      x + static_cast<size_t>(lane) * K * 6 * N, zs + so, ys + so, zc + co,
-      yc + co, fpar[0], fpar[1], fpar[2], fpar[3], K, N};
-}
 
 // i / d for 0 <= i < 2^22: the float quotient is within 1/2 of i / d, so
 // truncating it and one correction give the integer quotient.
@@ -286,29 +277,104 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// The direct form (N > 170): build_rhs_rows on blocks of k_tile steps of
-// one lane.
+// The direct form's partial sums of a row's pair terms (a power of two;
+// eight, with their operands staged, ran slower)
+constexpr int kRhsAcc = 4;
+
+// Vehicle v's collision term on axis c at one step: partners u < v (pair
+// (u, v), sign -1) from u = 0 and partners u > v (pair (v, u), sign +1)
+// from u = v + 1, each run's i-th term in partial sum i % kRhsAcc; the
+// sums joined pairwise.  A run's whole chunks of kRhsAcc terms load all
+// their operands before the sums take them (the loads issue together),
+// its last chunk predicated.  rc, zc, yc: the step's collision rows (P),
+// et its eta (P, 2).
+__device__ __forceinline__ float rhs_pair_sum(const float* __restrict__ rc,
+                                              const float* __restrict__ zc,
+                                              const float* __restrict__ yc,
+                                              const float* __restrict__ et,
+                                              int v, int c, int N) {
+  float acc[kRhsAcc] = {};
+  auto below = [&](int u) { return admm_rows::pair_base(u, N) + v - u - 1; };
+  const int pv = admm_rows::pair_base(v, N) - v - 1;
+  float r[kRhsAcc], z[kRhsAcc], y[kRhsAcc], e[kRhsAcc];
+  auto load = [&](int i, int p) {
+    r[i] = rc[p]; z[i] = zc[p]; y[i] = yc[p]; e[i] = et[2 * p + c];
+  };
+  int u0 = 0;
+  for (; u0 + kRhsAcc <= v; u0 += kRhsAcc) {
+#pragma unroll
+    for (int i = 0; i < kRhsAcc; ++i) load(i, below(u0 + i));
+#pragma unroll
+    for (int i = 0; i < kRhsAcc; ++i) acc[i] -= (r[i] * z[i] - y[i]) * e[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kRhsAcc; ++i)
+    if (u0 + i < v) {
+      load(i, below(u0 + i));
+      acc[i] -= (r[i] * z[i] - y[i]) * e[i];
+    }
+  for (u0 = v + 1; u0 + kRhsAcc <= N; u0 += kRhsAcc) {
+#pragma unroll
+    for (int i = 0; i < kRhsAcc; ++i) load(i, pv + u0 + i);
+#pragma unroll
+    for (int i = 0; i < kRhsAcc; ++i) acc[i] += (r[i] * z[i] - y[i]) * e[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kRhsAcc; ++i)
+    if (u0 + i < N) {
+      load(i, pv + u0 + i);
+      acc[i] += (r[i] * z[i] - y[i]) * e[i];
+    }
+#pragma unroll
+  for (int w = kRhsAcc / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) acc[i] += acc[i + w];
+  return acc[0];
+}
+
+// The direct form (170 < N <= 1024): blocks of k_tile steps of one lane, a
+// thread a static row (k, q) at a time.
 __global__ void __launch_bounds__(kRowThreads)
     admm_rhs_direct_kernel(const float* __restrict__ fpar,
                            const float* __restrict__ eta,
                            const float* __restrict__ rho_s,
                            const float* __restrict__ rho_c,
-                           const float* __restrict__ inv_rho, const float* x,
-                           const float* zs, const float* ys, const float* zc,
-                           const float* yc, float* __restrict__ b, int K,
-                           int N, int k_tile, int n_tiles, int rho_s_stride,
-                           int rho_c_stride) {
-  const int lane = blockIdx.x / n_tiles, tile = blockIdx.x % n_tiles;
-  const int n2 = 2 * N, k0 = tile * k_tile, k1 = min(K, k0 + k_tile);
-  // the stage reads the state only
-  const admm_rows::Scenario sc = lane_rows(
-      fpar, eta, nullptr, nullptr, nullptr, rho_s, rho_c,
-      const_cast<float*>(x), const_cast<float*>(zs), const_cast<float*>(ys),
-      const_cast<float*>(zc), const_cast<float*>(yc), lane, K, N,
-      rho_s_stride, rho_c_stride);
-  admm_rows::build_rhs_rows(sc, b + static_cast<size_t>(lane) * K * 3 * n2,
-                            k0 * n2, k1 * n2, threadIdx.x, blockDim.x,
-                            inv_rho ? inv_rho[lane] : 1.f);
+                           const float* __restrict__ inv_rho,
+                           const float* __restrict__ x,
+                           const float* __restrict__ zs,
+                           const float* __restrict__ ys,
+                           const float* __restrict__ zc,
+                           const float* __restrict__ yc,
+                           float* __restrict__ b, int K, int N, int k_tile,
+                           int n_tiles, int rho_s_stride, int rho_c_stride) {
+  const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
+  const int lane = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x - lane * n_tiles) * k_tile;
+  const int steps = min(K, k0 + k_tile) - k0;
+  const float h = fpar[0], sigma = fpar[1];
+  const float scale = inv_rho ? inv_rho[lane] : 1.f;
+  const size_t so = static_cast<size_t>(lane) * K * 6 * n2;
+  const size_t co = static_cast<size_t>(lane) * K * P;
+  const float* rs = rho_s + static_cast<size_t>(lane) * rho_s_stride;
+  const float* rcl = rho_c + static_cast<size_t>(lane) * rho_c_stride;
+  const float* xl = x + static_cast<size_t>(lane) * K * n;
+  float* bl = b + static_cast<size_t>(lane) * K * n;
+  for (int e = threadIdx.x; e < steps * n2; e += blockDim.x) {
+    const int kk = e / n2, q = e - kk * n2, k = k0 + kk;
+    const RhsStatic st = rhs_static(rs, zs + so, ys + so, xl, k, q, K, n2, h,
+                                    sigma, scale);
+    float col = 0.f;
+    if (k < K - 1) {
+      // the collision rows at k + 1
+      const size_t kp = static_cast<size_t>(k + 1) * P;
+      col = rhs_pair_sum(rcl + kp, zc + co + kp, yc + co + kp,
+                         eta + 2 * (co + kp), q >> 1, q & 1, N);
+    }
+    float* bk = bl + static_cast<size_t>(k) * n;
+    bk[q] = st.b0;
+    bk[n2 + q] = (st.b1 + col + st.sx1) * scale;
+    bk[2 * n2 + q] = st.b2;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1093,9 +1159,13 @@ int allow_smem(Kernel kernel, long smem) {
       static_cast<int>(smem)));
 }
 
+// The shapes admm_rhs and admm_update serve (ops/admm_steps.py
+// row_stages_serve): N up to kRowStagesMaxN, and a lane's K (6N + P)
+// static slots and collision rows within int indexing (k * P + p, k * n,
+// a block's row indices; K <= 4052 at N = 1024).
 bool row_args_ok(int B, int K, int N, int k_tile) {
-  return B >= 1 && K >= 2 && N >= 1 && N <= 65535 && k_tile >= 1 &&
-         admm_rows::pair_table_bytes(N * (N - 1L) / 2) <= kSmemMax;
+  return B >= 1 && K >= 2 && N >= 1 && N <= kRowStagesMaxN && k_tile >= 1 &&
+         K * (6L * N + N * (N - 1L) / 2) < (1L << 31);
 }
 
 // Floats of one admm_channel_interval block's region: the staging buffer

@@ -39,6 +39,7 @@ from ..solvers.banded import (RowVals, StateVars, apply_A, apply_A_static,
 from ..utils import debug
 from .admm_fused import _on_cpu, planes_to_rows, rho_planes, static_plane
 from .cuda_build import check, load_kernels, require_f32_cuda
+from .group_solve import SWEEP_MAX_N_WIDE
 
 # The row stages' launch layout (csrc/admm_steps.cu): a block of
 # ROW_THREADS threads takes k_tile steps of one lane, at most as many
@@ -51,6 +52,9 @@ UPDATE_ITEMS = 5 * ROW_THREADS
 SMS = 132
 ROW_MIN_BLOCKS = 2 * SMS
 SMEM_MAX = 232448
+# The row stages serve every N the grouped sweeps serve: n = 6N up to
+# group_solve.SWEEP_MAX_N_WIDE (N <= 1024)
+ROW_STAGES_MAX_N = SWEEP_MAX_N_WIDE // 6
 # The channel interval (csrc/admm_steps.cu admm_channel_interval_f32): a
 # thread keeps up to CHANNEL_REG_STEPS steps in registers (K <= 64), the
 # memory form ceil(K / 32) in its block's region (K <= 1184 in shared
@@ -184,11 +188,16 @@ def update_plan(B: int, K: int, N: int) -> int:
     return min(K, by_work, by_fill)
 
 
-def pair_table_fits(N: int) -> bool:
-    """Whether the pair table of N vehicles (two 16-bit indices a pair),
-    which the fused interval kernels keep in shared memory, fits there: N
-    <= 341 (the row stages serve the same N)."""
-    return 2 * N * (N - 1) <= SMEM_MAX
+def row_stages_serve(K: int, N: int) -> bool:
+    """Whether :func:`admm_rhs` and :func:`admm_update` serve K steps of N
+    vehicles (the kernels' ``row_args_ok``): every N the grouped sweeps
+    serve, N <= ROW_STAGES_MAX_N, with a lane's K (6N + P) static slots and
+    collision rows within ``int`` indexing, which holds to K = 4052 at
+    N = 1024, a lane of 600 GB of factors.  Neither stage keeps a pair
+    table: ``admm_update`` finds a pair's vehicles in closed form,
+    ``admm_rhs`` keeps its transposed table only up to N = 170."""
+    return (1 <= N <= ROW_STAGES_MAX_N and K >= 2
+            and K * (6 * N + N * (N - 1) // 2) < 2 ** 31)
 
 
 class ChannelPlan(NamedTuple):
@@ -312,9 +321,11 @@ def admm_channel_interval_plain(Linv, Eb, rows: Rows, c: RowConsts,
 def _operands(what: str, rows: Rows, c: RowConsts, channel: bool = False,
               **extra) -> tuple:
     """Check the planes of a stage (float32, contiguous, on one card, of
-    the shapes of :class:`Rows` and :class:`RowConsts`; the channel
-    interval reads no eta and no pairs); returns (B, K, N) and the
-    per-lane strides of rho_s and rho_c (0: batch-shared)."""
+    the shapes of :class:`Rows` and :class:`RowConsts`; admm_rhs and
+    admm_update at the N and K of :func:`row_stages_serve`; the channel
+    interval reads no eta and no pairs, and its kernel checks its own
+    limits); returns (B, K, N) and the per-lane strides of rho_s and rho_c
+    (0: batch-shared)."""
     if not channel:
         extra = dict(extra, eta=c.eta)
     require_f32_cuda(what, **rows._asdict(), l_s=c.l_s, u_s=c.u_s,
@@ -332,7 +343,7 @@ def _operands(what: str, rows: Rows, c: RowConsts, channel: bool = False,
         got.update(eta=c.eta)
     bad = [name for name, shape in want.items()
            if tuple(got[name].shape) != shape]
-    if (n % 6 or K < 2 or bad or not (channel or pair_table_fits(N))
+    if (n % 6 or K < 2 or bad or not (channel or row_stages_serve(K, N))
             or tuple(c.rho_s.shape) not in ((K, 6), (B, K, 6))
             or tuple(c.rho_c.shape) not in ((K, P), (B, K, P))):
         raise ValueError(f"{what}: unsupported shapes: x {tuple(rows.x.shape)}"
@@ -430,9 +441,12 @@ def admm_channel_interval(Linv, Eb, rows: Rows, c: RowConsts,
     state, so ``c.eta`` and the pairs are not read, the static rows are 2N
     independent channel problems a lane, and each collision row runs its
     exact-penalty prox and dual step with A xt = 0 (any finite collision
-    state, any lower bounds).  CUDA tensors launch the kernel (float32,
-    contiguous; anything else raises), CPU tensors run the plain
-    version."""
+    state, any lower bounds).  The kernel indexes the batch's collision
+    rows as ``int``: B K P < 2^31, at N = 342 and K = 50 B <= 736 lanes a
+    launch; the grouped routes' chunks at that N are far smaller, since a
+    lane's float32 X-form factors alone take 842 MB.  CUDA tensors launch
+    the kernel (float32, contiguous; anything else raises), CPU tensors
+    run the plain version."""
     if _on_cpu("admm_channel_interval", rows.x):
         return admm_channel_interval_plain(Linv, Eb, rows, c, n_iters)
     (B, K, N), strides = _operands("admm_channel_interval", rows, c,

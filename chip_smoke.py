@@ -26,10 +26,15 @@
    sweeps print the launch plan they ran (``group_solve.sweep_plan``); both
    fused intervals again with one rho a lane (adaptive rho), read through
    their per-lane strides (the X form at N=30, B=128, the L form at N=20,
-   B=64); the steps phase (``steps_phase``): the ADMM stages of
+   B=64); the grouped routes' kernels past N = 341 (``wide_kernel_phase``:
+   the X-form and the L-only sweep at N=342, B=2, and at N=1024, n=6144,
+   B=1 with the horizon cut to K=6, and one call of the NS chain at
+   N=342); the steps phase
+   (``steps_phase``): the ADMM stages of
    ``ops/admm_steps.py``, admm_rhs and admm_update around the X-form sweep
    kernel (the grouped routes' iteration) at N=20 (B=512, 128, 64, 1),
-   N=21 (B=128) and N=10 (B=1024), and the collision-free channel
+   N=21 (B=128), N=10 (B=1024), N=200 (B=2, admm_rhs's direct form),
+   N=342 (B=1) and N=1024 (B=1, K=6), and the collision-free channel
    interval (a random finite collision state, half its lower bounds
    finite) at N=20 (B=1024, 512, 132, 8, 64, 1), N=21 (B=128), N=10
    (B=1024) and N=40 (B=2048), each also with one rho a lane (B=64),
@@ -55,7 +60,14 @@
    < 5 cm.  Then the soak / N-sweep twin
    (``scripts/torch_soak_nsweep.py:run_cfg``) at N=50 and N=60 with its
    batch cut to 256, chunk 128 (the fused route; counts printed, not
-   barred);
+   barred); then the wide phase (``wide_phase``), the grouped routes at
+   N=342, K=50 on 2 lanes: ``solve_qp_state`` with the production solver
+   on ``grouped_X`` and with the ``SCP`` class's solver on ``grouped_L``
+   (its QP budget cut to 50), each
+   against the same call on the "graph" interval (``admm_iterations``
+   around the same sweep kernel), and one ``solve_compacted`` with its
+   SCP loop cut to 2 iterations from a lattice of starts (finite
+   trajectories, three launches an ADMM iteration; feasibility printed);
 6. the reference-compatible path at N=20: ``SCPEngine.solve_batch`` over
    FACADE_B scenarios with the ``SCP`` class's solver (L-form factors, hard
    collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
@@ -418,17 +430,18 @@ def ns_check(n_veh, D, C, tag):
     return out["high"]
 
 
-def _sweep_check(tag, kernel, plain, factors, b, b_admm):
+def _sweep_check(tag, kernel, plain, factors, b, b_admm, reps=20):
     """A sweep kernel against its plain version on the card: every (b, k)
     block within SWEEP_TOL on a random right-hand side; on one at the ADMM
     loop's scale, where the solve cancels ~2500x and FP32 itself is off by
     ~1e-5, within ADMM_ERR_RATIO of the plain FP32 version's error against
-    float64.  Returns (max abs error, kernel ms, plain ms)."""
+    float64.  The kernel is timed over ``reps`` calls.  Returns (max abs
+    error, kernel ms, plain ms)."""
     import torch
     x, xp = kernel(*factors, b), plain(*factors, b)
     torch.cuda.synchronize()
     sw_abs, sw_rel = float((x - xp).abs().max()), _block_rel(x, xp, 1)
-    sw_ms = _time_ms(lambda: kernel(*factors, b), reps=20)
+    sw_ms = _time_ms(lambda: kernel(*factors, b), reps=reps)
     sw_plain_ms = _time_ms(lambda: plain(*factors, b), reps=3)
     x64 = plain(*(f.double() for f in factors), b_admm.double())
     adm_err = _block_rel(kernel(*factors, b_admm).double(), x64, 1)
@@ -471,6 +484,76 @@ def kernel_phase(dev, B):
                 sw_abs, sw_ms, sw_plain_ms, f"N=20 K={K_STEPS} B={B}",
                 B * K_STEPS * (n * n + 2 * n) * 4, B * 2 * K_STEPS * 2 * n * n,
                 B * K_STEPS * (2 * n * n + 2 * n) * 4)}
+
+
+# (N, B, K) of the wide kernel checks: the grouped routes past N = 341, the
+# production QP's N=342 at the wide path's batch and N=1024 (n=6144, the
+# widest the sweeps serve) with its horizon cut to K=6 (WIDE_STEP_SHAPES)
+WIDE_KERNEL_SHAPES = ((342, 2, K_STEPS), (1024, 1, 6))
+WIDE_REPS = 2                      # timed calls of a sweep there
+
+
+def wide_kernel_phase(dev):
+    """The kernels of the grouped routes at WIDE_KERNEL_SHAPES, each
+    against its plain version as at N=20: the X-form sweep on the plain
+    NS factors (cuBLAS) and the L-only sweep on the block Cholesky factors
+    of the ``SCP`` class's solver, each timed over WIDE_REPS calls; at
+    N=342 also one call of the NS chain's tensor-core route (its
+    ``"high"``, the production solver's; seconds a call, PERF.md §6)
+    against the plain chain, timed alone.  Returns {kernel: {shape: its
+    numbers}}."""
+    import torch
+    from ba_path_planning_torch.ops import group_solve, ns_chain
+    out = {"ns_chain": {}, "group_solve_x": {}, "group_solve_l": {}}
+    for n_veh, B, K in WIDE_KERNEL_SHAPES:
+        shape, n = f"N={n_veh} K={K} B={B}", 6 * n_veh
+        D, C, b, b_admm, _ = _case(n_veh, B, dev, seed=B + n_veh, n_steps=K)
+        t0 = time.perf_counter()
+        Xp = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if n_veh == WIDE_N:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            X = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
+                                                   ns_precision="high")
+            stop.record()
+            torch.cuda.synchronize()
+            ms, err = start.elapsed_time(stop), _block_rel(X, Xp, 2)
+            flops = B * (K - 4) * 2 * 4 * n ** 3
+            st = _stat(float((X - Xp).abs().max()), ms, plain_ms, shape,
+                       2 * B * K * n * n * 4, 3 * flops,
+                       2 * B * K * n * n * 4, library_ms=plain_ms,
+                       flop_s=TF32_FLOP_S)
+            out["ns_chain"][shape] = st
+            print(f"wide kernel phase: factorize_X_chain_batched "
+                  f"ns_precision=high N={n_veh} K={K} B={B} one call "
+                  f"{ms:.1f} ms (anchors included), plain factorize_X "
+                  f"{plain_ms:.1f} ms; max_block_rel={err:.3e} (tol "
+                  f"{NS_TOL:g}); bound {st['bound_ms']:.3f} ms (three TF32 "
+                  f"passes; {st['bound_ms'] / ms:.2%})", flush=True)
+            if not err <= NS_TOL:
+                raise AssertionError(f"NS chain at N={n_veh} disagrees: "
+                                     f"{err:.3e}")
+            del X
+        del D
+        err, ms, sw_plain_ms = _sweep_check(
+            f"wide kernel phase B={B} N={n_veh} K={K} f32: "
+            f"solve_factorized_grouped_X ({_plan(b, 'X')})",
+            group_solve.solve_factorized_grouped_X,
+            group_solve.solve_factorized_grouped_X_plain, (Xp, C), b, b_admm,
+            reps=WIDE_REPS)
+        out["group_solve_x"][shape] = _stat(
+            err, ms, sw_plain_ms, shape, B * K * (n * n + 2 * n) * 4,
+            B * 2 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
+        del Xp, b, b_admm
+        out["group_solve_l"][shape] = lform_phase(
+            dev, n_veh, B, n_steps=K, reps=WIDE_REPS)["group_solve_l"]
+    for at in out.values():
+        for st in at.values():
+            st.pop("timed_at", None)
+    return out
 
 
 def _rows(out):
@@ -663,6 +746,13 @@ def lane_rho_phase(dev):
 # stage is timed alone at each
 STEP_SHAPES = ((20, 512), (20, 128), (20, 64), (20, 1), (21, 128),
                (10, 1024))
+# (N, B, K) of the stages' checks and times past the fused kernels' pair
+# table (N <= 341): admm_rhs's direct form at its one earlier timed shape
+# (N=200, B=2), the grouped routes' production QP at N=342 (B=1), and the
+# widest N the sweeps serve, N=1024 (n=6144), its horizon cut to K=6 (its
+# float32 X-form factors would take 7.5 GB a lane at K=50, their float64
+# reference twice that)
+WIDE_STEP_SHAPES = ((200, 2, K_STEPS), (342, 1, K_STEPS), (1024, 1, 6))
 # (N, B) of the channel interval's checks and times: the N=20 main path's
 # phase 1 over its 1024 lanes and its chunks, one batch a lane an SM, a few
 # lanes, the reference-compatible batch, one scenario, the widest grouped
@@ -723,19 +813,23 @@ def _channel_case(n_veh, B, dev, seed, lane_rho=None):
             dict(h=H, sigma=prm.sigma, alpha=prm.alpha, lam=prm.col_penalty))
 
 
-def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
+def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None,
+                n_steps=K_STEPS):
     """Inputs of one check interval as the path lays them out, float32 on
     the card: the rows, rho and bounds of :func:`_case` (collision rows
     disabled by a -inf lower bound take the loose rho, as on the sweep
     routes), and the grouped X route's factors from the NS-chain kernel
     (``lane_rho``: of M / rho with the unit slot scalars, as the solver
-    factorizes them, and each lane's 1 / rho); with ``phase1`` the
+    factorizes them, and each lane's 1 / rho; from N = WIDE_N the plain
+    chain's, cuBLAS, since the kernel takes seconds a lane there and the
+    stages are what is checked); with ``phase1`` the
     collision-free QP's (:func:`_channel_case`; per-lane factors with
     ``lane_rho``).  The state is warm, as a solve finds it: one float64
     plain interval of 25 iterations from x at rest, z = clip(A x, l, u),
     y = 0; with ``phase1`` the collision rows of z and y are then drawn at
-    random (the kernel must serve any finite collision state).  Returns
-    (factors, consts, rows, inv_rho, consts64)."""
+    random (the kernel must serve any finite collision state).  The sweep
+    routes' inputs take ``n_steps`` steps.  Returns (factors, consts,
+    rows, inv_rho, consts64)."""
     import numpy as np
     import torch
     from ba_path_planning_torch.ops import admm_steps, ns_chain
@@ -746,7 +840,8 @@ def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
         factors, lower, upper, rho, eta, E, x, step = _channel_case(
             n_veh, B, dev, seed, lane_rho)
     else:
-        D, C, _, _, kw = _case(n_veh, B, dev, seed=seed, lane_rho=lane_rho)
+        D, C, _, _, kw = _case(n_veh, B, dev, seed=seed, lane_rho=lane_rho,
+                               n_steps=n_steps)
         static = SolverConfig.production(problem=_problem(n_veh)).static_part()
         lower, upper, eta, E, x = (kw[k] for k in ("lower", "upper", "eta",
                                                    "E", "x"))
@@ -755,12 +850,14 @@ def _steps_case(n_veh, B, dev, seed, phase1=False, lane_rho=None):
         rho = rho._replace(col=torch.where(
             torch.isinf(lower.col), torch.full_like(lower.col, 1e-6),
             rho.col.expand_as(lower.col)))
-        if lane_rho is None:
+        if n_veh >= WIDE_N:
+            factors = (ns_chain.factorize_X_chain_plain(D, C, ns_iters=2), C)
+        elif lane_rho is None:
             factors = (ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
                                                           ns_precision="high"),
                        C)
         else:
-            C1 = banded.unit_slot_scalars(static, n_steps=K_STEPS, h=H,
+            C1 = banded.unit_slot_scalars(static, n_steps=n_steps, h=H,
                                           device=dev)
             factors = (ns_chain.factorize_X_chain_batched(
                 D / lane_rho.reshape(-1, 1, 1, 1), C1, ns_iters=2,
@@ -811,19 +908,21 @@ def _steps_run(rows, c, factors, n_iters, inv_rho, phase1, kernel=True):
         update(solve(*factors, rhs(rows, c, inv)), rows, c)
 
 
-def _steps_check(tag, n_veh, B, dev, phase1=False, lane_rho=None):
+def _steps_check(tag, n_veh, B, dev, phase1=False, lane_rho=None,
+                 n_steps=K_STEPS):
     """The path's launches for 1 and 25 iterations against the plain
     versions on the same float32 inputs on the card: x and z within
     FUSED_TOL of plain after one iteration, and after 1 and 25 iterations
     every block no further from the float64 plain interval than
-    ADMM_ERR_RATIO times the plain float32 version is.  Returns the
-    largest absolute difference from plain after one iteration, and the
-    inputs (factors, consts, rows, inv_rho)."""
+    ADMM_ERR_RATIO times the plain float32 version is (the sweep routes at
+    ``n_steps`` steps).  Returns the largest absolute difference from plain
+    after one iteration, and the inputs (factors, consts, rows,
+    inv_rho)."""
     import torch
     from ba_path_planning_torch.ops import admm_steps
     factors, c, rows0, inv_rho, c64 = _steps_case(
         n_veh, B, dev, seed=2000 + n_veh + B, phase1=phase1,
-        lane_rho=lane_rho)
+        lane_rho=lane_rho, n_steps=n_steps)
     errs, k64, p64 = {}, {}, {}
     for n_iters in (1, 25):
         got, want = (admm_steps.Rows(*(t.clone() for t in rows0))
@@ -848,7 +947,8 @@ def _steps_check(tag, n_veh, B, dev, phase1=False, lane_rho=None):
 
     def fmt(v):
         return "[" + ", ".join(f"{e:.3e}" for e in v) + "]"
-    print(f"{tag} N={n_veh} B={B} K={K_STEPS} f32: block errors of (x, z, y) "
+    K = K_STEPS if phase1 else n_steps
+    print(f"{tag} N={n_veh} B={B} K={K} f32: block errors of (x, z, y) "
           f"after 1 and 25 iterations against plain {fmt(errs[1])} (x, z tol "
           f"{FUSED_TOL:g}), {fmt(errs[25])}, max_abs={abs_err:.3e}; against "
           f"float64 kernels {fmt(k64[1])}, {fmt(k64[25])}, plain f32 "
@@ -928,9 +1028,10 @@ def steps_phase(dev):
     """The ADMM stages (``ops/admm_steps.py``): admm_rhs and admm_update
     with the X-form sweep kernel between them (the grouped X route's
     iteration) and the channel interval, each against its plain version
-    (:func:`_steps_check`) at STEP_SHAPES and CHANNEL_SHAPES, and with one
-    rho a lane (N=20, B=64); admm_rhs and admm_update timed alone at each
-    of STEP_SHAPES (device time, :func:`_device_ms`, and CUDA events;
+    (:func:`_steps_check`) at STEP_SHAPES, WIDE_STEP_SHAPES and
+    CHANNEL_SHAPES, and with one rho a lane (N=20, B=64); admm_rhs and
+    admm_update timed alone at each of STEP_SHAPES and WIDE_STEP_SHAPES
+    (device time, :func:`_device_ms`, and CUDA events;
     their plain versions at N=20, B=512), with their bound and plan, the
     interval at each of CHANNEL_SHAPES and with one rho a lane (its plain
     version at N=20, B=1024, phase 1's batch); the device launches per
@@ -943,25 +1044,27 @@ def steps_phase(dev):
     from ba_path_planning_torch.solvers import banded
     from ba_path_planning_torch.utils import profiling
     out, at = {}, {"admm_rhs": {}, "admm_update": {}}
-    for n_veh, B in STEP_SHAPES:
+    for n_veh, B, K in ([s + (K_STEPS,) for s in STEP_SHAPES]
+                        + list(WIDE_STEP_SHAPES)):
         abs_err, factors, c, rows, inv_rho = _steps_check(
-            "steps phase: admm_rhs + sweep + admm_update", n_veh, B, dev)
+            "steps phase: admm_rhs + sweep + admm_update", n_veh, B, dev,
+            n_steps=K)
         # each stage alone: its device time, and CUDA events over
         # back-to-back calls (the host's launch cost included)
         b = admm_steps.admm_rhs(rows, c)
         xt = group_solve.solve_factorized_grouped_X(*factors, b)
         work = admm_steps.Rows(*(t.clone() for t in rows))
-        shape = f"N={n_veh} B={B}"
-        rhs_plan = admm_steps.rhs_plan(B, K_STEPS, n_veh)
+        shape = f"N={n_veh} B={B}" + ("" if K == K_STEPS else f" K={K}")
+        rhs_plan = admm_steps.rhs_plan(B, K, n_veh)
         plans = {"admm_rhs": dict(
                      form="table" if rhs_plan.table else "direct",
                      k_tile=rhs_plan.k_tile),
                  "admm_update": dict(
-                     k_tile=admm_steps.update_plan(B, K_STEPS, n_veh))}
+                     k_tile=admm_steps.update_plan(B, K, n_veh))}
         for key, fn in (("admm_rhs", lambda: admm_steps.admm_rhs(rows, c)),
                         ("admm_update",
                          lambda: admm_steps.admm_update(xt, work, c))):
-            cost = profiling.admm_stage_cost(key, n_veh, K_STEPS)
+            cost = profiling.admm_stage_cost(key, n_veh, K)
             bound, by = _bound_ms(B * cost["hbm_bytes"], B * cost["flops"])
             device = _device_ms(fn)
             at[key][shape] = dict(
@@ -1063,12 +1166,13 @@ def steps_phase(dev):
 
 
 def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
-                n_steps=K_STEPS):
+                n_steps=K_STEPS, reps=20):
     """The L-form family on the factors of the reference-compatible solver
     (float32 block Cholesky on the card, as the path computes them) at
-    ``n_steps`` steps: the L-only sweep (unless not ``l_only``); with
-    ``dense`` the dense (Linv, Eb) sweep; with ``fused`` the L-form fused
-    interval, whose penalty weight is this solver's +inf."""
+    ``n_steps`` steps: the L-only sweep (unless not ``l_only``; timed over
+    ``reps`` calls); with ``dense`` the dense (Linv, Eb) sweep; with
+    ``fused`` the L-form fused interval, whose penalty weight is this
+    solver's +inf."""
     from ba_path_planning_torch.ops import admm_fused, banded_solve, group_solve
     from ba_path_planning_torch.solvers import banded
     D, C, b, b_admm, kw = _case(n_veh, B, dev, seed=1000 + n_veh + B,
@@ -1084,7 +1188,7 @@ def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
             f"{tag}: solve_factorized_grouped_L ({_plan(b, 'L')})",
             group_solve.solve_factorized_grouped_L,
             group_solve.solve_factorized_grouped_L_plain, (Linv, C), b,
-            b_admm)
+            b_admm, reps=reps)
         out["group_solve_l"] = _stat(
             err, ms, plain_ms, shape, B * K * (n * n + 2 * n) * 4,
             B * 4 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
@@ -1211,9 +1315,18 @@ PHASE1 = {"admm_channel_interval"}
 
 def _production_route(n_veh):
     """The kernels of the production solver at N=n_veh, as the JAX router
-    routes: grouped sweeps with the ADMM stages up to N=21, the fused
-    interval above; phase 1 on the channel interval."""
-    return PHASE1 | ({"ns_chain", "admm_fused_x"} if n_veh >= 22
+    routes (``banded.qp_route``): the grouped X sweep with the ADMM stages
+    where it routes there (at K=50, N <= 21 and N >= 109, where the fused
+    interval's factors pass its gate), else the fused interval; phase 1 on
+    the channel interval."""
+    import torch
+    from ba_path_planning_torch.solvers.banded import qp_route
+    from ba_path_planning_torch.utils.config import SolverConfig
+    route = qp_route(
+        SolverConfig.production(problem=_problem(n_veh)).static_part(),
+        n_vehicles=n_veh, n_steps=K_STEPS, dtype=torch.float32,
+        col_enabled=True)
+    return PHASE1 | ({"ns_chain", "admm_fused_x"} if route == "fused_X"
                      else {"ns_chain", "group_solve_x"} | ROW_STAGES)
 
 
@@ -1303,6 +1416,192 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
     return launches
+
+
+# The wide phase: the grouped routes past the fused kernels' pair table
+# (N <= 341), at the production QP's N=342, K=50 on WIDE_B lanes; the
+# ``SCP`` class's QP budget cut from 2000 iterations to WIDE_FACADE_ITERS
+# and the wide solve_compacted's SCP loop from 15 to WIDE_SCP iterations
+WIDE_N, WIDE_B, WIDE_FACADE_ITERS, WIDE_SCP = 342, 2, 50, 2
+# x of the stages' route against the "graph" interval (admm_iterations
+# around the same sweep kernel), every (b, k) block after a whole QP
+WIDE_QP_TOL = FUSED_TOL
+
+
+def _graph_interval_kind(route, dtype, device, group=None):
+    return "graph"
+
+
+def wide_qp(dev, card, counters, label, solver, route, seed):
+    """One ``banded.solve_qp_state`` at N=WIDE_N, K=50, B=WIDE_B on
+    ``route`` from :func:`_case`'s inputs for ``seed`` (its bounds,
+    collision rows and warm x), float32 on the card: through the row
+    stages (admm_rhs, the route's sweep, admm_update;
+    ``admm_iterations`` never reached), then
+    the same call with ``banded.interval_kind`` naming "graph"
+    (``admm_iterations`` around the same sweep kernel, replayed as a CUDA
+    graph).  Equal iteration counts and convergence flags, x of every
+    (b, k) block within WIDE_QP_TOL, three launches an ADMM iteration.
+    Returns the launch counts of the row-stage solve."""
+    import torch
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.utils.config import make_solver_params
+    f32 = torch.float32
+    kw = _case(WIDE_N, WIDE_B, dev, seed=seed, solver=solver)[4]
+    static = solver.static_part()
+    took = banded.qp_route(static, n_vehicles=WIDE_N, n_steps=K_STEPS,
+                           dtype=f32, col_enabled=True)
+    if took != route:
+        raise AssertionError(f"{label}: route {took}, not {route}")
+    prm = make_solver_params(solver, f32, dev)
+
+    def solve():
+        return banded.solve_qp_state(
+            kw["lower"], kw["upper"], kw["eta"], kw["x"], prm, kw["E"], h=H,
+            static=static, n_vehicles=WIDE_N)
+    plain_iterations = banded.admm_iterations
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("admm_iterations reached")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    banded.admm_iterations = refuse
+    try:
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        banded.admm_iterations = plain_iterations
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    sweep = "group_solve_x" if route == "grouped_X" else "group_solve_l"
+    iters = int(res.iters.max())
+    per_it = (launches["admm_rhs"] + launches[sweep]
+              + launches["admm_update"]) / max(iters, 1)
+    kind = banded.interval_kind
+    banded.interval_kind = _graph_interval_kind
+    try:
+        _zero(counters)
+        t0 = time.perf_counter()
+        ref = solve()
+        torch.cuda.synchronize()
+        wall_g = time.perf_counter() - t0
+        graph_launches = _read(counters)
+    finally:
+        banded.interval_kind = kind
+    got, want = (banded.to_stacked(r.x) for r in (res, ref))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite x")
+    err = _block_rel(got, want, 1)
+    abs_err = float((got - want).abs().max())
+    print(f"wide phase: {label}: route {route} N={WIDE_N} K={K_STEPS} "
+          f"B={WIDE_B} f32 on {card}: iterations {res.iters.tolist()} "
+          f"(graph interval {ref.iters.tolist()}), converged "
+          f"{res.converged.tolist()} ({ref.converged.tolist()}); x against "
+          f"the graph interval max_block_rel={err:.3e} (tol "
+          f"{WIDE_QP_TOL:g}) max_abs={abs_err:.3e}; wall {wall:.3f} s "
+          f"(graph interval {wall_g:.3f} s), peak_mem={peak:.2f} GiB; "
+          f"launches per ADMM iteration {per_it:.2f}; launches={launches}; "
+          f"graph interval's {graph_launches}", flush=True)
+    if not (torch.equal(res.iters, ref.iters)
+            and torch.equal(res.converged, ref.converged)):
+        raise AssertionError(f"{label}: iteration counts differ from the "
+                             "graph interval's")
+    if not err <= WIDE_QP_TOL:
+        raise AssertionError(f"{label}: x off the graph interval's: "
+                             f"{err:.3e}")
+    if not (launches["admm_rhs"] == launches["admm_update"] == iters
+            == launches[sweep] and graph_launches["admm_rhs"] == 0
+            and graph_launches["admm_update"] == 0):
+        raise AssertionError(f"{label}: launches {launches}, graph "
+                             f"{graph_launches}, {iters} iterations")
+    return launches
+
+
+def wide_path(dev, card, counters):
+    """``ShardedSCPSolver.solve_compacted`` with the production solver at
+    N=WIDE_N, K=50, WIDE_B lanes in one chunk, the SCP loop cut to
+    WIDE_SCP iterations: starts on the first WIDE_N points of the 19 x 19
+    lattice of 1 m pitch in the 20 m box (every start pair 1 m > R apart;
+    the generator cannot place this many vehicles), goals a permutation of
+    them a lane (``numpy.random.default_rng(WIDE_N)``).  It must run to its
+    end with finite trajectories on the grouped X route (phase 1 on the
+    channel interval, then the NS chain and three launches an ADMM
+    iteration); feasibility is printed, not barred.  Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.utils.config import SolverConfig
+    problem = _problem(WIDE_N).replace(max_iterations=WIDE_SCP)
+    solver = SolverConfig.production(problem=problem)
+    sh = ShardedSCPSolver(problem, solver, dtype=torch.float32, device=dev)
+    g = np.arange(1, 20, dtype=np.float32)
+    lattice = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    lattice = lattice[:WIDE_N]
+    rng = np.random.default_rng(WIDE_N)
+    p0 = torch.as_tensor(np.stack([lattice] * WIDE_B), device=dev)
+    pf = torch.as_tensor(np.stack([lattice[rng.permutation(WIDE_N)]
+                                   for _ in range(WIDE_B)]), device=dev)
+    v0 = torch.zeros_like(p0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = sh.solve_compacted(p0, v0, pf, v0, chunk=WIDE_B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    if tuple(out.positions.shape) != (WIDE_B, WIDE_N, K_STEPS, 2):
+        raise AssertionError(f"positions shape {tuple(out.positions.shape)}")
+    if not all(bool(torch.isfinite(t).all()) for t in (
+            out.positions, out.velocities, out.accelerations)):
+        raise AssertionError("wide path: non-finite trajectories")
+    route = _production_route(WIDE_N)
+    _check_route("the wide path", launches, route)
+    per_it = (launches["admm_rhs"] + launches["group_solve_x"]
+              + launches["admm_update"]) / launches["group_solve_x"]
+    status = np.bincount(out.status.cpu().numpy(), minlength=3).tolist()
+    print(f"wide phase: solve_compacted B={WIDE_B} chunk={WIDE_B} "
+          f"N={WIDE_N} K={K_STEPS} R={R} f32, SCP loop cut to {WIDE_SCP}, on "
+          f"{card}: route grouped_X ({sorted(route)}), launches per ADMM "
+          f"iteration {per_it:.2f}, wall={wall:.3f} s "
+          f"peak_mem={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"statuses={status} scp_iters={out.iterations.tolist()} "
+          f"qp_iters={out.qp_iterations.tolist()} collision_free="
+          f"{int(out.feasible_final.sum())}/{WIDE_B} "
+          f"timing={json.dumps(sh.last_timing)} launches={launches}",
+          flush=True)
+    if per_it != 3:
+        raise AssertionError(f"wide path: {per_it} launches an iteration")
+    return launches
+
+
+def wide_phase(dev, card, counters):
+    """The grouped routes past N = 341 end to end: the production QP on
+    ``grouped_X`` and the ``SCP`` class's QP on ``grouped_L`` (its QP
+    budget cut to WIDE_FACADE_ITERS, two check intervals), each held
+    against the "graph" interval (:func:`wide_qp`; bf16 factors there are
+    the card tests'), and one wide solve_compacted (:func:`wide_path`).
+    Returns the launch counts of the row-stage solves and the path."""
+    from ba_path_planning_torch.solvers.scp import REFERENCE_SOLVER
+    from ba_path_planning_torch.utils.config import SolverConfig
+    total = {}
+    for seed, (label, solver, route) in enumerate((
+            ("production QP",
+             SolverConfig.production(problem=_problem(WIDE_N)), "grouped_X"),
+            (f"SCP class QP (budget cut to {WIDE_FACADE_ITERS})",
+             REFERENCE_SOLVER.replace(kernels=True,
+                                      max_iter=WIDE_FACADE_ITERS),
+             "grouped_L")), 3420):
+        for key, n in wide_qp(dev, card, counters, label, solver, route,
+                              seed).items():
+            total[key] = total.get(key, 0) + n
+    for key, n in wide_path(dev, card, counters).items():
+        total[key] = total.get(key, 0) + n
+    return total
 
 
 # (N, scenarios, chunk) of the soak / N-sweep twin's widest configurations
@@ -2684,8 +2983,15 @@ def main():
     # where the router sends short horizons
     lform_phase(dev, 90, 8, fused=True, l_only=False, n_steps=3)
     lane = lane_rho_phase(dev)
+    # the grouped routes' kernels past N = 341: n = 2052 and 6144
+    for key, at in wide_kernel_phase(dev).items():
+        stats = lstats[40][key] if key == "ns_chain" else (
+            kstats if key == "group_solve_x" else fstats)[key]
+        stats["wide_shapes"] = at
+    torch.cuda.empty_cache()
     lap("kernel phases")
     gstats = steps_phase(dev)
+    torch.cuda.empty_cache()
     lap("steps phase")
     bstats = bf16_kernel_phase(dev)
     lap("bf16 kernel phase")
@@ -2723,6 +3029,12 @@ def main():
     lstats[40]["ns_chain"]["launches_ns_precision_default"] = (
         default_launches["ns_chain"])
     lap("ns_precision=default path")
+    wide_launches = wide_phase(dev, card, counters)
+    add(wide_launches)
+    for key in ("admm_rhs", "admm_update"):
+        gstats[key]["launches_wide_phase"] = wide_launches[key]
+    torch.cuda.empty_cache()
+    lap("wide phase")
     add(sweep_phase(dev, card, counters))
     lap("soak / N-sweep twin at N=50, 60")
     results = {}

@@ -5,7 +5,8 @@ on one GPU.
     python3 scripts/torch_sweep_bench.py [--cases X:20:512,...] [--root DIR]
                                          [--time-only] [--graph] [--bf16]
 
-Each case (form, N, B; K=50) is built and checked as ``chip_smoke.py``
+Each case (form, N, B; K=50, or a fourth field for case S: ``S:1024:1:6``)
+is built and checked as ``chip_smoke.py``
 builds and checks it: the X-form sweep (form X) on the NS factors of
 production blocks, the L-only sweep (L) and the dense (Linv, Eb) sweep (D)
 on the block Cholesky factors of the reference-compatible solver, through
@@ -116,17 +117,19 @@ def main():
         ln.strip() for ln in cuda_build.build_info["log"].splitlines()
         if ln.endswith(".cu:") or "Compiling entry" in ln
         or "registers" in ln or "spill" in ln), flush=True)
-    dev, K = torch.device("cuda", 0), cs.K_STEPS
+    dev = torch.device("cuda", 0)
     plan_fn = getattr(group_solve, "sweep_plan", None)
     for case in args.cases.split(","):
-        form, N, B = case.split(":")
+        form, N, B, *steps = case.split(":")
         N, B = int(N), int(B)
+        K = int(steps[0]) if steps else cs.K_STEPS
         n = 6 * N
         if form in ("S", "C", "CL"):
             from ba_path_planning_torch.ops import admm_steps
             err, factors, c, rows, _ = cs._steps_check(
                 f"{form} N={N} B={B}", N, B, dev, phase1=form != "S",
-                lane_rho=cs._lane_rho(B, seed=21) if form == "CL" else None)
+                lane_rho=cs._lane_rho(B, seed=21) if form == "CL" else None,
+                **({"n_steps": K} if steps else {}))
             work = admm_steps.Rows(*(t.clone() for t in rows))
             if form == "S":
                 b = admm_steps.admm_rhs(rows, c)

@@ -179,8 +179,8 @@ def test_row_and_channel_plans():
     blocks of 4 channels at the production batches, narrower ones where
     the SMs would idle (B = 8), and puts
     a block's region in a global scratch only where it does not fit shared
-    memory; the pair table the fused kernels keep in shared memory serves
-    N <= 341."""
+    memory; at N = 342 and 1024 both stages take one step a block,
+    admm_rhs in its direct form."""
     rhs = admm_steps.rhs_plan
     assert rhs(1, 50, 20) == (1, True, 3040)
     assert rhs(512, 50, 20) == (6, True, 6 * 20 * 19 * 8)
@@ -208,8 +208,9 @@ def test_row_and_channel_plans():
         3 * 2 + 10) + 50 * 25
     assert admm_steps.channel_region_floats(500, 1, 0) == 500 * 7 \
         + 32 * 42 * 16
-    assert admm_steps.pair_table_fits(341)
-    assert not admm_steps.pair_table_fits(342)
+    for B, K, N in ((1, 50, 342), (2, 50, 342), (1, 6, 1024), (4, 6, 1024)):
+        assert rhs(B, K, N) == (1, False, 0)
+        assert admm_steps.update_plan(B, K, N) == 1
 
 
 def _pair_first(p, N):
@@ -229,38 +230,70 @@ def _pair_first(p, N):
         i = i - down + up
 
 
-def _rhs_table_model(w, eta, N):
-    """float64 model of admm_rhs's collision term (``csrc/admm_steps.cu``):
-    phase A writes each collision row (k + 1, p)'s terms w eta once into
-    the transposed table, row (k, v) holding vehicle v's N - 1 partner
-    terms in ascending partner order (+ in the first vehicle's row, - in
-    the second's); phase B sums each row in that order.  The direct form
-    (N > 170) sums the same terms in the same order from where they lie.
-    w (K, P), eta (K, P, 2) -> (N, K, 2), zero at K - 1."""
+def _rhs_rows(w, eta, N):
+    """The rows of admm_rhs's transposed pair table: row (k, v) holds
+    vehicle v's N - 1 partner terms w eta of the collision rows at k + 1 in
+    ascending partner order (+ in the first vehicle's row, - in the
+    second's), from the kernels' closed form of the pairs.  w (K, P), eta
+    (K, P, 2) -> (K - 1, N, N - 1, 2)."""
     K, P = w.shape
     p = np.arange(P)
     i = _pair_first(p, N)
     j = p - i * (2 * N - i - 1) // 2 + i + 1
     assert np.array_equal(i, np.triu_indices(N, 1)[0])
-    table = np.full((K - 1, N, max(N - 1, 1), 2), np.nan)
+    table = np.full((K - 1, N, max(N - 1, 1), 2), np.nan, dtype=w.dtype)
     t = w[1:, :, None] * eta[1:]
     table[:, i, j - 1] = t
     table[:, j, i] = -t
-    col = np.zeros((N, K, 2))
+    return table
+
+
+def _rhs_table_model(w, eta, N):
+    """Model of admm_rhs's collision term in its table form
+    (``csrc/admm_steps.cu``, N <= 170), in the dtype of w: phase A writes
+    each collision row's terms once into the transposed table
+    (:func:`_rhs_rows`), phase B sums each row in one sum, slot by slot.
+    w (K, P), eta (K, P, 2) -> (N, K, 2), zero at K - 1."""
+    table = _rhs_rows(w, eta, N)
+    col = np.zeros((N, w.shape[0], 2), dtype=w.dtype)
     for s in range(N - 1):
         col[:, :-1] += table[:, :, s].transpose(1, 0, 2)
     return col
 
 
-@pytest.mark.parametrize("N", [2, 4, 20, 21, 170, 171])
+def _rhs_direct_model(w, eta, N, acc=4):
+    """Model of the direct form's collision term (``rhs_pair_sum``, N >
+    170), in the dtype of w: the same terms in the same order, vehicle v's
+    partners u < v in partial sum u % acc and its partners u > v in
+    partial sum (u - v - 1) % acc, the sums joined pairwise."""
+    table = _rhs_rows(w, eta, N)
+    K1 = table.shape[0]
+    parts = np.zeros((K1, N, acc, 2), dtype=w.dtype)
+    v = np.arange(N)
+    for s in range(N - 1):
+        slot = np.where(s < v, s, s - v) % acc
+        parts[:, v, slot] = parts[:, v, slot] + table[:, :, s]
+    width = acc // 2
+    while width:
+        parts[:, :, :width] = (parts[:, :, :width]
+                               + parts[:, :, width:2 * width])
+        width //= 2
+    col = np.zeros((N, w.shape[0], 2), dtype=w.dtype)
+    col[:, :-1] = parts[:, :, 0].transpose(1, 0, 2)
+    return col
+
+
+@pytest.mark.parametrize("N", [2, 4, 20, 21, 170, 171, 342])
 def test_rhs_table_model_matches_jax_collision_term(N):
-    """The table form's phase A and phase B (N <= 170), and the direct
-    form's order (N = 171, past the switch), against the collision term of
-    JAX's ``apply_AT`` (``ba_path_planning_tpu/solvers/banded.py:133``):
-    1e-12 of the term's scale; the closed form of the pairs equals
-    triu_indices."""
+    """The table form's phase A and phase B (it runs at N <= 170) and the
+    direct form's partial sums (it runs past the switch: N = 171, and N =
+    342, the first N the fused kernels' pair table does not serve; K = 2
+    there, where the incidence E is 160 MB), each against the collision
+    term of JAX's ``apply_AT``
+    (``ba_path_planning_tpu/solvers/banded.py:133``): 1e-12 of the term's
+    scale; the closed form of the pairs equals triu_indices."""
     from ba_path_planning_tpu.solvers import banded as jb
-    K = 3 if N > 100 else 6
+    K = 2 if N > 300 else 3 if N > 100 else 6
     P = N * (N - 1) // 2
     rng = np.random.default_rng(N)
     w, eta = rng.normal(size=(K, P)), rng.normal(size=(K, P, 2))
@@ -273,17 +306,96 @@ def test_rhs_table_model_matches_jax_collision_term(N):
                    vbox=zero, pbox=zero, col=jnp.asarray(w))
     want = np.asarray(jb.apply_AT(y, jnp.asarray(eta), jnp.asarray(E),
                                   H).p)
-    got = _rhs_table_model(w, eta, N)
-    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    for model in (_rhs_table_model, _rhs_direct_model):
+        got = model(w, eta, N)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
-def test_rhs_pair_first_closed_form_up_to_341():
+def test_rhs_direct_partial_sums_round_closer_than_one_sum():
+    """At N = 1024 in float32, the direct form's four partial sums of a
+    row's 1023 pair terms (the kernel's kRhsAcc) land closer to the
+    float64 sum than one serial sum of the same terms in the same order
+    (the table form's way, and the direct form's before): the largest
+    error over the rows, against the rows' largest term."""
+    from test_torch_sweep_plan import _constants
+    src = (Path(admm_steps.__file__).resolve().parents[1] / "csrc"
+           / "admm_steps.cu").read_text()
+    assert _constants(src[:src.index("namespace chan")])["kRhsAcc"] == 4
+    N, K = 1024, 2
+    P = N * (N - 1) // 2
+    rng = np.random.default_rng(1024)
+    w = rng.normal(size=(K, P)).astype(np.float32)
+    eta = rng.normal(size=(K, P, 2)).astype(np.float32)
+    exact = _rhs_table_model(w.astype(np.float64), eta.astype(np.float64), N)
+    scale = np.abs(w[1:, :, None] * eta[1:]).max()
+    serial, parts = (np.abs(model(w, eta, N)[:, 0] - exact[:, 0]).max()
+                     / scale for model in (_rhs_table_model,
+                                           _rhs_direct_model))
+    assert parts < 0.5 * serial, (parts, serial)
+
+
+def test_rhs_pair_first_closed_form_up_to_1024():
     """The kernels' float32 closed form of a pair's first vehicle holds
-    for every pair the stages serve (N <= 341)."""
-    for N in (2, 3, 20, 60, 171, 255, 341):
+    for every pair of the N the stages serve (N <= 1024, every N the
+    grouped sweeps serve), on both sides of the fused kernels' 341."""
+    for N in (2, 3, 20, 60, 171, 255, 341, 342, 512, 1023, 1024):
         P = N * (N - 1) // 2
         assert np.array_equal(_pair_first(np.arange(P), N),
                               np.triu_indices(N, 1)[0])
+
+
+def _small_div(i, d):
+    """The kernels' SmallDiv (``csrc/admm_steps.cu``) in float32 as they
+    compute it: the truncated product with the rounded reciprocal, then
+    one correction either way."""
+    inv = np.float32(1) / np.float32(d)
+    q = (i.astype(np.float32) * inv).astype(np.int64)
+    r = i - q * d
+    return q + (r >= d) - (r < 0)
+
+
+@pytest.mark.parametrize("B,K,N", [(1, 50, 342), (2, 50, 342), (1, 6, 1024),
+                                   (4, 6, 1024)])
+def test_small_div_is_exact_over_the_plans_at_n_342_and_1024(B, K, N):
+    """SmallDiv over the index ranges the two plans give at N = 342 and
+    1024: admm_update divides a block's items by N (its static slot pairs,
+    6N a step) and its collision rows by P; admm_rhs's table form divides
+    by 2N and P, its direct form (every N past 170) by ``/``.  Each
+    divisor's quotients are exact over the block's range and up to the
+    host checks' bound, 2^22, and the host checks admit the plans."""
+    P = N * (N - 1) // 2
+    ku, rhs = admm_steps.update_plan(B, K, N), admm_steps.rhs_plan(B, K, N)
+    kr = rhs.k_tile
+    assert not rhs.table and ku == kr == 1
+    # the host checks of admm_update_f32 and admm_rhs_f32
+    assert ku * (12 * N + P) < 2 ** 22 and kr * (2 * N + P) < 2 ** 22
+    for d, hi in ((N, ku * 6 * N), (P, ku * P), (2 * N, kr * 2 * N),
+                  (P, kr * P)):
+        for i in (np.arange(hi), np.arange(2 ** 22)):
+            assert np.array_equal(_small_div(i, d), i // d), (d, hi)
+
+
+def test_row_stages_admission_mirrors_the_kernels():
+    """The row stages' admission (``row_stages_serve``, which ``_operands``
+    applies before any launch) is the kernels' ``row_args_ok``, evaluated
+    from the source: N up to ROW_STAGES_MAX_N, every N the grouped sweeps
+    serve (n = 6N up to group_solve.SWEEP_MAX_N_WIDE), and a lane's rows
+    within int indexing."""
+    import re
+    from ba_path_planning_torch.ops import group_solve as gs
+    from test_torch_sweep_plan import _c_function, _constants
+    src = (Path(admm_steps.__file__).resolve().parents[1] / "csrc"
+           / "admm_steps.cu").read_text()
+    k = _constants(src[:src.index("namespace chan")])
+    assert (k["kRowStagesMaxN"] == admm_steps.ROW_STAGES_MAX_N
+            == gs.SWEEP_MAX_N_WIDE // 6 == 1024)
+    ok = _c_function(re.sub(r"\s+", " ", src).replace("&&", "and"),
+                     "row_args_ok", ("B", "K", "N", "k_tile"), k)
+    for N in (1, 2, 20, 170, 171, 341, 342, 512, 1023, 1024, 1025, 2000):
+        for K in (1, 2, 6, 50, 500, 4052, 4053):
+            assert ok(1, K, N, 1) == admm_steps.row_stages_serve(K, N), (K, N)
+    assert admm_steps.row_stages_serve(4052, 1024)
+    assert not admm_steps.row_stages_serve(4053, 1024)
 
 
 def test_rhs_plan_fills_blocks_and_fits_the_kernel_table():
@@ -292,7 +404,7 @@ def test_rhs_plan_fills_blocks_and_fits_the_kernel_table():
     ROW_MIN_BLOCKS blocks where B * K allows; the table (the kernel's own
     rhs_table_bytes) leaves room for four blocks an SM where a block takes
     more than one step, and the table form runs wherever one step's table
-    fits a block (N <= 170), the direct form above (to N = 341)."""
+    fits a block (N <= 170), the direct form above (to N = 1024)."""
     from test_torch_sweep_plan import _c_function, _constants
     src = (Path(admm_steps.__file__).resolve().parents[1] / "csrc"
            / "admm_steps.cu").read_text()
@@ -312,7 +424,8 @@ def test_rhs_plan_fills_blocks_and_fits_the_kernel_table():
                  if table(1, N) <= k["kSmemMax"])
     assert switch == 170
     threads, min_blocks = admm_steps.ROW_THREADS, admm_steps.ROW_MIN_BLOCKS
-    for N in (2, 4, 10, 20, 21, 30, 40, 60, 100, 170, 171, 200, 341):
+    for N in (2, 4, 10, 20, 21, 30, 40, 60, 100, 170, 171, 200, 341, 342,
+              1024):
         for B in (1, 2, 8, 64, 128, 512, 1024, 4096):
             for K in (2, 6, 50):
                 plan = admm_steps.rhs_plan(B, K, N)

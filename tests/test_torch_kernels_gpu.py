@@ -895,12 +895,14 @@ def _check_stages(cuda, B, K, N, n_iters, lane=False, hard=False,
 
 # (B, K, N): the main path's chunk at N=20 and its tail chunk, the
 # reference-compatible batch, one scenario, the widest grouped route at its
-# tail chunk, the round record's N=10 batch, small odd shapes, and one
-# shape on each side of admm_rhs's switch from its table form to its
-# direct form (N = 60, N = 200)
+# tail chunk, the round record's N=10 batch, small odd shapes, one shape
+# on each side of admm_rhs's switch from its table form to its direct form
+# (N = 60, N = 200), the grouped routes' production QP past the fused
+# kernels' pair table (N = 342) and the widest N the sweeps serve (N =
+# 1024, n = 6144, its horizon cut to K = 6)
 STAGE_CASES = [(512, 50, 20), (128, 50, 20), (64, 50, 20), (1, 50, 20),
                (128, 50, 21), (1024, 50, 10), (3, 9, 4), (2, 6, 2),
-               (8, 50, 60), (2, 50, 200)]
+               (8, 50, 60), (2, 50, 200), (1, 50, 342), (1, 6, 1024)]
 # the channel interval's besides: the N=20 main path's phase 1, a lane an
 # SM, a few lanes, the N=40 path's batch; the single CLI's K=500 (the
 # memory form in shared memory), K=500 at N=20, K=1200 (the memory form in
@@ -924,7 +926,7 @@ def test_admm_stages_match_plain(cuda, B, K, N, n_iters):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_iters", [1, 25])
-@pytest.mark.parametrize("B,N", [(64, 20), (1, 20), (3, 4)])
+@pytest.mark.parametrize("B,N", [(64, 20), (1, 20), (3, 4), (1, 342)])
 def test_admm_stages_with_lane_rho_and_hard_rows(cuda, B, N, n_iters):
     """One rho a lane (per-lane rho planes through the strides, the grouped
     route's 1 / rho folded into the right-hand side), and hard collision
@@ -1002,9 +1004,64 @@ def test_solver_routes_run_the_stages_on_the_card(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route,factor_dtype", [("grouped_X", "f32"),
+                                                ("grouped_L", "f32"),
+                                                ("grouped_X", "bf16")])
+def test_grouped_routes_solve_past_n_341_on_the_row_stages(
+        cuda, monkeypatch, route, factor_dtype):
+    """solve_qp_state at N = 342 (K = 6, B = 1) on the grouped routes in
+    float32, the X form also on bf16 factors: the production solver on
+    ``grouped_X``, the ``SCP`` class's on ``grouped_L`` (its budget cut to
+    100 iterations), through admm_rhs, the sweep and admm_update (one
+    launch each an ADMM iteration, ``admm_iterations`` never reached),
+    against the same call with ``interval_kind`` naming "graph"
+    (``admm_iterations`` around the same sweep kernel): equal iteration
+    counts and convergence flags, x of every (b, k) block within 2e-4."""
+    from ba_path_planning_torch.ops import admm_steps
+    from ba_path_planning_torch.solvers.scp import REFERENCE_SOLVER
+    N, K, B = 342, 6, 1
+    args, _ = _interval_case(B, K, N, seed=342, device=cuda)
+    eta, E, lower, upper, x = args[2], args[3], args[4], args[5], args[6]
+    problem = ProblemConfig(n_vehicles=N, time_horizon=K * 0.2,
+                            time_step=0.2, min_distance=0.8)
+    solver = (SolverConfig.production(problem=problem) if route == "grouped_X"
+              else REFERENCE_SOLVER.replace(kernels=True, max_iter=100))
+    solver = solver.replace(factor_dtype=factor_dtype)
+    static = solver.static_part()
+    assert tb.qp_route(static, n_vehicles=N, n_steps=K, dtype=torch.float32,
+                       col_enabled=True) == route
+    prm = make_solver_params(solver, torch.float32, cuda)
+
+    def solve():
+        return tb.solve_qp_state(lower, upper, eta, x, prm, E, h=0.2,
+                                 static=static, n_vehicles=N)
+    stages = (admm_steps.admm_rhs, admm_steps.admm_update)
+    before = [f.launches for f in stages]
+    plain = tb.admm_iterations
+
+    def refuse(*a, **k):
+        raise AssertionError("admm_iterations reached")
+    monkeypatch.setattr(tb, "admm_iterations", refuse)
+    got = solve()
+    monkeypatch.setattr(tb, "admm_iterations", plain)
+    done = [f.launches - n for f, n in zip(stages, before)]
+    monkeypatch.setattr(tb, "interval_kind", lambda *a, **k: "graph")
+    before = [f.launches for f in stages]
+    want = solve()
+    torch.cuda.synchronize()
+    assert [f.launches for f in stages] == before
+    assert torch.equal(got.iters, want.iters)
+    assert torch.equal(got.converged, want.converged)
+    assert done[0] == done[1] == int(got.iters.max()) > 0
+    gx, wx = tb.to_stacked(got.x), tb.to_stacked(want.x)
+    assert bool(torch.isfinite(gx).all())
+    assert _block_rel(gx, wx, 1) < 2e-4
+
+
+@pytest.mark.gpu
 def test_admm_steps_wrappers_raise_on_unsupported_cuda_input(cuda):
-    """Float64 planes, planes of other shapes and factors of other shapes
-    are refused before any launch."""
+    """Float64 planes, planes of other shapes, N = 1025 and factors of
+    other shapes are refused before any launch."""
     from ba_path_planning_torch.ops import admm_steps
     factors, c, c64, rows, _ = _stages_case(cuda, 2, 10, 3)
     rows64 = admm_steps.Rows(*(t.double() for t in rows))
@@ -1024,6 +1081,28 @@ def test_admm_steps_wrappers_raise_on_unsupported_cuda_input(cuda):
     odd.copy_(c.eta)
     with pytest.raises(ValueError):
         admm_steps.admm_rhs(rows, c._replace(eta=odd))
+    # N = 1025, past the N the grouped sweeps serve: refused before any
+    # launch, as the sweeps' plan refuses it
+    N, K = 1025, 2
+    P = N * (N - 1) // 2
+    wide = admm_steps.Rows(*(torch.zeros(shape, device=cuda) for shape in (
+        (1, K, 6 * N), (1, K, 6, 2 * N), (1, K, 6, 2 * N), (1, K, P),
+        (1, K, P))))
+    wc = admm_steps.RowConsts(
+        torch.zeros((1, K, P, 2), device=cuda), None, wide.zs, wide.zs,
+        wide.zc, torch.ones((K, 6), device=cuda),
+        torch.ones((K, P), device=cuda), c.fpar, 0.2, c.sigma, c.alpha,
+        c.lam)
+    launches = (admm_steps.admm_rhs.launches,
+                admm_steps.admm_update.launches)
+    with pytest.raises(ValueError):
+        admm_steps.admm_rhs(wide, wc)
+    with pytest.raises(ValueError):
+        admm_steps.admm_update(wide.x, wide, wc)
+    assert (admm_steps.admm_rhs.launches,
+            admm_steps.admm_update.launches) == launches
+    with pytest.raises(ValueError):
+        group_solve.sweep_plan(1, K, 6 * N, "X")
     pf, pc, _, prows, _ = _stages_case(cuda, 2, 10, 3, phase1=True)
     with pytest.raises(ValueError):
         admm_steps.admm_channel_interval(pf[0][:-1].contiguous(), pf[1],

@@ -457,3 +457,31 @@ def test_grouped_routes_above_n_256(K):
             else:
                 with pytest.raises(ValueError):
                     gs.sweep_plan(1, K, 6 * N, form)
+
+
+@pytest.mark.parametrize("N", [342, 512, 1024])
+def test_grouped_routes_above_n_341_run_the_row_stages(N):
+    """At N = 342 … 1024 the production solver routes to ``grouped_X`` and
+    the ``SCP`` class's solver to ``grouped_L``; in float32 on the card
+    both run their check intervals on the row stages ("rows": admm_rhs,
+    the sweep, admm_update), whose admission serves these N as the sweeps'
+    plan does, at the production horizon and the cut one, and refuses
+    N = 1025 before any launch, as the plan does."""
+    from ba_path_planning_torch.ops import admm_steps
+    from ba_path_planning_torch.solvers.scp import REFERENCE_SOLVER
+    from ba_path_planning_torch.utils.config import SolverConfig
+    f32, cuda = torch.float32, torch.device("cuda")
+    for solver, route in ((SolverConfig.production(), "grouped_X"),
+                          (REFERENCE_SOLVER.replace(kernels=True),
+                           "grouped_L")):
+        for K in (6, 50):
+            assert tb.qp_route(solver.static_part(), n_vehicles=N, n_steps=K,
+                               dtype=f32, col_enabled=True) == route
+        assert tb.interval_kind(route, f32, cuda) == "rows"
+        form = route[-1]
+        for K in (6, 50):
+            _check_plan(1, K, 6 * N, form, full_cluster=False)
+            assert admm_steps.row_stages_serve(K, N)
+            with pytest.raises(ValueError):
+                gs.sweep_plan(1, K, 6 * 1025, form)
+            assert not admm_steps.row_stages_serve(K, 1025)
