@@ -653,4 +653,233 @@ int launch(const T* F, const Second<kForm, T>* G, const float* b, float* x,
                                           band_rows, stages, smem, stream);
 }
 
+// ---- The wide tier of the X form: one scenario over many SMs.
+//
+// A scenario's sweeps are 2K - 1 serial matvecs; on a cluster of at most 4
+// blocks a small batch streams its factors on 2 to 8 of the 132 SMs (at
+// n = 2052, B = 2, 1.1% of the stream bound).  The wide tier gives
+// each scenario `spread` blocks of a cooperative grid (the whole card
+// between the batch's scenarios): each block streams rows [lo, hi) of
+// every X_k through its ring (the producer warp runs ahead across steps),
+// its consumers form those rows of the step's vector, store them into the
+// output and into a double-buffered vector in global memory (vbuf: 2 x B x
+// n floats, one half a step parity), and the grid meets at a barrier in
+// global memory once a step; a block then reads the whole vector from L2.
+// Only the rows a block owns leave it, not a copy for every other block.
+// The row products are factor_ring's matvec_rows, as on the cluster
+// tiers, so every row is summed in the same order.  The barrier is two
+// words of the launch's own, after the vectors in vbuf: a count of
+// arrivals, reset by the last arrival before it lets the grid pass, and a
+// count of barriers passed; the launcher zeroes both on the launch's
+// stream, so launches on other streams keep apart and a CUDA graph may
+// replay the kernel.  Which (B, n) take this tier is the plan's choice
+// (ops/group_solve.py sweep_wide); the launcher serves any plan it gets.
+constexpr int kWideBarrierBytes = factor_ring::kBarrierBytes;
+constexpr int kWideBlocksPerSm = 2;   // the launch bounds' blocks an SM
+constexpr int kWideSlots = kMaxNWide / 3 / kConsumers;  // slot triples a thread
+
+// The most rows any of `spread` blocks owns (row_lo's shares).
+__host__ __device__ inline int wide_rows(int n, int spread) {
+  return 2 * ((n / 2 + spread - 1) / spread);
+}
+
+// Dynamic shared memory of a wide plan: the ring's barriers, the ring
+// (`stages` stages of `band_rows` rows of `row_bytes` bytes), then r (n)
+// and w_k of the block's rows (`rows`), FP32.  ops/group_solve.py
+// sweep_wide_smem_bytes mirrors it, and tests/test_torch_sweep_plan.py
+// holds the two copies to each other.
+__host__ __device__ inline long wide_smem_bytes(int n, int rows,
+                                                int band_rows, int stages,
+                                                int row_bytes) {
+  return kWideBarrierBytes + (static_cast<long>(stages) * band_rows *
+                                  row_bytes + 4L * (n + rows));
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The three entries q, n2 + q, 2 n2 + q of a vector, as sweeps::slot_b and
+// slot_bt index them (selects, so the three stay in registers).
+struct SlotTriple {
+  float a, p, v;
+  int n2;
+  __device__ float operator[](int j) const {
+    return j < n2 ? a : j < 2 * n2 ? p : v;
+  }
+};
+
+// F (B, K, n, ld) the X_k; C9 (K-1, 9); b and x (B, K, n); vbuf (2, B, n);
+// bar the grid barrier's words (arrivals, barriers passed), zero at the
+// launch.  A cooperative grid of B x spread blocks of kThreads threads,
+// scenario blockIdx / spread, rows [lo, hi) of share blockIdx % spread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kWideBlocksPerSm)
+sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
+                  const float* __restrict__ bvec, float* xout, float* vbuf,
+                  unsigned* bar, int K, int n, int ld, int spread,
+                  int band_rows, int stages) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x / spread, g = blockIdx.x % spread;
+  const int B = gridDim.x / spread, tid = threadIdx.x;
+  const int lo = row_lo(g, spread, n), hi = row_lo(g + 1, spread, n);
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
+  const factor_ring::RingOf<T> ring{
+      reinterpret_cast<T*>(raw + kWideBarrierBytes),
+      factor_ring::smem_addr(raw), stages, band_rows * ld, ld};
+  float* r = reinterpret_cast<float*>(
+      ring.data + static_cast<size_t>(stages) * ring.stage_elems);
+  float* wk = r + n;                 // w_k of rows lo .. hi-1
+  const size_t nsq = static_cast<size_t>(n) * ld;
+  const T* Fb = F + static_cast<size_t>(b) * K * nsq;
+  const float* bb = bvec + static_cast<size_t>(b) * K * n;
+  float* xb = xout + static_cast<size_t>(b) * K * n;
+  const int steps = 2 * K - 1;
+  if (tid == 0) factor_ring::init(ring, kWarps);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warp: this block's rows of every step's block
+    factor_ring::Cursor cur{0, 0u};
+    for (int t = 0; t < steps; ++t)
+      factor_ring::produce_block(ring, cur,
+                                 Fb + (t < K ? t : 2 * K - 2 - t) * nsq, lo,
+                                 hi, band_rows);
+    return;
+  }
+
+  // ---- consumer warps
+  const int warp = tid >> 5, n2 = n / 3;
+  unsigned passed = 0;                  // barriers this block has passed
+  factor_ring::Cursor cur{0, 0u};
+  for (int t = 0; t < steps; ++t) {
+    const bool fwd = t < K;
+    const int k = fwd ? t : 2 * K - 2 - t;
+    // what the step reads of b_k, or of w_k in its rows, does not wait for
+    // the vector: load it before the barrier
+    float pre[kWideSlots][3];
+#pragma unroll
+    for (int u = 0; u < kWideSlots; ++u) {
+      const int q = tid + u * kConsumers;
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+        pre[u][s] = fwd && q < n2 ? __ldg(bb + k * n + s * n2 + q) : 0.f;
+    }
+    if (!fwd)
+      for (int i = lo + tid; i < hi; i += kConsumers)
+        wk[i - lo] = xb[k * n + i];
+    if (t > 0) {
+      // every block's rows of step t - 1 are in vbuf
+      if (tid == 0) {
+        while (load_acquire(bar + 1) == passed) {
+        }
+        ++passed;
+      }
+      consumer_sync();
+    }
+    const float* v = vbuf + (static_cast<size_t>((t + 1) & 1) * B + b) * n;
+    const int ck = fwd ? k - 1 : k;           // B_k = C_{k-1} (x) I
+    const float* c = C9 + (ck > 0 ? ck : 0) * 9;
+#pragma unroll
+    for (int u = 0; u < kWideSlots; ++u) {
+      const int q = tid + u * kConsumers;
+      if (q >= n2) break;
+      if (t == 0) {
+#pragma unroll
+        for (int s = 0; s < 3; ++s) r[s * n2 + q] = pre[u][s];
+        continue;
+      }
+      // read from L2: other blocks wrote it
+      const SlotTriple vq{__ldcg(v + q), __ldcg(v + n2 + q),
+                          __ldcg(v + 2 * n2 + q), n2};
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int j = s * n2 + q;
+        r[j] = fwd ? pre[u][s] - sweeps::slot_b(c, vq, j, n2)
+                   : sweeps::slot_bt(c, vq, j, n2);
+      }
+    }
+    consumer_sync();
+    float* vo = vbuf + (static_cast<size_t>(t & 1) * B + b) * n;
+    factor_ring::matvec_rows(
+        ring, cur, r, n, lo, hi, band_rows, false, warp, kWarps,
+        [&](int i, float d) {
+          const float val = fwd ? d : wk[i - lo] - d;
+          xb[k * n + i] = val;
+          vo[i] = val;
+        });
+    if (t + 1 < steps) {
+      // the block's rows are stored: arrive at the step's barrier (the
+      // last arrival resets the count, then lets the grid pass)
+      consumer_sync();
+      if (tid == 0) {
+        __threadfence();
+        if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+          atomicExch(bar, 0u);
+          __threadfence();
+          atomicAdd(bar + 1, 1u);
+        }
+      }
+    }
+  }
+}
+
+// Launch the wide tier on its plan (spread, band_rows, stages, per_sm) as
+// one cooperative grid, which the runtime refuses (an error code, no
+// launch) where its blocks cannot all be resident at once; vbuf 2 B n + 2
+// FP32 words: the step vectors (2, B, n), then the barrier's two words,
+// zeroed here on `stream`.  Returns a CUDA error code,
+// cudaErrorInvalidValue for arguments or a plan it cannot serve.
+template <typename T>
+int launch_wide(const T* F, const float* C9, const float* b, float* x,
+                float* vbuf, int B, int K, int n, int ld, int spread,
+                int band_rows, int stages, int per_sm, cudaStream_t stream) {
+  const int row_bytes = static_cast<int>(sizeof(T)) * ld;
+  if (B < 1 || K < 2 || n < 6 || n % 6 || n > kMaxNWide || ld < n ||
+      (2 * row_bytes) % 16 || spread < 1 || 2 * spread > n ||
+      band_rows < 2 || band_rows % 2 || band_rows > kMaxBandRows ||
+      stages < 2 || stages > factor_ring::kMaxStages || per_sm < 1 ||
+      per_sm > kWideBlocksPerSm || (reinterpret_cast<size_t>(F) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long smem = wide_smem_bytes(n, wide_rows(n, spread), band_rows,
+                                    stages, row_bytes);
+  if (smem > kSmemMax || per_sm * (smem + 1024) > kSmemMax + 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kDevices = 64;
+  static long allowed[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kDevices || smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(sweep_kernel_wide<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kDevices) allowed[dev] = smem;
+  }
+  unsigned* bar =
+      reinterpret_cast<unsigned*>(vbuf + static_cast<size_t>(2) * B * n);
+  err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * spread));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel_wide<T>, F, C9, b, x, vbuf,
+                           bar, K, n, ld, spread, band_rows, stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace group_sweep

@@ -13,12 +13,27 @@
 // (K-1, 9) table at row k-1.
 //
 // What bounds it: compute.  Each NS iteration is two n x n matrix products,
-// 4 n^3 flops; at n = 6N = 120 and 2 iterations that is 13.8 MFLOP per
-// step and about 0.64 GFLOP per scenario over the 46 interior steps of
-// K = 50 (5.1 GFLOP at N = 40).  The chain is serial in k, so the
-// parallelism is the batch: one thread block per scenario walks k serially
-// (the TPU grid's k axis becomes a loop; nothing carries between blocks on
-// this card).
+// T' = X S whole (2 n^3 flops) and the symmetric update on and above the
+// diagonal (n (n + 1)^2); with S_k's 13 n^2 a step, at n = 6N = 120 and 2
+// iterations that is 10.6 MFLOP per step and about 0.49 GFLOP per scenario
+// over the 46 interior steps of K = 50 (3.9 GFLOP at N = 40;
+// utils/profiling.ns_chain_interior_flops).  The chain is serial in k.
+// Two tiers, chosen by the plan from (B, n) (ops/ns_chain.py
+// ns_chain_plan, which passes its tile to ns_chain_interior_f32):
+//   * one block a scenario (large batches, the production chunks): the
+//     parallelism is the batch; a block walks k serially (the TPU grid's k
+//     axis becomes a loop; nothing carries between blocks on this card);
+//   * the wide tier (a batch too small to fill the card, say one scenario
+//     at N = 40 or two at N = 342, where one block a scenario used 2 of 132
+//     SMs): each step is spread over the card, one launch for S_k (a
+//     thread a slot pair) and one for each product, a block an output tile
+//     of 64 x 64, 128 x 128 or 192 x 192, whichever fills the card in the
+//     least time by the plan's wave cost.  The product depth stays whole
+//     in a block, so every element is summed in the order of the one-block
+//     tier, bit for bit; X ping-pongs between two buffers of the streamed
+//     layout's scratch, since other blocks still read X while the update
+//     is written.
+//     1 + 2 ns_iters launches a step (231 a call at K = 50, ns_iters = 2).
 //
 // Two precisions, as SolverStatic.ns_precision names them, in one kernel:
 // the tiling, the layouts, the symmetry and the epilogues below are shared,
@@ -277,109 +292,120 @@ __device__ __forceinline__ void warp_panel(const float* As, int lda,
 }
 
 // epi.prepare and then epi.store (i, j, v0, v1) for (A Bt^T)[i, j] and
-// [i, j + 1], j even, over n x n
-// matrices of row strides lda and ldb; with `upper` only the warp tiles
-// that reach the diagonal or lie above it.  Output tiles are (64 MT) x (up
-// to 32 NT), a warp owning (16 MT) x (8 nt) of each.  An operand in shared
-// memory (both when kResident, A when kHybrid) is a tile of 64 MT rows, zero
-// beyond n up to the next multiple of kKP.  A streamed operand is in global
-// memory (columns n .. ld-1 zero, ld a multiple of 4) and comes through
-// `ring` in panels of kKP columns, rows beyond n zero-filled.  Every thread
-// of the block must call it: it synchronizes, and all of the block's reads
-// of A and Bt are done before the first call of epi for a tile.
+// [i, j + 1], j even, over the output tile at (r0, c0) of n x n matrices of
+// row strides lda and ldb; with `upper` only the warp tiles that reach the
+// diagonal or lie above it.  Output tiles are (64 MT) x (up to 32 NT), a
+// warp owning (16 MT) x (8 nt) of each.  An operand in shared memory (both
+// when kResident, A when kHybrid) is a tile of 64 MT rows, zero beyond n up
+// to the next multiple of kKP.  A streamed operand is in global memory
+// (columns n .. ld-1 zero, ld a multiple of 4) and comes through `ring` in
+// panels of kKP columns, rows beyond n zero-filled.  Every thread of the
+// block must call it: it synchronizes, and all of the block's reads of A
+// and Bt are done before the first call of epi.  Each element is summed
+// over k in the same order whatever the tile's shape or place.
 template <int MT, int NT, Layout kLayout, bool kTensor, typename Epi>
-__device__ __forceinline__ void tile_product(const float* A, int lda,
-                                           const float* Bt, int ldb, int n,
-                                           bool upper, float* ring, Epi epi) {
+__device__ __forceinline__ void product_tile(const float* A, int lda,
+                                             const float* Bt, int ldb, int n,
+                                             bool upper, int r0, int c0,
+                                             float* ring, Epi epi) {
   constexpr int TM = 4 * MT * 16, TN = 4 * NT * 8;
   constexpr int kRingA = kLayout == kStreamed ? TM : 0;   // A rows of a stage
   constexpr int kStageFloats = (kRingA + TN) * kKPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int cell = static_cast<int>(kWarpCells >> (4 * warp)) & 15;
   const int wr = cell >> 2, wc = cell & 3;
-  for (int r0 = 0; r0 < n; r0 += TM) {
-    for (int c0 = upper ? r0 : 0; c0 < n; c0 += TN) {
-      const int width = n - c0 < TN ? n - c0 : TN;
-      const int nt = (width + 31) / 32;          // 8-column tiles a warp
-      const int row_w = r0 + wr * MT * 16, col_w = c0 + wc * nt * 8;
-      const bool active = row_w < n && col_w < n &&
-                          !(upper && col_w + nt * 8 <= row_w);
-      float acc[MT][NT][4];
+  const int width = n - c0 < TN ? n - c0 : TN;
+  const int nt = (width + 31) / 32;          // 8-column tiles a warp
+  const int row_w = r0 + wr * MT * 16, col_w = c0 + wc * nt * 8;
+  const bool active = row_w < n && col_w < n &&
+                      !(upper && col_w + nt * 8 <= row_w);
+  float acc[MT][NT][4];
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-      if (kLayout == kResident) {
-        if (active)
-          warp_panel<MT, NT, kTensor>(A + row_w * lda, lda,
-                                      Bt + col_w * ldb, ldb, (n + 7) & ~7,
-                                      nt, acc);
-      } else {
-        const int npan = (n + kKP - 1) / kKP;
-        const int rows = kRingA + 4 * nt * 8;    // A rows, then Bt rows
-        auto load = [&](int p) {
-          float* stage = ring + (p % kStages) * kStageFloats;
-          for (int c = threadIdx.x; c < rows * (kKP / 4); c += kThreads) {
-            const int row = c / (kKP / 4), q = c % (kKP / 4);
-            const bool is_a = row < kRingA;
-            const int grow = is_a ? r0 + row : c0 + row - kRingA;
-            const int gk = p * kKP + 4 * q, ld = is_a ? lda : ldb;
-            const bool ok = grow < n && gk < ld;
-            const float* src = (is_a ? A : Bt) + (ok ? grow * ld + gk : 0);
-            cp_async16(stage + row * kKPad + 4 * q, src, ok ? 16 : 0);
-          }
-        };
-        for (int s = 0; s < kStages - 1; ++s) {
-          if (s < npan) load(s);
-          cp_async_commit();
-        }
-        for (int p = 0; p < npan; ++p) {
-          cp_async_wait<kStages - 2>();          // panel p has landed
-          __syncthreads();                       // and panel p-1 is consumed
-          if (p + kStages - 1 < npan) load(p + kStages - 1);
-          cp_async_commit();
-          if (active) {
-            const float* stage = ring + (p % kStages) * kStageFloats;
-            const float* sb = stage + (kRingA + wc * nt * 8) * kKPad;
-            if (kLayout == kStreamed)
-              warp_panel<MT, NT, kTensor>(stage + wr * MT * 16 * kKPad,
-                                          kKPad, sb, kKPad, kKP, nt, acc);
-            else
-              warp_panel<MT, NT, kTensor>(A + row_w * lda + p * kKP, lda,
-                                          sb, kKPad, kKP, nt, acc);
-          }
-        }
-        cp_async_wait<0>();
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  if (kLayout == kResident) {
+    if (active)
+      warp_panel<MT, NT, kTensor>(A + row_w * lda, lda,
+                                  Bt + col_w * ldb, ldb, (n + 7) & ~7,
+                                  nt, acc);
+  } else {
+    const int npan = (n + kKP - 1) / kKP;
+    const int rows = kRingA + 4 * nt * 8;    // A rows, then Bt rows
+    auto load = [&](int p) {
+      float* stage = ring + (p % kStages) * kStageFloats;
+      for (int c = threadIdx.x; c < rows * (kKP / 4); c += kThreads) {
+        const int row = c / (kKP / 4), q = c % (kKP / 4);
+        const bool is_a = row < kRingA;
+        const int grow = is_a ? r0 + row : c0 + row - kRingA;
+        const int gk = p * kKP + 4 * q, ld = is_a ? lda : ldb;
+        const bool ok = grow < n && gk < ld;
+        const float* src = (is_a ? A : Bt) + (ok ? grow * ld + gk : 0);
+        cp_async16(stage + row * kKPad + 4 * q, src, ok ? 16 : 0);
       }
-      __syncthreads();
+    };
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < npan) load(s);
+      cp_async_commit();
+    }
+    for (int p = 0; p < npan; ++p) {
+      cp_async_wait<kStages - 2>();          // panel p has landed
+      __syncthreads();                       // and panel p-1 is consumed
+      if (p + kStages - 1 < npan) load(p + kStages - 1);
+      cp_async_commit();
       if (active) {
-        // all loads of the epilogue first, then all stores, so that no
-        // load waits behind a store it might alias
-        const int g = lane >> 2, t = lane & 3;
-        const int i0 = row_w + g, j0 = col_w + 2 * t;
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            if (j < nt) {
-              epi.prepare(i0 + m * 16, j0 + j * 8, acc[m][j][0], acc[m][j][1]);
-              epi.prepare(i0 + m * 16 + 8, j0 + j * 8, acc[m][j][2],
-                          acc[m][j][3]);
-            }
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            if (j < nt) {
-              epi.store(i0 + m * 16, j0 + j * 8, acc[m][j][0], acc[m][j][1]);
-              epi.store(i0 + m * 16 + 8, j0 + j * 8, acc[m][j][2],
-                        acc[m][j][3]);
-            }
+        const float* stage = ring + (p % kStages) * kStageFloats;
+        const float* sb = stage + (kRingA + wc * nt * 8) * kKPad;
+        if (kLayout == kStreamed)
+          warp_panel<MT, NT, kTensor>(stage + wr * MT * 16 * kKPad,
+                                      kKPad, sb, kKPad, kKP, nt, acc);
+        else
+          warp_panel<MT, NT, kTensor>(A + row_w * lda + p * kKP, lda,
+                                      sb, kKPad, kKP, nt, acc);
       }
     }
+    cp_async_wait<0>();
   }
+  __syncthreads();
+  if (active) {
+    // all loads of the epilogue first, then all stores, so that no
+    // load waits behind a store it might alias
+    const int g = lane >> 2, t = lane & 3;
+    const int i0 = row_w + g, j0 = col_w + 2 * t;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) {
+          epi.prepare(i0 + m * 16, j0 + j * 8, acc[m][j][0], acc[m][j][1]);
+          epi.prepare(i0 + m * 16 + 8, j0 + j * 8, acc[m][j][2],
+                      acc[m][j][3]);
+        }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) {
+          epi.store(i0 + m * 16, j0 + j * 8, acc[m][j][0], acc[m][j][1]);
+          epi.store(i0 + m * 16 + 8, j0 + j * 8, acc[m][j][2],
+                    acc[m][j][3]);
+        }
+  }
+}
+
+// product_tile over every tile of the product, by rows; with `upper` a
+// row of tiles starts at its first row.
+template <int MT, int NT, Layout kLayout, bool kTensor, typename Epi>
+__device__ __forceinline__ void tile_product(const float* A, int lda,
+                                           const float* Bt, int ldb, int n,
+                                           bool upper, float* ring, Epi epi) {
+  constexpr int TM = 4 * MT * 16, TN = 4 * NT * 8;
+  for (int r0 = 0; r0 < n; r0 += TM)
+    for (int c0 = upper ? r0 : 0; c0 < n; c0 += TN)
+      product_tile<MT, NT, kLayout, kTensor>(A, lda, Bt, ldb, n, upper, r0,
+                                             c0, ring, epi);
 }
 
 // Epilogue of T' = X S: store the pair (i, j), (i, j + 1).
@@ -426,9 +452,38 @@ struct NewtonPair {
   }
 };
 
-// S = D_k - (C (x) I) X (C (x) I)^T: a thread per (ii, jj) forms the 3 x 3
+// S = D_k - (C (x) I) X (C (x) I)^T at the slot pair (ii, jj): the 3 x 3
 // slot block C Xs C^T of Xs[t][u] = X[t n2 + ii, u n2 + jj].  X has row
-// stride ldx, S row stride lds, D_k row stride n.
+// stride ldx, S row stride lds, D_k row stride 3 n2.
+__device__ __forceinline__ void schur_pair(const float* X, int ldx,
+                                           const float* __restrict__ Dk,
+                                           const float (&cc)[9], float* S,
+                                           int lds, int n2, int ii, int jj) {
+  float y[3][3];                        // y[t][sj] = sum_u c[sj, u] Xs[t][u]
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const float* xr = X + (t * n2 + ii) * ldx + jj;
+    const float x0 = xr[0], x1 = xr[n2], x2 = xr[2 * n2];
+#pragma unroll
+    for (int sj = 0; sj < 3; ++sj)
+      y[t][sj] = fmaf(cc[sj * 3 + 2], x2,
+                      fmaf(cc[sj * 3 + 1], x1, cc[sj * 3] * x0));
+  }
+#pragma unroll
+  for (int si = 0; si < 3; ++si)
+#pragma unroll
+    for (int sj = 0; sj < 3; ++sj) {
+      const float w = fmaf(cc[si * 3 + 2], y[2][sj],
+                           fmaf(cc[si * 3 + 1], y[1][sj],
+                                cc[si * 3] * y[0][sj]));
+      const int i = si * n2 + ii, j = sj * n2 + jj;
+      S[i * lds + j] = Dk[i * 3 * n2 + j] - w;
+    }
+}
+
+// S = D_k - (C (x) I) X (C (x) I)^T over the block's threads, a thread per
+// (ii, jj) pair (schur_pair: no division per element); c the 9 slot
+// scalars of C.
 __device__ void schur_slots(const float* X, int ldx,
                             const float* __restrict__ Dk,
                             const float* __restrict__ c, float* S, int lds,
@@ -438,27 +493,8 @@ __device__ void schur_slots(const float* X, int ldx,
 #pragma unroll
   for (int q = 0; q < 9; ++q) cc[q] = c[q];
   for (int idx = threadIdx.x; idx < n2 * n2; idx += blockDim.x) {
-    const int ii = idx / n2, jj = idx - ii * n2;
-    float y[3][3];                      // y[t][sj] = sum_u c[sj, u] Xs[t][u]
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      const float* xr = X + (t * n2 + ii) * ldx + jj;
-      const float x0 = xr[0], x1 = xr[n2], x2 = xr[2 * n2];
-#pragma unroll
-      for (int sj = 0; sj < 3; ++sj)
-        y[t][sj] = fmaf(cc[sj * 3 + 2], x2,
-                        fmaf(cc[sj * 3 + 1], x1, cc[sj * 3] * x0));
-    }
-#pragma unroll
-    for (int si = 0; si < 3; ++si)
-#pragma unroll
-      for (int sj = 0; sj < 3; ++sj) {
-        const float w = fmaf(cc[si * 3 + 2], y[2][sj],
-                             fmaf(cc[si * 3 + 1], y[1][sj],
-                                  cc[si * 3] * y[0][sj]));
-        const int i = si * n2 + ii, j = sj * n2 + jj;
-        S[i * lds + j] = Dk[i * n + j] - w;
-      }
+    const int ii = idx / n2;
+    schur_pair(X, ldx, Dk, cc, S, lds, n2, ii, idx - ii * n2);
   }
 }
 
@@ -570,30 +606,199 @@ int launch_chain(const float* D, const float* C9, float* Xall,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The wide tier: each step of a scenario spread over the card.
+//
+// A scenario's scratch is the streamed layout's, four matrices of ldg x
+// ldg: S, T', then the two X buffers; the update reads one X buffer and
+// writes the other, so no block overwrites what another still reads.
+constexpr int kWideS = 0, kWideT = 1, kWideX = 2;
+
+// Output tiles of TM x TN of an n x n product: all of them, or (upper)
+// those that tile_product visits for the update, each row of tiles
+// starting at its first row.
+int tile_count(int n, int TM, int TN, bool upper) {
+  int count = 0;
+  for (int r0 = 0; r0 < n; r0 += TM)
+    count += (n - (upper ? r0 : 0) + TN - 1) / TN;
+  return count;
+}
+
+// The origin (r0, c0) of output tile t in tile_count's order.
+template <int TM, int TN>
+__device__ __forceinline__ void tile_origin(int t, int n, bool upper,
+                                            int& r0, int& c0) {
+  r0 = 0;
+  for (;;) {
+    const int cols = (n - (upper ? r0 : 0) + TN - 1) / TN;
+    if (t < cols) break;
+    t -= cols;
+    r0 += TM;
+  }
+  c0 = (upper ? r0 : 0) + t * TN;
+}
+
+// The warm start X_{k_prev} into X buffer 0 of each scenario, and zeros in
+// the columns n .. ldg-1 of its four matrices (which no store reaches):
+// a block a row, grid (n, B).
+__global__ void __launch_bounds__(256)
+ns_wide_start(float* scratch, const float* __restrict__ Xall, int K, int n,
+              int ldg, int k_prev) {
+  const size_t nn = static_cast<size_t>(ldg) * ldg;
+  float* base = scratch + static_cast<size_t>(blockIdx.y) * 4 * nn;
+  const int i = blockIdx.x;
+  const float* src = Xall + (static_cast<size_t>(blockIdx.y) * K + k_prev) *
+                                static_cast<size_t>(n) * n +
+                     static_cast<size_t>(i) * n;
+  for (int j = threadIdx.x; j < ldg; j += blockDim.x) {
+    if (j < n) {
+      base[kWideX * nn + static_cast<size_t>(i) * ldg + j] = src[j];
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        base[m * nn + static_cast<size_t>(i) * ldg + j] = 0.f;
+    }
+  }
+}
+
+// S_k of each scenario from its X buffer `xbuf`: a thread a slot pair,
+// grid (pair blocks, B).
+__global__ void __launch_bounds__(256)
+ns_wide_schur(float* scratch, int xbuf, const float* __restrict__ D,
+              const float* __restrict__ C9, int K, int n, int ldg, int k) {
+  const int n2 = n / 3;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n2 * n2) return;
+  const size_t nn = static_cast<size_t>(ldg) * ldg;
+  float* base = scratch + static_cast<size_t>(blockIdx.y) * 4 * nn;
+  float cc[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) cc[q] = C9[(k - 1) * 9 + q];
+  const int ii = idx / n2;
+  schur_pair(base + xbuf * nn, ldg, D + (static_cast<size_t>(blockIdx.y) *
+                                         K + k) * static_cast<size_t>(n) * n,
+             cc, base + kWideS * nn, ldg, n2, ii, idx - ii * n2);
+}
+
+// One output tile a block, grid (tiles, B), of a product of one scenario's
+// matrices (indices into its scratch): T' = X S (kUpdate false: a = X, bt
+// = S, out = T'), or the Newton-Schulz update 2 X - X T'^T on and above
+// the diagonal, mirrored (kUpdate: a = X, bt = T', out the other X buffer;
+// also into X_{k_out} of Xall where k_out >= 0).
+template <int MT, int NT, bool kTensor, bool kUpdate>
+__global__ void __launch_bounds__(kThreads, 1)
+ns_wide_product(float* scratch, int a, int bt, int out, float* Xall, int K,
+                int n, int ldg, int k_out) {
+  constexpr int TM = 4 * MT * 16, TN = 4 * NT * 8;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const size_t nn = static_cast<size_t>(ldg) * ldg;
+  float* base = scratch + static_cast<size_t>(blockIdx.y) * 4 * nn;
+  const float* A = base + a * nn;
+  const float* Bt = base + bt * nn;
+  float* O = base + out * nn;
+  int r0, c0;
+  tile_origin<TM, TN>(blockIdx.x, n, kUpdate, r0, c0);
+  if constexpr (kUpdate) {
+    float* Xk = k_out < 0 ? nullptr
+                          : Xall + (static_cast<size_t>(blockIdx.y) * K +
+                                    k_out) * static_cast<size_t>(n) * n;
+    product_tile<MT, NT, kStreamed, kTensor>(A, ldg, Bt, ldg, n, true, r0, c0,
+                                             ring, NewtonPair{A, O, Xk, ldg,
+                                                              n});
+  } else {
+    product_tile<MT, NT, kStreamed, kTensor>(A, ldg, Bt, ldg, n, false, r0,
+                                             c0, ring, StorePair{O, ldg, n});
+  }
+}
+
+// The wide tier in tiles of (64 MT) x (32 NT), square (NT = 2 MT): per
+// step one launch for S_k and two for each Newton-Schulz iteration, the
+// last writing X_k.  (3, 6) takes 128 registers and spills none.
+template <int MT, int NT, bool kTensor>
+int launch_wide(const float* D, const float* C9, float* Xall, float* scratch,
+                int B, int K, int n, int k_begin, int k_end, int ns_iters,
+                cudaStream_t stream) {
+  constexpr int TM = 4 * MT * 16, TN = 4 * NT * 8;
+  const int ldg = scratch_leading_dim(n), n2 = n / 3;
+  const size_t smem =
+      static_cast<size_t>(kStages) * (TM + TN) * kKPad * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ns_wide_product<MT, NT, kTensor, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ns_wide_product<MT, NT, kTensor, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 full(tile_count(n, TM, TN, false), B);
+  const dim3 upper(tile_count(n, TM, TN, true), B);
+  const dim3 pairs((n2 * n2 + 255) / 256, B);
+  ns_wide_start<<<dim3(n, B), 256, 0, stream>>>(scratch, Xall, K, n, ldg,
+                                                k_begin - 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  int x = kWideX;                       // the X buffer holding X_{k-1}
+  for (int k = k_begin; k < k_end; ++k) {
+    ns_wide_schur<<<pairs, 256, 0, stream>>>(scratch, x, D, C9, K, n, ldg, k);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+    for (int it = 0; it < ns_iters; ++it) {
+      ns_wide_product<MT, NT, kTensor, false><<<full, kThreads, smem,
+                                                stream>>>(
+          scratch, x, kWideS, kWideT, Xall, K, n, ldg, -1);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+      const int xn = 2 * kWideX + 1 - x;
+      ns_wide_product<MT, NT, kTensor, true><<<upper, kThreads, smem,
+                                               stream>>>(
+          scratch, x, kWideT, xn, Xall, K, n, ldg,
+          it == ns_iters - 1 ? k : -1);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+      x = xn;
+    }
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Per-scenario float32 scratch that ns_chain_interior_f32 needs for n: none
-// up to n = 128, S and T' up to n = 192, S, T' and two X buffers beyond.
-int ns_chain_scratch_floats(int n) {
+// Per-scenario float32 scratch that ns_chain_interior_f32 needs for n on
+// the tier of `tile` (0: one block a scenario; else the wide tier):
+// none up to n = 128, S and T' up to n = 192, S, T' and two X buffers
+// beyond and on the wide tier.
+int ns_chain_scratch_floats(int n, int tile) {
   const int ldg = scratch_leading_dim(n);
-  return scratch_matrices(n) * ldg * ldg;
+  return (tile ? 4 : scratch_matrices(n)) * ldg * ldg;
 }
 
 // D (B, K, n, n); C9 (K-1, 9); Xall (B, K, n, n), row k_begin-1 holds the
 // warm start and rows k_begin .. k_end-1 are written; scratch (B,
-// ns_chain_scratch_floats(n)).  All float32, contiguous.  precision 0 is
-// "highest" (FP32 FMAs), 1 is "high" (three-pass TF32 on the tensor cores);
-// the layout follows from n.  Returns the CUDA error code of the launch, or
-// cudaErrorInvalidValue for arguments no path serves.
+// ns_chain_scratch_floats(n, tile)).  All float32, contiguous.  precision 0
+// is "highest" (FP32 FMAs), 1 is "high" (three-pass TF32 on the tensor
+// cores); `tile` the plan's (ops/ns_chain.py ns_chain_plan): 0 runs one
+// block a scenario, its layout following from n, 64, 128 or 192 the wide
+// tier in output tiles of that size.  Returns the CUDA error code of the
+// launches, or cudaErrorInvalidValue for arguments no path serves.
 int ns_chain_interior_f32(const float* D, const float* C9, float* Xall,
                           float* scratch, int B, int K, int n, int k_begin,
-                          int k_end, int ns_iters, int precision,
+                          int k_end, int ns_iters, int precision, int tile,
                           cudaStream_t stream) {
   if (B < 1 || n < 3 || n % 6 || k_begin < 1 || k_end > K || ns_iters < 1 ||
-      precision < 0 || precision > 1)
+      precision < 0 || precision > 1 ||
+      (tile != 0 && tile != 64 && tile != 128 && tile != 192))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tile) {
+    auto wide = tile == 192   ? (precision ? launch_wide<3, 6, true>
+                                           : launch_wide<3, 6, false>)
+                : tile == 128 ? (precision ? launch_wide<2, 4, true>
+                                           : launch_wide<2, 4, false>)
+                              : (precision ? launch_wide<1, 2, true>
+                                           : launch_wide<1, 2, false>);
+    return wide(D, C9, Xall, scratch, B, K, n, k_begin, k_end, ns_iters,
+                stream);
+  }
   const int matrices = scratch_matrices(n);
   auto launch = matrices == 0
                     ? (precision ? launch_chain<2, 4, kResident, true>

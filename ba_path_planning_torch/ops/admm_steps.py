@@ -38,7 +38,7 @@ from ..solvers.banded import (RowVals, StateVars, apply_A, apply_A_static,
                               solve_factorized_channel, to_stacked)
 from ..utils import debug
 from .admm_fused import _on_cpu, planes_to_rows, rho_planes, static_plane
-from .cuda_build import check, load_kernels, require_f32_cuda
+from .cuda_build import SMS, check, load_kernels, require_f32_cuda
 from .group_solve import SWEEP_MAX_N_WIDE
 
 # The row stages' launch layout (csrc/admm_steps.cu): a block of
@@ -49,7 +49,6 @@ from .group_solve import SWEEP_MAX_N_WIDE
 # (two a streaming multiprocessor of the H100)
 ROW_THREADS = 256
 UPDATE_ITEMS = 5 * ROW_THREADS
-SMS = 132
 ROW_MIN_BLOCKS = 2 * SMS
 SMEM_MAX = 232448
 # The row stages serve every N the grouped sweeps serve: n = 6N up to

@@ -34,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # bf16 factors lie with the rows of each block on a stride of a multiple of
 # this many elements (16 bytes), the alignment of the kernels' bulk copies
 BF16_ROW_ALIGN = 8
+# streaming multiprocessors of the H100 SXM: the plans' default where no
+# card is given (the launches plan on :func:`device_sms`)
+SMS = 132
 
 _lib = None
 build_info: dict = {}
@@ -43,6 +46,11 @@ def bf16_row_stride(n: int) -> int:
     """Elements between two rows of a bf16 factor block of n columns: n
     rounded up to a multiple of :data:`BF16_ROW_ALIGN`."""
     return -(-n // BF16_ROW_ALIGN) * BF16_ROW_ALIGN
+
+
+def device_sms(device) -> int:
+    """Streaming multiprocessors of the card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def padded_strides(shape, ld: int) -> tuple:
@@ -110,9 +118,9 @@ def load_kernels() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(_build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ns_chain_scratch_floats.argtypes = [i]
+    lib.ns_chain_scratch_floats.argtypes = [i, i]
     lib.ns_chain_scratch_floats.restype = i
-    lib.ns_chain_interior_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.ns_chain_interior_f32.argtypes = [p, p, p, p] + [i] * 8 + [p]
     lib.ns_chain_interior_f32.restype = i
     for sweep in (lib.group_solve_x_f32, lib.group_solve_l_f32,
                   lib.banded_solve_f32):
@@ -123,6 +131,11 @@ def load_kernels() -> ctypes.CDLL:
                   lib.banded_solve_bf16):
         sweep.argtypes = [p, p, p, p] + [i] * 8 + [p]
         sweep.restype = i
+    # the X form's wide tier: vbuf, then the plan's spread for the cluster
+    lib.group_solve_x_wide_f32.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.group_solve_x_wide_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
+    for entry in (lib.group_solve_x_wide_f32, lib.group_solve_x_wide_bf16):
+        entry.restype = i
     # the X form also takes the plan's packed flag and a slot-scalar stride
     lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 10 + [p]
     lib.admm_fused_l_f32.argtypes = [p] * 15 + [i] * 8 + [p]

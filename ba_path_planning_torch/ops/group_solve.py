@@ -22,8 +22,8 @@ import torch
 
 from ..solvers.banded import solve_factorized_L, solve_factorized_X
 from ..utils import debug
-from .cuda_build import (bf16_row_stride, check, load_kernels,
-                         require_f32_cuda)
+from .cuda_build import (SMS, bf16_row_stride, check, device_sms,
+                         load_kernels, require_f32_cuda)
 
 
 # The H100's shared memory: what one block may take, and what an SM holds
@@ -44,7 +44,13 @@ SWEEP_MAX_STAGES = 8
 SWEEP_WANT_STAGES = 4          # bands shrink until this many stages fit
 SWEEP_BARRIER_BYTES = 2 * SWEEP_MAX_STAGES * 8 + 2 * 8
 SWEEP_CLUSTER_B = 64           # batches up to this size run in clusters
-SMS = 132                      # streaming multiprocessors of the H100
+# The X form's wide tier (``group_sweep.cuh``): the launch bounds' blocks an
+# SM, the barriers before its ring, and the smallest n and largest batch
+# it takes (:func:`sweep_wide`)
+SWEEP_WIDE_PER_SM = 2
+SWEEP_WIDE_BARRIER_BYTES = 2 * SWEEP_MAX_STAGES * 8
+SWEEP_WIDE_MIN_N = 360
+SWEEP_WIDE_MAX_B = 32
 
 
 class SweepPlan(NamedTuple):
@@ -52,12 +58,15 @@ class SweepPlan(NamedTuple):
     each streaming its rows of every factor block in bands of
     ``band_rows`` rows through a ring of ``stages`` shared-memory stages;
     ``smem_bytes`` of dynamic shared memory a block, sized so that
-    ``per_sm`` blocks share an SM."""
+    ``per_sm`` blocks share an SM.  On the X form's wide tier ``spread``
+    blocks of one cooperative grid take a scenario (``cluster`` is then
+    1); 0 on the cluster tiers."""
     cluster: int
     band_rows: int
     stages: int
     smem_bytes: int
     per_sm: int
+    spread: int = 0
 
 
 def sweep_rows(rank: int, cluster: int, n: int) -> int:
@@ -110,14 +119,14 @@ def sweep_smem_bytes(n: int, cluster: int, band_rows: int, stages: int,
 
 
 def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int,
-                most: int):
+                most: int, sms: int):
     """(share, band_rows, stages, per_sm) of a cluster size: the largest
     bands that leave SWEEP_WANT_STAGES stages beside as many blocks an SM as
-    B needs, at most ``most``, or, where not even two stages fit, fewer
-    blocks an SM."""
+    B needs on ``sms`` SMs, at most ``most``, or, where not even two stages
+    fit, fewer blocks an SM."""
     share = max(sweep_rows(c + 1, cluster, n) - sweep_rows(c, cluster, n)
                 for c in range(cluster))
-    per_sm = min(most, 2 if cluster > 1 else -(-B // SMS))
+    per_sm = min(most, 2 if cluster > 1 else -(-B // sms))
     while True:
         room = (SMEM_SM // per_sm - 1024) - sweep_smem_bytes(n, cluster, 0, 0,
                                                              part)
@@ -131,8 +140,65 @@ def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int,
         per_sm -= 1
 
 
-def sweep_plan(B: int, K: int, n: int, form: str,
-               esize: int = 4) -> SweepPlan:
+def sweep_wide(B: int, n: int, form: str, sms: int = SMS) -> bool:
+    """Whether B scenarios of n x n blocks take the wide tier on a card of
+    ``sms`` SMs: the X form from n = SWEEP_WIDE_MIN_N up to
+    SWEEP_WIDE_MAX_B scenarios, and no more than the card has SMs (its
+    grid is cooperative: a block a scenario at least, all resident)."""
+    return (form == "X" and n >= SWEEP_WIDE_MIN_N
+            and B <= min(SWEEP_WIDE_MAX_B, sms))
+
+
+def sweep_wide_rows(n: int, spread: int) -> int:
+    """The most rows any of ``spread`` blocks owns (the kernel's
+    ``wide_rows``)."""
+    return 2 * -(-(n // 2) // spread)
+
+
+def sweep_wide_smem_bytes(n: int, rows: int, band_rows: int, stages: int,
+                          row_bytes: int) -> int:
+    """Dynamic shared memory of a wide-tier block (the kernel's
+    ``wide_smem_bytes``): the ring's barriers, the ring, r and w_k of the
+    block's ``rows``."""
+    return (SWEEP_WIDE_BARRIER_BYTES + stages * band_rows * row_bytes
+            + 4 * (n + rows))
+
+
+def _wide_plan(B: int, K: int, n: int, esize: int, sms: int) -> SweepPlan:
+    """The wide tier's plan on a card of ``sms`` SMs.  A band costs a step
+    about one row product's latency whatever its rows (its rows run on the
+    consumer warps side by side), so a step costs its bands: for each count
+    of blocks an SM up to SWEEP_WIDE_PER_SM that gives each scenario a
+    block, the card's blocks (all of them
+    resident at once, as a cooperative grid must be) are shared out between
+    the B scenarios (each at least 2 rows), with the largest bands (up to
+    SWEEP_MAX_BAND rows) of which two stages fit beside r and w_k and as
+    many stages as fit; the plan with the fewest bands a step is taken,
+    the fewer blocks an SM on a tie."""
+    row_bytes = sweep_row_bytes(n, esize)
+    best = None
+    for per_sm in range(-(-B // sms), SWEEP_WIDE_PER_SM + 1):
+        spread = min(sms * per_sm // B, n // 2)
+        rows = sweep_wide_rows(n, spread)
+        room = (SMEM_SM // per_sm - 1024) - sweep_wide_smem_bytes(
+            n, rows, 0, 0, row_bytes)
+        band = min(SWEEP_MAX_BAND, rows, room // (2 * row_bytes)) // 2 * 2
+        if band < 2 or (best and -(-rows // band) >= best[0]):
+            continue
+        stages = min(SWEEP_MAX_STAGES, room // (band * row_bytes),
+                     -(-rows // band) * (2 * K - 1))
+        best = (-(-rows // band), SweepPlan(
+            1, band, stages, sweep_wide_smem_bytes(n, rows, band, stages,
+                                                   row_bytes), per_sm,
+            spread))
+    if best is None:
+        raise ValueError(f"sweep kernels: no wide plan of B={B} at n={n} "
+                         f"fits {sms} SMs")
+    return best[1]
+
+
+def sweep_plan(B: int, K: int, n: int, form: str, esize: int = 4,
+               sms: int = SMS, _wide: bool | None = None) -> SweepPlan:
     """The launch plan of the sweep kernel of ``form`` ("X", "L" or
     "dense") for B scenarios of K blocks of n x n, stored as float32
     (``esize`` 4) or as bf16 on padded rows (``esize`` 2: a stage holds
@@ -155,9 +221,17 @@ def sweep_plan(B: int, K: int, n: int, form: str,
     a step of k).  Where n is so large that not even a ring of two stages
     fits beside the vectors of as many blocks, fewer blocks share an SM,
     and then a cluster has fewer blocks (the widest blocks run one block a
-    scenario).  Raises ValueError for what the kernels do not serve
-    (K < 2; X and L: n not a multiple of 6 or above 6144; dense: n odd or
-    above 1536)."""
+    scenario).
+    * The X form from n = 360 up to B = 32 (:func:`sweep_wide`; the
+      grouped routes past N = 59 at small batches): the wide tier, each
+      scenario on its share of one cooperative grid over the card
+      (:func:`_wide_plan`).  ``_wide`` names the tier instead (to time
+      and check both tiers at one shape).
+    ``sms`` is the card's count of SMs (the launches give
+    :func:`cuda_build.device_sms`).
+    Raises ValueError for what the kernels do not serve (K < 2; X and L:
+    n not a multiple of 6 or above 6144; dense: n odd or above 1536; the
+    wide tier on another form than X)."""
     if form not in SWEEP_FORMS:
         raise ValueError(f"sweep kernels: unknown form {form!r}")
     unit = 2 if form == "dense" else 6
@@ -166,6 +240,12 @@ def sweep_plan(B: int, K: int, n: int, form: str,
         raise ValueError(f"sweep kernels, {form} form: unsupported B={B}, "
                          f"K={K}, n={n} (n a multiple of {unit} up to "
                          f"{max_n}, K >= 2)")
+    if _wide is None:
+        _wide = sweep_wide(B, n, form, sms)
+    if _wide:
+        if form != "X":
+            raise ValueError(f"sweep kernels: no wide tier of form {form!r}")
+        return _wide_plan(B, K, n, esize, sms)
     part = sweep_part_rows(form, n)
     row_bytes = sweep_row_bytes(n, esize)
     most = sweep_blocks_per_sm(form, n, esize)
@@ -174,7 +254,7 @@ def sweep_plan(B: int, K: int, n: int, form: str,
                2 if B <= SWEEP_CLUSTER_B else 1)
     while True:
         share, band_rows, stages, per_sm = _sweep_ring(B, n, cluster, part,
-                                                       row_bytes, most)
+                                                       row_bytes, most, sms)
         if stages >= 2 or cluster == 1:
             break
         cluster //= 2
@@ -193,11 +273,13 @@ def solve_factorized_grouped_X_plain(X, C, b):
 
 
 def _launch_sweep(what: str, entry: str, F, G, b, form: str,
-                  bf16_ok=("F",)):
+                  bf16_ok=("F",), plan: SweepPlan | None = None):
     """Check the operands of a sweep kernel, launch ``entry`` (its ``_f32``
-    or, for bf16 factors, ``_bf16`` variant) on :func:`sweep_plan` and
-    return x.  F (B, K, n, n) the factor blocks, G the slot scalars
-    (K-1, 3, 3) (X, L) or the second factor (B, K-1, n, n) (dense)."""
+    or, for bf16 factors, ``_bf16`` variant; ``_wide`` before it on the
+    wide tier) on :func:`sweep_plan` for b's card (or ``plan``) and return
+    x.
+    F (B, K, n, n) the factor blocks, G the slot scalars (K-1, 3, 3) (X, L)
+    or the second factor (B, K-1, n, n) (dense)."""
     require_f32_cuda(what, bf16_ok=bf16_ok, F=F, G=G, b=b)
     if b.dim() != 3:
         raise ValueError(f"{what}: b {tuple(b.shape)} is not (B, K, n)")
@@ -208,34 +290,49 @@ def _launch_sweep(what: str, entry: str, F, G, b, form: str,
             f"{what}: unsupported shapes {tuple(F.shape)}, "
             f"{tuple(G.shape)}, b {tuple(b.shape)}")
     bf16 = F.dtype == torch.bfloat16
-    plan = sweep_plan(B, K, n, form, esize=F.element_size())
+    if plan is None:
+        plan = sweep_plan(B, K, n, form, esize=F.element_size(),
+                          sms=device_sms(b.device))
     x = torch.empty_like(b)
     lib = load_kernels()
+    ld = (F.stride(-2),) if bf16 else ()
+    dtype = "_bf16" if bf16 else "_f32"
     with torch.cuda.device(b.device):
-        err = getattr(lib, entry + ("_bf16" if bf16 else "_f32"))(
-            F.data_ptr(), G.data_ptr(), b.data_ptr(), x.data_ptr(), B, K, n,
-            *((F.stride(-2),) if bf16 else ()), plan.cluster,
-            plan.band_rows, plan.stages, plan.per_sm,
-            torch.cuda.current_stream(b.device).cuda_stream)
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        if plan.spread:
+            # the vector of a step, double-buffered, in global memory,
+            # then the launch's two barrier words
+            vbuf = torch.empty(2 * B * n + 2, dtype=torch.float32,
+                               device=b.device)
+            err = getattr(lib, entry + "_wide" + dtype)(
+                F.data_ptr(), G.data_ptr(), b.data_ptr(), x.data_ptr(),
+                vbuf.data_ptr(), B, K, n, *ld, plan.spread, plan.band_rows,
+                plan.stages, plan.per_sm, stream)
+        else:
+            err = getattr(lib, entry + dtype)(
+                F.data_ptr(), G.data_ptr(), b.data_ptr(), x.data_ptr(), B,
+                K, n, *ld, plan.cluster, plan.band_rows, plan.stages,
+                plan.per_sm, stream)
     check(err, what)
     debug.report(entry, x)
     return x
 
 
-def solve_factorized_grouped_X(X, C, b):
+def solve_factorized_grouped_X(X, C, b, *, _plan: SweepPlan | None = None):
     """Solve M x = b for a batch: X (B, K, n, n) symmetric block inverses,
     C (K-1, 3, 3) shared upper-triangular slot scalars, b (B, K, n) ->
-    x (B, K, n).  CUDA tensors launch the kernel on :func:`sweep_plan`
-    (float32 and contiguous, X also bf16 as ``banded.compress_factors``
-    lays it out; n a multiple of 6 up to 6144; anything else raises); CPU
-    tensors run the plain version."""
+    x (B, K, n).  CUDA tensors launch the kernel on :func:`sweep_plan`, or
+    on ``_plan`` (to time and check another tier; float32 and contiguous,
+    X also bf16 as
+    ``banded.compress_factors`` lays it out; n a multiple of 6 up to 6144;
+    anything else raises); CPU tensors run the plain version."""
     if not b.is_cuda:
         if b.device.type != "cpu":
             raise ValueError(
                 f"solve_factorized_grouped_X: unsupported device {b.device}")
         return solve_factorized_grouped_X_plain(X, C, b)
     x = _launch_sweep("solve_factorized_grouped_X", "group_solve_x", X, C, b,
-                      "X")
+                      "X", plan=_plan)
     solve_factorized_grouped_X.launches += 1
     return x
 

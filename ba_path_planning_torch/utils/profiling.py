@@ -160,6 +160,19 @@ def admm_stage_cost(stage: str, n_vehicles: int, n_steps: int,
     raise ValueError(f"admm_stage_cost: unknown stage {stage!r}")
 
 
+def ns_chain_interior_flops(B: int, n_steps: int, n: int,
+                            ns_iters: int = 2) -> int:
+    """FP32 operations of the NS chain's interior (``ops/ns_chain.py``
+    ``chain_interior``: the steps k = 3 .. K-2) for B scenarios of n x n
+    blocks: per step S_k = D_k - (C (x) I) X (C (x) I)^T (117 operations a
+    slot pair, 13 n^2), then ``ns_iters`` Newton-Schulz iterations, each
+    T' = X S whole (2 n^3) and the update 2 X - X T'^T, which is symmetric
+    and so formed on and above the diagonal only (n (n + 1) / 2 elements
+    of 2 n + 2 operations: n (n + 1)^2)."""
+    step = ns_iters * (2 * n ** 3 + n * (n + 1) ** 2) + 13 * n * n
+    return B * (n_steps - 4) * step
+
+
 def factorize_X_cost(n_vehicles: int, n_steps: int, ns_iters: int = 2,
                      n_anchors: int = 4, itemsize: int = 4) -> dict:
     """Cost model of the X-form factorization for one scenario QP

@@ -27,9 +27,12 @@
    fused intervals again with one rho a lane (adaptive rho), read through
    their per-lane strides (the X form at N=30, B=128, the L form at N=20,
    B=64); the grouped routes' kernels past N = 341 (``wide_kernel_phase``:
-   the X-form and the L-only sweep at N=342, B=2, and at N=1024, n=6144,
-   B=1 with the horizon cut to K=6, and one call of the NS chain at
-   N=342); the steps phase
+   the X-form sweep on its wide tier and the L-only sweep at N=342, B=2,
+   and at N=1024, n=6144, B=1 with the horizon cut to K=6, and the NS
+   chain at N=342, B=2 on its wide tier beside the plain factorize_X timed
+   in the same run; before them the NS chain of one scenario at N=40 on
+   its wide tier at both precisions; each line names the kernel's tier,
+   one block a scenario, a cluster or the wide tier); the steps phase
    (``steps_phase``): the ADMM stages of
    ``ops/admm_steps.py``, admm_rhs and admm_update around the X-form sweep
    kernel (the grouped routes' iteration) at N=20 (B=512, 128, 64, 1),
@@ -381,9 +384,12 @@ def ns_check(n_veh, D, C, tag):
     head, done = ns_chain.anchor_head(D, C), Xp.clone()
     anchors_ms = _time_ms(lambda: (ns_chain.anchor_head(D, C),
                                    ns_chain.anchor_tail(done, D, C)))
+    from ba_path_planning_torch.utils.profiling import (
+        ns_chain_interior_flops)
     B, K, n = D.shape[:3]
-    # interior steps 3..K-2, 2 Newton-Schulz iterations of two n^3 products
-    flops = B * (K - 4) * 2 * 4 * n ** 3
+    # interior steps 3..K-2, 2 Newton-Schulz iterations, the update's
+    # upper triangle
+    flops = ns_chain_interior_flops(B, K, n)
     out = {}
     for precision in ("highest", "high"):
         def route():
@@ -405,7 +411,8 @@ def ns_check(n_veh, D, C, tag):
         unit = ("three TF32 passes at 495" if precision == "high"
                 else "FP32 at 67")
         print(f"{tag}: factorize_X_chain_batched ns_precision={precision} "
-              f"N={n_veh} B={B} max_block_rel={ns_rel:.3e} (tol {NS_TOL:g}) "
+              f"N={n_veh} B={B} ({_ns_tier(B, n)}) "
+              f"max_block_rel={ns_rel:.3e} (tol {NS_TOL:g}) "
               f"max_abs={ns_abs:.3e}; against float64: kernel {k_err:.3e}, "
               f"plain f32 {p_err:.3e}; route={ns_ms:.3f} ms = kernel "
               f"{kernel_ms:.3f} ms + anchors {anchors_ms:.3f} ms; "
@@ -424,7 +431,7 @@ def ns_check(n_veh, D, C, tag):
                   2 * B * K * n * n * 4, done, 2 * B * K * n * n * 4,
                   library_ms=ns_plain_ms, flop_s=rate),
             precision=precision, kernel_ms=kernel_ms, anchors_ms=anchors_ms,
-            fp32_bound_ms=fp32_bound)
+            fp32_bound_ms=fp32_bound, tier=_ns_tier(B, n))
     out["high"][1]["fp32_kernel_ms"] = out["highest"][1]["kernel_ms"]
     out["high"][1]["fp32_route_ms"] = out["highest"][1]["ms"]
     return out["high"]
@@ -480,59 +487,105 @@ def kernel_phase(dev, B):
         group_solve.solve_factorized_grouped_X_plain, (X, C), b, b_admm)
     n = 6 * 20
     return {"ns_chain": ns_stats,
-            "group_solve_x": _stat(
+            "group_solve_x": dict(_stat(
                 sw_abs, sw_ms, sw_plain_ms, f"N=20 K={K_STEPS} B={B}",
                 B * K_STEPS * (n * n + 2 * n) * 4, B * 2 * K_STEPS * 2 * n * n,
-                B * K_STEPS * (2 * n * n + 2 * n) * 4)}
+                B * K_STEPS * (2 * n * n + 2 * n) * 4),
+                tier=_sweep_tier(b, "X"))}
 
 
 # (N, B, K) of the wide kernel checks: the grouped routes past N = 341, the
 # production QP's N=342 at the wide path's batch and N=1024 (n=6144, the
 # widest the sweeps serve) with its horizon cut to K=6 (WIDE_STEP_SHAPES)
 WIDE_KERNEL_SHAPES = ((342, 2, K_STEPS), (1024, 1, 6))
-WIDE_REPS = 2                      # timed calls of a sweep there
+WIDE_REPS = 2                      # timed calls of an L sweep there
+WIDE_X_REPS = 10                   # of an X sweep and of the NS chain
+# (N, B) of the NS chain's check of one scenario at the top of the
+# production envelope, which its wide tier takes in tiles of 64
+NS_SMALL = (40, 1)
+
+
+def _ns_tier(B, n):
+    """The NS chain's tier for B scenarios of n x n blocks, in words."""
+    from ba_path_planning_torch.ops.ns_chain import ns_chain_plan
+    plan = ns_chain_plan(B, n)
+    if not plan.tile:
+        return "one block a scenario"
+    return (f"wide, tiles of {plan.tile} ({plan.tiles} and "
+            f"{plan.upper_tiles} blocks a scenario a product)")
+
+
+def _sweep_tier(b, form):
+    """The sweep kernel's tier for right-hand sides b, in words."""
+    from ba_path_planning_torch.ops.group_solve import sweep_plan
+    plan = sweep_plan(*b.shape, form)
+    if plan.spread:
+        return (f"wide, {plan.spread} blocks a scenario, {plan.per_sm} an "
+                "SM")
+    return f"cluster of {plan.cluster}"
 
 
 def wide_kernel_phase(dev):
     """The kernels of the grouped routes at WIDE_KERNEL_SHAPES, each
     against its plain version as at N=20: the X-form sweep on the plain
-    NS factors (cuBLAS) and the L-only sweep on the block Cholesky factors
-    of the ``SCP`` class's solver, each timed over WIDE_REPS calls; at
-    N=342 also one call of the NS chain's tensor-core route (its
-    ``"high"``, the production solver's; seconds a call, PERF.md §6)
-    against the plain chain, timed alone.  Returns {kernel: {shape: its
-    numbers}}."""
+    NS factors (cuBLAS; its wide tier) and the L-only sweep on the block
+    Cholesky factors of the ``SCP`` class's solver, the X sweep timed over
+    WIDE_X_REPS calls, the L sweep over WIDE_REPS; at N=342 also the NS
+    chain's tensor-core route (its ``"high"``, the production solver's;
+    its wide tier) against the plain chain, each timed
+    over WIDE_X_REPS calls in the same run, the plain factorize_X being
+    the one library call of the same function.  First the NS chain of one
+    scenario at N=40 (NS_SMALL; the wide tier in tiles of 64) at both
+    precisions (:func:`ns_check`).  Each line names the kernel's tier.
+    Returns {kernel: {shape: its numbers}}."""
     import torch
     from ba_path_planning_torch.ops import group_solve, ns_chain
+    from ba_path_planning_torch.utils.profiling import (
+        ns_chain_interior_flops)
     out = {"ns_chain": {}, "group_solve_x": {}, "group_solve_l": {}}
+    n_veh, B = NS_SMALL
+    D, C = _case(n_veh, B, dev, seed=400 + n_veh)[:2]
+    _, st = ns_check(n_veh, D, C, "wide kernel phase")
+    out["ns_chain"][f"N={n_veh} K={K_STEPS} B={B}"] = dict(
+        st, tier=_ns_tier(B, 6 * n_veh))
+    del D, C
     for n_veh, B, K in WIDE_KERNEL_SHAPES:
         shape, n = f"N={n_veh} K={K} B={B}", 6 * n_veh
         D, C, b, b_admm, _ = _case(n_veh, B, dev, seed=B + n_veh, n_steps=K)
-        t0 = time.perf_counter()
         Xp = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
         if n_veh == WIDE_N:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            X = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
-                                                   ns_precision="high")
-            stop.record()
+            def route():
+                return ns_chain.factorize_X_chain_batched(
+                    D, C, ns_iters=2, ns_precision="high")
+            X = route()
             torch.cuda.synchronize()
-            ms, err = start.elapsed_time(stop), _block_rel(X, Xp, 2)
-            flops = B * (K - 4) * 2 * 4 * n ** 3
+            err = _block_rel(X, Xp, 2)
+            ms = _time_ms(route, reps=WIDE_X_REPS)
+            head = ns_chain.anchor_head(D, C)
+            kernel_ms = _time_ms(lambda: ns_chain.chain_interior(
+                D, C, head, ns_iters=2, ns_precision="high"),
+                reps=WIDE_X_REPS)
+            del head
+            plain_ms = _time_ms(lambda: ns_chain.factorize_X_chain_plain(
+                D, C, ns_iters=2), reps=WIDE_X_REPS)
+            flops = ns_chain_interior_flops(B, K, n)
             st = _stat(float((X - Xp).abs().max()), ms, plain_ms, shape,
                        2 * B * K * n * n * 4, 3 * flops,
                        2 * B * K * n * n * 4, library_ms=plain_ms,
                        flop_s=TF32_FLOP_S)
+            st.update(kernel_ms=kernel_ms, tier=_ns_tier(B, n))
             out["ns_chain"][shape] = st
             print(f"wide kernel phase: factorize_X_chain_batched "
-                  f"ns_precision=high N={n_veh} K={K} B={B} one call "
-                  f"{ms:.1f} ms (anchors included), plain factorize_X "
-                  f"{plain_ms:.1f} ms; max_block_rel={err:.3e} (tol "
-                  f"{NS_TOL:g}); bound {st['bound_ms']:.3f} ms (three TF32 "
-                  f"passes; {st['bound_ms'] / ms:.2%})", flush=True)
+                  f"ns_precision=high N={n_veh} K={K} B={B} on the "
+                  f"{st['tier']}: {ms:.3f} ms a call (anchors included; "
+                  f"kernel {kernel_ms:.3f} ms), library factorize_X "
+                  f"{plain_ms:.3f} ms in the same run (the kernel route "
+                  f"{'faster' if ms < plain_ms else 'slower'}); "
+                  f"max_block_rel={err:.3e} (tol {NS_TOL:g}); bound "
+                  f"{st['bound_ms']:.3f} ms (three TF32 passes; "
+                  f"{st['bound_ms'] / ms:.2%} of the route, "
+                  f"{st['bound_ms'] / kernel_ms:.2%} of the kernel)",
+                  flush=True)
             if not err <= NS_TOL:
                 raise AssertionError(f"NS chain at N={n_veh} disagrees: "
                                      f"{err:.3e}")
@@ -543,13 +596,22 @@ def wide_kernel_phase(dev):
             f"solve_factorized_grouped_X ({_plan(b, 'X')})",
             group_solve.solve_factorized_grouped_X,
             group_solve.solve_factorized_grouped_X_plain, (Xp, C), b, b_admm,
-            reps=WIDE_REPS)
-        out["group_solve_x"][shape] = _stat(
-            err, ms, sw_plain_ms, shape, B * K * (n * n + 2 * n) * 4,
-            B * 2 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
+            reps=WIDE_X_REPS)
+        st = _stat(err, ms, sw_plain_ms, shape, B * K * (n * n + 2 * n) * 4,
+                   B * 2 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
+        st["tier"] = _sweep_tier(b, "X")
+        out["group_solve_x"][shape] = st
+        print(f"wide kernel phase: solve_factorized_grouped_X N={n_veh} "
+              f"K={K} B={B} on the {st['tier']}: {ms:.3f} ms, stream bound "
+              f"{st['stream_bound_ms']:.3f} ms "
+              f"({st['stream_bound_ms'] / ms:.1%}), plain {sw_plain_ms:.3f} "
+              f"ms", flush=True)
         del Xp, b, b_admm
-        out["group_solve_l"][shape] = lform_phase(
-            dev, n_veh, B, n_steps=K, reps=WIDE_REPS)["group_solve_l"]
+        st = lform_phase(dev, n_veh, B, n_steps=K,
+                         reps=WIDE_REPS)["group_solve_l"]
+        plan = group_solve.sweep_plan(B, K, n, "L")
+        out["group_solve_l"][shape] = dict(st, tier=f"cluster of "
+                                           f"{plan.cluster}")
     for at in out.values():
         for st in at.values():
             st.pop("timed_at", None)

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Time the sweep kernels and the X-form fused interval of the PyTorch port
-on one GPU.
+"""Time the sweep kernels, the X-form fused interval and the NS chain of
+the PyTorch port on one GPU.
 
     python3 scripts/torch_sweep_bench.py [--cases X:20:512,...] [--root DIR]
                                          [--time-only] [--graph] [--bf16]
+                                         [--tiers] [--plans]
 
-Each case (form, N, B; K=50, or a fourth field for case S: ``S:1024:1:6``)
-is built and checked as ``chip_smoke.py``
-builds and checks it: the X-form sweep (form X) on the NS factors of
+Each case (form, N, B; K=50, or a fourth field for cases S, X and NS:
+``S:1024:1:6``) is built and checked as ``chip_smoke.py`` builds and
+checks it (cases NS and X repeat the inputs of at most DISTINCT
+scenarios, fewer where their assembly would not fit): the NS chain's
+kernel (case NS: ``chain_interior`` at ``ns_precision="high"``, the
+anchors apart, on production blocks, against the plain ``factorize_X``,
+beside which it is timed, and the bound of its three TF32 passes), the
+X-form sweep (form X) on the NS factors of
 production blocks, the L-only sweep (L) and the dense (Linv, Eb) sweep (D)
 on the block Cholesky factors of the reference-compatible solver, through
 ``chip_smoke._sweep_check`` (the kernel against its plain version,
@@ -19,7 +25,11 @@ through ``chip_smoke._steps_check``, then timed alone: ``admm_rhs`` and
 ``admm_update`` (S) and the channel interval of 25 iterations (C; CL with
 one rho a lane), beside the bounds of ``utils/profiling.admm_stage_cost``
 (for the channel interval the collision-free count, and the count with
-eta's pair terms beside it, where the checkout has both).
+eta's pair terms beside it, where the checkout has both).  Case LAT
+(``LAT:20:64``) runs the bench twin (``bench.measure``) on its headline
+problem at N vehicles, B scenarios in one chunk, and prints the batch's
+wall, the p50 of single ``SolverConfig.latency()`` solves and the slope of
+sequential ones (host time included).
 Each case prints one JSON line: the launch plan, the kernel's ms, its
 stream bound (every block read in both sweeps, ``chip_smoke._bound_ms``)
 and its share of it, and the bound that counts only what the sweeps need
@@ -45,7 +55,14 @@ and on the float32 factors in turns (bf16, f32, bf16, f32: ``ms`` and
 four); the bounds then count 2 bytes an element on the padded rows.  With
 ``--bf16`` the L-form fused interval (FL) runs on bf16 (Linv, Eb) as well,
 checked as ``chip_smoke.py`` checks it, and is timed on both factor types
-from one state in the same turns.
+from one state in the same turns.  ``--tiers`` times cases X and NS on
+each tier of their kernel in turns (the plan's first: ``ms``; every tier,
+each checked, in ``ms_by_tier``: the X sweep's "cluster" and "wide", the
+NS chain's output tile, 0 for one block a scenario), where the checkout
+has tiers.  ``--plans`` times case X on its wide tier under other plans
+too (``wide_plans``: each count of blocks an SM, the bands from 2 rows to
+the largest two stages allow, two stages and as many as fit), each
+checked to equal the plan's result, in one JSON line (``plans_ms``).
 """
 
 import argparse
@@ -86,6 +103,134 @@ def _graph_ms(fn, calls=20, replays=5):
     return min(ms), max(ms)
 
 
+def _time_adaptive(cs, fn, budget_ms=2000.0):
+    """CUDA-event ms of a call of ``fn`` (``chip_smoke._time_ms``) over as
+    many calls, 2 to 20, as fit in about ``budget_ms``."""
+    once = cs._time_ms(fn, reps=1)
+    return cs._time_ms(fn, reps=max(2, min(20, int(budget_ms / once))))
+
+
+# scenarios of their own in a case of cases NS and X, at most, and the
+# most collision-block elements (B K n^2 P) their assembly may take; a
+# larger batch repeats theirs (the assembly of eight scenarios at N = 342,
+# K = 50 would not fit on the card)
+DISTINCT, ASSEMBLY_ELEMS = 8, 3e13
+
+
+def _case(cs, N, B, K, dev, seed):
+    """``chip_smoke._case``'s D, C, b and b_admm for B scenarios: those
+    of at most DISTINCT scenarios (fewer where their assembly would pass
+    ASSEMBLY_ELEMS), repeated."""
+    import torch
+    n, P = 6 * N, N * (N - 1) // 2
+    own = max(1, min(B, DISTINCT, int(ASSEMBLY_ELEMS / (K * n * n * P))))
+    D, C, b, b_admm, _ = cs._case(N, own, dev, seed=seed, n_steps=K)
+    if B > own:
+        idx = torch.arange(B, device=dev) % own
+        D, b, b_admm = D[idx], b[idx], b_admm[idx]
+    return D, C, b, b_admm
+
+
+def wide_plans(gs, B, K, n):
+    """Plans of the X form's wide tier beside ``sweep_plan``'s: for one and
+    two blocks an SM (the card's blocks shared out as the plan shares
+    them), bands of 2, 4, 8, 16 and 32 rows and the largest of which two
+    stages fit, each with two stages and with as many as fit."""
+    row = gs.sweep_row_bytes(n)
+    out = []
+    for per_sm in (1, 2):
+        spread = max(1, min(gs.SMS * per_sm // B, n // 2))
+        rows = gs.sweep_wide_rows(n, spread)
+        room = (gs.SMEM_SM // per_sm - 1024) - gs.sweep_wide_smem_bytes(
+            n, rows, 0, 0, row)
+        top = min(gs.SWEEP_MAX_BAND, rows, room // (2 * row)) // 2 * 2
+        for band in sorted({b for b in (2, 4, 8, 16, 32) if b <= top}
+                           | ({top} if top >= 2 else set())):
+            for stages in sorted({2, min(gs.SWEEP_MAX_STAGES,
+                                         room // (band * row))}):
+                out.append(gs.SweepPlan(1, band, stages,
+                                        gs.sweep_wide_smem_bytes(
+                                            n, rows, band, stages, row),
+                                        per_sm, spread))
+    return out
+
+
+def _ns_case(cs, ns_chain, N, B, K, dev, card, tiers):
+    """Case NS: the chain's kernel (the interior, anchors apart) at
+    ``ns_precision="high"`` on production blocks against the plain
+    ``factorize_X``, on the plan's tier and, with ``tiers``, on each other
+    tier in turns.  Returns the JSON line."""
+    import inspect
+    import torch
+    n = 6 * N
+    D, C = _case(cs, N, B, K, dev, seed=N)[:2]
+    Xp = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
+    plain_ms = _time_adaptive(
+        cs, lambda: ns_chain.factorize_X_chain_plain(D, C, ns_iters=2))
+    head = ns_chain.anchor_head(D, C)
+    plan_fn = getattr(ns_chain, "ns_chain_plan", None)
+    runs = {}
+    if plan_fn is None or "_plan" not in inspect.signature(
+            ns_chain.chain_interior).parameters:
+        runs[None] = lambda: ns_chain.chain_interior(
+            D, C, head, ns_iters=2, ns_precision="high")
+    else:
+        first = plan_fn(B, n).tile
+        others = getattr(ns_chain, "NS_TILES", (0, 64, 128))
+        for tile in [first] + ([t for t in others if t != first]
+                               if tiers else []):
+            runs[tile] = (
+                lambda p=plan_fn(B, n, _tile=tile): ns_chain.chain_interior(
+                    D, C, head, ns_iters=2, ns_precision="high", _plan=p))
+    errs = {}
+    for tile, fn in runs.items():
+        X = ns_chain.anchor_tail(fn(), D, C)
+        torch.cuda.synchronize()
+        errs[tile] = cs._block_rel(X, Xp, 2)
+        if not errs[tile] <= cs.NS_TOL:
+            raise AssertionError(f"NS N={N} B={B} K={K} tile {tile}: "
+                                 f"{errs[tile]:.3e}")
+        del X
+    times = {tile: [] for tile in runs}
+    for _ in range(2):
+        for tile, fn in runs.items():
+            times[tile].append(_time_adaptive(cs, fn))
+    # the checkout's count of the interior's operations (a checkout
+    # without one prints no bound)
+    from ba_path_planning_torch.utils import profiling
+    count = getattr(profiling, "ns_chain_interior_flops", None)
+    bound = (3 * count(B, K, n) / cs.TF32_FLOP_S * 1e3 if count else None)
+    first = next(iter(runs))
+    ms = min(times[first])
+    return {"form": "NS", "N": N, "B": B, "K": K, "tile": first, "ms": ms,
+            "ms_per_step": ms / (K - 4), "ms_by_tier": {
+                str(t): min(v) for t, v in times.items()},
+            "ms_runs_by_tier": {str(t): v for t, v in times.items()},
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "share": bound / ms if bound else None,
+            "bound_by": "operations (three TF32 passes)",
+            "max_block_rel": {str(t): e for t, e in errs.items()},
+            "card": card}
+
+
+def _latency_case(N, B, card):
+    """Case LAT: the bench twin's figures (``bench.measure``) on its
+    headline problem at N vehicles, B scenarios solved in one chunk: the
+    batch's wall, the p50 of single ``SolverConfig.latency()`` solves and
+    the slope of sequential ones.  Returns the JSON line."""
+    import dataclasses
+    import re
+    from ba_path_planning_torch import bench
+    problem = dataclasses.replace(bench.headline_problem(), n_vehicles=N)
+    _, summary = bench.measure(problem, batch=B, chunk=B)
+    fields = {key: float(re.search(rf" {key}=([0-9.]+)", summary).group(1))
+              for key in ("wall", "p50_single_scenario_latency_ms",
+                          "p50_ondevice_solve_ms")}
+    ok = re.search(r" ok=(\d+/\d+) ", summary).group(1)
+    return {"form": "LAT", "N": N, "B": B, **fields, "ok": ok,
+            "card": card}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", default=CASES)
@@ -93,6 +238,8 @@ def main():
     ap.add_argument("--time-only", action="store_true")
     ap.add_argument("--graph", action="store_true")
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--tiers", action="store_true")
+    ap.add_argument("--plans", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -175,6 +322,13 @@ def main():
                                     bound_ms_with_eta_terms=bound)
                 print(json.dumps(line), flush=True)
             del factors, c, rows, work
+            continue
+        if form == "NS":
+            print(json.dumps(_ns_case(cs, ns_chain, N, B, K, dev, card,
+                                      args.tiers)), flush=True)
+            continue
+        if form == "LAT":
+            print(json.dumps(_latency_case(N, B, card)), flush=True)
             continue
         if form == "F":
             D, C, _, _, kw = cs._case(N, B, dev, seed=N)
@@ -260,11 +414,18 @@ def main():
             print(json.dumps(line), flush=True)
             del kw, Linv, Eb, factors
             continue
+        tiers = {}
         if form == "X":
-            D, C, b, b_admm, _ = cs._case(N, B, dev, seed=B)
+            D, C, b, b_admm = _case(cs, N, B, K, dev, seed=B)
             factors = (ns_chain.factorize_X_chain_plain(D, C, ns_iters=2), C)
             kernel = group_solve.solve_factorized_grouped_X
             plain = group_solve.solve_factorized_grouped_X_plain
+            if args.tiers and hasattr(group_solve, "sweep_wide"):
+                first = group_solve.sweep_wide(B, n, "X")
+                for wide in (first, not first):
+                    plan = group_solve.sweep_plan(B, K, n, "X", _wide=wide)
+                    tiers["wide" if wide else "cluster"] = (
+                        plan, lambda *f, p=plan: kernel(*f, _plan=p))
         else:
             D, C, b, b_admm, _ = cs._case(N, B, dev, seed=1000 + N + B,
                                           solver=cs._facade_solver())
@@ -285,9 +446,12 @@ def main():
             ops = (banded.compress_factors(*factors[:n_fac])
                    + tuple(factors[n_fac:]))
             esize, ld = 2, ops[0].stride(-2)
-        err, ms, _ = cs._sweep_check(
-            f"{form} N={N} B={B}" + (f" bf16 (rows of {ld})" if args.bf16
-                                     else ""), kernel, plain, ops, b, b_admm)
+        tag = f"{form} N={N} B={B} K={K}" + (f" bf16 (rows of {ld})"
+                                             if args.bf16 else "")
+        for name, (plan, fn) in tiers.items():
+            cs._sweep_check(f"{tag} {name} tier", fn, plain, ops, b, b_admm,
+                            reps=2)
+        err, ms, _ = cs._sweep_check(tag, kernel, plain, ops, b, b_admm)
         # blocks streamed: 2K of X_k or Linv_k (X, L), 4K - 2 (D)
         blocks = 4 * K - 2 if form == "D" else 2 * K
         flops = B * (4 if form == "L" else 2) * blocks // 2 * 2 * n * n
@@ -306,6 +470,32 @@ def main():
                         bf16_ms_runs=runs["bf16"], f32_ms_runs=runs["f32"],
                         factor_dtype="bf16", row_stride=ld)
             line["share"] = bound / line["ms"]
+        if tiers:
+            # each tier in turns, twice
+            runs = {name: [] for name in tiers}
+            for _ in range(2):
+                for name, (plan, fn) in tiers.items():
+                    runs[name].append(_time_adaptive(
+                        cs, lambda: fn(*ops, b)))
+            line.update(ms=min(next(iter(runs.values()))),
+                        ms_by_tier={k: min(v) for k, v in runs.items()},
+                        ms_runs_by_tier=runs,
+                        plans={k: p._asdict() for k, (p, _) in tiers.items()})
+            line["share"] = bound / line["ms"]
+        if form == "X" and args.plans:
+            base = group_solve.sweep_plan(B, K, n, "X", _wide=True)
+            want = kernel(*ops, b, _plan=base)
+            times = {}
+            for plan in [base] + [q for q in wide_plans(group_solve, B, K, n)
+                                  if q != base]:
+                got = kernel(*ops, b, _plan=plan)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{tag}: plan {tuple(plan)} differs")
+                times[str(tuple(plan))] = _time_adaptive(
+                    cs, lambda p=plan: kernel(*ops, b, _plan=p))
+            line.update(plans_ms=times, plan_ms=times[str(tuple(base))],
+                        plan_fields=list(base._fields))
         if form in ("L", "D"):
             # Linv's lower triangle only
             tri = K * n * (n + 1) // 2
@@ -313,7 +503,7 @@ def main():
             line["nonzero_stream_bound_ms"] = cs._bound_ms(
                 B * (need * esize * ld // n + 2 * K * n * 4),
                 flops * need // (blocks * n * n))[0]
-        if plan_fn is not None:
+        if plan_fn is not None and not tiers:
             pform = {"X": "X", "L": "L", "D": "dense"}[form]
             if "esize" in inspect.signature(plan_fn).parameters:
                 line["plan"] = plan_fn(B, K, n, pform, esize=esize)._asdict()

@@ -43,11 +43,15 @@ def _spd_chain(B, K, N, seed, scale=0.08):
 
 
 @pytest.mark.parametrize("B,K,N,G", [(4, 12, 4, 2), (2, 9, 3, 1),
-                                     (3, 10, 5, 3)])
+                                     (3, 10, 5, 3), (1, 8, 40, 1)])
 def test_ns_chain_plain_matches_pallas_interpret(B, K, N, G):
     """float32, max relative 1e-5, as tests/test_ns_chain.py holds the
-    Pallas kernel against the XLA chain."""
-    D, C = _spd_chain(B, K, N, seed=B * K)
+    Pallas kernel against the XLA chain; B = 1, N = 40 is a batch the
+    kernel's wide tier takes (``ns_chain_plan``)."""
+    # the spread of A A^T's spectrum held to that of n = 30, where the
+    # warm-started Newton-Schulz steps converge
+    D, C = _spd_chain(B, K, N, seed=B * K,
+                      scale=0.08 * min(1.0, (30 / (6 * N)) ** 0.5))
     want = j_chain(jnp.asarray(D), jnp.asarray(C), ns_iters=2, group=G,
                    interpret=True)
     before = ns_chain.factorize_X_chain_batched.launches
@@ -159,3 +163,49 @@ def test_group_solve_plain_matches_pallas_interpret():
                        group=2, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-3)
+
+
+def test_ns_chain_plan_picks_the_tiers():
+    """One block a scenario for the production chunks (N = 20 at B = 512,
+    N = 30 and 40 at B = 128); the wide tier up to B = 32, in the tile
+    that the measured wave costs favour: 192 at N = 342 (B = 2: one wave of
+    each product), 128 at N = 40 and B = 32, 64 for one scenario at
+    N = 40.  The tile counts are those of the kernel's walk (tile_product's:
+    rows of tiles, from the diagonal in the update)."""
+    for N, B in ((20, 512), (30, 128), (40, 128), (342, 33)):
+        assert ns_chain.ns_chain_plan(B, 6 * N) == (0, 0, 0)
+    assert ns_chain.ns_chain_plan(2, 2052) == (192, 11 * 11, 11 * 12 // 2)
+    assert ns_chain.ns_chain_plan(32, 240) == (128, 4, 3)
+    assert ns_chain.ns_chain_plan(1, 240) == (64, 16, 10)
+    for n in (6, 120, 246, 2052):
+        for tile in (64, 128, 192):
+            plan = ns_chain.ns_chain_plan(1, n, _tile=tile)
+            rows = range(0, n, tile)
+            assert plan.tiles == len(rows) * len(range(0, n, tile))
+            assert plan.upper_tiles == sum(len(range(r0, n, tile))
+                                           for r0 in rows)
+    with pytest.raises(ValueError):
+        ns_chain.ns_chain_plan(1, 240, _tile=32)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66])
+def test_ns_chain_plan_follows_the_cards_sms(sms):
+    """The wave cost counts the waves of each product on the card the
+    plan is given (a launch gives its card's SMs): on 114 SMs (an H100
+    PCIe) two scenarios at N = 342 take tiles of 128, since the 242 tiles
+    of 192 of T' = X S take three waves there and two on 132 SMs; the
+    production chunks keep one block a scenario on any card."""
+    for N, B in ((20, 512), (30, 128), (40, 128)):
+        assert ns_chain.ns_chain_plan(B, 6 * N, sms) == (0, 0, 0)
+    for B in (1, 2, 8, 32):
+        for n in (120, 240, 600, 2052):
+            plan = ns_chain.ns_chain_plan(B, n, sms)
+            assert plan.tile == min(
+                ns_chain.NS_WAVE_COST,
+                key=lambda t: (ns_chain.ns_wide_cost(B, n, t, sms), -t))
+            r = -(-n // plan.tile)
+            waves = -(-B * r * r // sms) + -(-(B * r * (r + 1) // 2) // sms)
+            assert ns_chain.ns_wide_cost(B, n, plan.tile, sms) == (
+                waves * ns_chain.NS_WAVE_COST[plan.tile])
+    assert ns_chain.ns_chain_plan(2, 2052, sms).tile == (
+        128 if sms == 114 else 192)

@@ -72,15 +72,20 @@ def _block_rel(got, want, block_dims):
 @pytest.mark.parametrize("B,K,N", [(3, 10, 3), (4, 12, 4), (8, 50, 20),
                                    (2, 9, 23), (2, 50, 28), (2, 50, 29),
                                    (2, 50, 30), (2, 50, 40), (2, 8, 45),
-                                   (2, 50, 50), (2, 50, 60)])
+                                   (2, 50, 50), (2, 50, 60), (1, 50, 40),
+                                   (1, 8, 100), (2, 12, 342), (40, 9, 30)])
 def test_ns_chain_kernel_matches_plain(cuda, B, K, N, ns_precision):
-    """Relative 1e-4 in every (b, k) block.  "high" takes the products on
-    the tensor cores as three TF32 passes of a hi + lo split, "highest" as
-    FP32 FMAs (summed in another order than cuBLAS) in the same tiling.
-    Both mirror the upper triangle of each update; shared memory up to
-    N = 21, a streamed global scratch beyond, in one output tile up to
-    N = 32 and several above (N = 50 and 60: three row tiles of 128, two
-    column tiles, the second ragged)."""
+    """Relative 1e-4 in every (b, k) block, on the tier of
+    ``ns_chain_plan`` and, by hand, on the others.  "high" takes the
+    products on the tensor cores as three TF32 passes of a hi + lo split,
+    "highest" as FP32 FMAs (summed in another order than cuBLAS) in the
+    same tiling.  Both mirror the upper triangle of each update.  One block
+    a scenario: shared memory up to N = 21, a streamed global scratch
+    beyond, in one output tile up to N = 32 and several above (N = 50 and
+    60: three row tiles of 128, two column tiles, the second ragged).  The
+    wide tier, a block an output tile of 64, 128 or 192 (ragged at every N
+    here but N = 342 in 64): every element summed in the same order as one
+    block a scenario sums it, so the tiers agree bit for bit."""
     D, C = _assembled(B, K, N, seed=N)
     D, C = D.float().to(cuda), C.float().to(cuda)
     before = ns_chain.factorize_X_chain_batched.launches
@@ -92,6 +97,15 @@ def test_ns_chain_kernel_matches_plain(cuda, B, K, N, ns_precision):
     # the interior is mirrored exactly
     assert torch.equal(got[:, 3:K - 1], got[:, 3:K - 1].mT)
     assert _block_rel(got, want, 2) < 1e-4
+    n, head = 6 * N, ns_chain.anchor_head(D, C)
+    plan = ns_chain.ns_chain_plan(B, n, ns_chain.device_sms(cuda))
+    for tile in ns_chain.NS_TILES:
+        if tile != plan.tile:
+            other = ns_chain.chain_interior(
+                D, C, head.clone(), ns_iters=2, ns_precision=ns_precision,
+                _plan=ns_chain.ns_chain_plan(B, n, _tile=tile))
+            torch.cuda.synchronize()
+            assert torch.equal(other[:, 3:K - 1], got[:, 3:K - 1])
 
 
 @pytest.mark.gpu
@@ -173,7 +187,10 @@ def _tiled(factors, B, K, N, seed):
                                    (2, 9, 90), (1, 2, 256), (1, 2, 300),
                                    (40, 2, 300)])
 def test_group_solve_kernel_matches_plain(cuda, B, K, N):
-    """Relative 1e-5 in every (b, k) block, on every branch of the plan."""
+    """Relative 1e-5 in every (b, k) block, on every branch of the plan;
+    up to B = 64 also on the other tier (the wide tier where the plan takes
+    a cluster, and a cluster where it takes the wide tier), which sums every
+    row in the same order: the two agree bit for bit."""
     if B <= SWEEP_DISTINCT:
         X, C, b = _sweep_case(B, K, N, seed=B, dtype=torch.float32)
     else:
@@ -187,19 +204,29 @@ def test_group_solve_kernel_matches_plain(cuda, B, K, N):
     want = group_solve.solve_factorized_grouped_X_plain(X, C, b)
     torch.cuda.synchronize()
     assert _block_rel(got, want, 1) < 1e-5
+    n = 6 * N
+    wide = group_solve.sweep_wide(B, n, "X", group_solve.device_sms(cuda))
+    if B <= group_solve.SWEEP_CLUSTER_B:
+        other = group_solve.solve_factorized_grouped_X(
+            X, C, b, _plan=group_solve.sweep_plan(B, K, n, "X",
+                                                  _wide=not wide))
+        torch.cuda.synchronize()
+        assert torch.equal(other, got)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["X", "L"])
-@pytest.mark.parametrize("B", [1, 3])
-def test_group_solve_kernel_serves_the_widest_blocks(cuda, B, form):
+@pytest.mark.parametrize("form,B,K,n", [("X", 1, 2, 6144), ("X", 3, 2, 6144),
+                                        ("L", 1, 2, 6144), ("L", 3, 2, 6144),
+                                        ("X", 2, 50, 2052),
+                                        ("X", 1, 6, 6144)])
+def test_group_solve_kernel_serves_the_widest_blocks(cuda, form, B, K, n):
     """n = 6144 (N = 1024), the most the X and L forms serve: no cluster's
-    exchange buffers fit beside a ring there, so one block a scenario runs
-    it (the L form with its column sums in shared memory).  Random blocks
-    of norm about 1 stand in for the factors (symmetric for X, lower
-    triangular for L; a float64 factorization at this size would take
-    minutes)."""
-    K, n = 2, 6144
+    exchange buffers fit beside a ring there, so the L form runs one block
+    a scenario (its column sums in shared memory), and the X form its wide
+    tier, each scenario on a share of the card (also at n = 2052, N = 342,
+    K = 50, the production QP's width).  Random blocks of norm about 1
+    stand in for the factors (symmetric for X, lower triangular for L; a
+    float64 factorization at this size would take minutes)."""
     gen = torch.Generator(device=cuda).manual_seed(B)
     A = torch.randn((B, K, n, n), generator=gen, device=cuda)
     if form == "X":
@@ -208,8 +235,11 @@ def test_group_solve_kernel_serves_the_widest_blocks(cuda, B, form):
         F = A.tril_() / n ** 0.5
     del A
     C = torch.triu(torch.randn((K - 1, 3, 3), generator=gen, device=cuda))
+    if K > 2:       # slot scalars under which w_k does not grow with k
+        C = C / 4
     b = torch.randn((B, K, n), generator=gen, device=cuda)
-    assert group_solve.sweep_plan(B, K, n, form).cluster == 1
+    plan = group_solve.sweep_plan(B, K, n, form)
+    assert plan.cluster == 1 and bool(plan.spread) == (form == "X")
     kernel, plain = {
         "X": (group_solve.solve_factorized_grouped_X,
               group_solve.solve_factorized_grouped_X_plain),
@@ -219,6 +249,11 @@ def test_group_solve_kernel_serves_the_widest_blocks(cuda, B, form):
     want = plain(F, C, b)
     torch.cuda.synchronize()
     assert _block_rel(got, want, 1) < 1e-5
+    if form == "X":     # one block a scenario sums every row alike
+        other = kernel(F, C, b, _plan=group_solve.sweep_plan(B, K, n, "X",
+                                                             _wide=False))
+        torch.cuda.synchronize()
+        assert torch.equal(other, got)
 
 
 @pytest.mark.gpu

@@ -79,3 +79,22 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     names = {e.get("name") for e in data["traceEvents"]}
     assert "aten::mm" in names
     assert any(e.key == "aten::mm" for e in p.key_averages())
+
+
+@pytest.mark.parametrize("n", [6, 120, 2052])
+def test_ns_chain_interior_flops_counts_what_the_kernel_forms(n):
+    """The NS chain's interior count, element by element: each of the K-4
+    interior steps forms S_k (9 outputs of 13 operations a slot pair, of
+    (n/3)^2 pairs), then per Newton-Schulz iteration every element of
+    T' = X S (a length-n dot product) and the update's elements on and
+    above the diagonal only (a dot product, then 2 x - v), for each of B
+    scenarios; about 3/4 of two whole products at large n."""
+    B, K, iters = 3, 50, 2
+    slot_pairs = (n // 3) ** 2
+    whole = n * n * 2 * n
+    upper = sum(n - i for i in range(n)) * (2 * n + 2)
+    step = 117 * slot_pairs + iters * (whole + upper)
+    assert prof.ns_chain_interior_flops(B, K, n, iters) == B * (K - 4) * step
+    if n == 2052:
+        ratio = step / (iters * 4 * n ** 3)
+        assert 0.75 < ratio < 0.752

@@ -20,11 +20,43 @@ from ba_path_planning_torch.ops import group_solve as gs
 from ba_path_planning_torch.solvers import banded as tb
 
 
+def _check_wide_plan(plan, B, K, n, esize=4, sms=gs.SMS):
+    """What the X form's wide tier needs of its plan: B scenarios of
+    ``spread`` blocks each, all resident at once on ``sms`` SMs at
+    ``per_sm`` blocks an SM, every block at least one row pair and at most
+    ``sweep_wide_rows``, its ring of two stages or more beside r and its
+    w_k."""
+    assert plan.cluster == 1 and plan.spread >= 1
+    assert 1 <= plan.per_sm <= gs.SWEEP_WIDE_PER_SM
+    assert B * plan.spread <= sms * plan.per_sm
+    row_bytes = gs.sweep_row_bytes(n, esize)
+    rows = gs.sweep_wide_rows(n, plan.spread)
+    assert plan.smem_bytes == gs.sweep_wide_smem_bytes(
+        n, rows, plan.band_rows, plan.stages, row_bytes)
+    assert plan.smem_bytes <= gs.SMEM_BLOCK_MAX
+    assert plan.per_sm * (plan.smem_bytes + 1024) <= gs.SMEM_SM
+    assert 2 <= plan.stages <= gs.SWEEP_MAX_STAGES
+    band = plan.band_rows
+    assert band % 2 == 0 and 2 <= band <= gs.SWEEP_MAX_BAND
+    bounds = [gs.sweep_rows(q, plan.spread, n) for q in range(plan.spread + 1)]
+    assert bounds[0] == 0 and bounds[-1] == n
+    shares = [hi - lo for lo, hi in zip(bounds, bounds[1:])]
+    assert min(shares) >= 2 and max(shares) <= rows
+    assert all(lo % 2 == 0 for lo in bounds)
+    # the ring is no deeper than the bands of the whole chain
+    assert plan.stages <= -(-rows // band) * (2 * K - 1)
+    return plan
+
+
 def _check_plan(B, K, n, form, full_cluster=True):
     """What the kernel of ``form`` needs of the plan of B scenarios of K
     blocks of n x n; ``full_cluster``: a small batch runs in the clusters
-    of 2 or 4 that its size asks for.  Returns the plan."""
+    of 2 or 4 that its size asks for (the wide tier, where the plan takes
+    it, in one cooperative grid).  Returns the plan."""
     plan = gs.sweep_plan(B, K, n, form)
+    assert bool(plan.spread) == gs.sweep_wide(B, n, form)
+    if plan.spread:
+        return _check_wide_plan(plan, B, K, n)
     c, band, stages = plan.cluster, plan.band_rows, plan.stages
     assert c in (1, 2, 4)
     if full_cluster or B > gs.SWEEP_CLUSTER_B:
@@ -83,9 +115,10 @@ def test_sweep_plan_serves_blocks_above_n_1536(N):
         for B in (1, 33, 64, 65, 512):
             for K in (2, 50):
                 plan = _check_plan(B, K, 6 * N, form, full_cluster=False)
-                assert plan.smem_bytes == gs.sweep_smem_bytes(
-                    6 * N, plan.cluster, plan.band_rows, plan.stages,
-                    0 if form == "X" else 1)
+                if not plan.spread:
+                    assert plan.smem_bytes == gs.sweep_smem_bytes(
+                        6 * N, plan.cluster, plan.band_rows, plan.stages,
+                        0 if form == "X" else 1)
         assert gs.sweep_plan(1, 50, 6 * 1024, form).cluster == 1
     with pytest.raises(ValueError):
         gs.sweep_plan(1, 50, 6 * N, "dense")
@@ -119,7 +152,9 @@ def test_sweep_plan_branches_and_refusals():
                 > 2 * shared.stages * shared.band_rows)
         # a cluster of blocks of n = 1536 runs alone on its SMs: the wide
         # instantiations' launch bounds leave registers for one block an SM
-        assert gs.sweep_plan(1, 50, 1536, form).per_sm == 1
+        # (the X form's single scenario takes the wide tier there)
+        assert gs.sweep_plan(1, 50, 1536, form, _wide=False).per_sm == 1
+        assert bool(gs.sweep_plan(1, 50, 1536, form).spread) == (form == "X")
     # the ring is no deeper than the bands of the whole chain: 3 blocks
     # (X, L) or 5 (dense) at K = 2
     assert gs.sweep_plan(512, 2, 12, "X").stages == 3
@@ -261,6 +296,10 @@ def test_sweep_plan_keeps_to_the_launch_bounds():
                 for B in (1, 33, 64, 65, 128, 264, 265, 512, 2048):
                     for K in (2, 50):
                         plan = gs.sweep_plan(B, K, n, form, esize=esize)
+                        if plan.spread:      # the wide tier's own kernel
+                            assert (1 <= plan.per_sm
+                                    <= k["kWideBlocksPerSm"])
+                            continue
                         runs = bound(code, tier, esize, plan.per_sm)
                         seen.add((form, tier, esize, plan.per_sm, runs))
                         assert 1 <= plan.per_sm <= runs
@@ -485,3 +524,138 @@ def test_grouped_routes_above_n_341_run_the_row_stages(N):
             with pytest.raises(ValueError):
                 gs.sweep_plan(1, K, 6 * 1025, form)
             assert not admm_steps.row_stages_serve(K, 1025)
+
+
+# The plans of the production chunks (N = 20 at B = 512, 128, 64 and 1;
+# N = 21 and 30 at B = 128; K = 50), (cluster, band_rows, stages,
+# smem_bytes, per_sm) for float32 and bf16 factors, as the cluster tiers
+# have planned them since bf16 rows were padded; the wide tier leaves them.
+PRODUCTION_PLANS = {
+    "X": {(20, 512): ((1, 24, 4, 48144, 4), (1, 30, 7, 52464, 4)),
+          (20, 128): ((1, 30, 8, 117264, 1), (1, 30, 8, 59664, 1)),
+          (20, 64): ((2, 30, 7, 103824, 2), (2, 30, 8, 60624, 2)),
+          (20, 1): ((4, 30, 7, 105744, 2), (4, 30, 8, 62544, 2)),
+          (21, 128): ((1, 32, 8, 131184, 1), (1, 32, 8, 67696, 1)),
+          (30, 128): ((1, 30, 8, 175824, 1), (1, 30, 8, 91344, 1))},
+    "L": {(20, 512): ((1, 24, 4, 51984, 4), (1, 30, 8, 63504, 2)),
+          (20, 128): ((1, 30, 8, 121104, 1), (1, 30, 8, 63504, 1)),
+          (20, 64): ((2, 30, 7, 107664, 2), (2, 30, 8, 64464, 2)),
+          (20, 1): ((4, 30, 7, 109584, 2), (4, 30, 8, 66384, 2)),
+          (21, 128): ((1, 32, 8, 135216, 1), (1, 32, 8, 71728, 1)),
+          (30, 128): ((1, 30, 8, 181584, 1), (1, 30, 8, 97104, 1))},
+    "dense": {(20, 512): ((1, 24, 4, 51984, 4), (1, 30, 7, 56304, 4)),
+              (20, 128): ((1, 30, 8, 121104, 1), (1, 30, 8, 63504, 1)),
+              (20, 64): ((2, 30, 7, 107664, 2), (2, 30, 8, 64464, 2)),
+              (20, 1): ((4, 30, 7, 109584, 2), (4, 30, 8, 66384, 2)),
+              (21, 128): ((1, 32, 8, 135216, 1), (1, 32, 8, 71728, 1)),
+              (30, 128): ((1, 30, 8, 181584, 1), (1, 30, 8, 97104, 1))}}
+
+
+@pytest.mark.parametrize("form", gs.SWEEP_FORMS)
+def test_production_plans_are_pinned(form):
+    """The production chunks keep their cluster-tier plans exactly, in
+    float32 and bf16 (spread 0: no wide tier)."""
+    for (N, B), plans in PRODUCTION_PLANS[form].items():
+        for esize, want in zip((4, 2), plans):
+            got = gs.sweep_plan(B, 50, 6 * N, form, esize=esize)
+            assert tuple(got) == want + (0,)
+
+
+@pytest.mark.parametrize("n,B,K", [(2052, 2, 50), (6144, 1, 6), (6144, 3, 2),
+                                   (2052, 1, 50), (1200, 8, 50), (600, 2, 9)])
+def test_wide_tier_spreads_a_small_batch_over_the_card(n, B, K):
+    """The X form's wide plan at the grouped routes' widths past N = 59 and
+    small batches: the whole card between the scenarios, each block a few
+    row pairs of every X_k in bands as large as two stages allow, in
+    float32 and bf16; the L and dense forms keep their cluster plans
+    there, and a larger batch the cluster tier."""
+    for esize in (4, 2):
+        plan = gs.sweep_plan(B, K, n, "X", esize=esize)
+        assert gs.sweep_wide(B, n, "X") and plan.spread
+        _check_wide_plan(plan, B, K, n, esize=esize)
+        # the card's blocks, shared out: no more than one wave
+        assert B * plan.spread > gs.SMS * plan.per_sm - B
+        # no larger band leaves two stages beside r and w_k
+        rows = gs.sweep_wide_rows(n, plan.spread)
+        room = gs.SMEM_SM // plan.per_sm - 1024
+        bigger = gs.sweep_wide_smem_bytes(n, rows, plan.band_rows + 2, 2,
+                                          gs.sweep_row_bytes(n, esize))
+        assert (plan.band_rows == min(gs.SWEEP_MAX_BAND, rows)
+                or bigger > room)
+    # the production QP's width at the wide path's batch, and N = 1024
+    assert tuple(gs.sweep_plan(2, 50, 2052, "X")) == (
+        1, 12, 2, 205456, 1, 66)
+    assert tuple(gs.sweep_plan(1, 6, 6144, "X")) == (1, 4, 2, 221504, 1, 132)
+    for form in ("L",) + (("dense",) if n <= gs.SWEEP_MAX_N else ()):
+        assert gs.sweep_plan(B, K, n, form).spread == 0
+    assert gs.sweep_plan(gs.SWEEP_WIDE_MAX_B + 1, K, n, "X").spread == 0
+    with pytest.raises(ValueError):
+        gs.sweep_plan(B, K, n, "L", _wide=True)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66, 16])
+def test_wide_plan_fits_the_cards_sms(sms):
+    """The wide tier's grid is cooperative, so all its blocks must be
+    resident at once: on a card of ``sms`` SMs (an H100 PCIe has 114; a
+    partition fewer) the plan shares out that card's blocks, as many as
+    fit and no more, at the production QP's width and at N = 1024; a
+    batch of more scenarios than the card has SMs keeps the cluster
+    tier."""
+    for B, K, n in ((2, 50, 2052), (1, 6, 6144), (8, 50, 1200),
+                    (32, 50, 600), (1, 50, 360)):
+        for esize in (4, 2):
+            plan = gs.sweep_plan(B, K, n, "X", esize=esize, sms=sms)
+            if B > sms:
+                assert plan.spread == 0
+                assert not gs.sweep_wide(B, n, "X", sms)
+                continue
+            _check_wide_plan(plan, B, K, n, esize=esize, sms=sms)
+            assert (B * plan.spread > sms * plan.per_sm - B
+                    or plan.spread == n // 2)
+
+
+def test_wide_tier_mirrors_the_kernel_header():
+    """The wide tier's rows a block and its shared memory in
+    ``group_solve.py`` are ``group_sweep.cuh``'s ``wide_rows`` and
+    ``wide_smem_bytes``; its constants are the header's."""
+    ring = _constants(_header("factor_ring.cuh"))
+    src = _header("group_sweep.cuh")
+    k = _constants(src.replace("factor_ring::kBarrierBytes",
+                               str(ring["kBarrierBytes"])).replace(
+        "factor_ring::kRows", str(ring["kRows"])))
+    assert gs.SWEEP_WIDE_PER_SM == k["kWideBlocksPerSm"]
+    assert gs.SWEEP_WIDE_BARRIER_BYTES == k["kWideBarrierBytes"]
+    rows = _c_function(src, "wide_rows", ("n", "spread"), k)
+    smem = _c_function(src, "wide_smem_bytes",
+                       ("n", "rows", "band_rows", "stages", "row_bytes"), k)
+    for n in (6, 120, 594, 600, 606, 1200, 2052, 6144):
+        for spread in (1, 2, 3, 66, 131, 132, 264):
+            if 2 * spread <= n:
+                assert gs.sweep_wide_rows(n, spread) == rows(n, spread)
+        for band, stages in ((2, 2), (4, 6), (32, 8)):
+            for row_bytes in (4 * n, gs.sweep_row_bytes(n, 2)):
+                assert gs.sweep_wide_smem_bytes(
+                    n, 16, band, stages, row_bytes) == smem(
+                        n, 16, band, stages, row_bytes)
+
+
+@pytest.mark.parametrize("N,K,spread", [(100, 3, 264), (12, 4, 36),
+                                        (5, 6, 13), (3, 9, 2)])
+def test_wide_split_reproduces_the_plain_sweeps(N, K, spread):
+    """The wide tier's data flow is the X form's row split over ``spread``
+    blocks (each its row pairs of every step, the step's whole vector read
+    back from the rows every block stored), down to a block of one row
+    pair: float64 to 1e-12 against the plain sweeps."""
+    rng = np.random.default_rng(N + K)
+    n = 6 * N
+    A = rng.normal(size=(K, n, n)) / n
+    F = A + A.transpose(0, 2, 1)
+    C = np.triu(rng.normal(size=(K - 1, 3, 3)))
+    b = rng.normal(size=(K, n))
+    want = tb.solve_factorized_X(torch.as_tensor(F)[None],
+                                 torch.as_tensor(C),
+                                 torch.as_tensor(b)[None])[0].numpy()
+    assert min(gs.sweep_rows(q + 1, spread, n) - gs.sweep_rows(q, spread, n)
+               for q in range(spread)) >= 2
+    got = _cluster_sweep(F, C, b, False, spread)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
