@@ -205,6 +205,17 @@ __device__ __forceinline__ float2 pair_below(const __nv_bfloat16* row, int j,
   return e;
 }
 
+// As pair_below on a float row (8-byte aligned at j).
+__device__ __forceinline__ float2 pair_below(const float* row, int j,
+                                             int lim) {
+  float2 e = make_float2(0.f, 0.f);
+  if (j < lim) {
+    e = *reinterpret_cast<const float2*>(row + j);
+    if (j + 1 >= lim) e.y = 0.f;
+  }
+  return e;
+}
+
 // a[q] = M[i_q, :lim_q] . v for the rows i_q = i + q nwarps of the band
 // [r0, r1) at M, rows ld apart (lim_q = i_q + 1 if `tri`, else n); a row
 // beyond the band stands in as row i and gets lim 0 and a 0.  Every lane
@@ -470,37 +481,6 @@ __device__ __forceinline__ void matvec_rows_cols_bf16(
         }
         acc[2 * m] = s0;
         acc[2 * m + 1] = s1;
-      }
-    }
-    release(ring, cur);
-  }
-}
-
-// Both products of a lower triangular block with one read of its rows
-// [lo, hi), as matvec_rows_cols<U, true> with tri, for blocks too wide for
-// register column sums: the products M[i, j] y_i of kRows rows at a time are
-// added into the shared row `col` (col[j] += ..., j <= i), which the caller
-// zeroes before and reads after a barrier.
-template <typename T>
-__device__ __forceinline__ void matvec_rows_cols_shared(
-    const RingOf<T>& ring, Cursor& cur, const float* v, int n, int lo, int hi,
-    int band_rows, int warp, int nwarps, float* col) {
-  const int lane = threadIdx.x & 31;
-  for (int r0 = lo; r0 < hi; r0 += band_rows) {
-    const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
-    const T* M = acquire(ring, cur);
-    for (int i = r0 + warp; i < r1; i += kRows * nwarps) {
-      const T* row[kRows];
-      int lim[kRows];
-      float y[kRows];
-      const int last = row_dots(M, r0, r1, i, nwarps, v, n, ring.ld, true,
-                                row, lim, y);
-      for (int j = lane; j < last; j += 32) {
-        float s = 0.f;
-#pragma unroll
-        for (int q = 0; q < kRows; ++q)
-          if (j < lim[q]) s = fmaf(widen(row[q][j]), y[q], s);
-        atomicAdd(col + j, s);
       }
     }
     release(ring, cur);

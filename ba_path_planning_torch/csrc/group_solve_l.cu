@@ -30,8 +30,12 @@
 // reference-compatible path's 64 and the SCP class's 1) a cluster of 2 or 4
 // blocks per scenario, each streaming its share of the rows, their column
 // partial sums meeting in distributed shared memory with one cluster
-// barrier a step.  w_k is kept in the output array and overwritten by x_k
-// in the backward sweep.
+// barrier a step; where the blocks are wide and the batch is small (the
+// plan's wide tier), each scenario takes a share of the whole card instead,
+// its blocks' column partial sums meeting in global memory in a
+// reduce-scatter between two barriers of the scenario's blocks a step.
+// w_k is kept in the output array and overwritten by x_k in the backward
+// sweep.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +67,31 @@ int group_solve_l_bf16(const __nv_bfloat16* Linv, const float* C9,
                        int per_sm, cudaStream_t stream) {
   return group_sweep::launch<group_sweep::kFormL, __nv_bfloat16>(
       Linv, C9, b, x, B, K, n, ld, cluster, band_rows, stages, per_sm,
+      stream);
+}
+
+// The wide tier (group_sweep::sweep_kernel_wide, L form) on its plan
+// (spread, band_rows, stages, per_sm) of sweep_plan; vbuf
+// group_sweep::wide_vbuf_floats float32 words of scratch (the step
+// vectors, the blocks' column partials, then the barriers' words, one a
+// scenario); the other arguments as group_solve_l_f32's.
+int group_solve_l_wide_f32(const float* Linv, const float* C9,
+                           const float* b, float* x, float* vbuf, int B,
+                           int K, int n, int spread, int band_rows,
+                           int stages, int per_sm, cudaStream_t stream) {
+  return group_sweep::launch_wide<group_sweep::kFormL, float>(
+      Linv, C9, b, x, vbuf, B, K, n, n, spread, band_rows, stages, per_sm,
+      stream);
+}
+
+// As group_solve_l_wide_f32 on bf16 factors, rows ld elements apart (as
+// group_solve_l_bf16's).
+int group_solve_l_wide_bf16(const __nv_bfloat16* Linv, const float* C9,
+                            const float* b, float* x, float* vbuf, int B,
+                            int K, int n, int ld, int spread, int band_rows,
+                            int stages, int per_sm, cudaStream_t stream) {
+  return group_sweep::launch_wide<group_sweep::kFormL, __nv_bfloat16>(
+      Linv, C9, b, x, vbuf, B, K, n, ld, spread, band_rows, stages, per_sm,
       stream);
 }
 

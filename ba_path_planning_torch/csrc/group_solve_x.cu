@@ -29,8 +29,8 @@
 // rows, the result meeting in distributed shared memory with one cluster
 // barrier a step; where the blocks are wide and the batch is small (the
 // plan's wide tier), each scenario takes a share of the whole card
-// instead, its blocks meeting at a grid barrier in global memory once a
-// step.  No lane padding and no scenario interleaving: those were
+// instead, a scenario's blocks meeting at a barrier in global memory once
+// a step.  No lane padding and no scenario interleaving: those were
 // rules of the TPU's DMA engine, not of this card.
 
 #include <cuda_runtime.h>
@@ -66,16 +66,16 @@ int group_solve_x_bf16(const __nv_bfloat16* X, const float* C9,
 }
 
 // The wide tier (group_sweep::sweep_kernel_wide) on its plan (spread,
-// band_rows, stages, per_sm) of sweep_plan; vbuf 2 B n + 2 float32 words
-// of scratch (the step vectors, then the grid barrier's); the other
+// band_rows, stages, per_sm) of sweep_plan; vbuf 2 B n + B float32 words
+// of scratch (the step vectors, then a barrier word a scenario); the other
 // arguments as group_solve_x_f32's.
 int group_solve_x_wide_f32(const float* X, const float* C9, const float* b,
                            float* x, float* vbuf, int B, int K, int n,
                            int spread, int band_rows, int stages, int per_sm,
                            cudaStream_t stream) {
-  return group_sweep::launch_wide<float>(X, C9, b, x, vbuf, B, K, n, n,
-                                         spread, band_rows, stages, per_sm,
-                                         stream);
+  return group_sweep::launch_wide<group_sweep::kFormX, float>(
+      X, C9, b, x, vbuf, B, K, n, n, spread, band_rows, stages, per_sm,
+      stream);
 }
 
 // As group_solve_x_wide_f32 on bf16 factors, rows ld elements apart (as
@@ -84,7 +84,7 @@ int group_solve_x_wide_bf16(const __nv_bfloat16* X, const float* C9,
                             const float* b, float* x, float* vbuf, int B,
                             int K, int n, int ld, int spread, int band_rows,
                             int stages, int per_sm, cudaStream_t stream) {
-  return group_sweep::launch_wide<__nv_bfloat16>(
+  return group_sweep::launch_wide<group_sweep::kFormX, __nv_bfloat16>(
       X, C9, b, x, vbuf, B, K, n, ld, spread, band_rows, stages, per_sm,
       stream);
 }

@@ -47,9 +47,10 @@
 // blocks an SM: blocks_per_sm) and, with launch bounds for one block an
 // SM, n up to 1536 (N <= 256: the column
 // sums of the L and dense forms, 48 registers a lane) and up to 6144 (the
-// X form, which keeps no column sums; the L form, whose column sums are
-// then added into one row of shared memory, four rows of a warp at a
-// time).  Each block of a cluster streams and solves the rows [lo, hi) of
+// X form, which keeps no column sums; the L form, whose threads then
+// all take every row of a band, as on the wide tier, and add their column
+// pairs' register sums into one row of shared memory every kFlushRows
+// rows).  Each block of a cluster streams and solves the rows [lo, hi) of
 // every block (even bounds, so the bands stay 16-byte aligned), and the
 // vector of each step meets across the cluster in
 // distributed shared memory: every block stores its part (a row step: its
@@ -133,17 +134,26 @@ __host__ __device__ inline int part_rows(int form, int n) {
   return form == kFormX ? 0 : n > kMaxN ? 1 : kWarps;
 }
 
+// The L form above kMaxN: y of a band's rows and each consumer warp's sums
+// of them (FP32 words after its row of partial sums), and the rows whose
+// column products a thread sums in registers before it adds them into
+// that row.
+constexpr int kBandSums = kMaxBandRows * (kWarps + 1);
+constexpr int kFlushRows = 64;
+
 // Dynamic shared memory of a plan: the barriers, the ring (`stages` stages
 // of `band_rows` rows of `row_bytes` bytes: 4 n for float factors, 2 ld for
 // bf16 ones), then r, wk, the exchange buffer (2 halves of `cluster` slots
-// of n) and `part` rows of partial sums (part_rows), all FP32.
-// ops/group_solve.py sweep_plan mirrors it, and
-// tests/test_torch_sweep_plan.py holds the two copies to each other.
+// of n), `part` rows of partial sums (part_rows) and with one row (the L
+// form above kMaxN) kBandSums words, all FP32.  ops/group_solve.py
+// sweep_plan mirrors it, and tests/test_torch_sweep_plan.py holds the two
+// copies to each other.
 __host__ __device__ inline long smem_bytes(int n, int cluster, int band_rows,
                                            int stages, int part,
                                            int row_bytes) {
   return kBarrierBytes + (static_cast<long>(stages) * band_rows * row_bytes +
-                          4L * n * (2 + 2 * cluster + part));
+                          4L * (n * (2 + 2 * cluster + part) +
+                                (part == 1) * kBandSums));
 }
 
 __device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
@@ -223,6 +233,75 @@ __device__ __forceinline__ void store_pair_sums(float* row,
 template <int kForm, typename T>
 using Second = std::conditional_t<kForm == kFormDense, T, float>;
 
+// The L form's column pairs of a consumer thread in band_cols, the
+// blocks above kMaxN (the one-block and cluster tiers there, and the wide
+// tier)
+constexpr int kWidePairs = kMaxNWide / 2 / kConsumers;
+
+// The L form's row products of the band [r0, r1) at M (rows ld apart,
+// lower triangular: what lies right of the diagonal is taken as 0) with r
+// (shared, n): consumer thread tid sums M[i, j] r_j + M[i, j + 1] r_{j+1}
+// over its column pairs j = 2 tid + 2 kConsumers m for kRows rows at a
+// time, warp_sum_rows adds a warp's lanes, and red[warp * stride + i - r0]
+// holds each warp's sum of row i (the caller adds the warps in order).
+template <typename T>
+__device__ __forceinline__ void band_dots_wide(const T* M, int r0, int r1,
+                                               int ld, const float* r,
+                                               int tid, float* red,
+                                               int stride) {
+  constexpr int kSpan = 32 / factor_ring::kRows;   // lanes a row's sum
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i0 = r0; i0 < r1; i0 += factor_ring::kRows) {
+    const int last = i0 + factor_ring::kRows < r1 ? i0 + factor_ring::kRows
+                                                   : r1;
+    float a[factor_ring::kRows];
+#pragma unroll
+    for (int q = 0; q < factor_ring::kRows; ++q) a[q] = 0.f;
+#pragma unroll
+    for (int m = 0; m < kWidePairs; ++m) {
+      if (2 * kConsumers * m >= last) break;   // no row of the group here
+      const int j = 2 * tid + 2 * kConsumers * m;
+      const float2 rj = j < last ? *reinterpret_cast<const float2*>(r + j)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < factor_ring::kRows; ++q) {
+        const int i = i0 + q;
+        const float2 e = factor_ring::pair_below(M + (i - r0) * ld, j,
+                                                 i < r1 ? i + 1 : 0);
+        a[q] = fmaf(e.y, rj.y, fmaf(e.x, rj.x, a[q]));
+      }
+    }
+    const float sum = factor_ring::warp_sum_rows(a, lane);
+    const int i = i0 + lane / kSpan;
+    if (lane % kSpan == 0 && i < r1) red[warp * stride + i - r0] = sum;
+  }
+}
+
+// The L form's column products of the band [r0, r1) at M (rows ld apart,
+// lower triangular: what lies right of the diagonal is taken as 0) with
+// the band's y (shared): acc[m] += (M[i, j], M[i, j + 1]) y_i over the
+// band's rows i in order, for the column pairs j = 2 tid + 2 kConsumers m of
+// consumer thread tid.  A warp's lanes read consecutive pairs of a row.
+template <typename T>
+__device__ __forceinline__ void band_cols(const T* M, int r0, int r1, int ld,
+                                          const float* y, int tid,
+                                          float2 (&acc)[kWidePairs]) {
+#pragma unroll
+  for (int m = 0; m < kWidePairs; ++m) {
+    if (2 * kConsumers * m >= r1) break;   // the band reaches no column here
+    const int j = 2 * tid + 2 * kConsumers * m;
+    float2 s = acc[m];
+#pragma unroll 4
+    for (int i = r0; i < r1; ++i) {
+      const float2 e = factor_ring::pair_below(M + (i - r0) * ld, j, i + 1);
+      const float yi = y[i - r0];
+      s.x = fmaf(e.x, yi, s.x);
+      s.y = fmaf(e.y, yi, s.y);
+    }
+    acc[m] = s;
+  }
+}
+
 // F (B, K, n, ld): X_k (X form), Linv_k (L and dense forms, lower
 // triangular: what lies above the diagonal is not read), each row's
 // columns n.. ld-1 unread; G: the slot scalars C9 (K-1, 9) (X and L forms)
@@ -238,8 +317,8 @@ sweep_kernel(const T* __restrict__ F,
   constexpr bool kL = kForm == kFormL;
   constexpr bool kDense = kForm == kFormDense;
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  // column sums of a lane, or (the L form's widest instantiation) of the
-  // block in shared memory
+  // column sums of a lane, or (the L form's widest instantiation) of a
+  // thread's column pairs, added into one shared row
   constexpr bool kSharedCols = kTierN > kMaxN;
   constexpr int kColRegs = kSharedCols ? 1 : kTierN / 32;
   constexpr int kPre = kTierN / kConsumers;   // vector entries of a thread
@@ -453,8 +532,6 @@ sweep_kernel(const T* __restrict__ F,
       if (q < nc && q != rank)
         incoming += 4u * (v.hi[q] - (kL ? 0 : row_lo(q, nc, n)));
     }
-    if constexpr (kL && kSharedCols)
-      for (int j = tid; j < n; j += kConsumers) part[j] = 0.f;
     factor_ring::Cursor cur{0, 0u};
     for (int t = 0; t <= steps; ++t) {
       const bool fwd = t < K;
@@ -513,17 +590,53 @@ sweep_kernel(const T* __restrict__ F,
               send(t, i, val);
             });
       } else if constexpr (kSharedCols) {
-        // the block's column sums, added in shared memory (zero at the
-        // start of every step: each entry is reset as it is sent)
-        factor_ring::matvec_rows_cols_shared(ring, cur, r, n, lo, hi,
-                                             band_rows, warp, kWarps, part);
+        // every thread on every row of a band, as on the wide tier: y of
+        // the band's rows (band_dots_wide, the warps' sums added in order),
+        // then the block's column sums of its pairs in registers
+        // (band_cols), added into the shared row `part` every kFlushRows
+        // rows, so every sum has a fixed order and no chain is long
+        float* ysh = part + n;             // y of a band's rows
+        float* red = ysh + kMaxBandRows;   // [kWarps][kMaxBandRows]
+        float2 acc[kWidePairs];
+#pragma unroll
+        for (int m = 0; m < kWidePairs; ++m) acc[m] = make_float2(0.f, 0.f);
+        bool first = true;
+        int held = 0;                      // rows summed in acc
+        for (int r0 = lo; r0 < hi; r0 += band_rows) {
+          const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
+          const T* M = factor_ring::acquire(ring, cur);
+          band_dots_wide(M, r0, r1, ld, r, tid, red, kMaxBandRows);
+          consumer_sync();
+          if (tid < r1 - r0) {
+            float y = 0.f;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) y += red[w * kMaxBandRows + tid];
+            ysh[tid] = y;
+          }
+          consumer_sync();
+          band_cols(M, r0, r1, ld, ysh, tid, acc);
+          factor_ring::release(ring, cur);
+          held += r1 - r0;
+          if (held < kFlushRows && r1 < hi) continue;
+          // the pairs j of this thread below hi (j and hi even)
+#pragma unroll
+          for (int m = 0; m < kWidePairs; ++m) {
+            const int j = 2 * tid + 2 * kConsumers * m;
+            float2* pj = reinterpret_cast<float2*>(part + j);
+            if (j < hi)
+              *pj = first ? acc[m]
+                          : make_float2(pj->x + acc[m].x, pj->y + acc[m].y);
+            acc[m] = make_float2(0.f, 0.f);
+          }
+          first = false;
+          held = 0;
+        }
         consumer_sync();
 #pragma unroll
         for (int u = 0; u < kPre; ++u) {
           const int j = tid + u * kConsumers;
           if (j >= hi) break;
           const float s = part[j];
-          part[j] = 0.f;
           send(t, rank * n + j, fwd ? s : (j >= lo ? wk[j] : 0.f) - s);
         }
       } else {
@@ -602,7 +715,7 @@ int launch_tier(const T* F, const Second<kForm, T>* G, const float* b,
 // Launch the sweeps of B scenarios on the plan (cluster, band_rows,
 // stages, per_sm), on the narrow instantiation where n allows (the one of
 // blocks_per_sm for per_sm), else the wide one (the L form above kMaxN: its
-// column sums in shared memory); returns a CUDA error code,
+// column sums in one shared row); returns a CUDA error code,
 // cudaErrorInvalidValue for arguments or a plan it cannot serve.  n is a
 // multiple of 6 (X, L: the slot scalars) or of 2 (dense), up to kMaxNWide
 // (X, L) or kMaxN (dense); the factors' rows lie ld >= n elements apart,
@@ -653,27 +766,53 @@ int launch(const T* F, const Second<kForm, T>* G, const float* b, float* x,
                                           band_rows, stages, smem, stream);
 }
 
-// ---- The wide tier of the X form: one scenario over many SMs.
+
+// ---- The wide tier of the X and L forms: one scenario over many SMs.
 //
 // A scenario's sweeps are 2K - 1 serial matvecs; on a cluster of at most 4
 // blocks a small batch streams its factors on 2 to 8 of the 132 SMs (at
-// n = 2052, B = 2, 1.1% of the stream bound).  The wide tier gives
-// each scenario `spread` blocks of a cooperative grid (the whole card
-// between the batch's scenarios): each block streams rows [lo, hi) of
-// every X_k through its ring (the producer warp runs ahead across steps),
-// its consumers form those rows of the step's vector, store them into the
-// output and into a double-buffered vector in global memory (vbuf: 2 x B x
-// n floats, one half a step parity), and the grid meets at a barrier in
-// global memory once a step; a block then reads the whole vector from L2.
-// Only the rows a block owns leave it, not a copy for every other block.
-// The row products are factor_ring's matvec_rows, as on the cluster
-// tiers, so every row is summed in the same order.  The barrier is two
-// words of the launch's own, after the vectors in vbuf: a count of
-// arrivals, reset by the last arrival before it lets the grid pass, and a
-// count of barriers passed; the launcher zeroes both on the launch's
-// stream, so launches on other streams keep apart and a CUDA graph may
-// replay the kernel.  Which (B, n) take this tier is the plan's choice
-// (ops/group_solve.py sweep_wide); the launcher serves any plan it gets.
+// n = 2052, B = 2, 1.1% of the stream bound for X, 0.6% for L).  The wide
+// tier gives each scenario `spread` blocks of a cooperative grid (the whole
+// card between the batch's scenarios): each block streams rows [lo, hi) of
+// every factor block through its ring (the producer warp runs ahead across
+// steps), and the step's vector lives in global memory, double-buffered
+// (vbuf: 2 x B x n floats, one half a step parity), which a block reads
+// from L2 after a barrier in global memory.
+//   * X form: the consumers form the block's rows of the step's vector
+//     (factor_ring's matvec_rows, as on the cluster tiers, so every row is
+//     summed in the same order) and store them into the output and into
+//     the vector; one barrier a step.
+//   * L form: a step is w = Linv_k^T (Linv_k r).  A block holds few rows, so
+//     every consumer thread works on every row of a band, on its column pairs
+//     j = 2 tid + 2 kConsumers m: it forms its part of
+//     y_i = Linv_k[i, :i+1] . r for the band's rows, kRows at a time, the
+//     warps' sums meet in shared memory and are added in warp order
+//     (band_dots_wide); then it adds Linv_k[i, j] y_i over the band's rows,
+//     in row order, into register sums of the same pairs (band_cols).  So
+//     both products come from one read of each band (in one warp a row and
+//     then a block barrier, the dots set a band's time) and the block holds
+//     the partials of Linv_k[lo:hi, :hi]^T y for the columns below hi.
+//     They meet in a reduce-scatter: each block stores them (backward: w_k
+//     of its own rows minus them) into scratch after the vectors in vbuf
+//     (spread rows of n a scenario), the scenario's blocks meet at a
+//     barrier, block g sums its own rows' partials over the
+//     blocks g' >= g (the only ones whose rows reach them), warp w those
+//     of g + w, g + w + kWarps, ... and then the warps in turn, stores the
+//     rows into the output and the vector, and the scenario's blocks meet
+//     again before the next step reads it.  (Every block summing the whole
+//     vector itself after the first barrier instead, one barrier a step,
+//     reads about spread n / 2 floats from L2 a block a step, and took
+//     twice as long at n = 2052, B = 2.)  Every sum's order is fixed, so
+//     two launches agree bit for bit (not with the cluster tiers, which sum
+//     in another order).
+// The barriers are words of the launch's own, after the scratch in vbuf, which
+// the launcher zeroes on the launch's stream, so launches on other streams
+// keep apart and a CUDA graph may replay the kernel.  The scenarios of a batch
+// are independent, so a barrier joins only a scenario's blocks: one word a
+// scenario counts their arrivals and is never reset (its p-th barrier is
+// passed when it reaches p spread), so the last arrival itself lets the blocks
+// pass.  Which (B, n) take this tier is the plan's choice (ops/group_solve.py
+// sweep_wide); the launcher serves any plan it gets.
 constexpr int kWideBarrierBytes = factor_ring::kBarrierBytes;
 constexpr int kWideBlocksPerSm = 2;   // the launch bounds' blocks an SM
 constexpr int kWideSlots = kMaxNWide / 3 / kConsumers;  // slot triples a thread
@@ -683,16 +822,28 @@ __host__ __device__ inline int wide_rows(int n, int spread) {
   return 2 * ((n / 2 + spread - 1) / spread);
 }
 
-// Dynamic shared memory of a wide plan: the ring's barriers, the ring
-// (`stages` stages of `band_rows` rows of `row_bytes` bytes), then r (n)
-// and w_k of the block's rows (`rows`), FP32.  ops/group_solve.py
-// sweep_wide_smem_bytes mirrors it, and tests/test_torch_sweep_plan.py
-// holds the two copies to each other.
+// Dynamic shared memory of a wide plan: the ring's barriers, the ring (`stages`
+// stages of `band_rows` rows of `row_bytes` bytes), then r (n) and w_k of the
+// block's rows (`rows`), and in the L form y of a band and each warp's sums of
+// a band's or the block's rows, all FP32.  ops/group_solve.py
+// sweep_wide_smem_bytes mirrors it, and tests/test_torch_sweep_plan.py holds
+// the two copies to each other.
 __host__ __device__ inline long wide_smem_bytes(int n, int rows,
                                                 int band_rows, int stages,
-                                                int row_bytes) {
-  return kWideBarrierBytes + (static_cast<long>(stages) * band_rows *
-                                  row_bytes + 4L * (n + rows));
+                                                int row_bytes, int form) {
+  return (kWideBarrierBytes +
+          (static_cast<long>(stages) * band_rows * row_bytes +
+           4L * (n + rows +
+                 (form != kFormX) * (kMaxBandRows + kWarps * rows))));
+}
+
+// FP32 words of a wide launch's vbuf: the step vectors (2, B, n); in the L
+// form the blocks' column partials (B, spread, n); then the barriers' words,
+// one a scenario.  ops/group_solve.py sweep_wide_vbuf_floats mirrors it.
+__host__ __device__ inline long wide_vbuf_floats(int B, int n, int spread,
+                                                 int form) {
+  return (2L * B * n + (form != kFormX) * static_cast<long>(B) * spread * n +
+          B);
 }
 
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
@@ -714,31 +865,41 @@ struct SlotTriple {
   }
 };
 
-// F (B, K, n, ld) the X_k; C9 (K-1, 9); b and x (B, K, n); vbuf (2, B, n);
-// bar the grid barrier's words (arrivals, barriers passed), zero at the
-// launch.  A cooperative grid of B x spread blocks of kThreads threads,
-// scenario blockIdx / spread, rows [lo, hi) of share blockIdx % spread.
-template <typename T>
+// F (B, K, n, ld) the X_k (X form) or Linv_k (L form); C9 (K-1, 9); b and x
+// (B, K, n); vbuf wide_vbuf_floats(B, n, spread, kForm) words, the step
+// vectors and the L form's partials; bar the barriers' words (a scenario's
+// arrivals), zero at the launch.  A
+// cooperative grid of B x spread blocks of kThreads threads, scenario
+// blockIdx / spread, rows [lo, hi) of share blockIdx % spread.
+template <int kForm, typename T>
 __global__ void __launch_bounds__(kThreads, kWideBlocksPerSm)
 sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
                   const float* __restrict__ bvec, float* xout, float* vbuf,
                   unsigned* bar, int K, int n, int ld, int spread,
                   int band_rows, int stages) {
+  constexpr bool kL = kForm == kFormL;
   extern __shared__ float4 smem4[];
   const int b = blockIdx.x / spread, g = blockIdx.x % spread;
   const int B = gridDim.x / spread, tid = threadIdx.x;
   const int lo = row_lo(g, spread, n), hi = row_lo(g + 1, spread, n);
+  const int rows = wide_rows(n, spread);
   unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
   const factor_ring::RingOf<T> ring{
       reinterpret_cast<T*>(raw + kWideBarrierBytes),
       factor_ring::smem_addr(raw), stages, band_rows * ld, ld};
   float* r = reinterpret_cast<float*>(
       ring.data + static_cast<size_t>(stages) * ring.stage_elems);
-  float* wk = r + n;                 // w_k of rows lo .. hi-1
+  float* wk = r + n;                   // w_k of rows lo .. hi-1
+  float* ysh = wk + rows;              // L: y of a band's rows
+  float* red = ysh + kMaxBandRows;     // L: [kWarps][rows], warps' row sums
   const size_t nsq = static_cast<size_t>(n) * ld;
   const T* Fb = F + static_cast<size_t>(b) * K * nsq;
   const float* bb = bvec + static_cast<size_t>(b) * K * n;
   float* xb = xout + static_cast<size_t>(b) * K * n;
+  // L: the column partials of scenario b's blocks, spread rows of n
+  float* part = kL ? vbuf + 2 * static_cast<size_t>(B) * n +
+                         static_cast<size_t>(b) * spread * n
+                   : nullptr;
   const int steps = 2 * K - 1;
   if (tid == 0) factor_ring::init(ring, kWarps);
   __syncthreads();
@@ -754,8 +915,26 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
   }
 
   // ---- consumer warps
-  const int warp = tid >> 5, n2 = n / 3;
+  const int warp = tid >> 5, lane = tid & 31, n2 = n / 3;
   unsigned passed = 0;                  // barriers this block has passed
+  // the barrier of scenario b's blocks in two halves: this block's stores
+  // are behind a block barrier, then it arrives; later it waits until all
+  // spread blocks have arrived as often as it has
+  auto arrive = [&]() {
+    consumer_sync();
+    if (tid == 0) {
+      __threadfence();
+      atomicAdd(bar + b, 1u);
+    }
+  };
+  auto wait = [&]() {
+    if (tid == 0) {
+      ++passed;
+      while (load_acquire(bar + b) < passed * spread) {
+      }
+    }
+    consumer_sync();
+  };
   factor_ring::Cursor cur{0, 0u};
   for (int t = 0; t < steps; ++t) {
     const bool fwd = t < K;
@@ -773,15 +952,8 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
     if (!fwd)
       for (int i = lo + tid; i < hi; i += kConsumers)
         wk[i - lo] = xb[k * n + i];
-    if (t > 0) {
-      // every block's rows of step t - 1 are in vbuf
-      if (tid == 0) {
-        while (load_acquire(bar + 1) == passed) {
-        }
-        ++passed;
-      }
-      consumer_sync();
-    }
+    // every block's rows of step t - 1 are in vbuf
+    if (t > 0) wait();
     const float* v = vbuf + (static_cast<size_t>((t + 1) & 1) * B + b) * n;
     const int ck = fwd ? k - 1 : k;           // B_k = C_{k-1} (x) I
     const float* c = C9 + (ck > 0 ? ck : 0) * 9;
@@ -806,48 +978,95 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
     }
     consumer_sync();
     float* vo = vbuf + (static_cast<size_t>(t & 1) * B + b) * n;
-    factor_ring::matvec_rows(
-        ring, cur, r, n, lo, hi, band_rows, false, warp, kWarps,
-        [&](int i, float d) {
-          const float val = fwd ? d : wk[i - lo] - d;
-          xb[k * n + i] = val;
-          vo[i] = val;
-        });
-    if (t + 1 < steps) {
-      // the block's rows are stored: arrive at the step's barrier (the
-      // last arrival resets the count, then lets the grid pass)
-      consumer_sync();
-      if (tid == 0) {
-        __threadfence();
-        if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-          atomicExch(bar, 0u);
-          __threadfence();
-          atomicAdd(bar + 1, 1u);
+    if constexpr (!kL) {
+      factor_ring::matvec_rows(
+          ring, cur, r, n, lo, hi, band_rows, false, warp, kWarps,
+          [&](int i, float d) {
+            const float val = fwd ? d : wk[i - lo] - d;
+            xb[k * n + i] = val;
+            vo[i] = val;
+          });
+      if (t + 1 < steps) arrive();
+    } else {
+      // ---- L: both products from one read of each band
+      float2 acc[kWidePairs];
+#pragma unroll
+      for (int m = 0; m < kWidePairs; ++m) acc[m] = make_float2(0.f, 0.f);
+      for (int r0 = lo; r0 < hi; r0 += band_rows) {
+        const int r1 = r0 + band_rows < hi ? r0 + band_rows : hi;
+        const T* M = factor_ring::acquire(ring, cur);
+        band_dots_wide(M, r0, r1, ld, r, tid, red, rows);
+        consumer_sync();
+        if (tid < r1 - r0) {
+          float y = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) y += red[w * rows + tid];
+          ysh[tid] = y;
         }
+        consumer_sync();
+        band_cols(M, r0, r1, ld, ysh, tid, acc);
+        factor_ring::release(ring, cur);
       }
+      // the block's partials of the columns below hi; backward, w_k of its
+      // own rows minus them (j and hi even: a pair lies below hi whole)
+      float* mine = part + static_cast<size_t>(g) * n;
+#pragma unroll
+      for (int m = 0; m < kWidePairs; ++m) {
+        if (2 * kConsumers * m >= hi) break;
+        const int j = 2 * tid + 2 * kConsumers * m;
+        if (j >= hi) continue;
+        float2 s = acc[m];
+        if (!fwd) {
+          const bool own = j >= lo;
+          s.x = (own ? wk[j - lo] : 0.f) - s.x;
+          s.y = (own ? wk[j + 1 - lo] : 0.f) - s.y;
+        }
+        *reinterpret_cast<float2*>(mine + j) = s;
+      }
+      arrive();
+      wait();
+      // reduce-scatter: this block's rows, over the blocks g' >= g
+      for (int i = lo + lane; i < hi; i += 32) {
+        float s = 0.f;
+#pragma unroll 4
+        for (int q = g + warp; q < spread; q += kWarps)
+          s += __ldcg(part + static_cast<size_t>(q) * n + i);
+        red[warp * rows + i - lo] = s;
+      }
+      consumer_sync();
+      for (int i = lo + tid; i < hi; i += kConsumers) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += red[w * rows + i - lo];
+        xb[k * n + i] = s;
+        vo[i] = s;
+      }
+      if (t + 1 < steps) arrive();
     }
   }
 }
 
-// Launch the wide tier on its plan (spread, band_rows, stages, per_sm) as
-// one cooperative grid, which the runtime refuses (an error code, no
-// launch) where its blocks cannot all be resident at once; vbuf 2 B n + 2
-// FP32 words: the step vectors (2, B, n), then the barrier's two words,
-// zeroed here on `stream`.  Returns a CUDA error code,
-// cudaErrorInvalidValue for arguments or a plan it cannot serve.
-template <typename T>
+// Launch the wide tier of form kForm (X or L) on its plan (spread, band_rows,
+// stages, per_sm) as one cooperative grid, which the runtime refuses (an error
+// code, no launch) where its blocks cannot all be resident at once; vbuf
+// wide_vbuf_floats FP32 words, the last B the barriers', zeroed
+// here on `stream`.  Returns a CUDA error code, cudaErrorInvalidValue for
+// arguments or a plan it cannot serve.
+template <int kForm, typename T>
 int launch_wide(const T* F, const float* C9, const float* b, float* x,
                 float* vbuf, int B, int K, int n, int ld, int spread,
                 int band_rows, int stages, int per_sm, cudaStream_t stream) {
+  static_assert(kForm == kFormX || kForm == kFormL, "no wide dense form");
   const int row_bytes = static_cast<int>(sizeof(T)) * ld;
   if (B < 1 || K < 2 || n < 6 || n % 6 || n > kMaxNWide || ld < n ||
       (2 * row_bytes) % 16 || spread < 1 || 2 * spread > n ||
       band_rows < 2 || band_rows % 2 || band_rows > kMaxBandRows ||
       stages < 2 || stages > factor_ring::kMaxStages || per_sm < 1 ||
-      per_sm > kWideBlocksPerSm || (reinterpret_cast<size_t>(F) & 15))
+      per_sm > kWideBlocksPerSm || (reinterpret_cast<size_t>(F) & 15) ||
+      (reinterpret_cast<size_t>(vbuf) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
   const long smem = wide_smem_bytes(n, wide_rows(n, spread), band_rows,
-                                    stages, row_bytes);
+                                    stages, row_bytes, kForm);
   if (smem > kSmemMax || per_sm * (smem + 1024) > kSmemMax + 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kDevices = 64;
@@ -856,15 +1075,15 @@ int launch_wide(const T* F, const float* C9, const float* b, float* x,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kDevices || smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(sweep_kernel_wide<T>,
+    err = cudaFuncSetAttribute(sweep_kernel_wide<kForm, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kDevices) allowed[dev] = smem;
   }
-  unsigned* bar =
-      reinterpret_cast<unsigned*>(vbuf + static_cast<size_t>(2) * B * n);
-  err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), stream);
+  unsigned* bar = reinterpret_cast<unsigned*>(
+      vbuf + wide_vbuf_floats(B, n, spread, kForm) - B);
+  err = cudaMemsetAsync(bar, 0, B * sizeof(unsigned), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -876,8 +1095,8 @@ int launch_wide(const T* F, const float* C9, const float* b, float* x,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sweep_kernel_wide<T>, F, C9, b, x, vbuf,
-                           bar, K, n, ld, spread, band_rows, stages);
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel_wide<kForm, T>, F, C9, b, x,
+                           vbuf, bar, K, n, ld, spread, band_rows, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

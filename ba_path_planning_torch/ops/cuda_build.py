@@ -131,11 +131,14 @@ def load_kernels() -> ctypes.CDLL:
                   lib.banded_solve_bf16):
         sweep.argtypes = [p, p, p, p] + [i] * 8 + [p]
         sweep.restype = i
-    # the X form's wide tier: vbuf, then the plan's spread for the cluster
-    lib.group_solve_x_wide_f32.argtypes = [p] * 5 + [i] * 7 + [p]
-    lib.group_solve_x_wide_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
-    for entry in (lib.group_solve_x_wide_f32, lib.group_solve_x_wide_bf16):
-        entry.restype = i
+    # the wide tiers: vbuf, then the plan's spread for the cluster
+    for form in ("x", "l"):
+        getattr(lib, f"group_solve_{form}_wide_f32").argtypes = (
+            [p] * 5 + [i] * 7 + [p])
+        getattr(lib, f"group_solve_{form}_wide_bf16").argtypes = (
+            [p] * 5 + [i] * 8 + [p])
+        for dtype in ("f32", "bf16"):
+            getattr(lib, f"group_solve_{form}_wide_{dtype}").restype = i
     # the X form also takes the plan's packed flag and a slot-scalar stride
     lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 10 + [p]
     lib.admm_fused_l_f32.argtypes = [p] * 15 + [i] * 8 + [p]

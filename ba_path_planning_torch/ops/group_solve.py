@@ -40,17 +40,26 @@ SWEEP_MAX_N_WIDE = 6144
 SWEEP_NARROW_N = 512           # n of the narrow instantiation
 SWEEP_WARPS = 8                # consumer warps of a block
 SWEEP_MAX_BAND = 4 * SWEEP_WARPS   # a warp takes at most 4 rows of a band
+# the L form above SWEEP_MAX_N: y of a band and each warp's sums of it
+SWEEP_BAND_SUMS = SWEEP_MAX_BAND * (SWEEP_WARPS + 1)
 SWEEP_MAX_STAGES = 8
 SWEEP_WANT_STAGES = 4          # bands shrink until this many stages fit
 SWEEP_BARRIER_BYTES = 2 * SWEEP_MAX_STAGES * 8 + 2 * 8
 SWEEP_CLUSTER_B = 64           # batches up to this size run in clusters
-# The X form's wide tier (``group_sweep.cuh``): the launch bounds' blocks an
-# SM, the barriers before its ring, and the smallest n and largest batch
-# it takes (:func:`sweep_wide`)
+# The wide tier of the X and L forms (``group_sweep.cuh``): the launch
+# bounds' blocks an SM, the barriers before its ring, and the smallest n
+# and largest batch each form takes it at (:func:`sweep_wide`)
 SWEEP_WIDE_PER_SM = 2
 SWEEP_WIDE_BARRIER_BYTES = 2 * SWEEP_MAX_STAGES * 8
 SWEEP_WIDE_MIN_N = 360
 SWEEP_WIDE_MAX_B = 32
+# the L form's, by element size: (least n, largest B) pairs, the wide tier
+# where one of them admits (n, B) (the crossover measured on the H100,
+# ``scripts/torch_sweep_bench.py --tiers``, ``PERF.md``)
+SWEEP_WIDE_L = {4: ((240, 2), (360, 32)), 2: ((600, 8), (1200, 32))}
+# the L form takes two blocks an SM where their bands hold this many rows,
+# or a block more than twice as many (:func:`_wide_plan`)
+SWEEP_WIDE_L_BAND = 8
 
 
 class SweepPlan(NamedTuple):
@@ -58,9 +67,9 @@ class SweepPlan(NamedTuple):
     each streaming its rows of every factor block in bands of
     ``band_rows`` rows through a ring of ``stages`` shared-memory stages;
     ``smem_bytes`` of dynamic shared memory a block, sized so that
-    ``per_sm`` blocks share an SM.  On the X form's wide tier ``spread``
-    blocks of one cooperative grid take a scenario (``cluster`` is then
-    1); 0 on the cluster tiers."""
+    ``per_sm`` blocks share an SM.  On the wide tier ``spread`` blocks of
+    one cooperative grid take a scenario (``cluster`` is then 1); 0 on the
+    cluster tiers."""
     cluster: int
     band_rows: int
     stages: int
@@ -111,11 +120,13 @@ def sweep_smem_bytes(n: int, cluster: int, band_rows: int, stages: int,
     """Dynamic shared memory of a block (the kernel's ``smem_bytes``): the
     barriers, the ring (rows of ``row_bytes``, default float32 rows of n),
     the right-hand side and w_k, the two halves of the cluster's exchange
-    buffer and ``part`` rows of partial sums."""
+    buffer and ``part`` rows of partial sums; with one row (the L form above
+    SWEEP_MAX_N) also y of a band and each warp's sums of it."""
     if row_bytes is None:
         row_bytes = 4 * n
     return (SWEEP_BARRIER_BYTES + stages * band_rows * row_bytes
-            + 4 * n * (2 + 2 * cluster + part))
+            + 4 * (n * (2 + 2 * cluster + part)
+                   + (SWEEP_BAND_SUMS if part == 1 else 0)))
 
 
 def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int,
@@ -140,13 +151,26 @@ def _sweep_ring(B: int, n: int, cluster: int, part: int, row_bytes: int,
         per_sm -= 1
 
 
-def sweep_wide(B: int, n: int, form: str, sms: int = SMS) -> bool:
-    """Whether B scenarios of n x n blocks take the wide tier on a card of
-    ``sms`` SMs: the X form from n = SWEEP_WIDE_MIN_N up to
-    SWEEP_WIDE_MAX_B scenarios, and no more than the card has SMs (its
-    grid is cooperative: a block a scenario at least, all resident)."""
-    return (form == "X" and n >= SWEEP_WIDE_MIN_N
-            and B <= min(SWEEP_WIDE_MAX_B, sms))
+def sweep_wide_most(n: int, form: str, esize: int = 4) -> int:
+    """The largest batch of n x n blocks of ``esize`` bytes an element that
+    takes the wide tier of ``form`` (0: none): the X form's SWEEP_WIDE_MAX_B
+    from n = SWEEP_WIDE_MIN_N, the L form's by SWEEP_WIDE_L."""
+    if form == "X":
+        return SWEEP_WIDE_MAX_B if n >= SWEEP_WIDE_MIN_N else 0
+    if form == "L":
+        return max([most for least, most in SWEEP_WIDE_L[esize]
+                    if n >= least], default=0)
+    return 0
+
+
+def sweep_wide(B: int, n: int, form: str, sms: int = SMS,
+               esize: int = 4) -> bool:
+    """Whether B scenarios of n x n blocks (``esize`` bytes an element)
+    take the wide tier on a card of ``sms`` SMs: up to
+    :func:`sweep_wide_most` scenarios, and no more than the card has SMs
+    (its grid is cooperative: a block a scenario at least, all
+    resident)."""
+    return B <= min(sweep_wide_most(n, form, esize), sms)
 
 
 def sweep_wide_rows(n: int, spread: int) -> int:
@@ -156,45 +180,65 @@ def sweep_wide_rows(n: int, spread: int) -> int:
 
 
 def sweep_wide_smem_bytes(n: int, rows: int, band_rows: int, stages: int,
-                          row_bytes: int) -> int:
+                          row_bytes: int, form: str = "X") -> int:
     """Dynamic shared memory of a wide-tier block (the kernel's
     ``wide_smem_bytes``): the ring's barriers, the ring, r and w_k of the
-    block's ``rows``."""
+    block's ``rows``; in the L form also y of a band and each consumer
+    warp's sums of a band's or the block's rows."""
+    extra = 0 if form == "X" else SWEEP_MAX_BAND + SWEEP_WARPS * rows
     return (SWEEP_WIDE_BARRIER_BYTES + stages * band_rows * row_bytes
-            + 4 * (n + rows))
+            + 4 * (n + rows + extra))
 
 
-def _wide_plan(B: int, K: int, n: int, esize: int, sms: int) -> SweepPlan:
-    """The wide tier's plan on a card of ``sms`` SMs.  A band costs a step
-    about one row product's latency whatever its rows (its rows run on the
-    consumer warps side by side), so a step costs its bands: for each count
-    of blocks an SM up to SWEEP_WIDE_PER_SM that gives each scenario a
-    block, the card's blocks (all of them
-    resident at once, as a cooperative grid must be) are shared out between
-    the B scenarios (each at least 2 rows), with the largest bands (up to
-    SWEEP_MAX_BAND rows) of which two stages fit beside r and w_k and as
-    many stages as fit; the plan with the fewest bands a step is taken,
-    the fewer blocks an SM on a tie."""
+def sweep_wide_vbuf_floats(B: int, n: int, spread: int, form: str) -> int:
+    """float32 words of a wide launch's scratch (the kernel's
+    ``wide_vbuf_floats``): the step vectors (2, B, n); in the L form the
+    blocks' column partials (B, spread, n); then the barriers' words, one a
+    scenario."""
+    return 2 * B * n + (B * spread * n if form == "L" else 0) + B
+
+
+def _wide_plan(B: int, K: int, n: int, esize: int, sms: int,
+               form: str = "X") -> SweepPlan:
+    """The wide tier's plan of ``form`` on a card of ``sms`` SMs.  For each
+    count of blocks an SM up to SWEEP_WIDE_PER_SM that gives each scenario a
+    block, the card's blocks (all of them resident at once, as a cooperative
+    grid must be) are shared out between the B scenarios (each at least 2
+    rows), with the largest bands (up to SWEEP_MAX_BAND rows) of which two
+    stages fit beside the block's vectors and as many stages as fit.  X: a band
+    costs a step about one row product's latency whatever its rows (its
+    rows run on the consumer warps side by side), so the plan with the
+    fewest bands a step is taken, the fewer blocks an SM on a tie.  L: two
+    blocks an SM where their bands hold SWEEP_WIDE_L_BAND rows or more or a
+    block owns more than twice as many rows, else one (measured over the
+    plans at N = 60 … 1024, B = 1 … 32: two blocks an SM, each with half the
+    rows, overlap each other's products and reduction, which pays where a
+    block has many rows; where it has few, in small bands, one block an SM
+    with bands twice as large is faster)."""
     row_bytes = sweep_row_bytes(n, esize)
-    best = None
+    plans = []
     for per_sm in range(-(-B // sms), SWEEP_WIDE_PER_SM + 1):
         spread = min(sms * per_sm // B, n // 2)
         rows = sweep_wide_rows(n, spread)
         room = (SMEM_SM // per_sm - 1024) - sweep_wide_smem_bytes(
-            n, rows, 0, 0, row_bytes)
+            n, rows, 0, 0, row_bytes, form)
         band = min(SWEEP_MAX_BAND, rows, room // (2 * row_bytes)) // 2 * 2
-        if band < 2 or (best and -(-rows // band) >= best[0]):
+        if band < 2:
             continue
         stages = min(SWEEP_MAX_STAGES, room // (band * row_bytes),
                      -(-rows // band) * (2 * K - 1))
-        best = (-(-rows // band), SweepPlan(
-            1, band, stages, sweep_wide_smem_bytes(n, rows, band, stages,
-                                                   row_bytes), per_sm,
-            spread))
-    if best is None:
+        plans.append(SweepPlan(1, band, stages, sweep_wide_smem_bytes(
+            n, rows, band, stages, row_bytes, form), per_sm, spread))
+    if not plans:
         raise ValueError(f"sweep kernels: no wide plan of B={B} at n={n} "
                          f"fits {sms} SMs")
-    return best[1]
+    if form == "L":
+        paired = [p for p in plans if p.per_sm == 2 and (
+            p.band_rows >= SWEEP_WIDE_L_BAND
+            or sweep_wide_rows(n, p.spread) > 2 * SWEEP_WIDE_L_BAND)]
+        return paired[0] if paired else plans[0]
+    return min(plans, key=lambda p: (
+        -(-sweep_wide_rows(n, p.spread) // p.band_rows), p.per_sm))
 
 
 def sweep_plan(B: int, K: int, n: int, form: str, esize: int = 4,
@@ -222,16 +266,18 @@ def sweep_plan(B: int, K: int, n: int, form: str, esize: int = 4,
     fits beside the vectors of as many blocks, fewer blocks share an SM,
     and then a cluster has fewer blocks (the widest blocks run one block a
     scenario).
-    * The X form from n = 360 up to B = 32 (:func:`sweep_wide`; the
-      grouped routes past N = 59 at small batches): the wide tier, each
-      scenario on its share of one cooperative grid over the card
-      (:func:`_wide_plan`).  ``_wide`` names the tier instead (to time
-      and check both tiers at one shape).
+    * The X form from n = 360 up to B = 32, the L form from n = 240 up to
+      B = 2 and from n = 360 up to B = 32 (bf16: from 600 up to 8 and from
+      1200 up to 32) (:func:`sweep_wide`; the grouped routes past N = 59
+      at small batches): the wide tier, each scenario on its share of one
+      cooperative grid over the card (:func:`_wide_plan`).  ``_wide``
+      names the tier instead (to time and check both tiers at one
+      shape).
     ``sms`` is the card's count of SMs (the launches give
     :func:`cuda_build.device_sms`).
     Raises ValueError for what the kernels do not serve (K < 2; X and L:
     n not a multiple of 6 or above 6144; dense: n odd or above 1536; the
-    wide tier on another form than X)."""
+    wide tier of the dense form)."""
     if form not in SWEEP_FORMS:
         raise ValueError(f"sweep kernels: unknown form {form!r}")
     unit = 2 if form == "dense" else 6
@@ -241,11 +287,11 @@ def sweep_plan(B: int, K: int, n: int, form: str, esize: int = 4,
                          f"K={K}, n={n} (n a multiple of {unit} up to "
                          f"{max_n}, K >= 2)")
     if _wide is None:
-        _wide = sweep_wide(B, n, form, sms)
+        _wide = sweep_wide(B, n, form, sms, esize)
     if _wide:
-        if form != "X":
+        if form == "dense":
             raise ValueError(f"sweep kernels: no wide tier of form {form!r}")
-        return _wide_plan(B, K, n, esize, sms)
+        return _wide_plan(B, K, n, esize, sms, form)
     part = sweep_part_rows(form, n)
     row_bytes = sweep_row_bytes(n, esize)
     most = sweep_blocks_per_sm(form, n, esize)
@@ -300,10 +346,10 @@ def _launch_sweep(what: str, entry: str, F, G, b, form: str,
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         if plan.spread:
-            # the vector of a step, double-buffered, in global memory,
-            # then the launch's two barrier words
-            vbuf = torch.empty(2 * B * n + 2, dtype=torch.float32,
-                               device=b.device)
+            # the vector of a step, double-buffered, in global memory, the
+            # L form's column partials, then the launch's barrier words
+            vbuf = torch.empty(sweep_wide_vbuf_floats(B, n, plan.spread, form),
+                               dtype=torch.float32, device=b.device)
             err = getattr(lib, entry + "_wide" + dtype)(
                 F.data_ptr(), G.data_ptr(), b.data_ptr(), x.data_ptr(),
                 vbuf.data_ptr(), B, K, n, *ld, plan.spread, plan.band_rows,
@@ -346,21 +392,22 @@ def solve_factorized_grouped_L_plain(Linv, C, b):
     return solve_factorized_L(Linv, C, b)
 
 
-def solve_factorized_grouped_L(Linv, C, b):
+def solve_factorized_grouped_L(Linv, C, b, *, _plan: SweepPlan | None = None):
     """Solve M x = b for a batch from the L-only factors: Linv (B, K, n, n)
     inverted diagonal factors, C (K-1, 3, 3) shared upper-triangular slot
     scalars, b (B, K, n) -> x (B, K, n).  CUDA tensors launch the kernel on
-    :func:`sweep_plan` (float32 and contiguous, Linv also bf16 as
-    ``banded.compress_factors`` lays it out; n a multiple of 6 up to 6144;
-    Linv is read as lower triangular; anything else raises); CPU tensors
-    run the plain version."""
+    :func:`sweep_plan`, or on ``_plan`` (to time and check another tier;
+    float32 and contiguous, Linv also bf16 as ``banded.compress_factors``
+    lays it out; n a multiple of 6 up to 6144; Linv is read as lower
+    triangular; anything else raises); CPU tensors run the plain
+    version."""
     if not b.is_cuda:
         if b.device.type != "cpu":
             raise ValueError(
                 f"solve_factorized_grouped_L: unsupported device {b.device}")
         return solve_factorized_grouped_L_plain(Linv, C, b)
     x = _launch_sweep("solve_factorized_grouped_L", "group_solve_l", Linv, C,
-                      b, "L")
+                      b, "L", plan=_plan)
     solve_factorized_grouped_L.launches += 1
     return x
 

@@ -19,7 +19,9 @@
    the fused ADMM interval at N=30, 40, 50 and 60 (B=128), with the bound
    of its whole blocks and of their upper triangles; on the factors of the
    reference-compatible solver (rho 0.1,
-   hard collision rows) the L-only sweep and the dense (Linv, Eb) sweep at
+   hard collision rows) the L-only sweep (its bounds count Linv's lower
+   triangle, its stream of whole blocks beside them) and the dense
+   (Linv, Eb) sweep at
    N=20 (B=64, 512 and 1, the ``SCP`` class's batch), the L-only sweep at
    N=30 and N=40 (B=128), the L-form fused interval at N=20 (B=64 and 128,
    penalty weight +inf) and its wide instantiation at K=3, N=90; the three
@@ -491,15 +493,14 @@ def kernel_phase(dev, B):
                 sw_abs, sw_ms, sw_plain_ms, f"N=20 K={K_STEPS} B={B}",
                 B * K_STEPS * (n * n + 2 * n) * 4, B * 2 * K_STEPS * 2 * n * n,
                 B * K_STEPS * (2 * n * n + 2 * n) * 4),
-                tier=_sweep_tier(b, "X"))}
+                tier=_sweep_tier(b.shape, "X"))}
 
 
 # (N, B, K) of the wide kernel checks: the grouped routes past N = 341, the
 # production QP's N=342 at the wide path's batch and N=1024 (n=6144, the
 # widest the sweeps serve) with its horizon cut to K=6 (WIDE_STEP_SHAPES)
 WIDE_KERNEL_SHAPES = ((342, 2, K_STEPS), (1024, 1, 6))
-WIDE_REPS = 2                      # timed calls of an L sweep there
-WIDE_X_REPS = 10                   # of an X sweep and of the NS chain
+WIDE_X_REPS = 10        # timed calls of each sweep there and of the NS chain
 # (N, B) of the NS chain's check of one scenario at the top of the
 # production envelope, which its wide tier takes in tiles of 64
 NS_SMALL = (40, 1)
@@ -515,10 +516,11 @@ def _ns_tier(B, n):
             f"{plan.upper_tiles} blocks a scenario a product)")
 
 
-def _sweep_tier(b, form):
-    """The sweep kernel's tier for right-hand sides b, in words."""
+def _sweep_tier(shape, form, esize=4):
+    """The sweep kernel's tier for right-hand sides of ``shape`` (B, K, n)
+    and factors of ``esize`` bytes an element, in words."""
     from ba_path_planning_torch.ops.group_solve import sweep_plan
-    plan = sweep_plan(*b.shape, form)
+    plan = sweep_plan(*shape, form, esize=esize)
     if plan.spread:
         return (f"wide, {plan.spread} blocks a scenario, {plan.per_sm} an "
                 "SM")
@@ -529,8 +531,9 @@ def wide_kernel_phase(dev):
     """The kernels of the grouped routes at WIDE_KERNEL_SHAPES, each
     against its plain version as at N=20: the X-form sweep on the plain
     NS factors (cuBLAS; its wide tier) and the L-only sweep on the block
-    Cholesky factors of the ``SCP`` class's solver, the X sweep timed over
-    WIDE_X_REPS calls, the L sweep over WIDE_REPS; at N=342 also the NS
+    Cholesky factors of the ``SCP`` class's solver (float32 and bf16), each
+    timed over WIDE_X_REPS calls beside its plain version and its stream
+    bound; at N=342 also the NS
     chain's tensor-core route (its ``"high"``, the production solver's;
     its wide tier) against the plain chain, each timed
     over WIDE_X_REPS calls in the same run, the plain factorize_X being
@@ -599,7 +602,7 @@ def wide_kernel_phase(dev):
             reps=WIDE_X_REPS)
         st = _stat(err, ms, sw_plain_ms, shape, B * K * (n * n + 2 * n) * 4,
                    B * 2 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
-        st["tier"] = _sweep_tier(b, "X")
+        st["tier"] = _sweep_tier(b.shape, "X")
         out["group_solve_x"][shape] = st
         print(f"wide kernel phase: solve_factorized_grouped_X N={n_veh} "
               f"K={K} B={B} on the {st['tier']}: {ms:.3f} ms, stream bound "
@@ -607,11 +610,21 @@ def wide_kernel_phase(dev):
               f"({st['stream_bound_ms'] / ms:.1%}), plain {sw_plain_ms:.3f} "
               f"ms", flush=True)
         del Xp, b, b_admm
-        st = lform_phase(dev, n_veh, B, n_steps=K,
-                         reps=WIDE_REPS)["group_solve_l"]
-        plan = group_solve.sweep_plan(B, K, n, "L")
-        out["group_solve_l"][shape] = dict(st, tier=f"cluster of "
-                                           f"{plan.cluster}")
+        lst = lform_phase(dev, n_veh, B, n_steps=K, reps=WIDE_X_REPS,
+                          bf16=True)
+        for key, esize in (("group_solve_l", 4), ("group_solve_l_bf16", 2)):
+            st = dict(lst[key], tier=_sweep_tier((B, K, n), "L", esize))
+            out.setdefault(key, {})[shape] = st
+            ms, plain_ms = st["ms"], st["plain_ms"]
+            whole = st["whole_block_stream_bound_ms"]
+            print(f"wide kernel phase: solve_factorized_grouped_L N={n_veh} "
+                  f"K={K} B={B} {'bf16' if esize == 2 else 'f32'} on the "
+                  f"{st['tier']}: {ms:.3f} ms, stream bound of Linv's lower "
+                  f"triangle {st['stream_bound_ms']:.3f} ms "
+                  f"({st['stream_bound_ms'] / ms:.1%}; whole blocks "
+                  f"{whole:.3f} ms, {whole / ms:.1%}), plain {plain_ms:.3f} "
+                  f"ms in the same run (the kernel "
+                  f"{'faster' if ms < plain_ms else 'slower'})", flush=True)
     for at in out.values():
         for st in at.values():
             st.pop("timed_at", None)
@@ -1228,13 +1241,14 @@ def steps_phase(dev):
 
 
 def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
-                n_steps=K_STEPS, reps=20):
+                n_steps=K_STEPS, reps=20, bf16=False):
     """The L-form family on the factors of the reference-compatible solver
     (float32 block Cholesky on the card, as the path computes them) at
     ``n_steps`` steps: the L-only sweep (unless not ``l_only``; timed over
-    ``reps`` calls); with ``dense`` the dense (Linv, Eb) sweep; with
-    ``fused`` the L-form fused interval, whose penalty weight is this
-    solver's +inf."""
+    ``reps`` calls), with ``bf16`` also on the factors stored in bf16
+    (:func:`_bf16_sweep`, ``group_solve_l_bf16``); with ``dense`` the dense
+    (Linv, Eb) sweep; with ``fused`` the L-form fused interval, whose
+    penalty weight is this solver's +inf."""
     from ba_path_planning_torch.ops import admm_fused, banded_solve, group_solve
     from ba_path_planning_torch.solvers import banded
     D, C, b, b_admm, kw = _case(n_veh, B, dev, seed=1000 + n_veh + B,
@@ -1251,12 +1265,19 @@ def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
             group_solve.solve_factorized_grouped_L,
             group_solve.solve_factorized_grouped_L_plain, (Linv, C), b,
             b_admm, reps=reps)
+        # Linv is lower triangular: the sweeps need n (n + 1) / 2 elements
+        # of a block, read once (the bound) or at each of 2K steps (the
+        # stream)
+        tri = n * (n + 1) // 2
         out["group_solve_l"] = _stat(
-            err, ms, plain_ms, shape, B * K * (n * n + 2 * n) * 4,
-            B * 4 * K * 2 * n * n, B * K * (2 * n * n + 2 * n) * 4)
-        # the stream without the zero half of Linv
-        out["group_solve_l"]["nonzero_stream_bound_ms"] = _bound_ms(
-            B * K * (n * (n + 1) + 2 * n) * 4, B * 4 * K * n * (n + 1))[0]
+            err, ms, plain_ms, shape, B * K * (tri + 2 * n) * 4,
+            B * 4 * K * n * (n + 1), B * K * (2 * tri + 2 * n) * 4)
+        # the stream of whole blocks, the zero half of Linv included
+        out["group_solve_l"]["whole_block_stream_bound_ms"] = _bound_ms(
+            B * K * (2 * n * n + 2 * n) * 4, B * 4 * K * 2 * n * n)[0]
+    if bf16:
+        out["group_solve_l_bf16"] = _bf16_sweep("L", (Linv,), C, b, b_admm,
+                                                n_veh)
     if dense:
         err, ms, plain_ms = _sweep_check(
             f"{tag}: solve_factorized_dense ({_plan(b, 'dense')})",
@@ -1558,8 +1579,10 @@ def wide_qp(dev, card, counters, label, solver, route, seed):
         raise AssertionError(f"{label}: non-finite x")
     err = _block_rel(got, want, 1)
     abs_err = float((got - want).abs().max())
+    tier = _sweep_tier((WIDE_B, K_STEPS, 6 * WIDE_N), route[-1])
     print(f"wide phase: {label}: route {route} N={WIDE_N} K={K_STEPS} "
-          f"B={WIDE_B} f32 on {card}: iterations {res.iters.tolist()} "
+          f"B={WIDE_B} f32 on {card} (sweep on the {tier}): iterations "
+          f"{res.iters.tolist()} "
           f"(graph interval {ref.iters.tolist()}), converged "
           f"{res.converged.tolist()} ({ref.converged.tolist()}); x against "
           f"the graph interval max_block_rel={err:.3e} (tol "
@@ -2218,17 +2241,25 @@ def _bf16_sweep(form, factors, C, b, b_admm, n_veh):
     # factor blocks read once (X, L: K; dense: K + K - 1) and streamed at
     # every sweep step (X, L: 2K - 1; dense: 4K - 3), 2 bytes an element
     # on rows of ld; b read and x written in FP32
+    # on rows of ld; b read and x written in FP32.  Linv is lower
+    # triangular: the L form needs n (n + 1) / 2 elements of a block
     blocks, chain = ((K, 2 * K - 1) if form != "dense"
                      else (2 * K - 1, 4 * K - 3))
     vec = 2 * K * n * 4
     flops = {"X": 2 * K * 2, "L": 4 * K * 2, "dense": (4 * K - 2) * 2}[form]
+    elems = (n + 1) * ld // 2 if form == "L" else n * ld
+    ops_n = n * (n + 1) // 2 if form == "L" else n * n
     stats = _stat(err, ms, plain_ms, f"N={n_veh} K={K} B={B}",
-                  B * (blocks * n * ld * 2 + vec), B * flops * n * n,
-                  B * (chain * n * ld * 2 + vec))
+                  B * (blocks * elems * 2 + vec), B * flops * ops_n,
+                  B * (chain * elems * 2 + vec))
     stats.update(f32_ms=f32_ms, factor_dtype="bf16", row_stride=ld)
+    what = "Linv's lower triangle " if form == "L" else ""
+    if form == "L":
+        stats["whole_block_stream_bound_ms"] = _bound_ms(
+            B * (chain * n * ld * 2 + vec), B * flops * n * n)[0]
     print(f"  {kernel.__name__} B={B} N={n_veh}: bf16 {ms:.3f} ms beside "
           f"f32 {f32_ms:.3f} ms (bf16 / f32 {ms / f32_ms:.3f}); bound at 2 "
-          f"bytes an element {stats['bound_ms']:.3f} ms, streamed "
+          f"bytes an element {stats['bound_ms']:.3f} ms, {what}streamed "
           f"{stats['stream_bound_ms']:.3f} ms "
           f"({stats['stream_bound_ms'] / ms:.0%} of the kernel)", flush=True)
     return stats
@@ -3045,8 +3076,12 @@ def main():
     # where the router sends short horizons
     lform_phase(dev, 90, 8, fused=True, l_only=False, n_steps=3)
     lane = lane_rho_phase(dev)
-    # the grouped routes' kernels past N = 341: n = 2052 and 6144
-    for key, at in wide_kernel_phase(dev).items():
+    # the grouped routes' kernels past N = 341: n = 2052 and 6144 (the L
+    # sweep's on bf16 factors join the bf16 row below)
+    wide = wide_kernel_phase(dev)
+    for key, at in wide.items():
+        if key == "group_solve_l_bf16":
+            continue
         stats = lstats[40][key] if key == "ns_chain" else (
             kstats if key == "group_solve_x" else fstats)[key]
         stats["wide_shapes"] = at
@@ -3056,6 +3091,7 @@ def main():
     torch.cuda.empty_cache()
     lap("steps phase")
     bstats = bf16_kernel_phase(dev)
+    bstats["group_solve_l"]["wide_shapes"] = wide["group_solve_l_bf16"]
     lap("bf16 kernel phase")
     for n_veh in (20, 30):
         reference_phase(dev, n_veh)

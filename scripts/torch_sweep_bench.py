@@ -4,7 +4,7 @@ the PyTorch port on one GPU.
 
     python3 scripts/torch_sweep_bench.py [--cases X:20:512,...] [--root DIR]
                                          [--time-only] [--graph] [--bf16]
-                                         [--tiers] [--plans]
+                                         [--tiers] [--plans] [--seed S]
 
 Each case (form, N, B; K=50, or a fourth field for cases S, X and NS:
 ``S:1024:1:6``) is built and checked as ``chip_smoke.py`` builds and
@@ -55,14 +55,19 @@ and on the float32 factors in turns (bf16, f32, bf16, f32: ``ms`` and
 four); the bounds then count 2 bytes an element on the padded rows.  With
 ``--bf16`` the L-form fused interval (FL) runs on bf16 (Linv, Eb) as well,
 checked as ``chip_smoke.py`` checks it, and is timed on both factor types
-from one state in the same turns.  ``--tiers`` times cases X and NS on
-each tier of their kernel in turns (the plan's first: ``ms``; every tier,
-each checked, in ``ms_by_tier``: the X sweep's "cluster" and "wide", the
-NS chain's output tile, 0 for one block a scenario), where the checkout
-has tiers.  ``--plans`` times case X on its wide tier under other plans
-too (``wide_plans``: each count of blocks an SM, the bands from 2 rows to
-the largest two stages allow, two stages and as many as fit), each
-checked to equal the plan's result, in one JSON line (``plans_ms``).
+from one state in the same turns.  ``--tiers`` times cases X, L and NS
+on each tier of their kernel in turns (the plan's first: ``ms``; every
+tier, each checked, in ``ms_by_tier``: the sweeps' "cluster" and "wide",
+the NS chain's output tile, 0 for one block a scenario), where the
+checkout has tiers (with ``--bf16`` on the bf16 factors and their
+plans).  ``--plans`` times cases X and L on their wide tier under other
+plans too (``wide_plans``: each count of blocks an SM, the bands from 2
+rows to the largest two stages allow, two stages and as many as fit),
+each checked (X: equal to the plan's result; L: within SWEEP_TOL of the
+plain version, and equal to the plan's where its blocks are the plan's),
+in one JSON line (``plans_ms``).  Cases L and D, like X, repeat the inputs of at most
+DISTINCT scenarios.  ``--seed`` adds S to the seed of the inputs of cases X, L
+and D (another draw of the same shapes).
 """
 
 import argparse
@@ -117,32 +122,34 @@ def _time_adaptive(cs, fn, budget_ms=2000.0):
 DISTINCT, ASSEMBLY_ELEMS = 8, 3e13
 
 
-def _case(cs, N, B, K, dev, seed):
-    """``chip_smoke._case``'s D, C, b and b_admm for B scenarios: those
-    of at most DISTINCT scenarios (fewer where their assembly would pass
+def _case(cs, N, B, K, dev, seed, solver=None):
+    """``chip_smoke._case``'s D, C, b and b_admm for B scenarios (of
+    ``solver``'s rho pattern; default production): those of at most
+    DISTINCT scenarios (fewer where their assembly would pass
     ASSEMBLY_ELEMS), repeated."""
     import torch
     n, P = 6 * N, N * (N - 1) // 2
     own = max(1, min(B, DISTINCT, int(ASSEMBLY_ELEMS / (K * n * n * P))))
-    D, C, b, b_admm, _ = cs._case(N, own, dev, seed=seed, n_steps=K)
+    D, C, b, b_admm, _ = cs._case(N, own, dev, seed=seed, n_steps=K,
+                                  solver=solver)
     if B > own:
         idx = torch.arange(B, device=dev) % own
         D, b, b_admm = D[idx], b[idx], b_admm[idx]
     return D, C, b, b_admm
 
 
-def wide_plans(gs, B, K, n):
-    """Plans of the X form's wide tier beside ``sweep_plan``'s: for one and
-    two blocks an SM (the card's blocks shared out as the plan shares
+def wide_plans(gs, B, K, n, form="X", esize=4):
+    """Plans of the wide tier of ``form`` beside ``sweep_plan``'s: for one
+    and two blocks an SM (the card's blocks shared out as the plan shares
     them), bands of 2, 4, 8, 16 and 32 rows and the largest of which two
     stages fit, each with two stages and with as many as fit."""
-    row = gs.sweep_row_bytes(n)
+    row = gs.sweep_row_bytes(n, esize)
     out = []
     for per_sm in (1, 2):
         spread = max(1, min(gs.SMS * per_sm // B, n // 2))
         rows = gs.sweep_wide_rows(n, spread)
         room = (gs.SMEM_SM // per_sm - 1024) - gs.sweep_wide_smem_bytes(
-            n, rows, 0, 0, row)
+            n, rows, 0, 0, row, form)
         top = min(gs.SWEEP_MAX_BAND, rows, room // (2 * row)) // 2 * 2
         for band in sorted({b for b in (2, 4, 8, 16, 32) if b <= top}
                            | ({top} if top >= 2 else set())):
@@ -150,7 +157,7 @@ def wide_plans(gs, B, K, n):
                                          room // (band * row))}):
                 out.append(gs.SweepPlan(1, band, stages,
                                         gs.sweep_wide_smem_bytes(
-                                            n, rows, band, stages, row),
+                                            n, rows, band, stages, row, form),
                                         per_sm, spread))
     return out
 
@@ -240,6 +247,8 @@ def main():
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--tiers", action="store_true")
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="added to the seed of the inputs of cases X, L and D")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -414,21 +423,15 @@ def main():
             print(json.dumps(line), flush=True)
             del kw, Linv, Eb, factors
             continue
-        tiers = {}
         if form == "X":
-            D, C, b, b_admm = _case(cs, N, B, K, dev, seed=B)
+            D, C, b, b_admm = _case(cs, N, B, K, dev, seed=B + args.seed)
             factors = (ns_chain.factorize_X_chain_plain(D, C, ns_iters=2), C)
             kernel = group_solve.solve_factorized_grouped_X
             plain = group_solve.solve_factorized_grouped_X_plain
-            if args.tiers and hasattr(group_solve, "sweep_wide"):
-                first = group_solve.sweep_wide(B, n, "X")
-                for wide in (first, not first):
-                    plan = group_solve.sweep_plan(B, K, n, "X", _wide=wide)
-                    tiers["wide" if wide else "cluster"] = (
-                        plan, lambda *f, p=plan: kernel(*f, _plan=p))
         else:
-            D, C, b, b_admm, _ = cs._case(N, B, dev, seed=1000 + N + B,
-                                          solver=cs._facade_solver())
+            D, C, b, b_admm = _case(cs, N, B, K, dev,
+                                    seed=1000 + N + B + args.seed,
+                                    solver=cs._facade_solver())
             Linv, Eb = banded.factorize(D, banded.slot_dense(C, 2 * N))
             if form == "L":
                 factors = (Linv, C)
@@ -438,6 +441,7 @@ def main():
                 factors = (Linv, Eb)
                 kernel = banded_solve.solve_factorized_dense
                 plain = banded_solve.solve_factorized_dense_plain
+            del Linv, Eb
         del D
         # the factor blocks (the slot scalars of X and L stay float32)
         n_fac = 2 if form == "D" else 1
@@ -448,6 +452,18 @@ def main():
             esize, ld = 2, ops[0].stride(-2)
         tag = f"{form} N={N} B={B} K={K}" + (f" bf16 (rows of {ld})"
                                              if args.bf16 else "")
+        # each tier of the X and L forms, where the checkout's kernel takes
+        # a plan
+        tiers = {}
+        if (args.tiers and form in ("X", "L")
+                and "_plan" in inspect.signature(kernel).parameters):
+            first = bool(group_solve.sweep_plan(B, K, n, form,
+                                                esize=esize).spread)
+            for wide in (first, not first):
+                plan = group_solve.sweep_plan(B, K, n, form, esize=esize,
+                                              _wide=wide)
+                tiers["wide" if wide else "cluster"] = (
+                    plan, lambda *f, p=plan: kernel(*f, _plan=p))
         for name, (plan, fn) in tiers.items():
             cs._sweep_check(f"{tag} {name} tier", fn, plain, ops, b, b_admm,
                             reps=2)
@@ -482,15 +498,23 @@ def main():
                         ms_runs_by_tier=runs,
                         plans={k: p._asdict() for k, (p, _) in tiers.items()})
             line["share"] = bound / line["ms"]
-        if form == "X" and args.plans:
-            base = group_solve.sweep_plan(B, K, n, "X", _wide=True)
+        if form in ("X", "L") and args.plans:
+            # X: every plan's result equal to the plan's; L: within
+            # SWEEP_TOL of the plain version, and equal to the plan's where
+            # its blocks are the plan's (the bands only split the rows,
+            # summed in the same order)
+            base = group_solve.sweep_plan(B, K, n, form, esize=esize,
+                                          _wide=True)
             want = kernel(*ops, b, _plan=base)
+            ref = plain(*ops, b)
             times = {}
-            for plan in [base] + [q for q in wide_plans(group_solve, B, K, n)
-                                  if q != base]:
+            for plan in [base] + [q for q in wide_plans(
+                    group_solve, B, K, n, form, esize) if q != base]:
                 got = kernel(*ops, b, _plan=plan)
                 torch.cuda.synchronize()
-                if not torch.equal(got, want):
+                same = plan.spread == base.spread
+                if ((form == "X" or same) and not torch.equal(got, want)) or (
+                        cs._block_rel(got, ref, 1) > cs.SWEEP_TOL):
                     raise AssertionError(f"{tag}: plan {tuple(plan)} differs")
                 times[str(tuple(plan))] = _time_adaptive(
                     cs, lambda p=plan: kernel(*ops, b, _plan=p))
@@ -512,7 +536,10 @@ def main():
             elif form != "D":
                 line["plan"] = plan_fn(B, K, n)._asdict()
         print(json.dumps(line), flush=True)
+        # the next case's assembly may need the card's memory (N = 1024)
         del factors, ops, b, b_admm
+        tiers.clear()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -218,15 +218,21 @@ def test_group_solve_kernel_matches_plain(cuda, B, K, N):
 @pytest.mark.parametrize("form,B,K,n", [("X", 1, 2, 6144), ("X", 3, 2, 6144),
                                         ("L", 1, 2, 6144), ("L", 3, 2, 6144),
                                         ("X", 2, 50, 2052),
-                                        ("X", 1, 6, 6144)])
+                                        ("X", 1, 6, 6144),
+                                        ("L", 2, 50, 2052),
+                                        ("L-bf16", 2, 50, 2052)])
 def test_group_solve_kernel_serves_the_widest_blocks(cuda, form, B, K, n):
-    """n = 6144 (N = 1024), the most the X and L forms serve: no cluster's
-    exchange buffers fit beside a ring there, so the L form runs one block
-    a scenario (its column sums in shared memory), and the X form its wide
-    tier, each scenario on a share of the card (also at n = 2052, N = 342,
-    K = 50, the production QP's width).  Random blocks of norm about 1
-    stand in for the factors (symmetric for X, lower triangular for L; a
-    float64 factorization at this size would take minutes)."""
+    """n = 6144 (N = 1024), the most the X and L forms serve, and n = 2052
+    (N = 342, K = 50, the production QP's width): both forms run their
+    wide tier, each scenario on a share of the card (no cluster's exchange
+    buffers fit beside a ring at n = 6144, so the other tier is one block a
+    scenario there, the L form's column sums added into one shared row).
+    Random blocks of norm about 1 stand in for the factors (symmetric for
+    X, lower triangular for L, also stored in bf16; a float64
+    factorization at this size would take minutes).  Relative 1e-5 in
+    every (b, k) block against the plain version; the X form's tiers agree
+    bit for bit, the L form's within the same 1e-5 (their column sums meet
+    in another order), and two launches of each L tier bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(B)
     A = torch.randn((B, K, n, n), generator=gen, device=cuda)
     if form == "X":
@@ -234,12 +240,16 @@ def test_group_solve_kernel_serves_the_widest_blocks(cuda, form, B, K, n):
     else:
         F = A.tril_() / n ** 0.5
     del A
+    if form == "L-bf16":
+        F, = tb.compress_factors(F)
+    form = form[0]
     C = torch.triu(torch.randn((K - 1, 3, 3), generator=gen, device=cuda))
     if K > 2:       # slot scalars under which w_k does not grow with k
         C = C / 4
     b = torch.randn((B, K, n), generator=gen, device=cuda)
-    plan = group_solve.sweep_plan(B, K, n, form)
-    assert plan.cluster == 1 and bool(plan.spread) == (form == "X")
+    esize = F.element_size()
+    plan = group_solve.sweep_plan(B, K, n, form, esize=esize)
+    assert plan.cluster == 1 and plan.spread
     kernel, plain = {
         "X": (group_solve.solve_factorized_grouped_X,
               group_solve.solve_factorized_grouped_X_plain),
@@ -247,13 +257,61 @@ def test_group_solve_kernel_serves_the_widest_blocks(cuda, form, B, K, n):
               group_solve.solve_factorized_grouped_L_plain)}[form]
     got = kernel(F, C, b)
     want = plain(F, C, b)
+    other = kernel(F, C, b, _plan=group_solve.sweep_plan(
+        B, K, n, form, esize=esize, _wide=False))
     torch.cuda.synchronize()
     assert _block_rel(got, want, 1) < 1e-5
     if form == "X":     # one block a scenario sums every row alike
-        other = kernel(F, C, b, _plan=group_solve.sweep_plan(B, K, n, "X",
-                                                             _wide=False))
-        torch.cuda.synchronize()
         assert torch.equal(other, got)
+    else:
+        assert _block_rel(other, got, 1) < 1e-5
+        again = kernel(F, C, b)
+        other_again = kernel(F, C, b, _plan=group_solve.sweep_plan(
+            B, K, n, form, esize=esize, _wide=False))
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
+        assert torch.equal(other_again, other)
+
+
+# The L form above n = 1536 off its wide tier (batches above 32, or a plan
+# named): a cluster of 2 at B = 40, one block a scenario at N = 1024.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,N,wide", [(3, 2, 300, False),
+                                        (40, 2, 300, None),
+                                        (2, 3, 1024, False)])
+def test_l_form_above_n_1536_sums_in_a_fixed_order(cuda, B, K, N, wide):
+    """The L form's instantiation above n = 1536 sums its column pairs in
+    a fixed order (every thread on every row of a band, registers added
+    into one shared row every 64 rows): two launches agree bit for bit,
+    the result lies within 1e-5 of the plain version in every (b, k) block,
+    and no farther from the float64 solve on the same factors than 4 times
+    the plain float32 version (``chip_smoke.ADMM_ERR_RATIO``).  N = 1024 takes random
+    lower triangular blocks of norm about 1 (see the test above)."""
+    n = 6 * N
+    if N == 1024:
+        gen = torch.Generator(device=cuda).manual_seed(B)
+        Linv = torch.randn((B, K, n, n), generator=gen,
+                           device=cuda).tril_() / n ** 0.5
+        C = torch.triu(torch.randn((K - 1, 3, 3), generator=gen,
+                                   device=cuda)) / 4
+        b = torch.randn((B, K, n), generator=gen, device=cuda)
+    else:
+        Linv, _, C, _ = _dense_case(min(B, SWEEP_PERIOD), K, N, seed=N)
+        Linv, b = _tiled((Linv,), B, K, N, seed=B)
+        Linv, C, b = Linv.to(cuda), C.to(cuda), b.to(cuda)
+    plan = group_solve.sweep_plan(B, K, n, "L", _wide=wide)
+    assert not plan.spread
+    got = group_solve.solve_factorized_grouped_L(Linv, C, b, _plan=plan)
+    again = group_solve.solve_factorized_grouped_L(Linv, C, b, _plan=plan)
+    want = group_solve.solve_factorized_grouped_L_plain(Linv, C, b)
+    x64 = group_solve.solve_factorized_grouped_L_plain(
+        Linv.double(), C.double(), b.double())
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    assert _block_rel(got, want, 1) < 1e-5
+    kernel_err = _block_rel(got.double(), x64, 1)
+    plain_err = _block_rel(want.double(), x64, 1)
+    assert kernel_err <= 4.0 * plain_err, (kernel_err, plain_err)
 
 
 @pytest.mark.gpu
@@ -309,7 +367,11 @@ def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
     and every branch of the plan (the cluster's column partial sums meet in
     distributed shared memory; at N = 45 a lane sums nine columns, at
     N = 256 48 of them; at N = 300 the block's column sums are added in
-    shared memory)."""
+    shared memory).  Up to B = 64 also on the other tier (the wide tier
+    where the plan takes a cluster, and a cluster where it takes the wide
+    tier), whose column partial sums meet in another order: within the
+    same 1e-5; the wide tier's result is the same bit for bit at a second
+    launch."""
     if B <= SWEEP_DISTINCT:
         Linv, _, C, b = _dense_case(B, K, N, seed=N)
     else:
@@ -322,6 +384,19 @@ def test_group_solve_l_kernel_matches_plain(cuda, B, K, N):
     want = group_solve.solve_factorized_grouped_L_plain(Linv, C, b)
     torch.cuda.synchronize()
     assert _block_rel(got, want, 1) < 1e-5
+    n = 6 * N
+    if B <= group_solve.SWEEP_CLUSTER_B:
+        wide = group_solve.sweep_wide(B, n, "L", group_solve.device_sms(cuda))
+        other_plan = group_solve.sweep_plan(B, K, n, "L", _wide=not wide)
+        other = group_solve.solve_factorized_grouped_L(Linv, C, b,
+                                                       _plan=other_plan)
+        torch.cuda.synchronize()
+        assert _block_rel(other, want, 1) < 1e-5
+        wide_x, wide_plan = (got, None) if wide else (other, other_plan)
+        again = group_solve.solve_factorized_grouped_L(Linv, C, b,
+                                                       _plan=wide_plan)
+        torch.cuda.synchronize()
+        assert torch.equal(again, wide_x)
 
 
 # The dense form's plans: those of the two other forms, its two blocks a

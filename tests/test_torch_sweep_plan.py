@@ -20,19 +20,19 @@ from ba_path_planning_torch.ops import group_solve as gs
 from ba_path_planning_torch.solvers import banded as tb
 
 
-def _check_wide_plan(plan, B, K, n, esize=4, sms=gs.SMS):
-    """What the X form's wide tier needs of its plan: B scenarios of
-    ``spread`` blocks each, all resident at once on ``sms`` SMs at
-    ``per_sm`` blocks an SM, every block at least one row pair and at most
-    ``sweep_wide_rows``, its ring of two stages or more beside r and its
-    w_k."""
+def _check_wide_plan(plan, B, K, n, esize=4, sms=gs.SMS, form="X"):
+    """What the wide tier of ``form`` (X or L) needs of its plan: B
+    scenarios of ``spread`` blocks each, all resident at once on ``sms``
+    SMs at ``per_sm`` blocks an SM, every block at least one row pair and
+    at most ``sweep_wide_rows``, its ring of two stages or more beside r,
+    its w_k and (L) the y of a band and the warps' row sums."""
     assert plan.cluster == 1 and plan.spread >= 1
     assert 1 <= plan.per_sm <= gs.SWEEP_WIDE_PER_SM
     assert B * plan.spread <= sms * plan.per_sm
     row_bytes = gs.sweep_row_bytes(n, esize)
     rows = gs.sweep_wide_rows(n, plan.spread)
     assert plan.smem_bytes == gs.sweep_wide_smem_bytes(
-        n, rows, plan.band_rows, plan.stages, row_bytes)
+        n, rows, plan.band_rows, plan.stages, row_bytes, form)
     assert plan.smem_bytes <= gs.SMEM_BLOCK_MAX
     assert plan.per_sm * (plan.smem_bytes + 1024) <= gs.SMEM_SM
     assert 2 <= plan.stages <= gs.SWEEP_MAX_STAGES
@@ -56,7 +56,7 @@ def _check_plan(B, K, n, form, full_cluster=True):
     plan = gs.sweep_plan(B, K, n, form)
     assert bool(plan.spread) == gs.sweep_wide(B, n, form)
     if plan.spread:
-        return _check_wide_plan(plan, B, K, n)
+        return _check_wide_plan(plan, B, K, n, form=form)
     c, band, stages = plan.cluster, plan.band_rows, plan.stages
     assert c in (1, 2, 4)
     if full_cluster or B > gs.SWEEP_CLUSTER_B:
@@ -152,9 +152,10 @@ def test_sweep_plan_branches_and_refusals():
                 > 2 * shared.stages * shared.band_rows)
         # a cluster of blocks of n = 1536 runs alone on its SMs: the wide
         # instantiations' launch bounds leave registers for one block an SM
-        # (the X form's single scenario takes the wide tier there)
+        # (the X and L forms' single scenario takes the wide tier there)
         assert gs.sweep_plan(1, 50, 1536, form, _wide=False).per_sm == 1
-        assert bool(gs.sweep_plan(1, 50, 1536, form).spread) == (form == "X")
+        assert bool(gs.sweep_plan(1, 50, 1536, form).spread) == (
+            form != "dense")
     # the ring is no deeper than the bands of the whole chain: 3 blocks
     # (X, L) or 5 (dense) at K = 2
     assert gs.sweep_plan(512, 2, 12, "X").stages == 3
@@ -207,6 +208,7 @@ def test_plan_layout_matches_the_kernel_header():
     assert gs.SWEEP_MAX_N_WIDE == k["kMaxNWide"]
     assert gs.SWEEP_WARPS == k["kWarps"]
     assert gs.SWEEP_MAX_BAND == k["kMaxBandRows"]
+    assert gs.SWEEP_BAND_SUMS == k["kBandSums"]
     assert gs.SWEEP_MAX_STAGES == ring["kMaxStages"]
     assert gs.SWEEP_BARRIER_BYTES == k["kBarrierBytes"]
     assert gs.SMEM_BLOCK_MAX == k["kSmemMax"]
@@ -564,33 +566,73 @@ def test_production_plans_are_pinned(form):
 @pytest.mark.parametrize("n,B,K", [(2052, 2, 50), (6144, 1, 6), (6144, 3, 2),
                                    (2052, 1, 50), (1200, 8, 50), (600, 2, 9)])
 def test_wide_tier_spreads_a_small_batch_over_the_card(n, B, K):
-    """The X form's wide plan at the grouped routes' widths past N = 59 and
-    small batches: the whole card between the scenarios, each block a few
-    row pairs of every X_k in bands as large as two stages allow, in
-    float32 and bf16; the L and dense forms keep their cluster plans
-    there, and a larger batch the cluster tier."""
-    for esize in (4, 2):
-        plan = gs.sweep_plan(B, K, n, "X", esize=esize)
-        assert gs.sweep_wide(B, n, "X") and plan.spread
-        _check_wide_plan(plan, B, K, n, esize=esize)
-        # the card's blocks, shared out: no more than one wave
-        assert B * plan.spread > gs.SMS * plan.per_sm - B
-        # no larger band leaves two stages beside r and w_k
-        rows = gs.sweep_wide_rows(n, plan.spread)
-        room = gs.SMEM_SM // plan.per_sm - 1024
-        bigger = gs.sweep_wide_smem_bytes(n, rows, plan.band_rows + 2, 2,
-                                          gs.sweep_row_bytes(n, esize))
-        assert (plan.band_rows == min(gs.SWEEP_MAX_BAND, rows)
-                or bigger > room)
+    """The wide plan of the X and L forms at the grouped routes' widths
+    past N = 59 and small batches: the whole card between the scenarios,
+    each block a few row pairs of every factor block in bands as large as
+    two stages allow, in float32 and bf16; the dense form has no wide tier
+    (it refuses one), and a larger batch takes the cluster tier."""
+    for form in ("X", "L"):
+        for esize in (4, 2):
+            plan = gs.sweep_plan(B, K, n, form, esize=esize)
+            assert gs.sweep_wide(B, n, form) and plan.spread
+            _check_wide_plan(plan, B, K, n, esize=esize, form=form)
+            # the card's blocks, shared out: no more than one wave
+            assert B * plan.spread > gs.SMS * plan.per_sm - B
+            # no larger band leaves two stages beside the block's vectors
+            rows = gs.sweep_wide_rows(n, plan.spread)
+            room = gs.SMEM_SM // plan.per_sm - 1024
+            bigger = gs.sweep_wide_smem_bytes(n, rows, plan.band_rows + 2, 2,
+                                              gs.sweep_row_bytes(n, esize),
+                                              form)
+            assert (plan.band_rows == min(gs.SWEEP_MAX_BAND, rows)
+                    or bigger > room)
+            most = gs.sweep_wide_most(n, form, esize)
+            assert gs.sweep_plan(most + 1, K, n, form,
+                                 esize=esize).spread == 0
     # the production QP's width at the wide path's batch, and N = 1024
     assert tuple(gs.sweep_plan(2, 50, 2052, "X")) == (
         1, 12, 2, 205456, 1, 66)
     assert tuple(gs.sweep_plan(1, 6, 6144, "X")) == (1, 4, 2, 221504, 1, 132)
-    for form in ("L",) + (("dense",) if n <= gs.SWEEP_MAX_N else ()):
-        assert gs.sweep_plan(B, K, n, form).spread == 0
-    assert gs.sweep_plan(gs.SWEEP_WIDE_MAX_B + 1, K, n, "X").spread == 0
-    with pytest.raises(ValueError):
-        gs.sweep_plan(B, K, n, "L", _wide=True)
+    # the L form: two blocks an SM where their bands hold SWEEP_WIDE_L_BAND
+    # rows or a block more than twice as many (bf16), else one (float32;
+    # its bands of 6 or 2 rows there)
+    assert tuple(gs.sweep_plan(2, 50, 2052, "L")) == (
+        1, 12, 2, 206608, 1, 66)
+    assert tuple(gs.sweep_plan(2, 50, 2052, "L", esize=2)) == (
+        1, 12, 2, 107728, 2, 132)
+    assert tuple(gs.sweep_plan(1, 6, 6144, "L")) == (1, 4, 2, 223168, 1, 132)
+    assert tuple(gs.sweep_plan(1, 6, 6144, "L", esize=2)) == (
+        1, 2, 3, 99424, 2, 264)
+    if n <= gs.SWEEP_MAX_N:
+        assert gs.sweep_plan(B, K, n, "dense").spread == 0
+        with pytest.raises(ValueError):
+            gs.sweep_plan(B, K, n, "dense", _wide=True)
+        assert not gs.sweep_wide(B, n, "dense")
+
+
+# The L form's tier at the crossover's shapes (``torch_sweep_bench.py
+# --tiers``, K = 50, N = 1024 at K = 6): 1 where the wide tier was the
+# faster, by N (rows) and B (columns 1, 2, 8, 32)
+L_WIDE_MEASURED = {
+    4: {20: (0, 0, 0, 0), 30: (0, 0, 0, 0), 40: (1, 1, 0, 0),
+        60: (1, 1, 1, 1), 100: (1, 1, 1, 1), 200: (1, 1, 1, 1),
+        342: (1, 1, 1, 1), 1024: (1, 1, 1, 1)},
+    2: {20: (0, 0, 0, 0), 30: (0, 0, 0, 0), 40: (0, 0, 0, 0),
+        60: (0, 0, 0, 0), 100: (1, 1, 1, 0), 200: (1, 1, 1, 1),
+        342: (1, 1, 1, 1), 1024: (1, 1, 1, 1)}}
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+def test_l_form_takes_the_tier_measured_faster(esize):
+    """``sweep_wide`` gives the L form the tier that the crossover
+    measured faster at each of its shapes, in float32 and bf16, and the
+    plan follows it."""
+    for N, wide in L_WIDE_MEASURED[esize].items():
+        for B, want in zip((1, 2, 8, 32), wide):
+            assert gs.sweep_wide(B, 6 * N, "L", esize=esize) == bool(want)
+            K = 6 if N == 1024 else 50
+            plan = gs.sweep_plan(B, K, 6 * N, "L", esize=esize)
+            assert bool(plan.spread) == bool(want)
 
 
 @pytest.mark.parametrize("sms", [132, 114, 66, 16])
@@ -598,26 +640,31 @@ def test_wide_plan_fits_the_cards_sms(sms):
     """The wide tier's grid is cooperative, so all its blocks must be
     resident at once: on a card of ``sms`` SMs (an H100 PCIe has 114; a
     partition fewer) the plan shares out that card's blocks, as many as
-    fit and no more, at the production QP's width and at N = 1024; a
-    batch of more scenarios than the card has SMs keeps the cluster
-    tier."""
+    fit and no more, at the production QP's width and at N = 1024, in the
+    X and L forms; a batch of more scenarios than the card has SMs keeps
+    the cluster tier."""
     for B, K, n in ((2, 50, 2052), (1, 6, 6144), (8, 50, 1200),
                     (32, 50, 600), (1, 50, 360)):
-        for esize in (4, 2):
-            plan = gs.sweep_plan(B, K, n, "X", esize=esize, sms=sms)
-            if B > sms:
-                assert plan.spread == 0
-                assert not gs.sweep_wide(B, n, "X", sms)
-                continue
-            _check_wide_plan(plan, B, K, n, esize=esize, sms=sms)
-            assert (B * plan.spread > sms * plan.per_sm - B
-                    or plan.spread == n // 2)
+        for form in ("X", "L"):
+            for esize in (4, 2):
+                plan = gs.sweep_plan(B, K, n, form, esize=esize, sms=sms)
+                if not gs.sweep_wide(B, n, form, sms, esize):
+                    # beyond the card's SMs, or (L on bf16 factors) where
+                    # the cluster tier was measured faster
+                    assert plan.spread == 0
+                    assert B > sms or (form, esize) == ("L", 2)
+                    continue
+                _check_wide_plan(plan, B, K, n, esize=esize, sms=sms,
+                                 form=form)
+                assert (B * plan.spread > sms * plan.per_sm - B
+                        or plan.spread == n // 2)
 
 
 def test_wide_tier_mirrors_the_kernel_header():
-    """The wide tier's rows a block and its shared memory in
-    ``group_solve.py`` are ``group_sweep.cuh``'s ``wide_rows`` and
-    ``wide_smem_bytes``; its constants are the header's."""
+    """The wide tier's rows a block, its shared memory and its scratch in
+    ``group_solve.py`` are ``group_sweep.cuh``'s ``wide_rows``,
+    ``wide_smem_bytes`` and ``wide_vbuf_floats``,
+    in both forms and element sizes; its constants are the header's."""
     ring = _constants(_header("factor_ring.cuh"))
     src = _header("group_sweep.cuh")
     k = _constants(src.replace("factor_ring::kBarrierBytes",
@@ -625,37 +672,98 @@ def test_wide_tier_mirrors_the_kernel_header():
         "factor_ring::kRows", str(ring["kRows"])))
     assert gs.SWEEP_WIDE_PER_SM == k["kWideBlocksPerSm"]
     assert gs.SWEEP_WIDE_BARRIER_BYTES == k["kWideBarrierBytes"]
+    # the L form's column pairs of a thread cover the widest blocks
+    assert 2 * k["kConsumers"] * k["kWidePairs"] >= gs.SWEEP_MAX_N_WIDE
     rows = _c_function(src, "wide_rows", ("n", "spread"), k)
     smem = _c_function(src, "wide_smem_bytes",
-                       ("n", "rows", "band_rows", "stages", "row_bytes"), k)
+                       ("n", "rows", "band_rows", "stages", "row_bytes",
+                        "form"), k)
+    vbuf = _c_function(src, "wide_vbuf_floats", ("B", "n", "spread", "form"),
+                       k)
+    forms = {"X": k["kFormX"], "L": k["kFormL"]}
     for n in (6, 120, 594, 600, 606, 1200, 2052, 6144):
         for spread in (1, 2, 3, 66, 131, 132, 264):
             if 2 * spread <= n:
                 assert gs.sweep_wide_rows(n, spread) == rows(n, spread)
+                for form, code in forms.items():
+                    for B in (1, 2, 32):
+                        assert gs.sweep_wide_vbuf_floats(
+                            B, n, spread, form) == vbuf(B, n, spread, code)
         for band, stages in ((2, 2), (4, 6), (32, 8)):
             for row_bytes in (4 * n, gs.sweep_row_bytes(n, 2)):
-                assert gs.sweep_wide_smem_bytes(
-                    n, 16, band, stages, row_bytes) == smem(
-                        n, 16, band, stages, row_bytes)
+                for form, code in forms.items():
+                    assert gs.sweep_wide_smem_bytes(
+                        n, 16, band, stages, row_bytes, form) == smem(
+                            n, 16, band, stages, row_bytes, code)
 
 
+def _wide_l_sweep(F, C, b, spread):
+    """The L form's wide data flow for one scenario: block g owns rows
+    [lo_g, hi_g) of every Linv_k and forms the column partials of
+    Linv_k[lo:hi, :hi]^T (Linv_k[lo:hi, :hi] r), the columns below hi_g
+    (backward: w_k of its own rows minus them).  The reduce-scatter: block
+    g sums its own rows' partials over the blocks g' >= g, warp w those of
+    g + w, g + w + SWEEP_WARPS, ..., then the warps in turn."""
+    K, n = b.shape
+    bounds = [gs.sweep_rows(q, spread, n) for q in range(spread + 1)]
+    blocks = list(zip(bounds, bounds[1:]))
+    Lt = np.tril(F)              # the kernel reads only the lower triangle
+    x, vec = np.zeros((K, n)), None
+    for t in range(2 * K - 1):
+        fwd = t < K
+        k = t if fwd else 2 * K - 2 - t
+        if fwd:
+            r = b[k] if k == 0 else b[k] - _slot_b(C[k - 1], vec, n // 3)
+        else:
+            r = _slot_bt(C[k], vec, n // 3)
+        parts = []
+        for lo, hi in blocks:
+            M = Lt[k, lo:hi, :hi]
+            part = M.T @ (M @ r[:hi])
+            if not fwd:
+                part = -part
+                part[lo:hi] += x[k, lo:hi]
+            parts.append(part)
+        vec = np.zeros(n)
+        for g, (lo, hi) in enumerate(blocks):
+            for w in range(gs.SWEEP_WARPS):
+                s = np.zeros(hi - lo)
+                for q in range(g + w, spread, gs.SWEEP_WARPS):
+                    s += parts[q][lo:hi]
+                vec[lo:hi] += s
+        x[k] = vec
+    return x
+
+
+@pytest.mark.parametrize("form", ["X", "L"])
 @pytest.mark.parametrize("N,K,spread", [(100, 3, 264), (12, 4, 36),
                                         (5, 6, 13), (3, 9, 2)])
-def test_wide_split_reproduces_the_plain_sweeps(N, K, spread):
-    """The wide tier's data flow is the X form's row split over ``spread``
+def test_wide_split_reproduces_the_plain_sweeps(N, K, spread, form):
+    """The wide tier's data flow, down to a block of one row pair: float64
+    to 1e-12 against the plain sweeps.  X: the row split over ``spread``
     blocks (each its row pairs of every step, the step's whole vector read
-    back from the rows every block stored), down to a block of one row
-    pair: float64 to 1e-12 against the plain sweeps."""
+    back from the rows every block stored).  L: each block's column
+    partials, reduced by the kernel's fixed reduce-scatter order."""
     rng = np.random.default_rng(N + K)
     n = 6 * N
-    A = rng.normal(size=(K, n, n)) / n
-    F = A + A.transpose(0, 2, 1)
     C = np.triu(rng.normal(size=(K - 1, 3, 3)))
     b = rng.normal(size=(K, n))
-    want = tb.solve_factorized_X(torch.as_tensor(F)[None],
-                                 torch.as_tensor(C),
-                                 torch.as_tensor(b)[None])[0].numpy()
     assert min(gs.sweep_rows(q + 1, spread, n) - gs.sweep_rows(q, spread, n)
                for q in range(spread)) >= 2
-    got = _cluster_sweep(F, C, b, False, spread)
+    if form == "X":
+        A = rng.normal(size=(K, n, n)) / n
+        F = A + A.transpose(0, 2, 1)
+        want = tb.solve_factorized_X(torch.as_tensor(F)[None],
+                                     torch.as_tensor(C),
+                                     torch.as_tensor(b)[None])[0].numpy()
+        got = _cluster_sweep(F, C, b, False, spread)
+    else:
+        # lower triangular blocks (what lies above is never read) of norm
+        # about 1
+        F = (np.tril(rng.normal(size=(K, n, n))) + 3 * np.eye(n)) / n ** 0.5
+        F += np.triu(rng.normal(size=(K, n, n)), 1)
+        want = tb.solve_factorized_L(torch.as_tensor(np.tril(F))[None],
+                                     torch.as_tensor(C),
+                                     torch.as_tensor(b)[None])[0].numpy()
+        got = _wide_l_sweep(F, C, b, spread)
     assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
