@@ -45,11 +45,11 @@ __host__ __device__ inline long ring_width(long n, int packed) {
 // 2 ld), the (K, n) sweep plane where `plane` is 1 (else it lies in a
 // global scratch), one
 // vector of n floats, in the packed mode the warps' column partial sums
-// (kWarps x n), the row dots (n) and the band table (kMaxBands ints), the
-// pair table (two 16-bit indices a pair) and, in the X form (`xform` 1),
-// the slot scalars ((K - 1) x 9 floats).  ops/admm_fused.py fused_plan
-// mirrors it, and tests/test_torch_fused_plan.py holds the two copies to
-// each other.
+// (kWarps x n), the row dots (n) and the band table (kMaxBands ints) and,
+// in the X form (`xform` 1), the slot scalars ((K - 1) x 9 floats).  No
+// pair table: a collision row finds its pair in closed form
+// (admm_rows.cuh pair_first).  ops/admm_fused.py fused_plan mirrors it,
+// and tests/test_torch_fused_plan.py holds the two copies to each other.
 __host__ __device__ inline long smem_bytes(int K, int N, int band_rows,
                                            int stages, int plane, int packed,
                                            int xform, int row_bytes) {
@@ -59,17 +59,20 @@ __host__ __device__ inline long smem_bytes(int K, int N, int band_rows,
          4L * (n * (1 + static_cast<long>(plane) * K +
                     static_cast<long>(packed) * (kWarps + 1)) +
                static_cast<long>(packed) * kMaxBands) +
-         2L * N * (N - 1) + 36L * (K - 1) * xform;
+         36L * (K - 1) * xform;
 }
 
 // The shared memory of a launch plan, or -1 for a plan the kernels cannot
 // run: bands of an even number of rows, each a multiple of 16 bytes, 2 to
 // kMaxStages stages, within an SM's shared memory; the packed mode up to
-// n = kPackedMaxN.
+// n = kPackedMaxN; a scenario's collision rows within int indexing (the
+// elementwise stages index eta's 2 K P floats by int; every offset of a
+// scenario's planes and factors in the batch is a size_t).
 inline long plan_smem(int B, int K, int N, int n_iters, int band_rows,
                       int stages, bool plane, bool packed, bool xform,
                       int row_bytes) {
-  if (B < 1 || K < 2 || N < 1 || N > 65535 || n_iters < 0 ||
+  if (B < 1 || K < 2 || N < 1 || N > 65535 ||
+      2L * K * (N * (N - 1L) / 2) >= (1L << 31) || n_iters < 0 ||
       band_rows < 2 || band_rows % 2 || band_rows > 6 * N || stages < 2 ||
       stages > factor_ring::kMaxStages || (2 * row_bytes) % 16 ||
       (packed && 6 * N > kPackedMaxN))

@@ -49,7 +49,8 @@
 //     consumers only.
 //   * Shared memory holds the barriers, the ring, the sweep plane (K, n),
 //     which starts as b, is overwritten by y_k in the forward sweep and by
-//     xt_k in the backward sweep, one vector (n) and the pair table.  Where
+//     xt_k in the backward sweep, and one vector (n); a collision row finds
+//     its pair in closed form (admm_rows.cuh pair_first).  Where
 //     the plane takes more than half of the shared memory, the launcher
 //     puts it in a per-scenario global scratch (admm_fused.cuh; the plan
 //     is ops/admm_fused.py fused_plan).
@@ -122,8 +123,6 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
   // (K, n) sweep plane, in shared memory unless the launcher gave a scratch
   float* xt = plane ? plane + static_cast<size_t>(b) * K * n : sm;
   float* r = plane ? sm : sm + K * n;            // (n) matvec input
-  unsigned short* pi = reinterpret_cast<unsigned short*>(r + n);
-  unsigned short* pj = pi + P;
 
   const size_t nsq = static_cast<size_t>(n) * ld;   // elements of a block
   const T* Lb = Linv + static_cast<size_t>(b) * K * nsq;
@@ -158,8 +157,6 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
       fpar[0], fpar[1], fpar[2], fpar[3], K, N};
   const int warp = tid >> 5, nwarps = kConsumers / 32;
   factor_ring::Cursor cur{0, 0u};
-
-  admm_rows::fill_pair_table(pi, pj, N, tid, kConsumers);
 
   for (int it = 0; it < n_iters; ++it) {
     admm_rows::build_rhs(sc, xt, tid, kConsumers);
@@ -204,7 +201,7 @@ admm_fused_l_kernel(const float* __restrict__ fpar,
       consumer_sync();
     }
 
-    admm_rows::update_rows(sc, xt, pi, pj, tid, kConsumers);
+    admm_rows::update_rows(sc, xt, tid, kConsumers);
     consumer_sync();
   }
 }

@@ -60,8 +60,12 @@
 //   * Shared memory holds the barriers, the ring, the sweep plane (K, n),
 //     which starts as b, is overwritten by w_k in the forward sweep and by
 //     xt_k in the backward sweep, one vector (n), the packed mode's partial
-//     sums, dots and band table, the pair table and the slot scalars (read
-//     at every step, so kept off the global-memory latency).  Where the plane takes
+//     sums, dots and band table, and the slot scalars (read at every
+//     step, so kept off the global-memory latency).  A collision row finds
+//     its pair in closed form (admm_rows.cuh pair_first), so no pair table
+//     takes shared memory from the ring: the kernel serves the short
+//     horizons over large fleets the router sends here (K = 2 up to
+//     N = 584, n = 3504, whole bands of 2 rows).  Where the plane takes
 //     more than half of the shared memory (long horizons: K > 161 at
 //     N = 30), the launcher puts it in a per-scenario global scratch, which
 //     stays in L2.
@@ -182,11 +186,8 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
   float* part = r + n;
   float* dots = part + (kPacked ? kWarps * n : 0);
   int* band_end = reinterpret_cast<int*>(dots + (kPacked ? n : 0));
-  unsigned short* pi =
-      reinterpret_cast<unsigned short*>(band_end +
-                                        (kPacked ? admm_fused::kMaxBands : 0));
-  unsigned short* pj = pi + P;
-  float* c9s = reinterpret_cast<float*>(pj + P);  // the slot scalars
+  float* c9s = reinterpret_cast<float*>(        // the slot scalars
+      band_end + (kPacked ? admm_fused::kMaxBands : 0));
 
   // a block's floats: the packed triangle, or the whole block
   const size_t blk = kPacked ? static_cast<size_t>(packed_off(n, R))
@@ -270,7 +271,6 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
     }
   };
 
-  admm_rows::fill_pair_table(pi, pj, N, tid, kConsumers);
   const float* C9b = C9 + static_cast<size_t>(b) * c9_stride;
   for (int i = tid; i < (K - 1) * 9; i += kConsumers) c9s[i] = C9b[i];
 
@@ -301,7 +301,7 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
       consumer_sync();
     }
 
-    admm_rows::update_rows(sc, xt, pi, pj, tid, kConsumers);
+    admm_rows::update_rows(sc, xt, tid, kConsumers);
     consumer_sync();
   }
 }

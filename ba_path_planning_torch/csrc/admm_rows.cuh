@@ -51,16 +51,16 @@ __device__ __forceinline__ int pair_base(int i, int N) {
   return i * (2 * N - i - 1) / 2;
 }
 
-// pi[p], pj[p] = the vehicles of pair p, a thread a pair.
-__device__ __forceinline__ void fill_pair_table(unsigned short* pi,
-                                                unsigned short* pj, int N,
-                                                int tid, int nthr) {
-  for (int p = tid; p < N * (N - 1) / 2; p += nthr) {
-    int i = 0;
-    while (pair_base(i + 1, N) <= p) ++i;
-    pi[p] = static_cast<unsigned short>(i);
-    pj[p] = static_cast<unsigned short>(p - pair_base(i, N) + i + 1);
-  }
+// The first vehicle i of pair p (pair_base(i) <= p < pair_base(i + 1)):
+// the root of i^2 - (2N - 1) i + 2p = 0, then a step either way for the
+// rounding of the square root.  Its partner is j = p - pair_base(i) + i + 1.
+__device__ __forceinline__ int pair_first(int p, int N) {
+  const float m = 2.f * N - 1.f;
+  int i = static_cast<int>(0.5f * (m - sqrtf(m * m - 8.f * p)));
+  i = max(0, min(i, N - 2));
+  while (i > 0 && pair_base(i, N) > p) --i;
+  while (pair_base(i + 1, N) <= p) ++i;
+  return i;
 }
 
 // b = scale (A^T (rho z - y) + sigma x) into the sweep plane xt (K, 6N),
@@ -163,29 +163,30 @@ __device__ __forceinline__ void update_static_rows(const Scenario& sc,
 }
 
 // A xt, then the exact-penalty soft prox and the dual update on the
-// collision rows [lo, hi); (pi, pj) the pair table.
+// collision rows [lo, hi); each row's pair in closed form (pair_first).
 __device__ __forceinline__ void update_collision_rows(
-    const Scenario& sc, const float* xt, const unsigned short* pi,
-    const unsigned short* pj, int lo, int hi, int tid, int nthr) {
+    const Scenario& sc, const float* xt, int lo, int hi, int tid, int nthr) {
   const int N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
   const float alpha = sc.alpha, lam = sc.lam;
   const float *rho_c = sc.rho_c, *eb = sc.eb, *lcb = sc.lcb;
   float *zcb = sc.zcb, *ycb = sc.ycb;
   for (int idx = lo + tid; idx < hi; idx += nthr) {
     const int k = idx / P, p = idx % P;
+    // the row's operands first, so that their loads are in flight while
+    // its pair is found
+    const float rho = rho_c[idx], z = zcb[idx], y = ycb[idx], lb = lcb[idx];
+    const float e0 = eb[2 * idx], e1 = eb[2 * idx + 1];
     float colv = 0.f;
     if (k > 0) {
       const float* pos = xt + (k - 1) * n + n2;
-      const int i = pi[p], j = pj[p];
-      colv = eb[2 * idx] * (pos[2 * i] - pos[2 * j])
-             + eb[2 * idx + 1] * (pos[2 * i + 1] - pos[2 * j + 1]);
+      const int i = pair_first(p, N), j = p - pair_base(i, N) + i + 1;
+      colv = e0 * (pos[2 * i] - pos[2 * j])
+             + e1 * (pos[2 * i + 1] - pos[2 * j + 1]);
     }
-    const float rho = rho_c[idx];
-    const float zr = alpha * colv + (1.f - alpha) * zcb[idx];
-    const float w = zr + ycb[idx] / rho;
-    const float lb = lcb[idx];
+    const float zr = alpha * colv + (1.f - alpha) * z;
+    const float w = zr + y / rho;
     const float zn = w >= lb ? w : fminf(w + lam / rho, lb);
-    ycb[idx] = ycb[idx] + rho * (zr - zn);
+    ycb[idx] = y + rho * (zr - zn);
     zcb[idx] = zn;
   }
 }
@@ -194,13 +195,11 @@ __device__ __forceinline__ void update_collision_rows(
 // exact-penalty soft prox on the collision rows) and the dual update, from
 // the sweep plane xt (K, 6N) = the solution of the x-update.
 __device__ __forceinline__ void update_rows(const Scenario& sc,
-                                            const float* xt,
-                                            const unsigned short* pi,
-                                            const unsigned short* pj,
-                                            int tid, int nthr) {
+                                            const float* xt, int tid,
+                                            int nthr) {
   const int K = sc.K, N = sc.N;
   update_static_rows(sc, xt, 0, K * 2 * N, tid, nthr);
-  update_collision_rows(sc, xt, pi, pj, 0, K * (N * (N - 1) / 2), tid, nthr);
+  update_collision_rows(sc, xt, 0, K * (N * (N - 1) / 2), tid, nthr);
 }
 
 }  // namespace admm_rows

@@ -137,18 +137,6 @@ struct SmallDiv {
   }
 };
 
-// The first vehicle i of pair p (pair_base(i) <= p < pair_base(i + 1)):
-// the root of i^2 - (2N - 1) i + 2p = 0, then a step either way for the
-// rounding of the square root.
-__device__ __forceinline__ int pair_first(int p, int N) {
-  const float m = 2.f * N - 1.f;
-  int i = static_cast<int>(0.5f * (m - sqrtf(m * m - 8.f * p)));
-  i = max(0, min(i, N - 2));
-  while (i > 0 && admm_rows::pair_base(i, N) > p) --i;
-  while (admm_rows::pair_base(i + 1, N) <= p) ++i;
-  return i;
-}
-
 // ---------------------------------------------------------------------------
 // admm_rhs
 // ---------------------------------------------------------------------------
@@ -246,7 +234,7 @@ __global__ void __launch_bounds__(kRowThreads)
     const float w = rc[c] * zc[c0 + c] - yc[c0 + c];
     const float2 e = et[c];
     const int kk = by_p(c), p = c - kk * P;
-    const int i = pair_first(p, N);
+    const int i = admm_rows::pair_first(p, N);
     const int j = p - admm_rows::pair_base(i, N) + i + 1;
     float2* rows = rhs_table + static_cast<size_t>(kk) * N * stride;
     const float t0 = w * e.x, t1 = w * e.y;
@@ -496,7 +484,7 @@ __global__ void __launch_bounds__(kRowThreads)
       float colv = 0.f;
       if (k > 0) {
         const float* pos = xl + static_cast<size_t>(k - 1) * n + n2;
-        const int i = pair_first(p, N);
+        const int i = admm_rows::pair_first(p, N);
         const int j = p - admm_rows::pair_base(i, N) + i + 1;
         const float2 et = ldcs2(eta + 2 * o);
         colv = et.x * (pos[2 * i] - pos[2 * j])

@@ -82,15 +82,15 @@ def fused_smem_bytes(K: int, N: int, band_rows: int, stages: int,
     ``row_bytes``, by default float32 rows of :func:`fused_row_bytes`), the
     sweep plane where ``plane`` is 1, one vector of 6N floats, where
     ``packed`` the warps' column partial sums, the row dots and the band
-    table, the pair table and, in the X form (``xform`` 1), the slot
-    scalars."""
+    table and, in the X form (``xform`` 1), the slot scalars.  No pair
+    table: the kernels find a collision row's pair in closed form."""
     n = 6 * N
     if row_bytes is None:
         row_bytes = fused_row_bytes(n, packed)
     return (FUSED_RING_BARRIER_BYTES + stages * band_rows * row_bytes
             + 4 * (n * (1 + plane * K + packed * (FUSED_WARPS + 1))
                    + packed * FUSED_MAX_BANDS)
-            + 2 * N * (N - 1) + 36 * (K - 1) * xform)
+            + 36 * (K - 1) * xform)
 
 
 def fused_plan(K: int, N: int, form: str, esize: int = 4) -> FusedPlan:
@@ -102,9 +102,14 @@ def fused_plan(K: int, N: int, form: str, esize: int = 4) -> FusedPlan:
     shared memory where it takes at most half of it, then the largest bands
     (an even number of rows) that leave FUSED_WANT_STAGES stages, at most
     FUSED_MAX_STAGES.  Raises ValueError for what the kernel does not serve
-    (the L form: 6N > 896; either: no ring of two stages fits)."""
+    (the L form: 6N > 896; either: a scenario's 2 K P floats of eta past
+    ``int`` indexing, or no ring of two stages fits).  Every (K, N) that
+    ``banded.qp_route`` sends to a fused route has a plan
+    (tests/test_torch_fused_plan.py): the X form at K = 2 up to N = 584,
+    n = 3504, in whole bands of 2 rows."""
     n = 6 * N
     if form not in ("X", "L") or K < 2 or N < 1 or N > 65535 or (
+            2 * K * (N * (N - 1) // 2) >= 2 ** 31) or (
             form == "L" and n > FUSED_L_MAX_N) or esize not in (
                 (4,) if form == "X" else (4, 2)):
         raise ValueError(f"fused {form} kernel: unsupported K={K}, N={N}, "

@@ -73,6 +73,11 @@
    around the same sweep kernel), and one ``solve_compacted`` with its
    SCP loop cut to 2 iterations from a lattice of starts (finite
    trajectories, three launches an ADMM iteration; feasibility printed);
+   then the short-horizon phase (``short_phase``), where the router sends
+   large fleets to the fused X interval: the kernel against its plain
+   version at N=584, K=2 (n=3504) and N=341, K=6 (B=2) and at N=268, K=9
+   (B=1), beside the whole blocks' stream bound, and one production ``solve_qp_state`` at N=341,
+   K=6, B=2 on ``fused_X`` against the same call on the plain interval;
 6. the reference-compatible path at N=20: ``SCPEngine.solve_batch`` over
    FACADE_B scenarios with the ``SCP`` class's solver (L-form factors, hard
    collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
@@ -658,12 +663,14 @@ def _interval_f64(plain, kw, state, n_iters):
 
 
 def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
-                needed_floats=None, factor_bytes=4):
+                needed_floats=None, factor_bytes=4, stream_floats=None):
     """A fused ADMM-interval kernel against its plain version on the
     arguments ``kw`` (factors included; ``factor_floats`` is their size per
     scenario in elements of ``factor_bytes`` bytes, ``needed_floats`` what
     of it has to be read, where that is less: Linv without its zero half,
-    X as its upper triangle).  The
+    X as its upper triangle; ``stream_floats`` the elements a scenario
+    streams an iteration, by default twice ``factor_floats``: the X form's
+    sweeps apply 2K - 1 blocks).  The
     interval starts from a warm state, as
     an SCP iteration finds it: one float64 plain interval from x at rest,
     z = clip(A x, l, u) and y = 0.  Returns the kernel's stats."""
@@ -697,7 +704,9 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
     fu_plain_ms = _time_ms(lambda: plain(**kw, **state, n_iters=25), reps=2)
     B, K = kw["eta"].shape[:2]
     n, P = 6 * n_veh, n_veh * (n_veh - 1) // 2
-    stream = 25 * B * 2 * factor_floats * factor_bytes
+    if stream_floats is None:
+        stream_floats = 2 * factor_floats
+    stream = 25 * B * stream_floats * factor_bytes
     gbs = stream / (fu_ms * 1e-3) / 1e9
     stream_ms = stream / HBM_BYTES_S * 1e3
     sparse = "" if needed_floats is None else (
@@ -734,7 +743,7 @@ def fused_check(tag, kernel, plain, kw, n_veh, factor_floats,
           + 4 * (K * (2 * P + 2 * 12 * n_veh + P) + 2 * (K * n + rows)))
     stats = _stat(abs_err, fu_ms, fu_plain_ms,
                   f"N={n_veh} K={K} B={B}, 25 iterations", B * io,
-                  25 * B * 2 * 2 * factor_floats, stream)
+                  25 * B * 2 * stream_floats, stream)
     if needed_floats is not None:
         stats["nonzero_stream_bound_ms"] = (
             stream_ms * needed_floats / factor_floats)
@@ -821,8 +830,8 @@ def lane_rho_phase(dev):
 # stage is timed alone at each
 STEP_SHAPES = ((20, 512), (20, 128), (20, 64), (20, 1), (21, 128),
                (10, 1024))
-# (N, B, K) of the stages' checks and times past the fused kernels' pair
-# table (N <= 341): admm_rhs's direct form at its one earlier timed shape
+# (N, B, K) of the stages' checks and times at wide fleets: admm_rhs's
+# direct form at its one earlier timed shape
 # (N=200, B=2), the grouped routes' production QP at N=342 (B=1), and the
 # widest N the sweeps serve, N=1024 (n=6144), its horizon cut to K=6 (its
 # float32 X-form factors would take 7.5 GB a lane at K=50, their float64
@@ -1501,8 +1510,9 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
     return launches
 
 
-# The wide phase: the grouped routes past the fused kernels' pair table
-# (N <= 341), at the production QP's N=342, K=50 on WIDE_B lanes; the
+# The wide phase: the grouped routes past N = 341 (N <= 341 was the fused
+# kernels' limit while they kept a pair table), at the production QP's
+# N=342, K=50 on WIDE_B lanes; the
 # ``SCP`` class's QP budget cut from 2000 iterations to WIDE_FACADE_ITERS
 # and the wide solve_compacted's SCP loop from 15 to WIDE_SCP iterations
 WIDE_N, WIDE_B, WIDE_FACADE_ITERS, WIDE_SCP = 342, 2, 50, 2
@@ -1687,6 +1697,119 @@ def wide_phase(dev, card, counters):
     for key, n in wide_path(dev, card, counters).items():
         total[key] = total.get(key, 0) + n
     return total
+
+
+# The short-horizon phase: the production router sends short horizons over
+# large fleets to the fused X interval (`banded.qp_route`), up to N = 584
+# at K = 2 (n = 3504), N = 341 at K = 6 and N = 268 at K = 9; (N, B, K) of
+# its kernel checks and of its production QP
+SHORT_SHAPES = ((584, 2, 2), (341, 2, 6), (268, 1, 9))
+SHORT_QP = (341, 2, 6)
+
+
+def short_phase(dev, card, counters):
+    """The X-form fused interval at SHORT_SHAPES against its plain version
+    (:func:`fused_check`, on the factors of the solver's X-form route: the
+    NS chain from K = 6, ``factorize_X`` below), timed beside the whole
+    blocks' stream bound ((2K - 1) n^2 floats a scenario an iteration);
+    then one production ``banded.solve_qp_state`` at SHORT_QP on
+    ``fused_X`` (the NS chain and one fused launch an interval), against
+    the same call with the plain interval in the kernel's place: equal
+    iteration counts and convergence flags, x of every (b, k) block within
+    WIDE_QP_TOL.  Returns {shape: the kernel's numbers} and the launch
+    counts of the QP."""
+    import torch
+    from ba_path_planning_torch.ops import admm_fused
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.utils.config import (SolverConfig,
+                                                     make_solver_params)
+    f32, out = torch.float32, {}
+
+    def production(n_veh, K):
+        solver = SolverConfig.production(problem=_problem(n_veh, n_steps=K))
+        route = banded.qp_route(solver.static_part(), n_vehicles=n_veh,
+                                n_steps=K, dtype=f32, col_enabled=True)
+        if route != "fused_X":
+            raise AssertionError(f"N={n_veh} K={K}: route {route}")
+        return solver
+    for n_veh, B, K in SHORT_SHAPES:
+        solver = production(n_veh, K)
+        D, C, _, _, kw = _case(n_veh, B, dev, seed=n_veh + K, solver=solver,
+                               n_steps=K)
+        kw["X"] = banded._factorize_X_routed(D, C, solver.static_part())
+        del D
+        n = 6 * n_veh
+        plan = admm_fused.fused_plan(K, n_veh, "X")
+        st = fused_check(
+            f"short phase: admm_interval_fused_X (ring of {plan.stages} "
+            f"stages of {plan.band_rows} rows, packed={plan.packed}, plane "
+            f"in {'shared' if plan.plane_in_smem else 'global'} memory, "
+            f"{plan.smem_bytes} B)", admm_fused.admm_interval_fused_X,
+            admm_fused.admm_interval_fused_X_plain, kw, n_veh, K * n * n,
+            stream_floats=(2 * K - 1) * n * n)
+        st.pop("timed_at", None)
+        st["plan"] = plan._asdict()
+        out[f"N={n_veh} K={K} B={B}"] = st
+        print(f"short phase: admm_interval_fused_X N={n_veh} K={K} B={B} "
+              f"25 iterations: kernel {st['ms']:.3f} ms, plain "
+              f"{st['plain_ms']:.3f} ms, whole-block stream bound "
+              f"{st['stream_bound_ms']:.3f} ms "
+              f"({st['stream_bound_ms'] / st['ms']:.2%}), bound "
+              f"{st['bound_ms']:.3f} ms ({st['bound_by']})", flush=True)
+        del kw
+        torch.cuda.empty_cache()
+
+    n_veh, B, K = SHORT_QP
+    solver = production(n_veh, K)
+    static = solver.static_part()
+    kw = _case(n_veh, B, dev, seed=3410, solver=solver, n_steps=K)[4]
+    prm = make_solver_params(solver, f32, dev)
+
+    def solve():
+        return banded.solve_qp_state(
+            kw["lower"], kw["upper"], kw["eta"], kw["x"], prm, kw["E"], h=H,
+            static=static, n_vehicles=n_veh)
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    kernel = admm_fused.admm_interval_fused_X
+    admm_fused.admm_interval_fused_X = admm_fused.admm_interval_fused_X_plain
+    try:
+        t0 = time.perf_counter()
+        ref = solve()
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    finally:
+        admm_fused.admm_interval_fused_X = kernel
+    got, want = (banded.to_stacked(r.x) for r in (res, ref))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("short phase QP: non-finite x")
+    err = _block_rel(got, want, 1)
+    intervals = -(-int(res.iters.max()) // solver.check_interval)
+    print(f"short phase: production QP route fused_X N={n_veh} K={K} B={B} "
+          f"f32 on {card}: iterations {res.iters.tolist()} (plain interval "
+          f"{ref.iters.tolist()}), converged {res.converged.tolist()} "
+          f"({ref.converged.tolist()}); x against the plain interval "
+          f"max_block_rel={err:.3e} (tol {WIDE_QP_TOL:g}); wall {wall:.3f} "
+          f"s (plain interval {wall_p:.3f} s); launches={launches}",
+          flush=True)
+    _check_route("the short phase's QP", launches,
+                 {"ns_chain", "admm_fused_x"})
+    if not (torch.equal(res.iters, ref.iters)
+            and torch.equal(res.converged, ref.converged)):
+        raise AssertionError("short phase QP: iteration counts differ from "
+                             "the plain interval's")
+    if not err <= WIDE_QP_TOL:
+        raise AssertionError(f"short phase QP: x off the plain interval's: "
+                             f"{err:.3e}")
+    if launches["admm_fused_x"] != intervals:
+        raise AssertionError(f"short phase QP: {launches['admm_fused_x']} "
+                             f"fused launches for {intervals} intervals")
+    return out, launches
 
 
 # (N, scenarios, chunk) of the soak / N-sweep twin's widest configurations
@@ -3133,6 +3256,13 @@ def main():
         gstats[key]["launches_wide_phase"] = wide_launches[key]
     torch.cuda.empty_cache()
     lap("wide phase")
+    short, short_launches = short_phase(dev, card, counters)
+    add(short_launches)
+    lstats[40]["admm_fused_x"]["short_shapes"] = short
+    lstats[40]["admm_fused_x"]["launches_short_phase"] = (
+        short_launches["admm_fused_x"])
+    torch.cuda.empty_cache()
+    lap("short-horizon phase")
     add(sweep_phase(dev, card, counters))
     lap("soak / N-sweep twin at N=50, 60")
     results = {}

@@ -18,9 +18,10 @@ production blocks, the L-only sweep (L) and the dense (Linv, Eb) sweep (D)
 on the block Cholesky factors of the reference-compatible solver, through
 ``chip_smoke._sweep_check`` (the kernel against its plain version,
 CUDA-event times of both, the check at the ADMM loop's scale); the X-form
-fused ADMM interval (F, 25 iterations) and the L-form one (FL, on the
-factors of the reference-compatible solver) through
-``chip_smoke.fused_check``; the ADMM stages of ``ops/admm_steps.py``
+fused ADMM interval (F, 25 iterations; FR with one rho a lane, its factors
+those of M / rho scaled back, as the solver makes them; a fourth field
+sets their horizon, ``F:584:2:2``) and the L-form one (FL, on the factors
+of the reference-compatible solver) through ``chip_smoke.fused_check``; the ADMM stages of ``ops/admm_steps.py``
 through ``chip_smoke._steps_check``, then timed alone: ``admm_rhs`` and
 ``admm_update`` (S) and the channel interval of 25 iterations (C; CL with
 one rho a lane), beside the bounds of ``utils/profiling.admm_stage_cost``
@@ -339,9 +340,21 @@ def main():
         if form == "LAT":
             print(json.dumps(_latency_case(N, B, card)), flush=True)
             continue
-        if form == "F":
-            D, C, _, _, kw = cs._case(N, B, dev, seed=N)
-            kw["X"] = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
+        if form in ("F", "FR"):
+            lane_rho = cs._lane_rho(B, seed=N) if form == "FR" else None
+            D, C, _, _, kw = cs._case(N, B, dev, seed=N, n_steps=K,
+                                      lane_rho=lane_rho)
+            if lane_rho is None:
+                kw["X"] = ns_chain.factorize_X_chain_plain(D, C, ns_iters=2)
+            else:
+                from ba_path_planning_torch.utils.config import SolverConfig
+                C1 = banded.unit_slot_scalars(
+                    SolverConfig.production(problem=cs._problem(
+                        N, n_steps=K)).static_part(),
+                    n_steps=K, h=cs.H, device=dev)
+                scale = lane_rho.reshape(-1, 1, 1, 1)
+                kw["X"] = ns_chain.factorize_X_chain_plain(
+                    D / scale, C1, ns_iters=2) / scale
             del D
             if args.time_only:
                 x = kw.pop("x")
@@ -357,7 +370,7 @@ def main():
                 del kw, x, z, y
                 continue
             stats = cs.fused_check(
-                f"F N={N} B={B}", admm_fused.admm_interval_fused_X,
+                f"{form} N={N} B={B}", admm_fused.admm_interval_fused_X,
                 admm_fused.admm_interval_fused_X_plain, kw, N, K * n * n,
                 needed_floats=K * n * (n + 1) // 2)
             print(json.dumps({"form": form, "N": N, "B": B, "K": K,

@@ -29,7 +29,8 @@ from ba_path_planning_tpu.utils import config as jcfg
 from ba_path_planning_torch.ops import admm_fused
 from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
 from ba_path_planning_torch.solvers import banded as tb
-from ba_path_planning_torch.utils.config import make_solver_params
+from ba_path_planning_torch.utils.config import (SolverConfig,
+                                                 make_solver_params)
 from ba_path_planning_torch.utils.convert import (config_from_jax,
                                                   rowvals_from_numpy)
 
@@ -167,6 +168,30 @@ def test_plain_interval_matches_pallas_interpret(group, n_iters):
     for got, want in zip(list(x) + list(z) + list(y),
                          list(jx) + list(jz) + list(jy)):
         assert got.dtype == F32 and _rel(got, want) < _TOL[n_iters]
+
+
+# The short-horizon fleet the router sends to the fused X route at K = 9
+# (its widest N there, n = 1608): the rows' products sum 1608 terms against
+# 24 at N = 4, so float32 against float32 in another order lands up to
+# about 7e-5 after two iterations; 2e-4 leaves the same margin over it
+# that _TOL leaves at N = 4.
+_TOL_WIDE = 2e-4
+
+
+def test_plain_interval_matches_pallas_interpret_at_k9_n268():
+    """B=1, K=9, N=268, two iterations, float32: the widest N the router
+    sends to ``fused_X`` at K = 9, which the card's kernel serves since its
+    pair table left shared memory; one scenario a program
+    (``_admm_kernel_X``), every leaf within :data:`_TOL_WIDE`."""
+    inp = _interval_inputs(N=268, K=9, B=1, seed=268)
+    assert tb.qp_route(SolverConfig.production().static_part(),
+                       n_vehicles=268, n_steps=9, dtype=F32,
+                       col_enabled=True) == "fused_X"
+    x, z, y = _port_interval(inp, 2)
+    jx, jz, jy = _jax_interval(inp, 2, 1)
+    for got, want in zip(list(x) + list(z) + list(y),
+                         list(jx) + list(jz) + list(jy)):
+        assert got.dtype == F32 and _rel(got, want) < _TOL_WIDE
 
 
 def test_plain_interval_leaves_inputs_and_counts_zero_iters():

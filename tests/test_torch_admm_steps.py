@@ -214,8 +214,8 @@ def test_row_and_channel_plans():
 
 
 def _pair_first(p, N):
-    """The kernel's closed form of the first vehicle of pair p
-    (``csrc/admm_steps.cu`` pair_first), in float32 as it computes it."""
+    """The kernels' closed form of the first vehicle of pair p
+    (``csrc/admm_rows.cuh`` pair_first), in float32 as it computes it."""
     m = np.float32(2 * N - 1)
     root = np.sqrt(m * m - np.float32(8) * p.astype(np.float32))
     i = np.clip((np.float32(0.5) * (m - root)).astype(np.int64), 0, N - 2)
@@ -287,7 +287,7 @@ def _rhs_direct_model(w, eta, N, acc=4):
 def test_rhs_table_model_matches_jax_collision_term(N):
     """The table form's phase A and phase B (it runs at N <= 170) and the
     direct form's partial sums (it runs past the switch: N = 171, and N =
-    342, the first N the fused kernels' pair table does not serve; K = 2
+    342, the grouped routes' production QP of the wide phase; K = 2
     there, where the incidence E is 160 MB), each against the collision
     term of JAX's ``apply_AT``
     (``ba_path_planning_tpu/solvers/banded.py:133``): 1e-12 of the term's
@@ -337,7 +337,8 @@ def test_rhs_direct_partial_sums_round_closer_than_one_sum():
 def test_rhs_pair_first_closed_form_up_to_1024():
     """The kernels' float32 closed form of a pair's first vehicle holds
     for every pair of the N the stages serve (N <= 1024, every N the
-    grouped sweeps serve), on both sides of the fused kernels' 341."""
+    grouped sweeps serve), on both sides of N = 341, the fused kernels'
+    limit while they kept a pair table."""
     for N in (2, 3, 20, 60, 171, 255, 341, 342, 512, 1023, 1024):
         P = N * (N - 1) // 2
         assert np.array_equal(_pair_first(np.arange(P), N),
@@ -353,6 +354,28 @@ def _small_div(i, d):
     r = i - q * d
     return q + (r >= d) - (r < 0)
 
+
+
+def test_pair_first_closed_form_over_the_fused_kernels_plans():
+    """The fused kernels find a collision row's pair by the same closed
+    form (they keep no pair table): it holds for every pair up to the
+    widest N that either fused plan accepts, the X form's with its sweep
+    plane in a global scratch (K = 50), and at the widest N of K = 2."""
+    from ba_path_planning_torch.ops.admm_fused import fused_plan
+
+    def widest(K):
+        for N in range(2100, 1, -1):
+            try:
+                fused_plan(K, N, "X")
+                return N
+            except ValueError:
+                pass
+    top, short = widest(50), widest(2)
+    assert 1900 < top < 2100 and 584 < short < top
+    for N in (585, short, 1500, top - 1, top):
+        P = N * (N - 1) // 2
+        assert np.array_equal(_pair_first(np.arange(P), N),
+                              np.triu_indices(N, 1)[0])
 
 @pytest.mark.parametrize("B,K,N", [(1, 50, 342), (2, 50, 342), (1, 6, 1024),
                                    (4, 6, 1024)])

@@ -5,9 +5,11 @@ kernel reads, on the CPU: no JAX and no card.
 The kernels themselves (``csrc/admm_fused_x.cu``, ``csrc/admm_fused_l.cu``)
 run only on the card and are held to their plain versions by
 ``tests/test_torch_kernels_gpu.py``.  Here the plan is held to the kernels'
-header, the L-form kernel's envelope to every (K, N) that the router sends
-to it, and a float64 model of the X-form kernel's packed product
+header, each kernel's envelope to every (K, N) that the router sends to it,
+and a float64 model of the X-form kernel's packed product
 (U r + (strict U)^T r, from the bands it streams) to X r.
+
+    python -m pytest tests/test_torch_fused_plan.py -q
 """
 
 import re
@@ -119,7 +121,10 @@ def test_plan_layout_matches_the_kernel_header():
     ring_width = _c_function(src, "ring_width", consts)
     smem = _c_function(src, "smem_bytes",
                        dict(consts, ring_width=ring_width))
-    for K, N in ((2, 2), (50, 20), (50, 40), (330, 30), (3, 147), (9, 23)):
+    # (2, 584) and (6, 341): short horizons of large fleets, where a pair
+    # table (2N(N - 1) bytes) would leave no ring
+    for K, N in ((2, 2), (50, 20), (50, 40), (330, 30), (3, 147), (9, 23),
+                 (2, 584), (6, 341)):
         for band, stages, plane in ((2, 2, 0), (40, 4, 1), (12, 8, 1)):
             for packed, xform in ((0, 0), (0, 1), (1, 1)):
                 row = 4 * ring_width(6 * N, packed)
@@ -178,6 +183,45 @@ def test_fused_l_route_lies_inside_the_kernel_envelope(K):
     assert 2 * K * (6 * (routed[-1] + 1)) ** 2 * 4 > 12 * 1024 * 1024
     if K <= 5:
         assert 6 * routed[-1] > 512      # the wide instantiation's range
+
+
+# The solver options that reach the X-form fused route: the production
+# solver, its latency variant and the production solver with adaptive rho
+# (which routes as the shared rho does)
+FUSED_X_SOLVERS = {
+    "production": SolverConfig.production(),
+    "latency": SolverConfig.latency(),
+    "adaptive": SolverConfig.production().replace(adaptive_rho=True),
+}
+
+
+@pytest.mark.parametrize("K", range(2, 51))
+def test_fused_x_route_lies_inside_the_kernel_envelope(K):
+    """Every (K, N), N <= 700, that ``qp_route`` sends to the X-form fused
+    kernel, as the JAX router does (fused, auto group below 16,
+    K nr8 np 4 <= 96 MiB), is one the kernel serves: short horizons reach
+    N = 584 at K = 2 (n = 3504), where a pair table in shared memory would
+    leave no ring (K = 2 … 9 at N = 268 … 584).  The route is the same for
+    the three solvers, starts at N = 22 (the auto group falls below 16) and
+    ends at the 96 MiB gate."""
+    statics = [s.static_part() for s in FUSED_X_SOLVERS.values()]
+    routed = []
+    for N in range(2, 701):
+        took = {tb.qp_route(st, n_vehicles=N, n_steps=K,
+                            dtype=torch.float32, col_enabled=True)
+                for st in statics}
+        if "fused_X" in took:
+            assert took == {"fused_X"}
+            routed.append(N)
+            _check_plan(K, N, "X")
+    assert routed == list(range(22, routed[-1] + 1))
+
+    def gate(N):
+        np_, nr8 = -(-6 * N // 128) * 128, -(-6 * N // 8) * 8
+        return K * nr8 * np_ * 4 <= 96 * 1024 * 1024
+    assert gate(routed[-1]) and not gate(routed[-1] + 1)
+    if K == 2:
+        assert routed[-1] == 584
 
 
 def _port_X(K, N, seed):

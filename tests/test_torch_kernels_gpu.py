@@ -499,14 +499,19 @@ def _interval_case(B, K, N, seed, device, form="X", hard=False,
         prm.col_rho_boost, n_steps=K, n_pairs=P, col_enabled=True, dtype=f32)
     D, C = tb.assemble_D(rho, eta, pairs.E, h=h, sigma=prm.sigma,
                          n_vehicles=N)
+    def factorize_X(D, C):
+        # the solver's X-form route: the NS chain from K = 6 on, below it
+        # factorize_X
+        if K >= 6:
+            return ns_chain.factorize_X_chain_batched(D, C, ns_iters=2)
+        return tb.factorize_X(D, C, ns_iters=2)
     if form == "X" and lane_rho is not None:
         C1 = tb.unit_slot_scalars(solver.static_part(), n_steps=K, h=h,
                                   device=device)
         scale = lane_rho.to(device, f32).reshape(-1, 1, 1, 1)
-        factors = (ns_chain.factorize_X_chain_batched(
-            (D / scale).contiguous(), C1, ns_iters=2) / scale, C)
+        factors = (factorize_X((D / scale).contiguous(), C1) / scale, C)
     elif form == "X":
-        factors = (ns_chain.factorize_X_chain_batched(D, C, ns_iters=2), C)
+        factors = (factorize_X(D, C), C)
     else:
         factors = tuple(t.float() for t in tb.factorize(
             D.double(), tb.slot_dense(C.double(), 2 * N)))
@@ -571,7 +576,8 @@ def _check_interval(cuda, B, K, N, n_iters, form, hard, lane_rho=None,
                                    (2, 330, 30), (1, 50, 22), (3, 50, 22),
                                    (1, 50, 40), (33, 9, 30), (3, 9, 20),
                                    (3, 9, 39), (2, 6, 90), (2, 50, 50),
-                                   (2, 50, 60)])
+                                   (2, 50, 60), (2, 2, 584), (2, 6, 341),
+                                   (3, 9, 268)])
 def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
     """Every (b, k) row block of x and z within 2e-4 (relative to the
     block's largest entry) of the plain version after one iteration, at
@@ -581,7 +587,9 @@ def test_admm_fused_kernel_matches_plain(cuda, B, K, N, n_iters):
     longer fits in shared memory; the kernel reads packed triangles from
     N = 39 (N = 39 has padding columns in them, N = 40 none; N = 50 and 60,
     the widest the production sweep runs, too) and whole bands below and
-    at N = 90 (n = 540).  The
+    at N = 90 (n = 540); short horizons of large fleets, where the router
+    sends the fused route up to N = 584 at K = 2 (n = 3504, whole bands
+    of 2 rows), N = 341 at K = 6 and N = 268 at K = 9.  The
     duals y = y + rho (zr - z) multiply the rounding of zr by rho (up to
     ~5e3 on the equality rows), and 25 iterations amplify rounding further
     (alpha = 1.9), so the y blocks, and every block after 25 iterations,
@@ -630,6 +638,78 @@ def test_admm_fused_kernels_with_lane_rho(cuda, form, N, B, n_iters):
                                dtype=torch.float32)
     _check_interval(cuda, B, 50, N, n_iters, form, hard=False,
                     lane_rho=lane_rho)
+
+
+# (B, K, N) of short horizons over large fleets that the router sends to
+# the X-form fused route, up to its widest N at K = 2, 6 and 9
+SHORT_HORIZONS = [(2, 2, 584), (2, 6, 341), (3, 9, 268)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("B,K,N", SHORT_HORIZONS)
+def test_admm_fused_x_short_horizons_with_lane_rho(cuda, B, K, N, n_iters):
+    """The X-form kernel with one rho a lane at the short horizons, held
+    as :func:`test_admm_fused_kernels_with_lane_rho` holds K = 50."""
+    rng = np.random.default_rng(B + N)
+    lane_rho = torch.as_tensor(2.6 * np.exp(rng.uniform(-2.3, 2.3, B)),
+                               dtype=torch.float32)
+    _check_interval(cuda, B, K, N, n_iters, "X", hard=False,
+                    lane_rho=lane_rho)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("B,K,N", SHORT_HORIZONS)
+def test_admm_fused_x_short_horizons_bit_for_bit(cuda, B, K, N, lane):
+    """Two launches of the X-form kernel on the same inputs, shared rho or
+    one rho a lane, give the same bits (no atomics: every sum in a fixed
+    order)."""
+    lane_rho = None
+    if lane:
+        lane_rho = torch.as_tensor(np.linspace(0.5, 12.0, B),
+                                   dtype=torch.float32)
+    args, kw = _interval_case(B, K, N, seed=N, device=cuda, lane_rho=lane_rho)
+    first, second = (_interval_rows(admm_fused.admm_interval_fused_X(
+        *args, n_iters=25, **kw), K) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_production_qp_on_the_fused_x_route_at_k6_n341(cuda, monkeypatch):
+    """A production solve_qp_state at K = 6, N = 341, B = 2 (the widest N
+    the router sends to ``fused_X`` at K = 6) runs on the fused kernel, one
+    launch an interval, against the same call with the plain interval in
+    its place: equal iteration counts and convergence flags, x of every
+    (b, k) block within 2e-4."""
+    N, K, B = 341, 6, 2
+    args, _ = _interval_case(B, K, N, seed=341, device=cuda)
+    eta, E, lower, upper, x = args[2], args[3], args[4], args[5], args[6]
+    problem = ProblemConfig(n_vehicles=N, time_horizon=K * 0.2,
+                            time_step=0.2, min_distance=0.8)
+    solver = SolverConfig.production(problem=problem)
+    static = solver.static_part()
+    assert tb.qp_route(static, n_vehicles=N, n_steps=K, dtype=torch.float32,
+                       col_enabled=True) == "fused_X"
+    prm = make_solver_params(solver, torch.float32, cuda)
+
+    def solve():
+        return tb.solve_qp_state(lower, upper, eta, x, prm, E, h=0.2,
+                                 static=static, n_vehicles=N)
+    before = admm_fused.admm_interval_fused_X.launches
+    got = solve()
+    launched = admm_fused.admm_interval_fused_X.launches - before
+    monkeypatch.setattr(admm_fused, "admm_interval_fused_X",
+                        admm_fused.admm_interval_fused_X_plain)
+    want = solve()
+    torch.cuda.synchronize()
+    assert launched == -(-int(got.iters.max()) // solver.check_interval) > 0
+    assert torch.equal(got.iters, want.iters)
+    assert torch.equal(got.converged, want.converged)
+    gx, wx = tb.to_stacked(got.x), tb.to_stacked(want.x)
+    assert bool(torch.isfinite(gx).all())
+    assert _block_rel(gx, wx, 1) < 2e-4
 
 
 @pytest.mark.gpu
@@ -1007,8 +1087,8 @@ def _check_stages(cuda, B, K, N, n_iters, lane=False, hard=False,
 # reference-compatible batch, one scenario, the widest grouped route at its
 # tail chunk, the round record's N=10 batch, small odd shapes, one shape
 # on each side of admm_rhs's switch from its table form to its direct form
-# (N = 60, N = 200), the grouped routes' production QP past the fused
-# kernels' pair table (N = 342) and the widest N the sweeps serve (N =
+# (N = 60, N = 200), the grouped routes' production QP at N = 342 (the
+# wide phase's of chip_smoke.py) and the widest N the sweeps serve (N =
 # 1024, n = 6144, its horizon cut to K = 6)
 STAGE_CASES = [(512, 50, 20), (128, 50, 20), (64, 50, 20), (1, 50, 20),
                (128, 50, 21), (1024, 50, 10), (3, 9, 4), (2, 6, 2),
