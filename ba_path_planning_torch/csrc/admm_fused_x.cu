@@ -73,12 +73,44 @@
 //     scenario at N = 40, L2 and HBM); the elementwise phases and the
 //     row-plane layout are those of admm_rows.cuh, shared with
 //     admm_fused_l.cu.  Plain FP32.
+//
+// The wide tier (admm_fused_x_wide_kernel, small batches): one block a
+// scenario streams a scenario's factors on one SM.  At the short horizons
+// of large fleets (K = 2 … 9, N = 268 … 584) that is 0.4-0.8% of the
+// card's stream, slower than the plain interval's batched products, and at
+// B = 1 the latency of the 2K - 1 serial steps sets the time.  So small
+// batches give each scenario `spread` blocks of one cooperative grid, the
+// layout of the X sweep's wide tier (group_sweep.cuh sweep_kernel_wide;
+// its thread counts, barrier and helpers are reused here):
+//   * block g of a scenario owns rows [lo, hi) of every X_k (row_lo's
+//     shares, whole row pairs); its producer warp streams them, whole rows
+//     at every n, for all the interval's iterations, running ahead across
+//     steps and iterations as the one-block producer does;
+//   * a sweep step forms r from the step's vectors in global memory (read
+//     through L2), multiplies its rows (factor_ring's matvec_rows, so every
+//     row is summed in the one-block kernel's order) and stores them into
+//     the sweep plane;
+//   * the elementwise phases are split over the scenario's blocks by row
+//     index (the _rows forms of admm_rows.cuh, reading through L2);
+//   * the right-hand side b lies in a plane of its own beside the sweep
+//     plane (a global scratch of 2 x B x K x n floats): a forward step reads
+//     all of b_k while other blocks store w_k, so w_k cannot overwrite it;
+//   * a barrier of the scenario's blocks (one word a scenario after the
+//     planes, counted and never reset, zeroed on the launch's stream)
+//     follows the right-hand side (every block's first step reads all of
+//     b_0), each of the 2K - 1 steps, and the update (the next right-hand
+//     side reads neighbouring rows and all pair rows of a vehicle): 2K + 1
+//     an iteration.
+// Every row and element is computed as in the one-block kernel's
+// whole-band mode, so the two agree bit for bit there, and two launches
+// of either agree.
 
 #include <cuda_runtime.h>
 
 #include "admm_fused.cuh"
 #include "admm_rows.cuh"
 #include "factor_ring.cuh"
+#include "group_sweep.cuh"
 #include "sweeps.cuh"
 
 namespace {
@@ -306,6 +338,198 @@ admm_fused_x_kernel(const float* __restrict__ fpar,
   }
 }
 
+// ---- The wide tier
+
+namespace gw = group_sweep;
+
+// Dynamic shared memory of a wide block: the X sweep's wide layout (the
+// ring's barriers, `stages` stages of `band_rows` whole rows of n floats,
+// r and w_k of the block's `rows`) and the slot scalars ((K - 1) x 9).
+// ops/admm_fused.py fused_wide_smem_bytes mirrors it, and
+// tests/test_torch_fused_plan.py holds the two copies to each other.
+__host__ __device__ inline long fused_wide_smem_bytes(int K, int n,
+                                                      int rows,
+                                                      int band_rows,
+                                                      int stages) {
+  return gw::wide_smem_bytes(n, rows, band_rows, stages, 4 * n, gw::kFormX) +
+         36L * (K - 1);
+}
+
+// FP32 words of a wide launch's scratch: the right-hand-side plane and
+// the sweep plane (2, B, K, n), then the barriers' words, one a scenario.
+// ops/admm_fused.py fused_wide_scratch_floats mirrors it.
+__host__ __device__ inline long fused_wide_scratch_floats(int B, int K,
+                                                          int n) {
+  return 2L * B * K * n + B;
+}
+
+// First of `items` elementwise rows that block g of `spread` takes.
+// ops/admm_fused.py fused_wide_share mirrors it.
+__host__ __device__ inline int fused_wide_share(int g, int spread,
+                                                int items) {
+  return static_cast<int>(static_cast<long>(g) * items / spread);
+}
+
+// A cooperative grid of B x spread blocks of gw::kThreads threads,
+// scenario blockIdx / spread, rows [lo, hi) of share blockIdx % spread;
+// scratch fused_wide_scratch_floats(B, K, n) words, its barrier words
+// zero at the launch.  The other arguments are admm_fused_x_kernel's.
+__global__ void __launch_bounds__(gw::kThreads, gw::kWideBlocksPerSm)
+admm_fused_x_wide_kernel(const float* __restrict__ fpar,
+                         const float* __restrict__ C9,
+                         const float* __restrict__ X,
+                         const float* __restrict__ eta,
+                         const float* __restrict__ l_s,
+                         const float* __restrict__ u_s,
+                         const float* __restrict__ l_c,
+                         const float* __restrict__ rho_s,
+                         const float* __restrict__ rho_c, float* x,
+                         float* zs, float* ys, float* zc, float* yc,
+                         float* scratch, int K, int N, int n_iters,
+                         int spread, int band_rows, int stages,
+                         int rho_s_stride, int rho_c_stride, int c9_stride) {
+  constexpr int kCons = gw::kConsumers, kW = gw::kWarps;
+  extern __shared__ float4 smem4[];
+  const int n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
+  const int b = blockIdx.x / spread, g = blockIdx.x % spread;
+  const int B = gridDim.x / spread, tid = threadIdx.x;
+  const int lo = gw::row_lo(g, spread, n), hi = gw::row_lo(g + 1, spread, n);
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
+  const factor_ring::Ring ring{
+      reinterpret_cast<float*>(raw + gw::kWideBarrierBytes),
+      factor_ring::smem_addr(raw), stages, band_rows * n, n};
+  float* r = ring.data + static_cast<size_t>(stages) * ring.stage_elems;
+  float* wk = r + n;                             // w_k of rows lo .. hi-1
+  float* c9s = wk + gw::wide_rows(n, spread);    // the slot scalars
+  const size_t nsq = static_cast<size_t>(n) * n;
+  const size_t plane = static_cast<size_t>(K) * n;
+  const float* Xb = X + static_cast<size_t>(b) * K * nsq;
+  float* bp = scratch + b * plane;                     // b (K, n)
+  float* xp = scratch + (B + b) * plane;               // the sweep plane
+  unsigned* bar = reinterpret_cast<unsigned*>(scratch + 2 * B * plane);
+  const int steps = 2 * K - 1;
+  if (tid == 0) factor_ring::init(ring, kW);
+  __syncthreads();
+
+  if (tid >= kCons) {
+    // ---- producer warp: this block's rows of every step's block
+    factor_ring::Cursor cur{0, 0u};
+    for (int it = 0; it < n_iters; ++it)
+      for (int t = 0; t < steps; ++t)
+        factor_ring::produce_block(ring, cur,
+                                   Xb + (t < K ? t : 2 * K - 2 - t) * nsq, lo,
+                                   hi, band_rows);
+    return;
+  }
+
+  // ---- consumer warps
+  const size_t so = static_cast<size_t>(b) * K * 6 * n2;
+  const size_t co = static_cast<size_t>(b) * K * P;
+  const admm_rows::Scenario sc{
+      eta + 2 * co, l_s + so, u_s + so, l_c + co,
+      rho_s + static_cast<size_t>(b) * rho_s_stride,
+      rho_c + static_cast<size_t>(b) * rho_c_stride,
+      x + static_cast<size_t>(b) * K * n, zs + so, ys + so, zc + co, yc + co,
+      fpar[0], fpar[1], fpar[2], fpar[3], K, N};
+  // this block's static rows and collision rows of the elementwise phases
+  const int s_lo = fused_wide_share(g, spread, K * n2);
+  const int s_hi = fused_wide_share(g + 1, spread, K * n2);
+  const int c_lo = fused_wide_share(g, spread, K * P);
+  const int c_hi = fused_wide_share(g + 1, spread, K * P);
+  const int warp = tid >> 5;
+  const float* C9b = C9 + static_cast<size_t>(b) * c9_stride;
+  for (int i = tid; i < (K - 1) * 9; i += kCons) c9s[i] = C9b[i];
+
+  gw::ScenarioBarrier barrier{bar + b, static_cast<unsigned>(spread), 0u};
+  factor_ring::Cursor cur{0, 0u};
+  for (int it = 0; it < n_iters; ++it) {
+    admm_rows::build_rhs_rows<true>(sc, bp, s_lo, s_hi, tid, kCons, 1.f);
+    barrier.arrive();
+    barrier.wait();
+    for (int t = 0; t < steps; ++t) {
+      const bool fwd = t < K;
+      const int k = fwd ? t : 2 * K - 2 - t;
+      // what the step reads of b_k, or of w_k in its rows, does not wait
+      // for the previous step: load it before the barrier
+      float pre[gw::kWideSlots][3];
+#pragma unroll
+      for (int u = 0; u < gw::kWideSlots; ++u) {
+        const int q = tid + u * kCons;
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+          pre[u][s] = fwd && q < n2 ? __ldcg(bp + k * n + s * n2 + q) : 0.f;
+      }
+      if (!fwd)
+        for (int i = lo + tid; i < hi; i += kCons)
+          wk[i - lo] = __ldcg(xp + k * n + i);
+      // every block's rows of step t - 1 are in the sweep plane
+      if (t > 0) barrier.wait();
+      // forward: w_{k-1}, B_k = C_{k-1} (x) I; backward: xt_{k+1}, C_k
+      const int kv = fwd ? (k > 0 ? k - 1 : 0) : k + 1;
+      const float* v = xp + kv * n;
+      const float* c = c9s + (fwd ? kv : k) * 9;
+#pragma unroll
+      for (int u = 0; u < gw::kWideSlots; ++u) {
+        const int q = tid + u * kCons;
+        if (q >= n2) break;
+        if (t == 0) {
+#pragma unroll
+          for (int s = 0; s < 3; ++s) r[s * n2 + q] = pre[u][s];
+          continue;
+        }
+        // read from L2: other blocks wrote it
+        const gw::SlotTriple vq{__ldcg(v + q), __ldcg(v + n2 + q),
+                                __ldcg(v + 2 * n2 + q), n2};
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+          const int j = s * n2 + q;
+          r[j] = fwd ? pre[u][s] - sweeps::slot_b(c, vq, j, n2)
+                     : sweeps::slot_bt(c, vq, j, n2);
+        }
+      }
+      gw::consumer_sync();
+      factor_ring::matvec_rows(ring, cur, r, n, lo, hi, band_rows, false,
+                               warp, kW, [&](int i, float d) {
+                                 xp[k * n + i] = fwd ? d : wk[i - lo] - d;
+                               });
+      barrier.arrive();
+    }
+    // the last backward step: the update reads every vehicle's positions
+    barrier.wait();
+    admm_rows::update_static_rows<true>(sc, xp, s_lo, s_hi, tid, kCons);
+    admm_rows::update_collision_rows<true>(sc, xp, c_lo, c_hi, tid, kCons);
+    if (it + 1 < n_iters) {
+      // the next right-hand side reads neighbouring rows and pair rows
+      barrier.arrive();
+      barrier.wait();
+    }
+  }
+}
+
+// The shared memory of a wide launch plan, or -1 for a plan the kernel
+// cannot run: admm_fused::plan_smem's limits on (B, K, N, n_iters), n up
+// to the slots a thread preloads (gw::kMaxNWide), at least one row pair a
+// block, bands of an even number of rows up to gw::kMaxBandRows, 2 to
+// kMaxStages stages, per_sm blocks (at most the launch bounds') sharing an
+// SM's shared memory.
+inline long wide_plan_smem(int B, int K, int N, int n_iters, int spread,
+                           int band_rows, int stages, int per_sm) {
+  const int n = 6 * N;
+  if (admm_fused::plan_smem(B, K, N, n_iters, 2, 2, false, false, true,
+                            4 * n) < 0 ||
+      n > gw::kMaxNWide || spread < 1 || 2 * spread > n ||
+      static_cast<long>(B) * spread >= (1L << 31) || band_rows < 2 ||
+      band_rows % 2 || band_rows > gw::kMaxBandRows || stages < 2 ||
+      stages > factor_ring::kMaxStages || per_sm < 1 ||
+      per_sm > gw::kWideBlocksPerSm)
+    return -1;
+  const long smem = fused_wide_smem_bytes(
+      K, n, gw::wide_rows(n, spread), band_rows, stages);
+  if (smem > gw::kSmemMax || per_sm * (smem + 1024) > gw::kSmemMax + 1024)
+    return -1;
+  return smem;
+}
+
 }  // namespace
 
 extern "C" {
@@ -347,6 +571,52 @@ int admm_fused_x_f32(const float* fpar, const float* C9, const float* X,
       fpar, C9, X, eta, l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc, plane,
       K, N, n_iters, band_rows, stages, rho_s_stride, rho_c_stride,
       c9_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide tier: the arguments of admm_fused_x_f32 (X whole blocks, never
+// packed), the plan's (spread, band_rows, stages, per_sm) for `plane`,
+// and `scratch` of fused_wide_scratch_floats(B, K, 6N) float words, whose
+// last B (the barriers') are zeroed here on `stream`.  One cooperative grid of
+// B x spread blocks, which the runtime refuses (an error code, no launch)
+// where they cannot all be resident at once.  Returns the CUDA error code
+// of the launch, or cudaErrorInvalidValue for arguments or a plan it
+// cannot serve.
+int admm_fused_x_wide_f32(const float* fpar, const float* C9, const float* X,
+                          const float* eta, const float* l_s,
+                          const float* u_s, const float* l_c,
+                          const float* rho_s, const float* rho_c, float* x,
+                          float* zs, float* ys, float* zc, float* yc,
+                          float* scratch, int B, int K, int N, int n_iters,
+                          int spread, int band_rows, int stages, int per_sm,
+                          int rho_s_stride, int rho_c_stride, int c9_stride,
+                          cudaStream_t stream) {
+  const long smem = wide_plan_smem(B, K, N, n_iters, spread, band_rows,
+                                   stages, per_sm);
+  if (smem < 0 || scratch == nullptr ||
+      (reinterpret_cast<size_t>(X) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = admm_fused::allow_smem(admm_fused_x_wide_kernel, smem);
+  if (err != 0) return err;
+  unsigned* bar = reinterpret_cast<unsigned*>(
+      scratch + fused_wide_scratch_floats(B, K, 6 * N) - B);
+  cudaError_t e = cudaMemsetAsync(bar, 0, B * sizeof(unsigned), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * spread));
+  cfg.blockDim = dim3(gw::kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, admm_fused_x_wide_kernel, fpar, C9, X, eta,
+                         l_s, u_s, l_c, rho_s, rho_c, x, zs, ys, zc, yc,
+                         scratch, K, N, n_iters, spread, band_rows, stages,
+                         rho_s_stride, rho_c_stride, c9_stride);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

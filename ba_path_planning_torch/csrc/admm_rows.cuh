@@ -7,7 +7,10 @@
 // `_rows` forms take a range [lo, hi) of row indices (k * 2N + q for the
 // static rows, k * P + p for the collision rows): each row k reads rows
 // k - 1 .. k + 1 of its inputs and writes row k only, so a caller may
-// split k over blocks.
+// split k over blocks.  Such a caller (the wide tier of admm_fused_x.cu)
+// passes kL2: every read of what the launch writes (the state and the
+// sweep plane) then goes through L2 (ld.global.cg), so that no block reads
+// a line that its SM's L1 kept from before another block wrote it.
 //
 // Rows are planes: static rows (K, 6, 2N) in the slot order dyn_p, dyn_v,
 // jerk, acc, vbox, pbox (the jerk block's row K-1 is unused), collision rows
@@ -46,6 +49,17 @@ struct Scenario {
   int K, N;
 };
 
+// A read of the state or the sweep plane: through L2 where kL2, else a
+// plain load.
+template <bool kL2>
+__device__ __forceinline__ float load(const float* p) {
+  if constexpr (kL2) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Index of pair (i, j), i < j, in triu_indices order.
 __device__ __forceinline__ int pair_base(int i, int N) {
   return i * (2 * N - i - 1) / 2;
@@ -66,6 +80,7 @@ __device__ __forceinline__ int pair_first(int p, int N) {
 // b = scale (A^T (rho z - y) + sigma x) into the sweep plane xt (K, 6N),
 // on the static rows [lo, hi) (scale 1, or the per-lane 1 / rho of the
 // grouped routes' adaptive rho).
+template <bool kL2 = false>
 __device__ __forceinline__ void build_rhs_rows(const Scenario& sc, float* xt,
                                                int lo, int hi, int tid,
                                                int nthr, float scale) {
@@ -78,7 +93,7 @@ __device__ __forceinline__ void build_rhs_rows(const Scenario& sc, float* xt,
     const int k = idx / n2, q = idx % n2;
     auto rz = [&](int kk, int s) {
       const size_t o = (static_cast<size_t>(kk) * 6 + s) * n2 + q;
-      return rho_s[kk * 6 + s] * zsb[o] - ysb[o];
+      return rho_s[kk * 6 + s] * load<kL2>(zsb + o) - load<kL2>(ysb + o);
     };
     const bool last = k == K - 1;
     const float dp = rz(k, 0), dv = rz(k, 1);
@@ -94,22 +109,24 @@ __device__ __forceinline__ void build_rhs_rows(const Scenario& sc, float* xt,
       const size_t kp = static_cast<size_t>(k + 1) * P;
       for (int u = 0; u < v; ++u) {
         const size_t o = kp + pair_base(u, N) + v - u - 1;
-        col -= (rho_c[o] * zcb[o] - ycb[o]) * eb[2 * o + c];
+        col -= (rho_c[o] * load<kL2>(zcb + o) - load<kL2>(ycb + o))
+               * eb[2 * o + c];
       }
       const size_t ov = kp + pair_base(v, N) - v - 1;
       for (int u = v + 1; u < N; ++u) {
         const size_t o = ov + u;
-        col += (rho_c[o] * zcb[o] - ycb[o]) * eb[2 * o + c];
+        col += (rho_c[o] * load<kL2>(zcb + o) - load<kL2>(ycb + o))
+               * eb[2 * o + c];
       }
     }
     const float* xk = xb + static_cast<size_t>(k) * n;
     float* bk = xt + k * n;
     bk[q] = (-hh * dp - h * dv + (jr_prev - jr) / h + rz(k, 3)
-             + sigma * xk[q]) * scale;
-    bk[n2 + q] = (dp - dp_next + rz(k, 5) + col + sigma * xk[n2 + q])
-                 * scale;
+             + sigma * load<kL2>(xk + q)) * scale;
+    bk[n2 + q] = (dp - dp_next + rz(k, 5) + col
+                  + sigma * load<kL2>(xk + n2 + q)) * scale;
     bk[2 * n2 + q] = (-h * dp_next + dv - dv_next + rz(k, 4)
-                      + sigma * xk[2 * n2 + q]) * scale;
+                      + sigma * load<kL2>(xk + 2 * n2 + q)) * scale;
   }
 }
 
@@ -122,6 +139,7 @@ __device__ __forceinline__ void build_rhs(const Scenario& sc, float* xt,
 // Relaxation of x, A xt, the z update (clip) and the dual update on the
 // static rows [lo, hi), from the sweep plane xt (K, 6N) = the solution of
 // the x-update.
+template <bool kL2 = false>
 __device__ __forceinline__ void update_static_rows(const Scenario& sc,
                                                    const float* xt, int lo,
                                                    int hi, int tid,
@@ -135,13 +153,14 @@ __device__ __forceinline__ void update_static_rows(const Scenario& sc,
   for (int idx = lo + tid; idx < hi; idx += nthr) {
     const int k = idx / n2, q = idx % n2;
     const float* t = xt + k * n;
-    const float at = t[q], pt = t[n2 + q], vt = t[2 * n2 + q];
-    const float pp = k > 0 ? t[n2 + q - n] : 0.f;
-    const float vp = k > 0 ? t[2 * n2 + q - n] : 0.f;
+    const float at = load<kL2>(t + q), pt = load<kL2>(t + n2 + q);
+    const float vt = load<kL2>(t + 2 * n2 + q);
+    const float pp = k > 0 ? load<kL2>(t + n2 + q - n) : 0.f;
+    const float vp = k > 0 ? load<kL2>(t + 2 * n2 + q - n) : 0.f;
     float ax[6];
     ax[0] = pt - pp - h * vp - hh * at;
     ax[1] = vt - vp - h * at;
-    ax[2] = k < K - 1 ? (t[n + q] - at) / h : 0.f;
+    ax[2] = k < K - 1 ? (load<kL2>(t + n + q) - at) / h : 0.f;
     ax[3] = at;
     ax[4] = vt;
     ax[5] = pt;
@@ -150,20 +169,22 @@ __device__ __forceinline__ void update_static_rows(const Scenario& sc,
       if (s == 2 && k == K - 1) continue;     // no jerk row at K-1
       const size_t o = (static_cast<size_t>(k) * 6 + s) * n2 + q;
       const float rho = rho_s[k * 6 + s];
-      const float zr = alpha * ax[s] + (1.f - alpha) * zsb[o];
-      const float zn = fminf(fmaxf(zr + ysb[o] / rho, lsb[o]), usb[o]);
-      ysb[o] = ysb[o] + rho * (zr - zn);
+      const float zr = alpha * ax[s] + (1.f - alpha) * load<kL2>(zsb + o);
+      const float zn =
+          fminf(fmaxf(zr + load<kL2>(ysb + o) / rho, lsb[o]), usb[o]);
+      ysb[o] = load<kL2>(ysb + o) + rho * (zr - zn);
       zsb[o] = zn;
     }
     float* xk = xb + static_cast<size_t>(k) * n;
-    xk[q] = alpha * at + (1.f - alpha) * xk[q];
-    xk[n2 + q] = alpha * pt + (1.f - alpha) * xk[n2 + q];
-    xk[2 * n2 + q] = alpha * vt + (1.f - alpha) * xk[2 * n2 + q];
+    xk[q] = alpha * at + (1.f - alpha) * load<kL2>(xk + q);
+    xk[n2 + q] = alpha * pt + (1.f - alpha) * load<kL2>(xk + n2 + q);
+    xk[2 * n2 + q] = alpha * vt + (1.f - alpha) * load<kL2>(xk + 2 * n2 + q);
   }
 }
 
 // A xt, then the exact-penalty soft prox and the dual update on the
 // collision rows [lo, hi); each row's pair in closed form (pair_first).
+template <bool kL2 = false>
 __device__ __forceinline__ void update_collision_rows(
     const Scenario& sc, const float* xt, int lo, int hi, int tid, int nthr) {
   const int N = sc.N, n2 = 2 * N, n = 3 * n2, P = N * (N - 1) / 2;
@@ -174,14 +195,15 @@ __device__ __forceinline__ void update_collision_rows(
     const int k = idx / P, p = idx % P;
     // the row's operands first, so that their loads are in flight while
     // its pair is found
-    const float rho = rho_c[idx], z = zcb[idx], y = ycb[idx], lb = lcb[idx];
+    const float rho = rho_c[idx], z = load<kL2>(zcb + idx);
+    const float y = load<kL2>(ycb + idx), lb = lcb[idx];
     const float e0 = eb[2 * idx], e1 = eb[2 * idx + 1];
     float colv = 0.f;
     if (k > 0) {
       const float* pos = xt + (k - 1) * n + n2;
       const int i = pair_first(p, N), j = p - pair_base(i, N) + i + 1;
-      colv = e0 * (pos[2 * i] - pos[2 * j])
-             + e1 * (pos[2 * i + 1] - pos[2 * j + 1]);
+      colv = e0 * (load<kL2>(pos + 2 * i) - load<kL2>(pos + 2 * j))
+             + e1 * (load<kL2>(pos + 2 * i + 1) - load<kL2>(pos + 2 * j + 1));
     }
     const float zr = alpha * colv + (1.f - alpha) * z;
     const float w = zr + y / rho;

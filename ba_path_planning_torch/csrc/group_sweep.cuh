@@ -855,6 +855,32 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
+// The barrier of one scenario's `spread` blocks of a wide launch (here and
+// in admm_fused_x.cu), on its word `word` (arrivals, never reset), in two
+// halves: arrive() puts this block's stores behind a block barrier and
+// adds its arrival; wait() waits until all spread blocks have arrived as
+// often as this one has.  Called by every consumer thread.
+struct ScenarioBarrier {
+  unsigned* word;
+  unsigned spread;
+  unsigned passed;                     // barriers this block has passed
+  __device__ void arrive() {
+    consumer_sync();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(word, 1u);
+    }
+  }
+  __device__ void wait() {
+    if (threadIdx.x == 0) {
+      ++passed;
+      while (load_acquire(word) < passed * spread) {
+      }
+    }
+    consumer_sync();
+  }
+};
+
 // The three entries q, n2 + q, 2 n2 + q of a vector, as sweeps::slot_b and
 // slot_bt index them (selects, so the three stay in registers).
 struct SlotTriple {
@@ -916,25 +942,7 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
 
   // ---- consumer warps
   const int warp = tid >> 5, lane = tid & 31, n2 = n / 3;
-  unsigned passed = 0;                  // barriers this block has passed
-  // the barrier of scenario b's blocks in two halves: this block's stores
-  // are behind a block barrier, then it arrives; later it waits until all
-  // spread blocks have arrived as often as it has
-  auto arrive = [&]() {
-    consumer_sync();
-    if (tid == 0) {
-      __threadfence();
-      atomicAdd(bar + b, 1u);
-    }
-  };
-  auto wait = [&]() {
-    if (tid == 0) {
-      ++passed;
-      while (load_acquire(bar + b) < passed * spread) {
-      }
-    }
-    consumer_sync();
-  };
+  ScenarioBarrier barrier{bar + b, static_cast<unsigned>(spread), 0u};
   factor_ring::Cursor cur{0, 0u};
   for (int t = 0; t < steps; ++t) {
     const bool fwd = t < K;
@@ -953,7 +961,7 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
       for (int i = lo + tid; i < hi; i += kConsumers)
         wk[i - lo] = xb[k * n + i];
     // every block's rows of step t - 1 are in vbuf
-    if (t > 0) wait();
+    if (t > 0) barrier.wait();
     const float* v = vbuf + (static_cast<size_t>((t + 1) & 1) * B + b) * n;
     const int ck = fwd ? k - 1 : k;           // B_k = C_{k-1} (x) I
     const float* c = C9 + (ck > 0 ? ck : 0) * 9;
@@ -986,7 +994,7 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
             xb[k * n + i] = val;
             vo[i] = val;
           });
-      if (t + 1 < steps) arrive();
+      if (t + 1 < steps) barrier.arrive();
     } else {
       // ---- L: both products from one read of each band
       float2 acc[kWidePairs];
@@ -1023,8 +1031,8 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
         }
         *reinterpret_cast<float2*>(mine + j) = s;
       }
-      arrive();
-      wait();
+      barrier.arrive();
+      barrier.wait();
       // reduce-scatter: this block's rows, over the blocks g' >= g
       for (int i = lo + lane; i < hi; i += 32) {
         float s = 0.f;
@@ -1041,7 +1049,7 @@ sweep_kernel_wide(const T* __restrict__ F, const float* __restrict__ C9,
         xb[k * n + i] = s;
         vo[i] = s;
       }
-      if (t + 1 < steps) arrive();
+      if (t + 1 < steps) barrier.arrive();
     }
   }
 }

@@ -11,12 +11,14 @@ jerk block's row K-1 is padding), the collision rows as (B, K, P), the state
 stacked as (B, K, 6N).  The TPU kernels' lane padding, jerk dummy bounds and
 dense pair maps were rules of its VMEM tiling and are not carried over.
 Both kernels stream their factors through a ring of shared-memory stages
-on the plan of :func:`fused_plan`.
+on the plan of :func:`fused_plan`; the X form at small batches on its wide
+tier, each scenario over many SMs (:func:`fused_x_plan`).
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -26,8 +28,10 @@ from ..solvers.banded import (RowVals, StateVars, admm_iterations,
                               from_stacked, solve_factorized,
                               solve_factorized_X, to_stacked)
 from ..utils import debug
-from .cuda_build import (bf16_row_stride, check, load_kernels,
-                         require_f32_cuda)
+from .cuda_build import (SMS, bf16_row_stride, check, device_sms,
+                         load_kernels, require_f32_cuda)
+from .group_solve import (SweepPlan, sweep_wide_fit, sweep_wide_plan,
+                          sweep_wide_smem_bytes)
 
 SLOTS = ("dyn_p", "dyn_v", "jerk", "acc", "vbox", "pbox")
 
@@ -45,6 +49,14 @@ FUSED_L_MAX_N = 896
 FUSED_X_PACKED_MIN_N = 234
 FUSED_X_PACKED_MAX_N = 512
 FUSED_MAX_BANDS = 256
+# The X form's wide tier (csrc/admm_fused_x.cu, on the layout of the X
+# sweep's, group_sweep.cuh): (least n, largest B) pairs, the wide tier
+# where one of them admits (n, B) (the crossover measured on the H100,
+# ``scripts/torch_sweep_bench.py --tiers``, PERF.md: at N = 22 the
+# one-block tier wins from B = 32, from N = 30 the wide tier at every
+# B <= 32), and the most n it serves
+FUSED_X_WIDE = ((132, 16), (180, 32))
+FUSED_X_WIDE_MAX_N = 6144
 
 
 class FusedPlan(NamedTuple):
@@ -53,12 +65,16 @@ class FusedPlan(NamedTuple):
     (K, 6N) sweep plane lies in shared memory where ``plane_in_smem``,
     else in a global scratch; ``packed``: the X-form factors come as the
     packed upper triangles of :func:`pack_upper`; ``smem_bytes`` of
-    dynamic shared memory a block."""
+    dynamic shared memory a block.  On the X form's wide tier ``spread``
+    blocks of one cooperative grid take a scenario, ``per_sm`` of them
+    sharing an SM; ``spread`` is 0 on the one-block tier."""
     band_rows: int
     stages: int
     plane_in_smem: bool
     packed: bool
     smem_bytes: int
+    spread: int = 0
+    per_sm: int = 1
 
 
 def _ring_width(n: int, packed: int) -> int:
@@ -132,6 +148,99 @@ def fused_plan(K: int, N: int, form: str, esize: int = 4) -> FusedPlan:
     return FusedPlan(band_rows, stages, bool(plane), bool(packed),
                      fused_smem_bytes(K, N, band_rows, stages, plane, packed,
                                       xform, row_bytes))
+
+
+def _slot_bytes(K: int) -> int:
+    """Shared memory of a wide block's slot scalars: 9 floats a slot."""
+    return 36 * (K - 1)
+
+
+def fused_wide_smem_bytes(K: int, N: int, rows: int, band_rows: int,
+                          stages: int) -> int:
+    """Dynamic shared memory of a block of the X form's wide tier (the
+    kernel's ``wide_smem_bytes``): the X sweep's wide block (the ring's
+    barriers, ``stages`` stages of ``band_rows`` whole rows of 6N floats, r
+    (6N) and w_k of the block's ``rows``) and the slot scalars."""
+    n = 6 * N
+    return sweep_wide_smem_bytes(n, rows, band_rows, stages,
+                                 4 * n) + _slot_bytes(K)
+
+
+def fused_wide_scratch_floats(B: int, K: int, N: int) -> int:
+    """float32 words of a wide launch's scratch (the kernel's
+    ``wide_scratch_floats``): the right-hand-side plane and the sweep plane
+    (2, B, K, 6N), then the barriers' words, one a scenario."""
+    return 2 * B * K * 6 * N + B
+
+
+def fused_wide_share(g: int, spread: int, items: int) -> int:
+    """First of ``items`` elementwise rows (K 2N static ones, K P
+    collision ones) that block ``g`` of a scenario's ``spread`` takes (the
+    kernel's ``wide_share``)."""
+    return g * items // spread
+
+
+def _as_fused(plan: SweepPlan) -> FusedPlan:
+    return FusedPlan(plan.band_rows, plan.stages, False, False,
+                     plan.smem_bytes, plan.spread, plan.per_sm)
+
+
+def fused_wide_fit(K: int, N: int, spread: int,
+                   per_sm: int) -> FusedPlan | None:
+    """The wide plan of ``spread`` blocks a scenario, ``per_sm`` of them
+    an SM, as the X sweep's wide tier fits one
+    (:func:`group_solve.sweep_wide_fit`), beside the slot scalars and with
+    a ring that runs on across the interval's sweeps; None where not even
+    bands of two rows fit."""
+    plan = sweep_wide_fit(K, 6 * N, spread, per_sm, 4 * 6 * N,
+                          extra_bytes=_slot_bytes(K), one_sweep=False)
+    return None if plan is None else _as_fused(plan)
+
+
+def fused_x_wide_plan(B: int, K: int, N: int, sms: int = SMS) -> FusedPlan:
+    """The X form's wide plan for B scenarios on a card of ``sms`` SMs: the
+    X sweep's wide plan (:func:`group_solve.sweep_wide_plan`: the card's
+    blocks shared out between the scenarios, fewest bands a step) on
+    :func:`fused_wide_fit`'s blocks.  Raises ValueError where none fits or
+    n passes FUSED_X_WIDE_MAX_N."""
+    n = 6 * N
+    if B >= 1 and 2 <= K and n <= FUSED_X_WIDE_MAX_N:
+        try:
+            return _as_fused(sweep_wide_plan(
+                B, K, n, 4, sms, extra_bytes=_slot_bytes(K),
+                one_sweep=False))
+        except ValueError:
+            pass
+    raise ValueError(f"fused X kernel: no wide plan of B={B}, K={K}, "
+                     f"N={N} fits {sms} SMs")
+
+
+def fused_x_wide(B: int, N: int, sms: int = SMS) -> bool:
+    """Whether B scenarios of N vehicles take the X form's wide tier on a
+    card of ``sms`` SMs: where a (least n, largest B) pair of FUSED_X_WIDE
+    admits them, up to FUSED_X_WIDE_MAX_N, and no more scenarios than the
+    card has SMs (a block a scenario at least, all resident)."""
+    n = 6 * N
+    return (n <= FUSED_X_WIDE_MAX_N and B <= sms
+            and any(n >= least and B <= most for least, most in FUSED_X_WIDE))
+
+
+def fused_x_plan(B: int, K: int, N: int, sms: int = SMS, esize: int = 4,
+                 _wide: bool | None = None) -> FusedPlan:
+    """The launch plan of the X-form fused interval for B scenarios of K
+    steps of N vehicles on a card of ``sms`` SMs: the wide tier where
+    :func:`fused_x_wide` takes it (:func:`fused_x_wide_plan`), else one
+    block a scenario (:func:`fused_plan`).  ``_wide`` names the tier
+    instead (to time and check both at one shape).  Raises ValueError for
+    what :func:`fused_plan` refuses, factors of another ``esize`` than 4
+    bytes among them: the X form keeps its factors in float32."""
+    if esize != 4:
+        return fused_plan(K, N, "X", esize=esize)
+    if _wide is None:
+        _wide = fused_x_wide(B, N, sms)
+    if _wide:
+        return fused_x_wide_plan(B, K, N, sms)
+    return fused_plan(K, N, "X")
 
 
 def packed_offsets(n: int) -> list:
@@ -218,12 +327,15 @@ def rho_planes(rho: RowVals, n_steps: int, n_pairs: int):
 
 def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
             upper: RowVals, x: StateVars, z: RowVals, y: RowVals,
-            rho: RowVals, *, h: float, sigma, alpha, lam, n_iters: int):
+            rho: RowVals, *, h: float, sigma, alpha, lam, n_iters: int,
+            plan: FusedPlan | None = None):
     """Lay the rows out as planes, launch ``entry`` of the kernel library
-    (its ``_bf16`` variant for the L form's bf16 factors) on the two factor
-    tensors (their shapes checked by the caller) on the plan of
-    :func:`fused_plan` and count the launch on ``wrapper``.  The inputs are
-    not modified."""
+    (its ``_bf16`` variant for the L form's bf16 factors, its ``_wide``
+    one on the X form's wide tier) on the two factor tensors (their shapes
+    checked by the caller) on ``plan``, by default the X form's
+    :func:`fused_x_plan` for the card or the L form's :func:`fused_plan`,
+    and count the launch on ``wrapper`` (a wide one on ``wrapper.wide``).
+    The inputs are not modified."""
     what = wrapper.__name__
     B, K = eta.shape[:2]
     N, P = E.shape
@@ -231,7 +343,11 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
     x_form = entry == "admm_fused_x"
     first = factors["X" if x_form else "Linv"]
     bf16 = first.dtype == torch.bfloat16
-    plan = fused_plan(K, N, "X" if x_form else "L", esize=2 if bf16 else 4)
+    if plan is None:
+        esize = 2 if bf16 else 4
+        plan = (fused_x_plan(B, K, N, sms=device_sms(eta.device),
+                             esize=esize) if x_form
+                else fused_plan(K, N, "L", esize=esize))
     if plan.packed:
         require_f32_cuda(what, X=factors["X"])
         factors = dict(factors, X=pack_upper(factors["X"]))
@@ -264,20 +380,31 @@ def _launch(wrapper, entry: str, factors: dict, eta, E, lower: RowVals,
         if tensors[name].shape != want:
             raise ValueError(f"{what}: {name} is "
                              f"{tuple(tensors[name].shape)}, not {want}")
-    # the kernel's sweep plane, where the plan leaves it out of shared memory
-    plane = None if plan.plane_in_smem else torch.empty(
-        (B, K, n), dtype=eta.dtype, device=eta.device)
     lib = load_kernels()
+    ptrs = [t.data_ptr() for t in tensors.values()]
     with torch.cuda.device(eta.device):
-        err = getattr(lib, entry + ("_bf16" if bf16 else "_f32"))(
-            *(t.data_ptr() for t in tensors.values()),
-            None if plane is None else plane.data_ptr(), B, K, N,
-            *([first.stride(-2)] if bf16 else []),
-            int(n_iters), plan.band_rows, plan.stages,
-            *([int(plan.packed)] if x_form else []), *strides,
-            torch.cuda.current_stream(eta.device).cuda_stream)
+        stream = torch.cuda.current_stream(eta.device).cuda_stream
+        if plan.spread:
+            # the wide tier: the right-hand-side and sweep planes, then the
+            # launch's barrier words
+            scratch = torch.empty(fused_wide_scratch_floats(B, K, N),
+                                  dtype=torch.float32, device=eta.device)
+            err = lib.admm_fused_x_wide_f32(
+                *ptrs, scratch.data_ptr(), B, K, N, int(n_iters),
+                plan.spread, plan.band_rows, plan.stages, plan.per_sm,
+                *strides, stream)
+        else:
+            # the sweep plane, where the plan leaves it out of shared memory
+            plane = None if plan.plane_in_smem else torch.empty(
+                (B, K, n), dtype=eta.dtype, device=eta.device)
+            err = getattr(lib, entry + ("_bf16" if bf16 else "_f32"))(
+                *ptrs, None if plane is None else plane.data_ptr(), B, K, N,
+                *([first.stride(-2)] if bf16 else []),
+                int(n_iters), plan.band_rows, plan.stages,
+                *([int(plan.packed)] if x_form else []), *strides, stream)
     check(err, what)
-    wrapper.launches += 1
+    # the wide tier's kernel counts its launches apart
+    (wrapper.wide if plan.spread else wrapper).launches += 1
     debug.report(entry, xs, zs, ys, zc, yc)
     return (from_stacked(xs, N), planes_to_rows(zs, zc, N),
             planes_to_rows(ys, yc, N))
@@ -306,7 +433,7 @@ def admm_interval_fused_X_plain(X, C, eta, E, lower: RowVals, upper: RowVals,
 
 def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
                           x: StateVars, z: RowVals, y: RowVals, rho: RowVals,
-                          **step):
+                          *, _plan: FusedPlan | None = None, **step):
     """``n_iters`` ADMM iterations for a batch, returning the new (x, z, y).
 
     X (B, K, 6N, 6N) symmetric block inverses and C (K-1, 3, 3) shared slot
@@ -318,9 +445,12 @@ def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
     +inf for hard rows); x, z, y the ADMM state; rho from
     ``banded.rho_pattern_masks``, batch-shared or one rho a lane
     (:func:`rho_planes`); ``step`` the keywords h, sigma, alpha, lam
-    and n_iters.  CUDA tensors launch the kernel (float32, X, C and eta
-    contiguous; anything else raises); CPU tensors run the plain version.
-    The inputs are not modified."""
+    and n_iters.  CUDA tensors launch the kernel on :func:`fused_x_plan`
+    for the card (small batches on the wide tier), or on ``_plan`` (to
+    time and check another tier; float32, X, C and eta contiguous;
+    anything else raises, a wide plan whose blocks the card cannot hold
+    all at once too); CPU tensors run the plain version.  The inputs are
+    not modified."""
     if _on_cpu("admm_interval_fused_X", X):
         return admm_interval_fused_X_plain(X, C, eta, E, lower, upper, x, z,
                                            y, rho, **step)
@@ -333,11 +463,13 @@ def admm_interval_fused_X(X, C, eta, E, lower: RowVals, upper: RowVals,
             f"admm_interval_fused_X: unsupported shapes X {tuple(X.shape)}, "
             f"C {tuple(C.shape)}, eta {tuple(eta.shape)}, E {tuple(E.shape)}")
     return _launch(admm_interval_fused_X, "admm_fused_x", dict(C=C, X=X),
-                   eta, E,
-                   lower, upper, x, z, y, rho, **step)
+                   eta, E, lower, upper, x, z, y, rho, plan=_plan, **step)
 
 
 admm_interval_fused_X.launches = 0
+# launches of the wide tier's kernel (admm_fused_x_wide_kernel); those of
+# the one-block kernel are ``admm_interval_fused_X.launches``
+admm_interval_fused_X.wide = SimpleNamespace(launches=0)
 
 
 def admm_interval_fused_plain(Linv, Eb, eta, E, lower: RowVals,

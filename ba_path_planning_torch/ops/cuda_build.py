@@ -141,10 +141,12 @@ def load_kernels() -> ctypes.CDLL:
             getattr(lib, f"group_solve_{form}_wide_{dtype}").restype = i
     # the X form also takes the plan's packed flag and a slot-scalar stride
     lib.admm_fused_x_f32.argtypes = [p] * 15 + [i] * 10 + [p]
+    # its wide tier: the scratch, then the plan's spread and per_sm
+    lib.admm_fused_x_wide_f32.argtypes = [p] * 15 + [i] * 11 + [p]
     lib.admm_fused_l_f32.argtypes = [p] * 15 + [i] * 8 + [p]
     lib.admm_fused_l_bf16.argtypes = [p] * 15 + [i] * 9 + [p]
-    for fused in (lib.admm_fused_x_f32, lib.admm_fused_l_f32,
-                  lib.admm_fused_l_bf16):
+    for fused in (lib.admm_fused_x_f32, lib.admm_fused_x_wide_f32,
+                  lib.admm_fused_l_f32, lib.admm_fused_l_bf16):
         fused.restype = i
     # the ADMM row stages and the channel interval (admm_steps.cu)
     lib.admm_rhs_f32.argtypes = [p] * 11 + [i] * 7 + [p]

@@ -58,7 +58,7 @@ SWEEP_WIDE_MAX_B = 32
 # ``scripts/torch_sweep_bench.py --tiers``, ``PERF.md``)
 SWEEP_WIDE_L = {4: ((240, 2), (360, 32)), 2: ((600, 8), (1200, 32))}
 # the L form takes two blocks an SM where their bands hold this many rows,
-# or a block more than twice as many (:func:`_wide_plan`)
+# or a block more than twice as many (:func:`sweep_wide_plan`)
 SWEEP_WIDE_L_BAND = 8
 
 
@@ -198,14 +198,39 @@ def sweep_wide_vbuf_floats(B: int, n: int, spread: int, form: str) -> int:
     return 2 * B * n + (B * spread * n if form == "L" else 0) + B
 
 
-def _wide_plan(B: int, K: int, n: int, esize: int, sms: int,
-               form: str = "X") -> SweepPlan:
+def sweep_wide_fit(K: int, n: int, spread: int, per_sm: int, row_bytes: int,
+                   form: str = "X", extra_bytes: int = 0,
+                   one_sweep: bool = True) -> SweepPlan | None:
+    """The wide plan of ``spread`` blocks a scenario, ``per_sm`` of them an
+    SM, on rows of ``row_bytes``: the largest bands (an even number of
+    rows, at most SWEEP_MAX_BAND and the block's rows) of which two stages
+    fit beside the block's vectors and ``extra_bytes`` more (the fused X
+    interval's slot scalars), and as many stages as fit, at most
+    SWEEP_MAX_STAGES and, where ``one_sweep`` (the launch streams one sweep
+    of 2K - 1 blocks, not a ring that runs on across sweeps), no more than
+    that sweep's bands; None where not even bands of two rows fit."""
+    rows = sweep_wide_rows(n, spread)
+    room = (SMEM_SM // per_sm - 1024) - extra_bytes - sweep_wide_smem_bytes(
+        n, rows, 0, 0, row_bytes, form)
+    band = min(SWEEP_MAX_BAND, rows, room // (2 * row_bytes)) // 2 * 2
+    if band < 2:
+        return None
+    stages = min(SWEEP_MAX_STAGES, room // (band * row_bytes))
+    if one_sweep:
+        stages = min(stages, -(-rows // band) * (2 * K - 1))
+    return SweepPlan(1, band, stages, extra_bytes + sweep_wide_smem_bytes(
+        n, rows, band, stages, row_bytes, form), per_sm, spread)
+
+
+def sweep_wide_plan(B: int, K: int, n: int, esize: int, sms: int,
+                    form: str = "X", extra_bytes: int = 0,
+                    one_sweep: bool = True) -> SweepPlan:
     """The wide tier's plan of ``form`` on a card of ``sms`` SMs.  For each
     count of blocks an SM up to SWEEP_WIDE_PER_SM that gives each scenario a
     block, the card's blocks (all of them resident at once, as a cooperative
     grid must be) are shared out between the B scenarios (each at least 2
-    rows), with the largest bands (up to SWEEP_MAX_BAND rows) of which two
-    stages fit beside the block's vectors and as many stages as fit.  X: a band
+    rows), on :func:`sweep_wide_fit` (``extra_bytes`` and ``one_sweep`` as
+    there).  X: a band
     costs a step about one row product's latency whatever its rows (its
     rows run on the consumer warps side by side), so the plan with the
     fewest bands a step is taken, the fewer blocks an SM on a tie.  L: two
@@ -216,19 +241,10 @@ def _wide_plan(B: int, K: int, n: int, esize: int, sms: int,
     block has many rows; where it has few, in small bands, one block an SM
     with bands twice as large is faster)."""
     row_bytes = sweep_row_bytes(n, esize)
-    plans = []
-    for per_sm in range(-(-B // sms), SWEEP_WIDE_PER_SM + 1):
-        spread = min(sms * per_sm // B, n // 2)
-        rows = sweep_wide_rows(n, spread)
-        room = (SMEM_SM // per_sm - 1024) - sweep_wide_smem_bytes(
-            n, rows, 0, 0, row_bytes, form)
-        band = min(SWEEP_MAX_BAND, rows, room // (2 * row_bytes)) // 2 * 2
-        if band < 2:
-            continue
-        stages = min(SWEEP_MAX_STAGES, room // (band * row_bytes),
-                     -(-rows // band) * (2 * K - 1))
-        plans.append(SweepPlan(1, band, stages, sweep_wide_smem_bytes(
-            n, rows, band, stages, row_bytes, form), per_sm, spread))
+    plans = [plan for per_sm in range(-(-B // sms), SWEEP_WIDE_PER_SM + 1)
+             if (plan := sweep_wide_fit(
+                 K, n, min(sms * per_sm // B, n // 2), per_sm, row_bytes,
+                 form, extra_bytes, one_sweep)) is not None]
     if not plans:
         raise ValueError(f"sweep kernels: no wide plan of B={B} at n={n} "
                          f"fits {sms} SMs")
@@ -270,7 +286,7 @@ def sweep_plan(B: int, K: int, n: int, form: str, esize: int = 4,
       B = 2 and from n = 360 up to B = 32 (bf16: from 600 up to 8 and from
       1200 up to 32) (:func:`sweep_wide`; the grouped routes past N = 59
       at small batches): the wide tier, each scenario on its share of one
-      cooperative grid over the card (:func:`_wide_plan`).  ``_wide``
+      cooperative grid over the card (:func:`sweep_wide_plan`).  ``_wide``
       names the tier instead (to time and check both tiers at one
       shape).
     ``sms`` is the card's count of SMs (the launches give
@@ -291,7 +307,7 @@ def sweep_plan(B: int, K: int, n: int, form: str, esize: int = 4,
     if _wide:
         if form == "dense":
             raise ValueError(f"sweep kernels: no wide tier of form {form!r}")
-        return _wide_plan(B, K, n, esize, sms, form)
+        return sweep_wide_plan(B, K, n, esize, sms, form)
     part = sweep_part_rows(form, n)
     row_bytes = sweep_row_bytes(n, esize)
     most = sweep_blocks_per_sm(form, n, esize)

@@ -17,7 +17,8 @@
    "default" too) and "highest" (FP32), with the kernel and the exact
    anchors timed apart;
    the fused ADMM interval at N=30, 40, 50 and 60 (B=128), with the bound
-   of its whole blocks and of their upper triangles; on the factors of the
+   of its whole blocks and of their upper triangles, and at the
+   compaction's tail dispatch of B=32 on its wide tier; on the factors of the
    reference-compatible solver (rho 0.1,
    hard collision rows) the L-only sweep (its bounds count Linv's lower
    triangle, its stream of whole blocks beside them) and the dense
@@ -27,8 +28,9 @@
    penalty weight +inf) and its wide instantiation at K=3, N=90; the three
    sweeps print the launch plan they ran (``group_solve.sweep_plan``); both
    fused intervals again with one rho a lane (adaptive rho), read through
-   their per-lane strides (the X form at N=30, B=128, the L form at N=20,
-   B=64); the grouped routes' kernels past N = 341 (``wide_kernel_phase``:
+   their per-lane strides (the X form at N=30, B=128 and, on its wide tier,
+   B=32, the L form at N=20, B=64); the grouped routes' kernels past
+   N = 341 (``wide_kernel_phase``:
    the X-form sweep on its wide tier and the L-only sweep at N=342, B=2,
    and at N=1024, n=6144, B=1 with the horizon cut to K=6, and the NS
    chain at N=342, B=2 on its wide tier beside the plain factorize_X timed
@@ -74,10 +76,13 @@
    SCP loop cut to 2 iterations from a lattice of starts (finite
    trajectories, three launches an ADMM iteration; feasibility printed);
    then the short-horizon phase (``short_phase``), where the router sends
-   large fleets to the fused X interval: the kernel against its plain
-   version at N=584, K=2 (n=3504) and N=341, K=6 (B=2) and at N=268, K=9
-   (B=1), beside the whole blocks' stream bound, and one production ``solve_qp_state`` at N=341,
-   K=6, B=2 on ``fused_X`` against the same call on the plain interval;
+   large fleets to the fused X interval: the kernel's wide tier against
+   its plain version at N=584, K=2 (n=3504) and N=341, K=6 (B=2) and at
+   N=268, K=9 (B=1), bit for bit across launches and against the
+   one-block tier, both tiers timed in turns beside the whole blocks'
+   stream bound, and one production ``solve_qp_state`` at N=341, K=6,
+   B=2 on ``fused_X`` (the wide tier) against the same call on the plain
+   interval;
 6. the reference-compatible path at N=20: ``SCPEngine.solve_batch`` over
    FACADE_B scenarios with the ``SCP`` class's solver (L-form factors, hard
    collision rows, up to 2000 ADMM iterations per QP in intervals of 25,
@@ -147,8 +152,9 @@
 The launch counters are set to 0 just before each path and read just after:
 each path must launch the kernels of its route and no other (every
 float32 solve on the direct method also runs phase 1 on the channel
-interval).  Any failed phase raises, so the exit code is not 0.  The last
-four lines are the card's name and power limit, one JSON object on the
+interval; the fused X interval's wide tier counts apart, and a path
+launches it where a dispatch's batch takes it).  Any failed phase raises,
+so the exit code is not 0.  The last four lines are the card's name and power limit, one JSON object on the
 hand-written kernels with no Pallas body (``glue_kernels``), one on the
 kernels of the nine Pallas bodies and ``{"ok": true, "device": {...}}``.
 """
@@ -164,6 +170,7 @@ K_STEPS = int(T_HORIZON / H)
 # (N, scenarios, chunk) of each main path
 MAIN_PATHS = ((20, 1024, 512), (30, 2048, 128), (40, 2048, 128))
 B_LARGE = 128                      # kernel phases at N=30..60: one chunk
+B_TAIL = B_LARGE // 4              # and the compaction's tail dispatch of it
 LARGE_NS = (30, 40, 50, 60)        # the fused route's widths in those phases
 FACADE_B = 64                      # scenarios of the reference-compatible path
 REF_FACADE_ITERS = 500             # QP budget of its reference phase
@@ -251,10 +258,11 @@ def _read(counters):
     return {key: fn.launches for key, fn in counters.items()}
 
 
-def _check_route(what, launches, route):
-    """Each kernel of ``route`` launched, no other."""
+def _check_route(what, launches, route, maybe=frozenset()):
+    """Each kernel of ``route`` launched, no other (those of ``maybe`` may
+    launch or not)."""
     for kname, n_launch in launches.items():
-        if (n_launch > 0) != (kname in route):
+        if kname not in maybe and (n_launch > 0) != (kname in route):
             raise AssertionError(f"{what} launched {kname} {n_launch} times; "
                                  f"its route is {sorted(route)}")
 
@@ -760,9 +768,24 @@ def _lane_rho(B, seed):
                            dtype=torch.float32, device="cuda")
 
 
+def _wide_x_plan(dev, B, n_veh, tag):
+    """The fused X interval's plan for B scenarios at N=n_veh, K=50 on this
+    card, which must be its wide tier."""
+    from ba_path_planning_torch.ops.admm_fused import fused_x_plan
+    from ba_path_planning_torch.ops.cuda_build import device_sms
+    plan = fused_x_plan(B, K_STEPS, n_veh, sms=device_sms(dev))
+    if not plan.spread:
+        raise AssertionError(f"{tag}: N={n_veh} B={B} off the wide tier: "
+                             f"{plan}")
+    return plan
+
+
 def large_phase(dev, n_veh):
-    """N=30 or N=40, B=128: the NS chain (global-memory layout) and the
-    fused X-form ADMM interval on its factors."""
+    """N=30 … 60, B=128: the NS chain (global-memory layout) and the
+    fused X-form ADMM interval on its factors; then the interval at the
+    compaction's tail dispatch of B=32 lanes (other scenarios), on the
+    wide tier its plan takes there."""
+    from ba_path_planning_torch.ops import ns_chain
     from ba_path_planning_torch.ops.admm_fused import (
         admm_interval_fused_X, admm_interval_fused_X_plain, fused_plan)
     D, C, _, _, kw = _case(n_veh, B_LARGE, dev, seed=n_veh)
@@ -779,35 +802,62 @@ def large_phase(dev, n_veh):
         admm_interval_fused_X,
         admm_interval_fused_X_plain, kw, n_veh, K_STEPS * n * n,
         needed_floats=K_STEPS * n * (n + 1) // 2)
-    return {"ns_chain": ns_stats, "admm_fused_x": stats}
+    del kw, X
+    D, C, _, _, kw = _case(n_veh, B_TAIL, dev, seed=1000 + n_veh)
+    kw["X"] = ns_chain.factorize_X_chain_batched(D, C, ns_iters=2,
+                                                 ns_precision="high")
+    del D
+    plan = _wide_x_plan(dev, B_TAIL, n_veh, "large phase")
+    # the wide tier reads whole rows of every block, 2K - 1 a sweep
+    wide = fused_check(
+        f"large phase: admm_interval_fused_X on the wide tier "
+        f"({plan.spread} blocks a scenario, {plan.per_sm} an SM, a ring of "
+        f"{plan.stages} stages of {plan.band_rows} rows)",
+        admm_interval_fused_X, admm_interval_fused_X_plain, kw, n_veh,
+        K_STEPS * n * n, stream_floats=(2 * K_STEPS - 1) * n * n)
+    wide["plan"] = plan._asdict()
+    return {"ns_chain": ns_stats, "admm_fused_x": stats,
+            "admm_fused_x_wide": wide}
 
 
 def lane_rho_phase(dev):
     """Both fused intervals with one rho a lane, read through their
     per-lane strides: the X form at N=30, B=128 (the adaptive N=30 path's
     chunk; per-lane rho planes and slot scalars, its factors those of
-    M / rho scaled back, as the solver makes them) and the L form at N=20,
-    B=64 (the reference-compatible path's batch), each against its plain
-    version and the float64 interval as :func:`fused_check` holds them."""
+    M / rho scaled back, as the solver makes them) and at its tail
+    dispatch of B=32 (the wide tier), and the L form at N=20, B=64 (the
+    reference-compatible path's batch), each against its plain version and
+    the float64 interval as :func:`fused_check` holds them."""
     from ba_path_planning_torch.ops import admm_fused, ns_chain
     from ba_path_planning_torch.solvers import banded
     from ba_path_planning_torch.utils.config import SolverConfig
     out = {}
-    n_veh, B = 30, B_LARGE
-    lane_rho = _lane_rho(B, seed=n_veh)
-    D, C, _, _, kw = _case(n_veh, B, dev, seed=n_veh, lane_rho=lane_rho)
+    n_veh = 30
+    n = 6 * n_veh
     C1 = banded.unit_slot_scalars(
         SolverConfig.production(problem=_problem(n_veh)).static_part(),
         n_steps=K_STEPS, h=H, device=dev)
-    scale = lane_rho.reshape(-1, 1, 1, 1)
-    kw["X"] = ns_chain.factorize_X_chain_batched(
-        D / scale, C1, ns_iters=2, ns_precision="high") / scale
-    del D
-    n = 6 * n_veh
+
+    def case(B, seed):
+        lane_rho = _lane_rho(B, seed=seed)
+        D, C, _, _, kw = _case(n_veh, B, dev, seed=seed, lane_rho=lane_rho)
+        scale = lane_rho.reshape(-1, 1, 1, 1)
+        kw["X"] = ns_chain.factorize_X_chain_batched(
+            D / scale, C1, ns_iters=2, ns_precision="high") / scale
+        return kw
     out["admm_fused_x"] = fused_check(
         "lane-rho phase: admm_interval_fused_X, one rho a lane",
-        admm_fused.admm_interval_fused_X, admm_fused.admm_interval_fused_X_plain,
-        kw, n_veh, K_STEPS * n * n, needed_floats=K_STEPS * n * (n + 1) // 2)
+        admm_fused.admm_interval_fused_X,
+        admm_fused.admm_interval_fused_X_plain, case(B_LARGE, n_veh), n_veh, K_STEPS * n * n,
+        needed_floats=K_STEPS * n * (n + 1) // 2)
+    plan = _wide_x_plan(dev, B_TAIL, n_veh, "lane-rho phase")
+    out["admm_fused_x_wide"] = fused_check(
+        f"lane-rho phase: admm_interval_fused_X on the wide tier "
+        f"({plan.spread} blocks a scenario), one rho a lane",
+        admm_fused.admm_interval_fused_X,
+        admm_fused.admm_interval_fused_X_plain, case(B_TAIL, 1000 + n_veh), n_veh, K_STEPS * n * n,
+        stream_floats=(2 * K_STEPS - 1) * n * n)
+    out["admm_fused_x_wide"]["plan"] = plan._asdict()
     n_veh, B = 20, FACADE_B
     lane_rho = _lane_rho(B, seed=n_veh) / 26.0       # around the facade's 0.1
     D, C, _, _, kw = _case(n_veh, B, dev, seed=1000 + n_veh + B,
@@ -1405,21 +1455,40 @@ ROW_STAGES = {"admm_rhs", "admm_update"}
 PHASE1 = {"admm_channel_interval"}
 
 
-def _production_route(n_veh):
+def _production_route(n_veh, batches=(B_LARGE,)):
     """The kernels of the production solver at N=n_veh, as the JAX router
     routes (``banded.qp_route``): the grouped X sweep with the ADMM stages
     where it routes there (at K=50, N <= 21 and N >= 109, where the fused
-    interval's factors pass its gate), else the fused interval; phase 1 on
-    the channel interval."""
+    interval's factors pass its gate), else the fused interval, on the
+    tier its plan takes at each of the dispatches' ``batches``
+    (``admm_fused_x_wide`` the wide one); phase 1 on the channel
+    interval."""
     import torch
+    from ba_path_planning_torch.ops.admm_fused import fused_x_plan
+    from ba_path_planning_torch.ops.cuda_build import device_sms
     from ba_path_planning_torch.solvers.banded import qp_route
     from ba_path_planning_torch.utils.config import SolverConfig
     route = qp_route(
         SolverConfig.production(problem=_problem(n_veh)).static_part(),
         n_vehicles=n_veh, n_steps=K_STEPS, dtype=torch.float32,
         col_enabled=True)
-    return PHASE1 | ({"ns_chain", "admm_fused_x"} if route == "fused_X"
-                     else {"ns_chain", "group_solve_x"} | ROW_STAGES)
+    if route != "fused_X":
+        return PHASE1 | {"ns_chain", "group_solve_x"} | ROW_STAGES
+    sms = device_sms(torch.device("cuda"))
+    return PHASE1 | {"ns_chain"} | {
+        "admm_fused_x_wide" if fused_x_plan(B, K_STEPS, n_veh, sms).spread
+        else "admm_fused_x" for B in batches}
+
+
+def _dispatch_batches(timing, chunk):
+    """The batches of a ``solve_compacted``'s dispatches, read from its
+    ``last_timing``: chunks of ``chunk`` lanes and tails of chunk // 4
+    (``parallel/mesh.py``), each where the loop made one."""
+    tail = chunk // 4
+    n, lanes = timing["loop_dispatches"], timing["loop_lanes_dispatched"]
+    tails = (chunk * n - lanes) // (chunk - tail)
+    return tuple(B for B, count in ((chunk, n - tails), (tail, tails))
+                 if count)
 
 
 # the summary of each main path by its label, for the bf16 paths' lines
@@ -1504,7 +1573,8 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
           f"timing={json.dumps(sh.last_timing)} launches={launches}",
           flush=True)
     _check_route(f"N={n_veh} main path{name}", launches,
-                 _production_route(n_veh))
+                 _production_route(n_veh, _dispatch_batches(sh.last_timing,
+                                                            chunk)))
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
     return launches
@@ -1708,18 +1778,22 @@ SHORT_QP = (341, 2, 6)
 
 
 def short_phase(dev, card, counters):
-    """The X-form fused interval at SHORT_SHAPES against its plain version
-    (:func:`fused_check`, on the factors of the solver's X-form route: the
-    NS chain from K = 6, ``factorize_X`` below), timed beside the whole
-    blocks' stream bound ((2K - 1) n^2 floats a scenario an iteration);
-    then one production ``banded.solve_qp_state`` at SHORT_QP on
-    ``fused_X`` (the NS chain and one fused launch an interval), against
+    """The X-form fused interval at SHORT_SHAPES on the tier its plan
+    takes (the wide tier: each scenario over many SMs) against its plain
+    version (:func:`fused_check`, on the factors of the solver's X-form
+    route: the NS chain from K = 6, ``factorize_X`` below), timed beside
+    the whole blocks' stream bound ((2K - 1) n^2 floats a scenario an
+    iteration); bit for bit across two launches and against the one-block
+    tier (both read whole bands), and both tiers timed in turns; then one
+    production ``banded.solve_qp_state`` at SHORT_QP on ``fused_X`` (the
+    NS chain and one fused launch an interval, on the wide tier), against
     the same call with the plain interval in the kernel's place: equal
     iteration counts and convergence flags, x of every (b, k) block within
     WIDE_QP_TOL.  Returns {shape: the kernel's numbers} and the launch
     counts of the QP."""
     import torch
     from ba_path_planning_torch.ops import admm_fused
+    from ba_path_planning_torch.ops.cuda_build import device_sms
     from ba_path_planning_torch.solvers import banded
     from ba_path_planning_torch.utils.config import (SolverConfig,
                                                      make_solver_params)
@@ -1739,29 +1813,75 @@ def short_phase(dev, card, counters):
         kw["X"] = banded._factorize_X_routed(D, C, solver.static_part())
         del D
         n = 6 * n_veh
-        plan = admm_fused.fused_plan(K, n_veh, "X")
+        plan = admm_fused.fused_x_plan(B, K, n_veh, sms=device_sms(dev))
+        one = admm_fused.fused_x_plan(B, K, n_veh, sms=device_sms(dev),
+                                      _wide=False)
+        if not plan.spread:
+            raise AssertionError(f"short phase: N={n_veh} K={K} B={B} "
+                                 f"off the wide tier: {plan}")
         st = fused_check(
-            f"short phase: admm_interval_fused_X (ring of {plan.stages} "
-            f"stages of {plan.band_rows} rows, packed={plan.packed}, plane "
-            f"in {'shared' if plan.plane_in_smem else 'global'} memory, "
+            f"short phase: admm_interval_fused_X on the wide tier "
+            f"({plan.spread} blocks a scenario, {plan.per_sm} an SM, a "
+            f"ring of {plan.stages} stages of {plan.band_rows} rows, "
             f"{plan.smem_bytes} B)", admm_fused.admm_interval_fused_X,
-            admm_fused.admm_interval_fused_X_plain, kw, n_veh, K * n * n,
-            stream_floats=(2 * K - 1) * n * n)
+            admm_fused.admm_interval_fused_X_plain, dict(kw), n_veh,
+            K * n * n, stream_floats=(2 * K - 1) * n * n)
         st.pop("timed_at", None)
-        st["plan"] = plan._asdict()
+        # both tiers from one state: bit for bit, then timed in turns
+        x = kw.pop("x")
+        z = banded.tree_map(torch.clamp, banded.apply_A(
+            x, kw["eta"], kw["E"], H), kw["lower"], kw["upper"])
+        state = dict(x=x, z=z, y=banded.tree_map(torch.zeros_like, z),
+                     n_iters=25)
+
+        def run(p):
+            return _rows(admm_fused.admm_interval_fused_X(**kw, **state,
+                                                          _plan=p))
+        first, second, other = run(plan), run(plan), run(one)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(first, second))
+        same = all(torch.equal(a, b) for a, b in zip(first, other))
+        del first, second, other
+        runs = {"wide": [], "one_block": []}
+        for _ in range(2):
+            for tier, p in (("wide", plan), ("one_block", one)):
+                runs[tier].append(_time_ms(
+                    lambda p=p: admm_fused.admm_interval_fused_X(
+                        **kw, **state, _plan=p), reps=2))
+        st.update(tier="wide", plan=plan._asdict(),
+                  one_block_plan=one._asdict(), ms_runs_by_tier=runs,
+                  one_block_ms=min(runs["one_block"]),
+                  bit_for_bit_across_launches=repeat,
+                  equal_to_one_block=same)
         out[f"N={n_veh} K={K} B={B}"] = st
         print(f"short phase: admm_interval_fused_X N={n_veh} K={K} B={B} "
-              f"25 iterations: kernel {st['ms']:.3f} ms, plain "
-              f"{st['plain_ms']:.3f} ms, whole-block stream bound "
-              f"{st['stream_bound_ms']:.3f} ms "
-              f"({st['stream_bound_ms'] / st['ms']:.2%}), bound "
-              f"{st['bound_ms']:.3f} ms ({st['bound_by']})", flush=True)
-        del kw
+              f"25 iterations on {card}: wide tier {st['ms']:.3f} ms "
+              f"(in turns {runs['wide']}), one-block tier "
+              f"{st['one_block_ms']:.3f} ms (in turns {runs['one_block']}), "
+              f"plain {st['plain_ms']:.3f} ms, whole-block stream bound "
+              f"{st['stream_bound_ms']:.3f} ms (wide "
+              f"{st['stream_bound_ms'] / st['ms']:.2%}, one block "
+              f"{st['stream_bound_ms'] / st['one_block_ms']:.2%}), bound "
+              f"{st['bound_ms']:.3f} ms ({st['bound_by']}); bit for bit "
+              f"across launches {repeat}, equal to the one-block tier "
+              f"{same}", flush=True)
+        if not (repeat and same):
+            raise AssertionError(f"short phase: N={n_veh} K={K} B={B}: "
+                                 f"bit for bit across launches {repeat}, "
+                                 f"equal to the one-block tier {same}")
+        if not st["ms"] < st["plain_ms"]:
+            raise AssertionError(f"short phase: N={n_veh} K={K} B={B}: the "
+                                 f"wide tier ({st['ms']:.3f} ms) is not "
+                                 f"faster than plain ({st['plain_ms']:.3f})")
+        del kw, x, z, state
         torch.cuda.empty_cache()
 
     n_veh, B, K = SHORT_QP
     solver = production(n_veh, K)
     static = solver.static_part()
+    qp_plan = admm_fused.fused_x_plan(B, K, n_veh, sms=device_sms(dev))
+    if not qp_plan.spread:
+        raise AssertionError(f"short phase QP: off the wide tier: {qp_plan}")
     kw = _case(n_veh, B, dev, seed=3410, solver=solver, n_steps=K)[4]
     prm = make_solver_params(solver, f32, dev)
 
@@ -1791,14 +1911,20 @@ def short_phase(dev, card, counters):
     err = _block_rel(got, want, 1)
     intervals = -(-int(res.iters.max()) // solver.check_interval)
     print(f"short phase: production QP route fused_X N={n_veh} K={K} B={B} "
-          f"f32 on {card}: iterations {res.iters.tolist()} (plain interval "
-          f"{ref.iters.tolist()}), converged {res.converged.tolist()} "
+          f"f32 on {card}, the fused interval on the wide tier "
+          f"({qp_plan.spread} blocks a scenario): iterations "
+          f"{res.iters.tolist()} (plain interval {ref.iters.tolist()}), "
+          f"converged {res.converged.tolist()} "
           f"({ref.converged.tolist()}); x against the plain interval "
           f"max_block_rel={err:.3e} (tol {WIDE_QP_TOL:g}); wall {wall:.3f} "
           f"s (plain interval {wall_p:.3f} s); launches={launches}",
           flush=True)
+    out["production QP"] = {"N": n_veh, "K": K, "B": B, "wall_s": wall,
+                            "plain_interval_wall_s": wall_p,
+                            "max_block_rel": err, "tier": "wide",
+                            "plan": qp_plan._asdict()}
     _check_route("the short phase's QP", launches,
-                 {"ns_chain", "admm_fused_x"})
+                 {"ns_chain", "admm_fused_x_wide"})
     if not (torch.equal(res.iters, ref.iters)
             and torch.equal(res.converged, ref.converged)):
         raise AssertionError("short phase QP: iteration counts differ from "
@@ -1806,8 +1932,9 @@ def short_phase(dev, card, counters):
     if not err <= WIDE_QP_TOL:
         raise AssertionError(f"short phase QP: x off the plain interval's: "
                              f"{err:.3e}")
-    if launches["admm_fused_x"] != intervals:
-        raise AssertionError(f"short phase QP: {launches['admm_fused_x']} "
+    if launches["admm_fused_x_wide"] != intervals:
+        raise AssertionError(f"short phase QP: "
+                             f"{launches['admm_fused_x_wide']} "
                              f"fused launches for {intervals} intervals")
     return out, launches
 
@@ -1838,7 +1965,8 @@ def sweep_phase(dev, card, counters):
         path = _read(counters)
         print(f"soak / N-sweep twin N={n_veh} B={B} chunk={chunk} on {card}: "
               f"{json.dumps(rec)}", flush=True)
-        _check_route(f"N={n_veh} sweep path", path, _production_route(n_veh))
+        _check_route(f"N={n_veh} sweep path", path, _production_route(
+            n_veh, _dispatch_batches(rec["timing"], chunk)))
         if rec["route"] != "fused_X":
             raise AssertionError(f"N={n_veh} routed {rec['route']}")
         for key, n in path.items():
@@ -1965,7 +2093,8 @@ def adaptive_path(dev, card, n_veh, B, chunk, counters):
           f"lanes refactorized after rho adapted={refac} "
           f"launches={launches}", flush=True)
     _check_route(f"adaptive N={n_veh} path", launches,
-                 _production_route(n_veh))
+                 _production_route(n_veh, _dispatch_batches(sh.last_timing,
+                                                            chunk)))
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
     return launches
@@ -2266,7 +2395,10 @@ def batch_cli_phase(counters):
         print(f"batch CLI {name}: exit {rc} launches={launches}", flush=True)
         if rc != 0:
             raise AssertionError(f"batch CLI {name} exited {rc}")
-        _check_route(f"batch CLI {name}", launches, route)
+        # its dispatches are the CLI's own: a tail of 32 lanes at N=30 may
+        # take the fused interval's wide tier
+        _check_route(f"batch CLI {name}", launches, route,
+                     maybe={"admm_fused_x_wide"})
         for key, n in launches.items():
             total[key] = total.get(key, 0) + n
 
@@ -3177,6 +3309,10 @@ def main():
                     "nonzero_stream_bound_ms"):
             lstats[40]["admm_fused_x"][f"{key}_at_N{n_veh}"] = (
                 lstats[n_veh]["admm_fused_x"][key])
+        for key in ("ms", "plain_ms", "bound_ms", "stream_bound_ms",
+                    "max_abs_err", "plan"):
+            lstats[40]["admm_fused_x_wide"][f"{key}_at_N{n_veh}"] = (
+                lstats[n_veh]["admm_fused_x_wide"][key])
         for key in ("ms", "kernel_ms", "bound_ms"):
             lstats[40]["ns_chain"][f"{key}_at_N{n_veh}"] = (
                 lstats[n_veh]["ns_chain"][key])
@@ -3226,6 +3362,7 @@ def main():
     counters = {"ns_chain": ns_chain.factorize_X_chain_batched,
                 "group_solve_x": group_solve.solve_factorized_grouped_X,
                 "admm_fused_x": admm_fused.admm_interval_fused_X,
+                "admm_fused_x_wide": admm_fused.admm_interval_fused_X.wide,
                 "group_solve_l": group_solve.solve_factorized_grouped_L,
                 "banded_solve": banded_solve.solve_factorized_dense,
                 "admm_fused_l": admm_fused.admm_interval_fused,
@@ -3258,9 +3395,9 @@ def main():
     lap("wide phase")
     short, short_launches = short_phase(dev, card, counters)
     add(short_launches)
-    lstats[40]["admm_fused_x"]["short_shapes"] = short
-    lstats[40]["admm_fused_x"]["launches_short_phase"] = (
-        short_launches["admm_fused_x"])
+    lstats[40]["admm_fused_x_wide"]["short_shapes"] = short
+    lstats[40]["admm_fused_x_wide"]["launches_short_phase"] = (
+        short_launches["admm_fused_x_wide"])
     torch.cuda.empty_cache()
     lap("short-horizon phase")
     add(sweep_phase(dev, card, counters))
@@ -3280,7 +3417,8 @@ def main():
     for n_veh, B, chunk in ADAPTIVE_PATHS:
         path = adaptive_path(dev, card, n_veh, B, chunk, counters)
         add(path)
-        lane_launches["admm_fused_x"] += path["admm_fused_x"]
+        for key in ("admm_fused_x", "admm_fused_x_wide"):
+            lane_launches[key] += path[key]
     _, path = facade_path(dev, card, "fused_L", counters, adaptive=True)
     add(path)
     lane_launches["admm_fused_l"] += path["admm_fused_l"]
@@ -3313,6 +3451,9 @@ def main():
         "admm_fused_x": ("admm_interval_fused_X", "admm_fused_x.cu",
                          ["admm_fused.py:637", "admm_fused.py:432"],
                          lstats[40]["admm_fused_x"]),
+        "admm_fused_x_wide": ("admm_interval_fused_X", "admm_fused_x.cu",
+                              ["admm_fused.py:637", "admm_fused.py:432"],
+                              lstats[40]["admm_fused_x_wide"]),
         "group_solve_l": ("solve_factorized_grouped_L", "group_solve_l.cu",
                           ["group_solve.py:241"], fstats["group_solve_l"]),
         "banded_solve": ("solve_factorized_dense", "banded_solve.cu",
@@ -3326,6 +3467,9 @@ def main():
         "admm_fused_x": ("admm_interval_fused_X", "admm_fused_x.cu",
                          ["admm_fused.py:637", "admm_fused.py:432"],
                          lane["admm_fused_x"]),
+        "admm_fused_x_wide": ("admm_interval_fused_X", "admm_fused_x.cu",
+                              ["admm_fused.py:637", "admm_fused.py:432"],
+                              lane["admm_fused_x_wide"]),
         "admm_fused_l": ("admm_interval_fused", "admm_fused_l.cu",
                          ["admm_fused.py:162"], lane["admm_fused_l"]),
     }
@@ -3355,6 +3499,11 @@ def main():
                                 "bf16 paths'")
         if len(replaces) > 1:
             entry["also_replaces"] = [pallas + r for r in replaces[1:]]
+        if key.startswith("admm_fused_x"):
+            entry["tier"] = (
+                "wide (admm_fused_x_wide_kernel: a scenario over many SMs)"
+                if key.startswith("admm_fused_x_wide")
+                else "one block a scenario (admm_fused_x_kernel)")
         if n_launch < 1:
             raise AssertionError(f"no path launched {wrapper} ({key})")
         kernels.append(entry)

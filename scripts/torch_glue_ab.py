@@ -6,7 +6,7 @@ turns, on one GPU: what running the ADMM iteration in hand-written kernels
     python3 scripts/torch_glue_ab.py --roots <parent> <change> \
         [--turns 0,1,1,0]
         [--parts production,latency,bench,facade,facade_bf16,
-                 facade_bf16_all,phase1]
+                 facade_bf16_all,phase1,fused_paths]
         [--out build/glue_ab.json]
 
 For each turn, in the checkout it names (every measurement a process of
@@ -36,9 +36,16 @@ its own, started in that checkout, so each runs the code it finds there):
   configurations (B=1024, chunk 512) as ``scripts/torch_soak_nsweep.py``
   runs them (``run_cfg``: a warm-up solve, then one timed solve): the
   wall, phase 1's seconds and the loop's (``last_timing``), collision-free
-  lanes and mean SCP iterations.
+  lanes and mean SCP iterations;
+* this script's ``--fused-paths`` (part ``fused_paths``, not in the
+  default parts): the production paths on the fused X route as
+  ``run_cfg`` runs them, N=30 and N=40 at B=2048, chunk 128, and N=30 at
+  B=256, chunk 128, with adaptive rho and polish (``chip_smoke.py``'s
+  adaptive path's solver), each timed FUSED_PATH_RUNS times after a
+  warm-up: walls, the loop's dispatches, the kernel launches.
 
-``--parts`` picks the measurements (all by default).  Prints one line a
+``--parts`` picks the measurements (the default list above but
+``fused_paths``).  Prints one line a
 measurement and writes every record to ``--out``.
 """
 
@@ -123,6 +130,39 @@ def round_record(root):
             "mean_scp_iters", "mean_qp_iters")}), flush=True)
 
 
+# timed solves of each configuration of ``--fused-paths``
+FUSED_PATH_RUNS = 3
+
+
+def fused_paths(root):
+    """The production paths on the fused X route with the code of the
+    checkout ``root``; prints one JSON line each."""
+    sys.path.insert(0, root)
+    sys.path.insert(0, str(Path(root) / "scripts"))
+    import torch_soak_nsweep as tsn
+    from ba_path_planning_torch.utils.config import (ProblemConfig,
+                                                     SolverConfig)
+    problem = ProblemConfig(n_vehicles=30, time_horizon=tsn.T_HORIZON,
+                            time_step=tsn.H, min_distance=tsn.R,
+                            max_iterations=tsn.MAX_SCP, stop_mode="feasible")
+    adaptive = SolverConfig.production(problem=problem).replace(
+        adaptive_rho=True, polish=True, max_iter=100)
+    for n_veh, B, solver, label in ((30, 2048, None, "production"),
+                                    (40, 2048, None, "production"),
+                                    (30, 256, adaptive, "adaptive")):
+        recs = [tsn.run_cfg(n_veh, B, 128, solver=solver, warmup=not i)
+                for i in range(FUSED_PATH_RUNS)]
+        print(json.dumps({
+            "N": n_veh, "batch": B, "chunk": 128, "solver": label,
+            "walls_s": [r["wall_s"] for r in recs],
+            "loop_dispatches": recs[0]["timing"]["loop_dispatches"],
+            "loop_lanes_dispatched":
+                recs[0]["timing"]["loop_lanes_dispatched"],
+            "collision_free": recs[0]["collision_free"],
+            "mean_scp_iters": recs[0]["mean_scp_iters"],
+            "launches": recs[0]["launches"]}), flush=True)
+
+
 def _run(root, argv, timeout=1200):
     proc = subprocess.run(argv, cwd=root, capture_output=True, text=True,
                           timeout=timeout)
@@ -167,11 +207,15 @@ def main():
     ap.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--round-record", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--fused-paths", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.facade:
         return facade(args.facade, args.roots[0], args.bf16)
     if args.round_record:
         return round_record(args.roots[0])
+    if args.fused_paths:
+        return fused_paths(args.roots[0])
     parts = set(args.parts.split(","))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -222,6 +266,18 @@ def main():
                       f"{r['timing']['loop_s']:.4f} s, collision-free "
                       f"{r['collision_free']}, mean SCP "
                       f"{r['mean_scp_iters']:.4f}", flush=True)
+        if "fused_paths" in parts:
+            out, _ = _run(root, [sys.executable, str(here), "--fused-paths",
+                                 "--roots", root])
+            rec["fused_paths"] = [json.loads(ln) for ln in
+                                  out.strip().splitlines()
+                                  if ln.startswith("{")]
+            for r in rec["fused_paths"]:
+                print(f"[{turn}] fused-route path {r['solver']} N={r['N']} "
+                      f"B={r['batch']}: walls {r['walls_s']} s, dispatches "
+                      f"{r['loop_dispatches']} ({r['loop_lanes_dispatched']} "
+                      f"lanes), collision-free {r['collision_free']}, "
+                      f"launches {r['launches']}", flush=True)
         records.append(rec)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(card=card, records=records),

@@ -77,6 +77,7 @@ def kernel_counters():
     return {"ns_chain": ns_chain.factorize_X_chain_batched,
             "group_solve_x": group_solve.solve_factorized_grouped_X,
             "admm_fused_x": admm_fused.admm_interval_fused_X,
+            "admm_fused_x_wide": admm_fused.admm_interval_fused_X.wide,
             "group_solve_l": group_solve.solve_factorized_grouped_L,
             "banded_solve": banded_solve.solve_factorized_dense,
             "admm_fused_l": admm_fused.admm_interval_fused}

@@ -56,15 +56,21 @@ and on the float32 factors in turns (bf16, f32, bf16, f32: ``ms`` and
 four); the bounds then count 2 bytes an element on the padded rows.  With
 ``--bf16`` the L-form fused interval (FL) runs on bf16 (Linv, Eb) as well,
 checked as ``chip_smoke.py`` checks it, and is timed on both factor types
-from one state in the same turns.  ``--tiers`` times cases X, L and NS
+from one state in the same turns.  ``--tiers`` times cases X, L, NS and F
 on each tier of their kernel in turns (the plan's first: ``ms``; every
 tier, each checked, in ``ms_by_tier``: the sweeps' "cluster" and "wide",
-the NS chain's output tile, 0 for one block a scenario), where the
-checkout has tiers (with ``--bf16`` on the bf16 factors and their
-plans).  ``--plans`` times cases X and L on their wide tier under other
+the NS chain's output tile, 0 for one block a scenario, the fused
+interval's "one_block" and "wide"), where the checkout has tiers (with
+``--bf16`` on the bf16 factors and their plans); case F then states its
+stream bound as the (2K - 1) whole blocks an iteration streams, and
+whether the wide tier's result equals the one-block tier's bit for bit
+(``wide_equals_one_block``; both read whole bands above n = 512).
+``--plans`` times cases X and L on their wide tier under other
 plans too (``wide_plans``: each count of blocks an SM, the bands from 2
 rows to the largest two stages allow, two stages and as many as fit),
-each checked (X: equal to the plan's result; L: within SWEEP_TOL of the
+and case F under other counts of blocks a scenario (``fused_wide_plans``:
+one and two blocks an SM, each spread from 2 to the card's), each checked
+(X and F: equal to the plan's result; L: within SWEEP_TOL of the
 plain version, and equal to the plan's where its blocks are the plan's),
 in one JSON line (``plans_ms``).  Cases L and D, like X, repeat the inputs of at most
 DISTINCT scenarios.  ``--seed`` adds S to the seed of the inputs of cases X, L
@@ -161,6 +167,90 @@ def wide_plans(gs, B, K, n, form="X", esize=4):
                                             n, rows, band, stages, row, form),
                                         per_sm, spread))
     return out
+
+
+def fused_wide_plans(af, B, K, N):
+    """Plans of the fused X interval's wide tier beside its plan's: one
+    and two blocks an SM, each with 2, 4, 8, 16, 33 and 66 blocks a
+    scenario and as many as the card holds (at least a row pair a
+    block)."""
+    out = []
+    for per_sm in (1, 2):
+        most = min(af.SMS * per_sm // B, 3 * N)
+        for spread in sorted({s for s in (2, 4, 8, 16, 33, 66) if s <= most}
+                             | {most}):
+            plan = af.fused_wide_fit(K, N, spread, per_sm)
+            if plan is not None:
+                out.append(plan)
+    return out
+
+
+def _fused_tiers(cs, af, N, B, K, kw, card, plans):
+    """Case F with ``--tiers``: the fused X interval on its one-block and
+    its wide tier, each checked (``chip_smoke.fused_check``, the stream
+    bound of the (2K - 1) whole blocks an iteration streams), the wide
+    result against the one-block one bit for bit, then both timed in turns,
+    twice; with ``plans`` the wide tier under :func:`fused_wide_plans` too,
+    each equal to the plan's result.  Returns the JSON line."""
+    import torch
+    from ba_path_planning_torch.solvers import banded
+    n = 6 * N
+    tiers = {}
+    first = bool(af.fused_x_plan(B, K, N).spread)
+    for wide in (first, not first):
+        tiers["wide" if wide else "one_block"] = af.fused_x_plan(
+            B, K, N, _wide=wide)
+    stats = {}
+    for name, plan in tiers.items():
+        stats[name] = cs.fused_check(
+            f"F N={N} B={B} K={K} {name} tier",
+            lambda p=plan, **a: af.admm_interval_fused_X(**a, _plan=p),
+            af.admm_interval_fused_X_plain, dict(kw), N, K * n * n,
+            stream_floats=(2 * K - 1) * n * n)
+    x = kw.pop("x")
+    z = banded.tree_map(torch.clamp, banded.apply_A(
+        x, kw["eta"], kw["E"], cs.H), kw["lower"], kw["upper"])
+    y = banded.tree_map(torch.zeros_like, z)
+    state = dict(x=x, z=z, y=y, n_iters=25)
+
+    def run(plan):
+        return cs._rows(af.admm_interval_fused_X(**kw, **state, _plan=plan))
+    results = {name: run(plan) for name, plan in tiers.items()}
+    same = all(torch.equal(a, b) for a, b in zip(results["wide"],
+                                                  results["one_block"]))
+    runs = {name: [] for name in tiers}
+    for _ in range(2):
+        for name, plan in tiers.items():
+            runs[name].append(_time_adaptive(
+                cs, lambda p=plan: af.admm_interval_fused_X(**kw, **state,
+                                                            _plan=p)))
+    bound = stats["wide"]["stream_bound_ms"]
+    line = {"form": "F", "N": N, "B": B, "K": K, "iterations": 25,
+            "ms": min(next(iter(runs.values()))),
+            "ms_by_tier": {k: min(v) for k, v in runs.items()},
+            "ms_runs_by_tier": runs, "stream_bound_ms": bound,
+            "share_by_tier": {k: bound / min(v) for k, v in runs.items()},
+            "plain_ms": stats["wide"]["plain_ms"],
+            "max_abs_err": {k: st["max_abs_err"] for k, st in stats.items()},
+            "wide_equals_one_block": same,
+            "plans": {k: p._asdict() for k, p in tiers.items()},
+            "card": card}
+    if plans:
+        want = results["wide"]
+        times = {}
+        for plan in [tiers["wide"]] + [q for q in fused_wide_plans(
+                af, B, K, N) if q != tiers["wide"]]:
+            got = run(plan)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"F N={N} B={B} K={K}: plan "
+                                     f"{tuple(plan)} differs")
+            times[f"{plan.spread}x{plan.per_sm}"] = _time_adaptive(
+                cs, lambda p=plan: af.admm_interval_fused_X(**kw, **state,
+                                                            _plan=p))
+        line.update(plans_ms=times, plan_key="spread x per_sm")
+    del results
+    return line
 
 
 def _ns_case(cs, ns_chain, N, B, K, dev, card, tiers):
@@ -356,6 +446,14 @@ def main():
                 kw["X"] = ns_chain.factorize_X_chain_plain(
                     D / scale, C1, ns_iters=2) / scale
             del D
+            if (args.tiers or args.plans) and form == "F" and hasattr(
+                    admm_fused, "fused_x_plan"):
+                print(json.dumps(_fused_tiers(cs, admm_fused, N, B, K, kw,
+                                              card, args.plans)),
+                      flush=True)
+                del kw
+                torch.cuda.empty_cache()
+                continue
             if args.time_only:
                 x = kw.pop("x")
                 z = banded.tree_map(torch.clamp, banded.apply_A(

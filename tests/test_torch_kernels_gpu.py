@@ -15,6 +15,7 @@ from ba_path_planning_torch.ops import (admm_fused, banded_solve, group_solve,
                                         ns_chain)
 from ba_path_planning_torch.ops.collisions import (make_pair_index,
                                                    pairwise_diffs)
+from ba_path_planning_torch.ops.cuda_build import device_sms
 from ba_path_planning_torch.solvers import banded as tb
 from ba_path_planning_torch.solvers.scp import _warm_state
 from ba_path_planning_torch.utils.config import (ProblemConfig, SolverConfig,
@@ -544,16 +545,30 @@ def _interval_rows(out, K):
     return tb.to_stacked(x), rows(z), rows(y)
 
 
+def _fused_x_plan(cuda, B, K, N, wide):
+    """The X-form fused interval's plan on this card, its wide tier or
+    its one-block tier as ``wide`` says."""
+    return admm_fused.fused_x_plan(B, K, N, sms=device_sms(cuda), _wide=wide)
+
+
 def _check_interval(cuda, B, K, N, n_iters, form, hard, lane_rho=None,
-                    bf16=False):
+                    bf16=False, wide=None):
     args, kw = _interval_case(B, K, N, seed=N, device=cuda, form=form,
                               hard=hard, lane_rho=lane_rho)
     if bf16:        # the factors stored in bf16, as the solver stores them
         args = tb.compress_factors(*args[:2]) + args[2:]
     kernel, plain = _FUSED[form]
-    before = kernel.launches
-    got = kernel(*args, n_iters=n_iters, **kw)
-    assert kernel.launches == before + 1
+    tier, counter = {}, kernel
+    if form == "X":     # on the tier ``wide`` names, or on the card's plan
+        plan = _fused_x_plan(cuda, B, K, N, wide)
+        if wide is not None:
+            tier["_plan"] = plan
+            assert bool(plan.spread) == wide
+        # the wide tier's kernel counts its launches apart
+        counter = kernel.wide if plan.spread else kernel
+    before = counter.launches
+    got = kernel(*args, n_iters=n_iters, **kw, **tier)
+    assert counter.launches == before + 1
     want = plain(*args, n_iters=n_iters, **kw)
     ref = _interval_rows(plain(*_to64(args), n_iters=n_iters, **_to64(kw)),
                          K)
@@ -676,14 +691,92 @@ def test_admm_fused_x_short_horizons_bit_for_bit(cuda, B, K, N, lane):
         assert torch.equal(a, b)
 
 
+# (B, K, N) of the X-form fused interval's wide tier: the short horizons
+# and a latency shape (one scenario at the production horizon)
+WIDE_TIER = SHORT_HORIZONS + [(1, 50, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("B,K,N", WIDE_TIER)
+def test_admm_fused_x_tiers_match_plain(cuda, B, K, N, wide, n_iters):
+    """The X-form fused interval on each of its tiers at the short
+    horizons and at N = 40, K = 50, B = 1, held to the plain version as
+    :func:`test_admm_fused_kernel_matches_plain` holds it: the wide tier
+    (each scenario over many SMs, every read of another block's rows
+    through L2 after a barrier: a stale line would show after 25
+    iterations) and the one-block tier."""
+    _check_interval(cuda, B, K, N, n_iters, "X", hard=False, wide=wide)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("B,K,N", WIDE_TIER)
+def test_admm_fused_x_wide_tier_with_lane_rho(cuda, B, K, N, hard, n_iters):
+    """The wide tier with one rho a lane (per-lane rho planes and slot
+    scalars through the kernel's strides), with the production penalty and
+    with hard collision rows (lam = +inf)."""
+    rng = np.random.default_rng(B + N + K)
+    lane_rho = torch.as_tensor(2.6 * np.exp(rng.uniform(-2.3, 2.3, B)),
+                               dtype=torch.float32)
+    _check_interval(cuda, B, K, N, n_iters, "X", hard=hard,
+                    lane_rho=lane_rho, wide=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,N", WIDE_TIER)
+def test_admm_fused_x_wide_tier_bit_for_bit(cuda, B, K, N):
+    """Two launches of the wide tier on the same inputs give the same
+    bits, and so does the one-block tier wherever both read whole bands
+    (n > 512; the one-block tier reads packed triangles from N = 39 to 85):
+    every row is summed by the same code in the same order on both."""
+    args, kw = _interval_case(B, K, N, seed=N, device=cuda)
+    wide = _fused_x_plan(cuda, B, K, N, True)
+    first, second = (_interval_rows(admm_fused.admm_interval_fused_X(
+        *args, n_iters=25, **kw, _plan=wide), K) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    one = _fused_x_plan(cuda, B, K, N, False)
+    if not one.packed:
+        assert 6 * N > 512
+        other = _interval_rows(admm_fused.admm_interval_fused_X(
+            *args, n_iters=25, **kw, _plan=one), K)
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_admm_fused_x_wide_tier_refused_launch_raises(cuda):
+    """A wide plan whose blocks the card cannot hold all at once is a
+    cooperative launch the runtime refuses: the wrapper raises, and no
+    other tier or plain version runs in its place."""
+    B, K, N = 2, 9, 268
+    args, kw = _interval_case(B, K, N, seed=7, device=cuda)
+    sms = device_sms(cuda)
+    # one block too many a scenario, each taking more than half an SM's
+    # shared memory: one block an SM
+    plan = admm_fused.fused_wide_fit(K, N, sms // B + 1, 1)
+    assert B * plan.spread > sms
+    assert 2 * (plan.smem_bytes + 1024) > group_solve.SMEM_SM
+    counters = (admm_fused.admm_interval_fused_X,
+                admm_fused.admm_interval_fused_X.wide)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError):
+        admm_fused.admm_interval_fused_X(*args, n_iters=2, **kw, _plan=plan)
+    assert [c.launches for c in counters] == before
+
+
 @pytest.mark.gpu
 def test_production_qp_on_the_fused_x_route_at_k6_n341(cuda, monkeypatch):
     """A production solve_qp_state at K = 6, N = 341, B = 2 (the widest N
-    the router sends to ``fused_X`` at K = 6) runs on the fused kernel, one
-    launch an interval, against the same call with the plain interval in
-    its place: equal iteration counts and convergence flags, x of every
-    (b, k) block within 2e-4."""
+    the router sends to ``fused_X`` at K = 6) runs on the fused kernel's
+    wide tier, one launch an interval, against the same call with the
+    plain interval in its place: equal iteration counts and convergence
+    flags, x of every (b, k) block within 2e-4."""
     N, K, B = 341, 6, 2
+    assert _fused_x_plan(cuda, B, K, N, None).spread
     args, _ = _interval_case(B, K, N, seed=341, device=cuda)
     eta, E, lower, upper, x = args[2], args[3], args[4], args[5], args[6]
     problem = ProblemConfig(n_vehicles=N, time_horizon=K * 0.2,
@@ -697,14 +790,17 @@ def test_production_qp_on_the_fused_x_route_at_k6_n341(cuda, monkeypatch):
     def solve():
         return tb.solve_qp_state(lower, upper, eta, x, prm, E, h=0.2,
                                  static=static, n_vehicles=N)
-    before = admm_fused.admm_interval_fused_X.launches
+    counters = (admm_fused.admm_interval_fused_X.wide,
+                admm_fused.admm_interval_fused_X)
+    before = [c.launches for c in counters]
     got = solve()
-    launched = admm_fused.admm_interval_fused_X.launches - before
+    launched, one_block = (c.launches - n for c, n in zip(counters, before))
     monkeypatch.setattr(admm_fused, "admm_interval_fused_X",
                         admm_fused.admm_interval_fused_X_plain)
     want = solve()
     torch.cuda.synchronize()
     assert launched == -(-int(got.iters.max()) // solver.check_interval) > 0
+    assert one_block == 0
     assert torch.equal(got.iters, want.iters)
     assert torch.equal(got.converged, want.converged)
     gx, wx = tb.to_stacked(got.x), tb.to_stacked(want.x)

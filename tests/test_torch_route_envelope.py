@@ -93,6 +93,8 @@ def _route_ok(route, K, N, esize):
         _rows_ok(K, N)
     elif route == "fused_X":       # its factors stay in the working dtype
         admm_fused.fused_plan(K, N, "X")
+        for B in SWEEP_BATCHES:    # small batches on the wide tier
+            admm_fused.fused_x_plan(B, K, N)
     elif route == "fused_L":
         admm_fused.fused_plan(K, N, "L", esize=esize)
     else:
@@ -103,8 +105,9 @@ def _route_ok(route, K, N, esize):
 def test_every_route_lies_inside_its_kernels_envelope(K):
     """For each configuration of :data:`SOLVERS` and every N of :data:`NS`
     up to 1024, the route ``qp_route`` picks in float32 has a plan in each
-    of its kernels (``fused_plan``, ``sweep_plan`` at every batch of
-    :data:`SWEEP_BATCHES`, the row stages' and the NS chain's plans), and
+    of its kernels (``fused_plan``, ``fused_x_plan`` and ``sweep_plan`` at
+    every batch of :data:`SWEEP_BATCHES`, the row stages' and the NS
+    chain's plans), and
     phase 1's channel interval has one."""
     seen = set()
     for name, solver in SOLVERS.items():
