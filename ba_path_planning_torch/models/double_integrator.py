@@ -9,6 +9,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.profiling import host_write
+
 
 @dataclass(frozen=True)
 class DoubleIntegrator2D:
@@ -68,7 +70,7 @@ class DoubleIntegrator2D:
         g22 = float((c2_np * c2_np).sum())
         det = g11 * g22 - g12 * g12
         i11, i12, i22 = g22 / det, -g12 / det, g11 / det
-        c2 = torch.as_tensor(c2_np, dtype=a.dtype, device=a.device)
+        c2 = host_write("scp", c2_np, dtype=a.dtype, device=a.device)
 
         vK = v0 + h * torch.sum(a, dim=-2)
         pK = p0 + (K * h) * v0 + torch.sum(c2[:, None] * a, dim=-2)

@@ -37,6 +37,7 @@ from ..solvers.banded import (RowVals, StateVars, apply_A, apply_A_static,
                               apply_AT, apply_AT_static, from_stacked,
                               solve_factorized_channel, to_stacked)
 from ..utils import debug
+from ..utils.profiling import host_write
 from .admm_fused import _on_cpu, planes_to_rows, rho_planes, static_plane
 from .cuda_build import SMS, check, load_kernels, require_f32_cuda
 from .group_solve import SWEEP_MAX_N_WIDE
@@ -108,9 +109,11 @@ def row_consts(eta, E, lower: RowVals, upper: RowVals, rho: RowVals, *,
     rows may carry each lane's loose rho)."""
     B, K, P = eta.shape[:3]
     rho_s, rho_c = rho_planes(rho, K, P)
-    fpar = torch.stack([torch.as_tensor(v, dtype=eta.dtype,
-                                        device=eta.device).reshape(())
-                        for v in (h, sigma, alpha, lam)])
+    fpar = torch.stack([
+        (torch.as_tensor(v, dtype=eta.dtype)
+         if torch.is_tensor(v) and v.device == eta.device else
+         host_write("qp", v, dtype=eta.dtype, device=eta.device)).reshape(())
+        for v in (h, sigma, alpha, lam)])
     return RowConsts(eta.contiguous(), E, static_plane(lower, K),
                      static_plane(upper, K),
                      lower.col.expand(B, K, P).contiguous(), rho_s, rho_c,

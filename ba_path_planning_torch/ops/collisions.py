@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.dist import all_reduce
+from ..utils.profiling import host_write
 
 DEGENERATE_EPS = 1e-6
 FEAS_SLACK = 0.01
@@ -93,7 +94,7 @@ def degenerate_angles(seed: int, lane_ids: torch.Tensor, it: torch.Tensor,
     global SCP iteration).  The pair id is ``i * 65536 + j`` like the JAX
     fold-in, so the draw is a function of the pair, not of its position."""
     dev = lane_ids.device
-    h = _mix32(torch.tensor(seed & _M32, dtype=torch.int64, device=dev))
+    h = _mix32(host_write("scp", seed & _M32, dtype=torch.int64, device=dev))
     h = _mix32(h ^ (lane_ids.to(torch.int64) & _M32))
     h = _mix32(h ^ (it.to(torch.int64) & _M32))
     pair_id = pairs.i_idx * 65536 + pairs.j_idx

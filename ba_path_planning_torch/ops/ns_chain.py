@@ -4,13 +4,15 @@
 
 :func:`factorize_X_chain_batched` equals
 ``banded.factorize_X(D, C, ns_iters=j, ns_anchor=0)``.  On the card the
-exact anchors at k = 0, 1, 2 and K-1 run in PyTorch (Cholesky inverses) and
-the interior k = 3..K-2 runs in the kernel.  ``ns_precision`` is the solver
-option of that name: ``"high"`` (the production solver's) takes the products
-on the tensor cores as three TF32 passes over a hi + lo split of each FP32
-operand, ``"highest"`` takes them as FP32 FMAs in the same tiling (the
-exact-FP32 witness of the checks; no production path runs it).  The solver's
-third name, ``"default"``, runs ``"high"`` (``banded.NS_KERNEL_PRECISION``).
+exact anchors at k = 0, 1, 2 and K-1 run in PyTorch (Cholesky inverses,
+the span ``qp.anchors``) and the interior k = 3..K-2 runs in the kernel
+(the span ``qp.ns_chain``, which on the CPU covers the whole plain chain).
+``ns_precision`` is the solver option of that name: ``"high"`` (the
+production solver's) takes the products on the tensor cores as three TF32
+passes over a hi + lo split of each FP32 operand, ``"highest"`` takes them
+as FP32 FMAs in the same tiling (the exact-FP32 witness of the checks; no
+production path runs it).  The solver's third name, ``"default"``, runs
+``"high"`` (``banded.NS_KERNEL_PRECISION``).
 :func:`ns_chain_plan` picks the kernel's tier from (B, n): one block a
 scenario for a batch that fills the card, which keeps its matrices in shared
 memory while they fit and in a per-scenario global scratch beyond; or, for a
@@ -26,6 +28,7 @@ import torch
 
 from ..solvers.banded import _spd_inv, bxbt, factorize_X
 from ..utils import debug
+from ..utils.profiling import span
 from .cuda_build import (SMS, check, device_sms, load_kernels,
                          require_f32_cuda)
 
@@ -154,7 +157,8 @@ def factorize_X_chain_batched(D, C, *, ns_iters: int,
         if D.device.type != "cpu":
             raise ValueError(
                 f"factorize_X_chain_batched: unsupported device {D.device}")
-        return factorize_X_chain_plain(D, C, ns_iters=ns_iters)
+        with span("qp.ns_chain"):
+            return factorize_X_chain_plain(D, C, ns_iters=ns_iters)
     require_f32_cuda("factorize_X_chain_batched", D=D, C=C)
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
         raise ValueError(
@@ -165,9 +169,13 @@ def factorize_X_chain_batched(D, C, *, ns_iters: int,
             f"factorize_X_chain_batched: unsupported shapes D "
             f"{tuple(D.shape)}, C {tuple(C.shape)}, ns_iters {ns_iters} "
             "(the chain split needs K >= 6: anchors 0..2 and K-1)")
-    X = chain_interior(D, C, anchor_head(D, C), ns_iters=ns_iters,
-                       ns_precision=ns_precision)
-    return anchor_tail(X, D, C)
+    with span("qp.anchors"):
+        X = anchor_head(D, C)
+    with span("qp.ns_chain"):
+        X = chain_interior(D, C, X, ns_iters=ns_iters,
+                           ns_precision=ns_precision)
+    with span("qp.anchors"):
+        return anchor_tail(X, D, C)
 
 
 factorize_X_chain_batched.launches = 0

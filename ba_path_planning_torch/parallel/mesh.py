@@ -27,6 +27,7 @@ from ..solvers.banded import tree_map
 from ..solvers.scp import SCPCarry, SCPEngine, SCPResult
 from ..utils.config import ProblemConfig, SolverConfig
 from ..utils.dist import gather_rows
+from ..utils.profiling import host_read, host_write, span
 
 SCENARIO_AXIS = "scenarios"
 
@@ -163,74 +164,97 @@ class ShardedSCPSolver:
         its own slice of B / size lanes in dispatches of chunk / size lanes
         (B a multiple of chunk, chunk of the rank count), as JAX's
         compaction is shard-local, and every rank returns the whole
-        result.  ``last_timing`` records this rank's phase and loop split.
+        result.  ``last_timing`` records this rank's phase and loop split
+        (``loop_prep_s`` and ``loop_enqueue_s``: the dispatches' host time
+        less its waits on the card), and the call's waits: its reads of
+        values from the card (``host_reads``, taking ``host_read_s``) and
+        copies of host values to it (``host_writes``, ``host_write_s``) in
+        the call's ``call_s``; under a ``torch.profiler`` the call is the
+        span ``mesh.call``.
         """
-        eng = self.engine
-        n_ranks = self.mesh.size
-        p0, v0, pf, vf = eng.as_inputs(p0, v0, pf, vf)
-        B = p0.shape[0]
-        if chunk is None:
-            chunk = min(B, 128 * n_ranks)
-        if B % chunk != 0 or chunk % n_ranks != 0:
-            raise ValueError(
-                f"batch {B} must be a multiple of chunk {chunk}, and chunk "
-                f"a multiple of the rank count {n_ranks}")
-        lo, hi, lane_ids = self._local(B, lane_ids)
-        args = tuple(a[lo:hi] for a in (p0, v0, pf, vf)) + (lane_ids,)
-        B, chunk = hi - lo, chunk // n_ranks
-        tail_chunk = chunk // 4 if chunk // 4 >= 1 else chunk
+        with span("mesh.call"):
+            tc = time.perf_counter()
+            reads0, read_s0 = host_read.count, host_read.seconds
+            writes0, write_s0 = host_write.count, host_write.seconds
+            eng = self.engine
+            n_ranks = self.mesh.size
+            p0, v0, pf, vf = eng.as_inputs(p0, v0, pf, vf)
+            B = p0.shape[0]
+            if chunk is None:
+                chunk = min(B, 128 * n_ranks)
+            if B % chunk != 0 or chunk % n_ranks != 0:
+                raise ValueError(
+                    f"batch {B} must be a multiple of chunk {chunk}, and "
+                    f"chunk a multiple of the rank count {n_ranks}")
+            lo, hi, lane_ids = self._local(B, lane_ids)
+            args = tuple(a[lo:hi] for a in (p0, v0, pf, vf)) + (lane_ids,)
+            B, chunk = hi - lo, chunk // n_ranks
+            tail_chunk = chunk // 4 if chunk // 4 >= 1 else chunk
 
-        t0 = time.perf_counter()
-        max_start = max(chunk, 8192)
-        parts = [eng.start(*(a[lo:lo + max_start] for a in args[:4]))
-                 for lo in range(0, B, max_start)]
-        carry = _cat(parts)
-        flags_h = self._active_flags(carry).cpu().numpy()
-        t1 = time.perf_counter()
+            t0 = time.perf_counter()
+            max_start = max(chunk, 8192)
+            with span("mesh.phase1"):
+                parts = [eng.start(*(a[lo:lo + max_start] for a in args[:4]))
+                         for lo in range(0, B, max_start)]
+                carry = _cat(parts)
+            flags_h = host_read("mesh", self._active_flags(carry)).numpy()
+            t1 = time.perf_counter()
 
-        t_prep = t_enqueue = t_sync = 0.0
-        n_rounds = n_dispatches = lanes_dispatched = 0
-        while True:
-            act = np.flatnonzero(flags_h)
-            if act.size == 0:
-                break
-            n_rounds += 1
-            lo = 0
-            while lo < act.size:
-                tp = time.perf_counter()
-                size = chunk if act.size - lo > chunk - tail_chunk \
-                    else tail_chunk
-                jidx = torch.as_tensor(np.resize(act[lo:lo + size], size),
-                                       device=eng.device)
-                cpart = tree_map(lambda x: x[jidx], carry)
-                apart = [a[jidx] for a in args]
-                te = time.perf_counter()
-                stepped = eng.step(cpart, *apart, cpart.it + step_iters,
-                                   angle_fn)
+            def waited():
+                return host_read.seconds + host_write.seconds
 
-                def scatter(full, part):
-                    full[jidx] = part
-                    return full
-                carry = tree_map(scatter, carry, stepped)
-                t_prep += te - tp
-                t_enqueue += time.perf_counter() - te
-                n_dispatches += 1
-                lanes_dispatched += size
-                lo += size
-            ts = time.perf_counter()
-            flags_h = self._active_flags(carry).cpu().numpy()
-            t_sync += time.perf_counter() - ts
-        t2 = time.perf_counter()
-        self.last_timing = {"phase1_s": t1 - t0, "loop_s": t2 - t1,
-                            "loop_prep_s": t_prep,
-                            "loop_enqueue_s": t_enqueue,
-                            "loop_sync_s": t_sync,
-                            "loop_rounds": n_rounds,
-                            "loop_dispatches": n_dispatches,
-                            "loop_lanes_dispatched": lanes_dispatched}
+            t_prep = t_enqueue = 0.0
+            n_rounds = n_dispatches = lanes_dispatched = 0
+            while True:
+                act = np.flatnonzero(flags_h)
+                if act.size == 0:
+                    break
+                n_rounds += 1
+                lo = 0
+                while lo < act.size:
+                    tp, wp = time.perf_counter(), waited()
+                    with span("mesh.pack"):
+                        size = chunk if act.size - lo > chunk - tail_chunk \
+                            else tail_chunk
+                        jidx = host_write(
+                            "mesh", np.resize(act[lo:lo + size], size),
+                            dtype=None, device=eng.device)
+                        cpart = tree_map(lambda x: x[jidx], carry)
+                        apart = [a[jidx] for a in args]
+                        cap = cpart.it + step_iters
+                    te, we = time.perf_counter(), waited()
+                    stepped = eng.step(cpart, *apart, cap, angle_fn)
 
-        max_fin = max(chunk, 16384)
-        results = [eng.finalize(tree_map(lambda x: x[lo:lo + max_fin], carry),
-                                *(a[lo:lo + max_fin] for a in args[:4]))
-                   for lo in range(0, B, max_fin)]
-        return _gather(_cat(results), self.mesh)
+                    def scatter(full, part):
+                        full[jidx] = part
+                        return full
+                    with span("mesh.scatter"):
+                        carry = tree_map(scatter, carry, stepped)
+                    t_prep += (te - tp) - (we - wp)
+                    t_enqueue += (time.perf_counter() - te) - (waited() - we)
+                    n_dispatches += 1
+                    lanes_dispatched += size
+                    lo += size
+                flags_h = host_read("mesh", self._active_flags(carry)).numpy()
+            t2 = time.perf_counter()
+            self.last_timing = {"phase1_s": t1 - t0, "loop_s": t2 - t1,
+                                "loop_prep_s": t_prep,
+                                "loop_enqueue_s": t_enqueue,
+                                "loop_rounds": n_rounds,
+                                "loop_dispatches": n_dispatches,
+                                "loop_lanes_dispatched": lanes_dispatched}
+
+            max_fin = max(chunk, 16384)
+            with span("mesh.finalize"):
+                results = [eng.finalize(
+                    tree_map(lambda x: x[lo:lo + max_fin], carry),
+                    *(a[lo:lo + max_fin] for a in args[:4]))
+                    for lo in range(0, B, max_fin)]
+                out = _gather(_cat(results), self.mesh)
+            self.last_timing.update(
+                call_s=time.perf_counter() - tc,
+                host_reads=host_read.count - reads0,
+                host_read_s=host_read.seconds - read_s0,
+                host_writes=host_write.count - writes0,
+                host_write_s=host_write.seconds - write_s0)
+            return out

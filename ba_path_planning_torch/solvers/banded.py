@@ -31,6 +31,7 @@ from ..ops.collisions import PairIndex, pairwise_diffs
 from ..utils.config import SolverParams, SolverStatic
 from ..utils.dist import all_reduce
 from ..utils.graphs import graphed
+from ..utils.profiling import host_read, host_write, span
 
 _LOOSE_RHO = 1e-6   # rho on disabled (+-inf) rows; OSQP's RHO_MIN
 
@@ -170,8 +171,8 @@ def build_bounds(p0, v0, pf, vf, *, n_vehicles: int, n_steps: int, h: float,
     l_v = torch.where(is_term, vf_b, full((N, K, 2), limits.vel_min))
     u_v = torch.where(is_term, vf_b, full((N, K, 2), limits.vel_max))
     pf_b = pf[..., :, None, :].expand(batch + (N, K, 2))
-    pos_min = torch.tensor(limits.pos_min, dtype=dt, device=dev)
-    pos_max = torch.tensor(limits.pos_max, dtype=dt, device=dev)
+    pos_min = host_write("scp", limits.pos_min, dtype=dt, device=dev)
+    pos_max = host_write("scp", limits.pos_max, dtype=dt, device=dev)
     l_p = torch.where(is_term, pf_b, pos_min.expand(batch + (N, K, 2)))
     u_p = torch.where(is_term, pf_b, pos_max.expand(batch + (N, K, 2)))
 
@@ -209,7 +210,8 @@ def row_scaling_state(n_steps: int, h: float, dtype=torch.float32,
     K = n_steps
 
     def d(v):
-        return torch.as_tensor((1.0 / v)[:, None], dtype=dtype, device=device)
+        return host_write("qp", (1.0 / v)[:, None], dtype=dtype,
+                          device=device)
 
     dyn_p = np.full(K, np.sqrt(2.0 + h * h + 0.25 * h ** 4))
     dyn_p[0] = np.sqrt(1.0 + 0.25 * h ** 4)
@@ -270,7 +272,7 @@ def rho_pattern_masks(scaling: RowVals, static: SolverStatic, rho, col_boost,
     is_term = (torch.arange(K, device=dev) == K - 1).reshape(K, 1)
     vbox = torch.where(is_term, eq, box_r) * scaling.vbox * scaling.vbox
     pbox = torch.where(is_term, eq, box_r) * scaling.pbox * scaling.pbox
-    loose = torch.tensor(_LOOSE_RHO, dtype=dtype, device=dev)
+    loose = host_write("qp", _LOOSE_RHO, dtype=dtype, device=dev)
     if col_enabled:
         col = col_boost * rho_col * scaling.col * scaling.col
         col = torch.where((torch.arange(K, device=dev) == 0).reshape(K, 1),
@@ -1090,13 +1092,16 @@ def _route_factors_wide(route: str, rho_b: RowVals, eta, E,
     """:func:`_route_factors` in the working dtype."""
     N = n_vehicles
     if route == "channel":
-        return factorize(*assemble_channel(rho_b, h=h, sigma=sigma))
+        with span("qp.assemble"):
+            blocks = assemble_channel(rho_b, h=h, sigma=sigma)
+        return factorize(*blocks)
     if route in SHARED_C_ROUTES:
-        D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N,
-                          group=group)
-        if rho_lane is not None:
-            scale = rho_lane.reshape(-1, 1, 1, 1)
-            D = D / scale
+        with span("qp.assemble"):
+            D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N,
+                              group=group)
+            if rho_lane is not None:
+                scale = rho_lane.reshape(-1, 1, 1, 1)
+                D = D / scale
         Cf = C if rho_lane is None else C1
         if route == "grouped_L":
             F_ = factorize_L(D, Cf)
@@ -1108,8 +1113,10 @@ def _route_factors_wide(route: str, rho_b: RowVals, eta, E,
         if route == "fused_X":
             return F_ / scale, C
         return (F_,)
-    return factorize(*assemble_blocks(rho_b, eta, E, h=h, sigma=sigma,
-                                      n_vehicles=N, group=group))
+    with span("qp.assemble"):
+        blocks = assemble_blocks(rho_b, eta, E, h=h, sigma=sigma,
+                                 n_vehicles=N, group=group)
+    return factorize(*blocks)
 
 
 def interval_kind(route: str, dtype, device, group=None) -> str:
@@ -1254,6 +1261,12 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
     duals hold this rank's share of the pairs; the collision blocks, A^T
     and the residual norms are reduced over the group, so x is the same on
     every rank.  ``None`` runs as on one device.
+
+    Under a ``torch.profiler`` its parts are the spans ``qp.rows`` (the
+    rows and their rho), ``qp.factors`` (the set-up: ``qp.assemble`` and,
+    on the NS-chain route, ``qp.anchors`` and ``qp.ns_chain``),
+    ``qp.interval`` (building each check interval, and each run of one)
+    and ``qp.residuals``.
     """
     dtype = x_init.a.dtype
     N = n_vehicles
@@ -1264,12 +1277,6 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
                      col_enabled=col_enabled)
     check, max_iter = int(params.check_interval), int(params.max_iter)
     dev = x_init.a.device
-    scaling = row_scaling_state(K, h, dtype=dtype, device=dev)
-
-    Ax0 = apply_A(x_init, eta, E, h)
-    z = tree_map(torch.clamp, Ax0, lower, upper)
-    y = tree_map(torch.zeros_like, z) if y_init is None else y_init
-    x = x_init
     step = dict(h=h, sigma=params.sigma, alpha=params.alpha,
                 lam=params.col_penalty, n_iters=check)
     loose_col = route not in ("channel", "fused_X", "fused_L")
@@ -1286,35 +1293,52 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
         return rho_b
 
     def factors_of(rho_b, eta_, rho_lane=None, C1=None):
-        return _route_factors(route, rho_b, eta_, E, static, N, h,
-                              params.sigma, rho_lane=rho_lane, C1=C1,
-                              group=group)
+        with span("qp.factors"):
+            return _route_factors(route, rho_b, eta_, E, static, N, h,
+                                  params.sigma, rho_lane=rho_lane, C1=C1,
+                                  group=group)
 
     adaptive = static.adaptive_rho
+    with span("qp.rows"):
+        scaling = row_scaling_state(K, h, dtype=dtype, device=dev)
+        Ax0 = apply_A(x_init, eta, E, h)
+        z = tree_map(torch.clamp, Ax0, lower, upper)
+        y = tree_map(torch.zeros_like, z) if y_init is None else y_init
+        x = x_init
+        if not adaptive:
+            rho_b = rho_rows(params.rho, lower.col)
+        else:
+            B = x_init.a.shape[0]
+            rho_l = params.rho.to(dtype).expand(B).clone()
+            C1 = (unit_slot_scalars(static, n_steps=K, h=h, dtype=dtype,
+                                    device=dev)
+                  if route in SHARED_C_ROUTES else None)
+            rho_b = tree_map(torch.Tensor.contiguous,
+                             rho_rows(rho_l, lower.col))
     if not adaptive:
-        rho_b = rho_rows(params.rho, lower.col)
-        interval = _interval_fn(route, factors_of(rho_b, eta), rho_b, lower,
-                                upper, eta, E, N, step, group=group)
+        factors = factors_of(rho_b, eta)
+        with span("qp.interval"):
+            interval = _interval_fn(route, factors, rho_b, lower, upper, eta,
+                                    E, N, step, group=group)
     else:
-        B = x_init.a.shape[0]
-        rho_l = params.rho.to(dtype).expand(B).clone()
-        C1 = (unit_slot_scalars(static, n_steps=K, h=h, dtype=dtype,
-                                device=dev)
-              if route in SHARED_C_ROUTES else None)
-        rho_b = tree_map(torch.Tensor.contiguous, rho_rows(rho_l, lower.col))
         factors = factors_of(rho_b, eta, rho_l, C1)
         scaled = route in ("grouped_X", "grouped_L")
 
         def interval_now():
-            return _interval_fn(route, factors, rho_b, lower, upper, eta, E,
-                                N, step, C1=C1 if scaled else None,
-                                inv_rho=1.0 / rho_l if scaled else None,
-                                group=group)
+            with span("qp.interval"):
+                return _interval_fn(route, factors, rho_b, lower, upper, eta,
+                                    E, N, step, C1=C1 if scaled else None,
+                                    inv_rho=1.0 / rho_l if scaled else None,
+                                    group=group)
         interval = interval_now()
 
-    x, z, y = interval(x, z, y)
-    prim, dual, done, scales = _residuals(x, z, y, eta, E, h, scaling,
-                                           params, nb, group)
+    def residuals(x, z, y):
+        with span("qp.residuals"):
+            return _residuals(x, z, y, eta, E, h, scaling, params, nb, group)
+
+    with span("qp.interval"):
+        x, z, y = interval(x, z, y)
+    prim, dual, done, scales = residuals(x, z, y)
     iters = torch.full(prim.shape, check, dtype=torch.int32, device=dev)
     active = ~done
     for _ in range(check, max_iter, check):
@@ -1326,7 +1350,7 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
             ratio = torch.sqrt(pr / torch.clamp_min(dr, 1e-12))
             refac = active & ((ratio > RHO_ADAPT_RATIO)
                               | (ratio < 1.0 / RHO_ADAPT_RATIO))
-            flags = torch.stack([active, refac]).cpu()
+            flags = host_read("qp", torch.stack([active, refac]))
             if not bool(flags[0].any()):
                 break
             if bool(flags[1].any()):
@@ -1341,11 +1365,11 @@ def solve_qp_state(lower: RowVals, upper: RowVals, eta, x_init: StateVars,
                                       tuple(sub_b) + tuple(sub)):
                     full[idx] = part
                 interval = interval_now()
-        elif not bool(active.any()):
+        elif not bool(host_read("qp", active.any())):
             break
-        new = interval(x, z, y)
-        *res, scales = _residuals(*new, eta, E, h, scaling, params, nb,
-                                  group)
+        with span("qp.interval"):
+            new = interval(x, z, y)
+        *res, scales = residuals(*new)
 
         def keep(n_, o_):
             return torch.where(lane_mask(active, n_), n_, o_)

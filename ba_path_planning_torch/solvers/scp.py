@@ -35,6 +35,7 @@ from ..ops.constraints import ConstraintBlocks, static_bounds
 from ..ops.rollout import rollout
 from ..utils.config import (ProblemConfig, SolverConfig, SolverParams,
                             SolverStatic, make_solver_params, resolve_device)
+from ..utils.profiling import host_read, span
 from .admm import (Preconditioner, QPData, build_static_normal_inverse,
                    solve_qp_impl)
 from .banded import (RowVals, StateVars, build_bounds,
@@ -114,13 +115,14 @@ def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
     the group)."""
     N, h, R = problem.n_vehicles, problem.time_step, problem.min_distance
     a = carry.a
-    prev_pos, _ = rollout(a, p0, v0, h)
-    eta, dist = linearize(prev_pos, pairs, angle)
-    # constraint tightening: solve for R + margin, check feasibility at R
-    col_lo = collision_lower_bounds_state(eta, dist, prev_pos, pairs,
-                                          min_distance=R + params.col_margin)
-    lower_it = lower_s._replace(col=col_lo)
-    x_warm = _warm_state(a, p0, v0, h)
+    with span("scp.linearize"):
+        prev_pos, _ = rollout(a, p0, v0, h)
+        eta, dist = linearize(prev_pos, pairs, angle)
+        # constraint tightening: solve for R + margin, check feasibility at R
+        col_lo = collision_lower_bounds_state(
+            eta, dist, prev_pos, pairs, min_distance=R + params.col_margin)
+        lower_it = lower_s._replace(col=col_lo)
+        x_warm = _warm_state(a, p0, v0, h)
     qp = solve_qp_state(lower_it, upper_s, eta, x_warm, params, pairs.E, h=h,
                         static=solver, n_vehicles=N, y_init=carry.y,
                         group=group)
@@ -128,19 +130,20 @@ def _direct_body(carry: SCPCarry, p0, v0, pf, vf, angle, lower_s, upper_s, *,
     if solver.polish:
         a_new = polish_qp_state(lower_it, upper_s, eta, qp.x, qp.y, pairs.E,
                                 h=h, n_vehicles=N, group=group).a
-    a_new = _divergence_guard(a_new, a, problem)
-    step = torch.linalg.vector_norm((a_new - a).flatten(1), dim=-1)
-    denom = torch.clamp_min(torch.linalg.vector_norm(a.flatten(1), dim=-1),
-                            1e-30)
-    rel_step = step / denom
-    converged = rel_step <= problem.convergence_tolerance
-    if problem.stop_mode == "feasible":
-        a_stop = (_goal_projected(a_new, p0, v0, pf, vf, problem)
-                  if problem.goal_project else a_new)
-        new_pos, _ = rollout(a_stop, p0, v0, h)
-        stop = check_feasible(new_pos, pairs, R, group)
-    else:
-        stop = converged
+    with span("scp.check"):
+        a_new = _divergence_guard(a_new, a, problem)
+        step = torch.linalg.vector_norm((a_new - a).flatten(1), dim=-1)
+        denom = torch.clamp_min(
+            torch.linalg.vector_norm(a.flatten(1), dim=-1), 1e-30)
+        rel_step = step / denom
+        converged = rel_step <= problem.convergence_tolerance
+        if problem.stop_mode == "feasible":
+            a_stop = (_goal_projected(a_new, p0, v0, pf, vf, problem)
+                      if problem.goal_project else a_new)
+            new_pos, _ = rollout(a_stop, p0, v0, h)
+            stop = check_feasible(new_pos, pairs, R, group)
+        else:
+            stop = converged
     return SCPCarry(a=a_new, y=qp.y, it=carry.it + 1, converged=converged,
                     stop=stop, rel=rel_step,
                     qp_iters=carry.qp_iters + qp.iters,
@@ -195,27 +198,31 @@ def _scp_step_direct(carry: SCPCarry, p0, v0, pf, vf, lane_ids, it_cap, *,
     fires or its ``it`` reaches ``min(it_cap, max_iterations)``.  Lanes that
     are done keep their state.  ``lane_ids`` (B,) and the lane's global
     iteration key the degenerate-pair angles through ``angle_fn``, which
-    gives the angles of ``pairs`` (this rank's share under ``group``)."""
-    N, K, P = problem.n_vehicles, problem.n_steps, pairs.E.shape[1]
-    lower_s, upper_s = build_bounds(p0, v0, pf, vf, n_vehicles=N, n_steps=K,
-                                    h=problem.time_step,
-                                    limits=problem.limits, n_pairs=P)
-    cap = torch.clamp_max(torch.as_tensor(it_cap, dtype=torch.int32,
-                                          device=p0.device),
-                          problem.max_iterations)
-    while True:
-        active = _direct_cond(carry, cap)
-        if not bool(active.any()):
-            return carry
-        new = _direct_body(carry, p0, v0, pf, vf,
-                           angle_fn(lane_ids, carry.it), lower_s, upper_s,
-                           params=params, pairs=pairs, problem=problem,
-                           solver=solver, group=group)
-        if not bool(active.all()):
-            new = tree_map(
-                lambda n_, o_: torch.where(lane_mask(active, n_), n_, o_),
-                new, carry)
-        carry = new
+    gives the angles of ``pairs`` (this rank's share under ``group``).
+    The host reads two flags an iteration and one more at the end
+    (``utils.profiling.host_read``); the call is the span ``scp.step``."""
+    with span("scp.step"):
+        N, K, P = problem.n_vehicles, problem.n_steps, pairs.E.shape[1]
+        lower_s, upper_s = build_bounds(p0, v0, pf, vf, n_vehicles=N,
+                                        n_steps=K, h=problem.time_step,
+                                        limits=problem.limits, n_pairs=P)
+        cap = torch.clamp_max(torch.as_tensor(it_cap, dtype=torch.int32,
+                                              device=p0.device),
+                              problem.max_iterations)
+        while True:
+            active = _direct_cond(carry, cap)
+            if not bool(host_read("scp", active.any())):
+                return carry
+            new = _direct_body(carry, p0, v0, pf, vf,
+                               angle_fn(lane_ids, carry.it), lower_s, upper_s,
+                               params=params, pairs=pairs, problem=problem,
+                               solver=solver, group=group)
+            if not bool(host_read("scp", active.all())):
+                with span("scp.merge"):
+                    new = tree_map(
+                        lambda n_, o_: torch.where(lane_mask(active, n_), n_,
+                                                   o_), new, carry)
+            carry = new
 
 
 def _scp_finalize_direct(carry: SCPCarry, p0, v0, pf, vf, *,

@@ -1,23 +1,28 @@
 """Profiling and tracing helpers (counterpart of
 ``ba_path_planning_tpu.utils.profiling``).
 
-:func:`trace` captures a ``torch.profiler`` trace around a block and writes
-it as Chrome-trace JSON (Perfetto or ``chrome://tracing`` read it; no
-TensorBoard needed); :class:`PhaseTimer` accumulates wall time per named
-phase, synchronising the card at each phase edge; the cost models count the
-bytes and operations of the solver's hot spots in the port's layouts (block
-width n = 6N, no lane padding; bf16 factor rows on a stride of
-``cuda_build.BF16_ROW_ALIGN`` elements), so a kernel's time can be held
-against the least time the card could take.
+:func:`span` names a range of the solve path in a ``torch.profiler`` trace
+(the card's kernels and copies land in the same event stream, on the same
+clock); :func:`host_read` is the one way the solve path copies a value
+from the card to the host and :func:`host_write` the one way it copies a
+host value to the card, each counted and timed on the host's clock (on the
+card both wait for its queue to drain); a span costs a check of a flag and
+nothing else while no profiler records.  :func:`trace`
+captures a ``torch.profiler`` trace around a block and writes it as
+Chrome-trace JSON (Perfetto or ``chrome://tracing`` read it; no TensorBoard
+needed); the cost models count the bytes and operations of the solver's hot
+spots in the port's layouts (block width n = 6N, no lane padding; bf16
+factor rows on a stride of ``cuda_build.BF16_ROW_ALIGN`` elements), so a
+kernel's time can be held against the least time the card could take.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import time
-from dataclasses import dataclass, field
+
+import torch
 
 # NVIDIA H100 SXM data sheet, dense rates, at the full 700 W power limit
 H100_PEAK_HBM_BYTES = 3.35e12        # bytes/s
@@ -31,7 +36,6 @@ def trace(log_dir: str):
     one, the card around a block; on exit it is written to
     ``<log_dir>/trace.json`` (Chrome-trace JSON).  The profiler object is
     yielded (its ``key_averages()`` sums the time by kernel)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -45,38 +49,53 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def _sync() -> None:
-    import torch
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+_NO_SPAN = contextlib.nullcontext()
 
 
-@dataclass
-class PhaseTimer:
-    """Accumulates wall time per named phase; reports a JSON-able summary.
-    Each phase edge synchronises the card (where CUDA is in use), so a
-    phase's time is its work, not the launches it queued."""
-    phases: dict = field(default_factory=dict)
+def span(name: str):
+    """A range named ``name`` (``<layer>.<what>``) in the trace of the
+    ``torch.profiler`` that records, if one does; nested ranges give each
+    its parent.  With no profiler recording it is one shared null context:
+    no range is opened, nothing is synchronised, launched or allocated."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        _sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync()
-            self.phases[name] = self.phases.get(name, 0.0) + (
-                time.perf_counter() - t0)
 
-    def summary(self) -> dict:
-        total = sum(self.phases.values())
-        return {"total_sec": total,
-                "phases": {k: {"sec": v, "frac": v / total if total else 0.0}
-                           for k, v in self.phases.items()}}
+def host_read(layer: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to the host (``t.cpu()``, which waits for the card's
+    queue to drain), inside the span ``<layer>.host_read``.  Counts the
+    read in ``host_read.count`` and its host time, the wait included, in
+    ``host_read.seconds``; both only grow."""
+    host_read.count += 1
+    t0 = time.perf_counter()
+    with span(f"{layer}.host_read"):
+        out = t.cpu()
+    host_read.seconds += time.perf_counter() - t0
+    return out
 
-    def report(self) -> str:
-        return json.dumps(self.summary(), indent=2)
+
+host_read.count = 0
+host_read.seconds = 0.0
+
+
+def host_write(layer: str, data, *, dtype, device) -> torch.Tensor:
+    """``data`` (a number or a host array) as a tensor on ``device``
+    (``torch.as_tensor``), inside the span ``<layer>.host_write``.  On the
+    card the copy is from pageable host memory, which waits for the card's
+    queue to drain, as a read does.  Counts the write in
+    ``host_write.count`` and its host time, the wait included, in
+    ``host_write.seconds``; both only grow."""
+    host_write.count += 1
+    t0 = time.perf_counter()
+    with span(f"{layer}.host_write"):
+        out = torch.as_tensor(data, dtype=dtype, device=device)
+    host_write.seconds += time.perf_counter() - t0
+    return out
+
+
+host_write.count = 0
+host_write.seconds = 0.0
 
 
 def _row_stride(n: int, itemsize: int) -> int:

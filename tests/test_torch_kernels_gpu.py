@@ -1405,3 +1405,67 @@ def test_admm_steps_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(TypeError):
         admm_steps.admm_channel_interval(*(t.double() for t in pf), prows,
                                          pc, 1)
+
+
+@pytest.mark.gpu
+def test_a_production_call_waits_on_the_card_only_where_it_counts(cuda):
+    """Every synchronising operation of a production ``solve_compacted``
+    (N=20, K=50, the benchmark's stop and goal projection; torch's sync
+    debug mode) is one of the call's counted reads and writes
+    (``utils.profiling.host_read`` / ``host_write``), so the call's
+    ``call_s`` less ``host_read_s`` and ``host_write_s`` holds no wait on
+    the card but a launch's; and under a profiler the NS chain's exact
+    anchors open ``qp.anchors`` beside ``qp.ns_chain`` in ``qp.factors``."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    problem = ProblemConfig(n_vehicles=20, time_horizon=10.0, time_step=0.2,
+                            min_distance=0.8, stop_mode="feasible",
+                            goal_project=True)
+    solver = ShardedSCPSolver(problem, SolverConfig.production(
+        problem=problem), dtype=torch.float32, device=cuda)
+    sc = generate_scenario_batch(2 ** 31 + 11, 64, n_vehicles=20,
+                                 min_distance=0.8, device=cuda)
+    v0 = torch.zeros_like(sc.initial)
+
+    def call():
+        return solver.solve_compacted(sc.initial, v0, sc.final, v0, chunk=32)
+    call()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    t = solver.last_timing
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert t["loop_dispatches"] >= 2
+    assert t["host_writes"] == 13 + 14 * t["loop_dispatches"]
+    assert len(syncs) == t["host_reads"] + t["host_writes"]
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        call()
+        torch.cuda.synchronize()
+    spans = sorted(((e.start_ns(), e.end_ns(), e.name())
+                    for e in p.profiler.kineto_results.events()
+                    if e.name().partition(".")[0] in ("mesh", "scp", "qp")
+                    and not str(e.device_type()).endswith("CUDA")),
+                   key=lambda s: (s[0], -s[1]))
+    parents, stack = set(), []
+    for s, e, name in spans:
+        while stack and stack[-1][1] <= s:
+            stack.pop()
+        parents.add((name, stack[-1][2] if stack else None))
+        stack.append((s, e, name))
+    assert {("qp.anchors", "qp.factors"), ("qp.ns_chain", "qp.factors"),
+            ("mesh.call", None)} <= parents
+    assert sum(n.endswith(".host_write") for *_, n in spans) == \
+        solver.last_timing["host_writes"]

@@ -1,8 +1,12 @@
 """PyTorch port, the profiling helpers (``utils/profiling.py``): the cost
 models against a count by hand at N=20, K=50 in float32 and with bf16
 factors (rows on the 8-element stride), the CG method's FLOP count against
-the JAX package's formula, ``PhaseTimer``'s summary and ``trace``'s
-Chrome-trace file on the CPU."""
+the JAX package's formula, ``trace``'s Chrome-trace file on the CPU, and
+the spans, host reads and host writes of the production solve path: under
+a CPU ``torch.profiler`` a ``solve_compacted`` opens every span of the path
+under its parent, reads from and copies to the card as often as the code
+implies and gives the answers of an unprofiled call, bit for bit; with no
+profiler a span opens no range."""
 
 import json
 
@@ -57,21 +61,6 @@ def test_bound_ms_takes_the_larger_time():
     assert by == "operations" and t == pytest.approx(2.0)
 
 
-def test_phase_timer_summary():
-    timer = prof.PhaseTimer()
-    for _ in range(2):
-        with timer.phase("solve"):
-            torch.ones(4).sum()
-    with timer.phase("io"):
-        pass
-    s = timer.summary()
-    assert set(s["phases"]) == {"solve", "io"}
-    assert s["total_sec"] == pytest.approx(
-        timer.phases["solve"] + timer.phases["io"])
-    assert sum(p["frac"] for p in s["phases"].values()) == pytest.approx(1.0)
-    assert json.loads(timer.report()) == s
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with prof.trace(str(tmp_path)) as p:
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
@@ -98,3 +87,170 @@ def test_ns_chain_interior_flops_counts_what_the_kernel_forms(n):
     if n == 2052:
         ratio = step / (iters * 4 * n ** 3)
         assert 0.75 < ratio < 0.752
+
+
+# The spans of the production solve path on the CPU and the parents they
+# nest under (the QP's under the SCP step, and under phase 1 for its
+# collision-free QP; the bounds and the goal projection's copies also under
+# phase 1 and finalize).  The card's NS chain also opens ``qp.anchors``
+# under ``qp.factors`` (tests/test_torch_kernels_gpu.py).
+QP_PARENTS = {"scp.step", "mesh.phase1"}
+SPAN_PARENTS = {
+    "mesh.call": {None}, "mesh.phase1": {"mesh.call"},
+    "mesh.pack": {"mesh.call"}, "mesh.scatter": {"mesh.call"},
+    "mesh.finalize": {"mesh.call"}, "mesh.host_read": {"mesh.call"},
+    "mesh.host_write": {"mesh.pack"},
+    "scp.step": {"mesh.call"}, "scp.host_read": {"scp.step"},
+    "scp.host_write": {"scp.step", "scp.check", "mesh.phase1",
+                       "mesh.finalize"},
+    "scp.linearize": {"scp.step"}, "scp.check": {"scp.step"},
+    "scp.merge": {"scp.step"},
+    "qp.rows": QP_PARENTS, "qp.factors": QP_PARENTS,
+    "qp.interval": QP_PARENTS, "qp.residuals": QP_PARENTS,
+    "qp.host_write": {"qp.rows", "qp.interval"},
+    "qp.assemble": {"qp.factors"}, "qp.ns_chain": {"qp.factors"},
+}
+
+
+def _solve(profiled: bool, chunk: int, step_iters: int):
+    """A production ``solve_compacted`` at N=3, K=20, B=4, stopping and
+    projecting onto the goals as the benchmark's configuration does, in
+    dispatches of ``chunk`` on the CPU:
+    (result, last_timing, the program's spans as (start, end, name) sorted,
+    longest first at a start)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    from ba_path_planning_torch.utils.config import (ProblemConfig,
+                                                     SolverConfig)
+    problem = ProblemConfig(n_vehicles=3, time_horizon=4.0, time_step=0.2,
+                            min_distance=0.8, stop_mode="feasible",
+                            goal_project=True)
+    solver = ShardedSCPSolver(problem, SolverConfig.production(
+        problem=problem), dtype=torch.float32, device="cpu")
+    sc = generate_scenario_batch(3, 4, n_vehicles=3, min_distance=0.8,
+                                 device="cpu")
+    v0 = torch.zeros_like(sc.initial)
+
+    def call():
+        return solver.solve_compacted(sc.initial, v0, sc.final, v0,
+                                      chunk=chunk, step_iters=step_iters)
+    if not profiled:
+        return call(), solver.last_timing, []
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        res = call()
+    spans = sorted(((e.start_ns(), e.end_ns(), e.name())
+                    for e in p.profiler.kineto_results.events()
+                    if e.name().partition(".")[0] in ("mesh", "scp", "qp")),
+                   key=lambda s: (s[0], -s[1]))
+    return res, solver.last_timing, spans
+
+
+@pytest.fixture(scope="module")
+def solves():
+    """The same solve unprofiled with ``record_function`` made to raise
+    (a span that opened a range would fail it), then profiled, at one SCP
+    iteration a dispatch of 4 (tails of 1); and profiled at the whole
+    budget a dispatch of 2, so that the two lanes of one dispatch stop at
+    different iterations."""
+    def refuse(*a, **k):
+        raise AssertionError("a span opened a range with no profiler")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", refuse)
+        plain = _solve(False, 4, 1)
+    return {"plain": plain, "profiled": _solve(True, 4, 1),
+            "whole": _solve(True, 2, 15)}
+
+
+def _parents(spans):
+    """The name of each span's parent (None for the outermost)."""
+    out, stack = [], []
+    for s, e, name in spans:
+        while stack and stack[-1][1] <= s:
+            stack.pop()
+        out.append(stack[-1][2] if stack else None)
+        stack.append((s, e, name))
+    return out
+
+
+def test_span_without_a_profiler_is_one_null_context(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    first, second = prof.span("mesh.call"), prof.span("qp.factors")
+    assert first is second
+    with first:
+        with second:
+            pass
+    reads, writes = prof.host_read.count, prof.host_write.count
+    assert prof.host_read("scp", torch.ones(2)).tolist() == [1.0, 1.0]
+    assert prof.host_read.count == reads + 1
+    w = prof.host_write("qp", [2.0], dtype=torch.float64, device="cpu")
+    assert w.dtype == torch.float64 and w.tolist() == [2.0]
+    assert prof.host_write.count == writes + 1
+
+
+def test_a_profiled_call_opens_every_span_under_its_parent(solves):
+    names = set()
+    for key in ("profiled", "whole"):
+        spans = solves[key][2]
+        call = [sp for sp in spans if sp[2] == "mesh.call"]
+        assert len(call) == 1
+        for (s, e, name), parent in zip(spans, _parents(spans)):
+            assert parent in SPAN_PARENTS[name], (name, parent)
+            assert call[0][0] <= s and e <= call[0][1]
+            names.add(name)
+    assert names == set(SPAN_PARENTS)
+    # phase 1's QP runs on the channel route: its own qp spans, no chain;
+    # beside it, the copies of the bounds and of the goal projection
+    phase1 = [sp for sp, parent in zip(solves["profiled"][2],
+                                       _parents(solves["profiled"][2]))
+              if parent == "mesh.phase1"]
+    assert {n for *_, n in phase1} == {"qp.rows", "qp.factors",
+                                       "qp.interval", "qp.residuals",
+                                       "scp.host_write"}
+
+
+def test_host_reads_are_the_count_the_code_implies(solves):
+    """1 after phase 1, 1 a round, 3 a dispatch at one SCP iteration a
+    dispatch (does a lane go on; do all; none after the iteration); the
+    profiled call counts as many ``*.host_read`` spans."""
+    for key in ("plain", "profiled"):
+        t = solves[key][1]
+        assert t["loop_dispatches"] > t["loop_rounds"] >= 2
+        assert t["host_reads"] == (1 + t["loop_rounds"]
+                                   + 3 * t["loop_dispatches"])
+        assert 0.0 <= t["host_read_s"] <= t["call_s"]
+    spans = solves["profiled"][2]
+    assert solves["profiled"][1]["host_reads"] == sum(
+        name.endswith(".host_read") for *_, name in spans)
+    assert solves["plain"][1]["host_reads"] == solves["profiled"][1][
+        "host_reads"]
+
+
+def test_host_writes_are_the_count_the_code_implies(solves):
+    """At one SCP iteration a dispatch: a dispatch copies its lane index
+    (``mesh``), the position bounds' two corners and the degenerate
+    angles' seed, the goal projection's column (``scp``), the QP's seven
+    row scalings, its loose rho and the interval's step length (``qp``);
+    phase 1 the same less the index and the seed; finalize the goal
+    projection's column.  The profiled calls count as many
+    ``*.host_write`` spans."""
+    for key in ("plain", "profiled"):
+        t = solves[key][1]
+        assert t["host_writes"] == 13 + 14 * t["loop_dispatches"]
+        assert 0.0 <= t["host_write_s"] <= t["call_s"]
+        assert t["loop_prep_s"] + t["loop_enqueue_s"] + t["host_read_s"] \
+            + t["host_write_s"] <= t["call_s"]
+    for key in ("profiled", "whole"):
+        assert solves[key][1]["host_writes"] == sum(
+            name.endswith(".host_write") for *_, name in solves[key][2])
+
+
+def test_a_profiled_call_answers_as_an_unprofiled_one(solves):
+    plain, profiled = solves["plain"][0], solves["profiled"][0]
+    for name, a, b in zip(plain._fields, plain, profiled):
+        assert torch.equal(a, b), name
