@@ -24,7 +24,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ns_chain.cu", "group_solve_x.cu", "admm_fused_x.cu",
            "group_solve_l.cu", "banded_solve.cu", "admm_fused_l.cu",
-           "admm_steps.cu")
+           "admm_steps.cu", "assemble_d.cu")
 # included by the sources above
 HEADERS = ("sweeps.cuh", "admm_rows.cuh", "factor_ring.cuh",
            "group_sweep.cuh", "admm_fused.cuh")
@@ -155,6 +155,11 @@ def load_kernels() -> ctypes.CDLL:
     for stage in (lib.admm_rhs_f32, lib.admm_update_f32,
                   lib.admm_channel_interval_f32):
         stage.restype = i
+    # the QP's diagonal blocks (assemble_d.cu)
+    for dtype in ("f32", "f64"):
+        entry = getattr(lib, f"assemble_d_{dtype}")
+        entry.argtypes = [p] * 5 + [i] * 6 + [p]
+        entry.restype = i
     _lib = lib
     return lib
 

@@ -583,7 +583,8 @@ def assemble_D(rho: RowVals, eta, E, *, h: float, sigma, n_vehicles: int,
                group=None):
     """Diagonal blocks D (..., K, 6N, 6N) and slot-scalar off-diagonals
     C (K-1, 3, 3), or (B, K-1, 3, 3) for a per-lane rho; ``group`` as in
-    :func:`collision_blocks`."""
+    :func:`collision_blocks`.  The plain version of
+    ``ops.assemble_d.assemble_D_fused``, which the solver calls."""
     n2 = 2 * n_vehicles
     D0, s = assemble_skeleton(rho, h=h, sigma=sigma, n_vehicles=n_vehicles)
     colM = collision_blocks(rho.col, eta, E, group)
@@ -605,9 +606,11 @@ def assemble_blocks(rho: RowVals, eta, E, *, h: float, sigma,
     """Diagonal blocks D (..., K, 6N, 6N) and the dense off-diagonal blocks
     B_k = C_k (x) I_2N as (K-1, 6N, 6N), shared by every scenario for a
     batch-shared rho (the collision rows touch only D); ``group`` as in
-    :func:`collision_blocks`."""
-    D, C = assemble_D(rho, eta, E, h=h, sigma=sigma, n_vehicles=n_vehicles,
-                      group=group)
+    :func:`collision_blocks`.  D comes from ``ops.assemble_d`` (one kernel
+    on the card, :func:`assemble_D` on the CPU and for a ``group``)."""
+    from ..ops.assemble_d import assemble_D_fused
+    D, C = assemble_D_fused(rho, eta, E, h=h, sigma=sigma,
+                            n_vehicles=n_vehicles, group=group)
     return D, slot_dense(C, 2 * n_vehicles)
 
 
@@ -1096,9 +1099,10 @@ def _route_factors_wide(route: str, rho_b: RowVals, eta, E,
             blocks = assemble_channel(rho_b, h=h, sigma=sigma)
         return factorize(*blocks)
     if route in SHARED_C_ROUTES:
+        from ..ops.assemble_d import assemble_D_fused
         with span("qp.assemble"):
-            D, C = assemble_D(rho_b, eta, E, h=h, sigma=sigma, n_vehicles=N,
-                              group=group)
+            D, C = assemble_D_fused(rho_b, eta, E, h=h, sigma=sigma,
+                                    n_vehicles=N, group=group)
             if rho_lane is not None:
                 scale = rho_lane.reshape(-1, 1, 1, 1)
                 D = D / scale

@@ -51,7 +51,11 @@
    table or direct form), the channel interval beside its bound on
    the collision-free count and on the count with eta's pair terms; the
    device launches per ADMM iteration of one grouped X interval (at most
-   4);
+   4); the assemble phase (``assemble_phase``): the QP's diagonal blocks D
+   by the one-pass kernel of ``ops/assemble_d.py`` against the plain
+   ``banded.assemble_D`` at N=20 (B=512, 128, 1), N=40 (B=128, 32),
+   N=342 (B=2), N=1024 (K=6, B=1) and N=268 (K=9, B=1), timed in turns
+   beside the bound of D written once;
 4. reference phases: one SCP step of 8 scenarios through the kernels on the
    card against the plain versions on the CPU, both float32, at N=20 and
    N=30 with the production solver and at N=20 with the
@@ -153,7 +157,9 @@ The launch counters are set to 0 just before each path and read just after:
 each path must launch the kernels of its route and no other (every
 float32 solve on the direct method also runs phase 1 on the channel
 interval; the fused X interval's wide tier counts apart, and a path
-launches it where a dispatch's batch takes it).  Any failed phase raises,
+launches it where a dispatch's batch takes it; every route's QP but phase
+1's assembles D in one launch, once a dispatch on the main paths).  Any
+failed phase raises,
 so the exit code is not 0.  The last four lines are the card's name and power limit, one JSON object on the
 hand-written kernels with no Pallas body (``glue_kernels``), one on the
 kernels of the nine Pallas bodies and ``{"ok": true, "device": {...}}``.
@@ -1299,6 +1305,99 @@ def steps_phase(dev):
     return out
 
 
+# the shapes the routes assemble D at (N, K, B): the production chunk and
+# its tail, one scenario, the fused route's chunk and tail at N=40, a short
+# horizon and the grouped routes' wide shapes
+ASSEMBLE_SHAPES = ((20, K_STEPS, 512), (20, K_STEPS, 128), (20, K_STEPS, 1),
+                   (40, K_STEPS, 128), (40, K_STEPS, 32), (342, K_STEPS, 2),
+                   (1024, 6, 1), (268, 9, 1))
+
+
+def assemble_case(dev, n_veh, K, B, seed, reps=20):
+    """The QP's diagonal blocks D at (N, K, B) on production rho rows (a
+    third of the collision rows on the loose rho) and unit directions:
+    ``ops.assemble_d.assemble_D_fused`` against
+    the plain ``banded.assemble_D``, timed by CUDA events in turns
+    (kernel, plain, plain, kernel; ``reps`` calls a timing, fewer for the
+    plain version where it multiplies wide dense products), checked (every
+    entry off the diagonal vehicle blocks equal, those within 1e-5 of the
+    block's largest), beside the bound: D written once, eta and the
+    collision rho read once."""
+    import numpy as np
+    import torch
+    from ba_path_planning_torch.ops.assemble_d import assemble_D_fused
+    from ba_path_planning_torch.ops.collisions import make_pair_index
+    from ba_path_planning_torch.solvers import banded
+    from ba_path_planning_torch.utils.config import SolverConfig
+    rng = np.random.default_rng(seed)
+    P = n_veh * (n_veh - 1) // 2
+    E = make_pair_index(n_veh, device=dev).E
+    rho = banded.rho_pattern_masks(
+        banded.row_scaling_state(K, H, device=dev),
+        SolverConfig.production().static_part(),
+        torch.tensor(2.6, device=dev), torch.tensor(2.5, device=dev),
+        n_steps=K, n_pairs=P, col_enabled=True)
+    loose = torch.as_tensor(rng.uniform(size=(B, K, P)) < 0.3, device=dev)
+    rho = rho._replace(col=torch.where(
+        loose, torch.tensor(banded._LOOSE_RHO, device=dev),
+        rho.col.expand(B, K, P)).contiguous())
+    eta = rng.normal(size=(B, K, P, 2)).astype(np.float32)
+    eta /= np.linalg.norm(eta, axis=-1, keepdims=True)
+    eta = torch.as_tensor(eta, device=dev)
+    sigma = torch.tensor(1e-6, device=dev)
+    kw = dict(h=H, sigma=sigma, n_vehicles=n_veh)
+    n = 6 * n_veh
+    n_bytes = 4 * B * K * (n * n + 3 * P)
+    bound = _bound_ms(n_bytes, 0)[0]
+    plain_reps = max(1, min(reps, int(2e9 // max(1, B * K * 2 * n_veh * P))))
+    plain = lambda: banded.assemble_D(rho, eta, E, **kw)    # noqa: E731
+    out = {"N": n_veh, "K": K, "B": B, "bound_ms": bound,
+           "bound_bytes": n_bytes}
+    torch.cuda.empty_cache()
+    kernel = lambda: assemble_D_fused(rho, eta, E, **kw)    # noqa: E731
+    D, C = kernel()
+    Dp, Cp = plain()
+    r = torch.arange(n, device=dev)
+    veh = torch.where((r >= 2 * n_veh) & (r < 4 * n_veh),
+                      (r - 2 * n_veh) // 2, -1 - r)
+    mask = (veh[:, None] == veh[None, :]).expand(D.shape)
+    equal_off = bool(torch.equal(D[~mask], Dp[~mask])) and bool(
+        torch.equal(C, Cp))
+    diag_rel = float((D[mask] - Dp[mask]).abs().max()
+                     / Dp[mask].abs().max())
+    del D, C, Dp, Cp, mask
+    torch.cuda.empty_cache()
+    k_ms, p_ms = [], []
+    for fn, to in ((kernel, k_ms), (plain, p_ms), (plain, p_ms),
+                   (kernel, k_ms)):
+        to.append(_time_ms(fn, reps if fn is kernel else plain_reps))
+        torch.cuda.empty_cache()
+    if not equal_off or diag_rel > 1e-5:
+        raise AssertionError(f"assemble N={n_veh} K={K} B={B}: off-diagonal "
+                             f"equal {equal_off}, diagonal {diag_rel:.3g}")
+    return {**out, "ms": min(k_ms), "ms_runs": k_ms, "plain_ms": min(p_ms),
+            "plain_ms_runs": p_ms, "share": bound / min(k_ms),
+            "equal_off_diagonal": equal_off, "diag_max_rel": diag_rel}
+
+
+def assemble_phase(dev):
+    """The one-pass assembly of D against the plain version at
+    :data:`ASSEMBLE_SHAPES` (:func:`assemble_case`), one line a shape."""
+    stats = {}
+    for i, (n_veh, K, B) in enumerate(ASSEMBLE_SHAPES):
+        st = assemble_case(dev, n_veh, K, B, seed=40 + i)
+        print(f"assemble phase: N={n_veh} K={K} B={B} kernel "
+              f"{st['ms']:.4f} ms (in turns {st['ms_runs'][0]:.4f} / "
+              f"{st['ms_runs'][1]:.4f}), plain {st['plain_ms']:.3f} ms "
+              f"({st['plain_ms_runs'][0]:.3f} / {st['plain_ms_runs'][1]:.3f})"
+              f"; bound {st['bound_ms']:.4f} ms (bytes: D once, eta and the "
+              f"collision rho once): {100 * st['share']:.1f}%; off-diagonal "
+              f"equal {st['equal_off_diagonal']}, diagonal blocks within "
+              f"{st['diag_max_rel']:.2e}", flush=True)
+        stats[f"N{n_veh}_K{K}_B{B}"] = st
+    return stats
+
+
 def lform_phase(dev, n_veh, B, dense=False, fused=False, l_only=True,
                 n_steps=K_STEPS, reps=20, bf16=False):
     """The L-form family on the factors of the reference-compatible solver
@@ -1453,6 +1552,8 @@ def reference_phase(dev, n_veh, facade=False):
 # phase-1 interval that every float32 solve on the direct method starts with
 ROW_STAGES = {"admm_rhs", "admm_update"}
 PHASE1 = {"admm_channel_interval"}
+# the one-pass assembly of D: every route's QP but phase 1's
+ASSEMBLE = {"assemble_d"}
 
 
 def _production_route(n_veh, batches=(B_LARGE,)):
@@ -1462,7 +1563,7 @@ def _production_route(n_veh, batches=(B_LARGE,)):
     interval's factors pass its gate), else the fused interval, on the
     tier its plan takes at each of the dispatches' ``batches``
     (``admm_fused_x_wide`` the wide one); phase 1 on the channel
-    interval."""
+    interval; D assembled in one pass a QP but phase 1's."""
     import torch
     from ba_path_planning_torch.ops.admm_fused import fused_x_plan
     from ba_path_planning_torch.ops.cuda_build import device_sms
@@ -1473,9 +1574,9 @@ def _production_route(n_veh, batches=(B_LARGE,)):
         n_vehicles=n_veh, n_steps=K_STEPS, dtype=torch.float32,
         col_enabled=True)
     if route != "fused_X":
-        return PHASE1 | {"ns_chain", "group_solve_x"} | ROW_STAGES
+        return PHASE1 | ASSEMBLE | {"ns_chain", "group_solve_x"} | ROW_STAGES
     sms = device_sms(torch.device("cuda"))
-    return PHASE1 | {"ns_chain"} | {
+    return PHASE1 | ASSEMBLE | {"ns_chain"} | {
         "admm_fused_x_wide" if fused_x_plan(B, K_STEPS, n_veh, sms).spread
         else "admm_fused_x" for B in batches}
 
@@ -1575,6 +1676,12 @@ def main_path(dev, card, n_veh, B, chunk, counters, latency=False,
     _check_route(f"N={n_veh} main path{name}", launches,
                  _production_route(n_veh, _dispatch_batches(sh.last_timing,
                                                             chunk)))
+    if launches["assemble_d"] != sh.last_timing["loop_dispatches"]:
+        raise AssertionError(
+            f"N={n_veh} main path{name}: D assembled "
+            f"{launches['assemble_d']} times in "
+            f"{sh.last_timing['loop_dispatches']} dispatches (once a QP, "
+            f"never in phase 1)")
     if ok < int(np.ceil(0.99 * B)):
         raise AssertionError(f"only {ok}/{B} collision-free and goal-exact")
     return launches
@@ -1924,7 +2031,7 @@ def short_phase(dev, card, counters):
                             "max_block_rel": err, "tier": "wide",
                             "plan": qp_plan._asdict()}
     _check_route("the short phase's QP", launches,
-                 {"ns_chain", "admm_fused_x_wide"})
+                 {"ns_chain", "admm_fused_x_wide"} | ASSEMBLE)
     if not (torch.equal(res.iters, ref.iters)
             and torch.equal(res.converged, ref.converged)):
         raise AssertionError("short phase QP: iteration counts differ from "
@@ -1993,8 +2100,8 @@ def parity_phase(counters):
     """The parity contract on the card: each certified oracle trajectory
     of ``docs/parity_oracle_cache`` against ``SCPEngine.solve`` in float64
     with the parity configuration (the direct method to 1e-6, the exact
-    active-set polish, the dense route: no kernel), from the oracle's own
-    start and goal at rest.  Equal SCP iteration counts and max |dposition|
+    active-set polish, the dense route: no sweep kernel, D by the one-pass
+    assembly), from the oracle's own start and goal at rest.  Equal SCP iteration counts and max |dposition|
     and |dvelocity| within PARITY_TOL.  Returns the launch counts."""
     import numpy as np
     import torch
@@ -2036,7 +2143,7 @@ def parity_phase(counters):
               f"{int(res.qp_iterations)}, max |dposition|={dpos:.3e} m, max "
               f"|dvelocity|={dvel:.3e} m/s (contract {PARITY_TOL:g}); "
               f"engine {wall:.1f} s; launches={launches}", flush=True)
-        _check_route(f"parity {path}", launches, set())
+        _check_route(f"parity {path}", launches, ASSEMBLE)
         if eng.device.type != "cuda" or iters != want \
                 or not (dpos <= PARITY_TOL and dvel <= PARITY_TOL):
             raise AssertionError(f"parity with {path} fails")
@@ -2202,11 +2309,12 @@ def _cg_launches_per_iteration(problem, sc, v0):
 
 # route of the reference-compatible path -> (solver options, its kernels)
 FACADE_ROUTES = {
-    "grouped_L": (dict(kernels=True), {"group_solve_l"} | ROW_STAGES | PHASE1),
+    "grouped_L": (dict(kernels=True),
+                  {"group_solve_l"} | ROW_STAGES | PHASE1 | ASSEMBLE),
     "resident": (dict(kernels=True, group=-1),
-                 {"banded_solve"} | ROW_STAGES | PHASE1),
+                 {"banded_solve"} | ROW_STAGES | PHASE1 | ASSEMBLE),
     "fused_L": (dict(kernels=True, group=-1, fused=True),
-                {"admm_fused_l"} | PHASE1),
+                {"admm_fused_l"} | PHASE1 | ASSEMBLE),
 }
 
 
@@ -3278,8 +3386,9 @@ def main():
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     from ba_path_planning_torch.ops import (admm_fused, admm_steps,
-                                            banded_solve, cuda_build,
-                                            group_solve, ns_chain)
+                                            assemble_d, banded_solve,
+                                            cuda_build, group_solve,
+                                            ns_chain)
     from ba_path_planning_torch.utils.config import SolverConfig
 
     t0 = time.perf_counter()
@@ -3349,6 +3458,9 @@ def main():
     gstats = steps_phase(dev)
     torch.cuda.empty_cache()
     lap("steps phase")
+    astats = assemble_phase(dev)
+    torch.cuda.empty_cache()
+    lap("assemble phase")
     bstats = bf16_kernel_phase(dev)
     bstats["group_solve_l"]["wide_shapes"] = wide["group_solve_l_bf16"]
     lap("bf16 kernel phase")
@@ -3368,7 +3480,8 @@ def main():
                 "admm_fused_l": admm_fused.admm_interval_fused,
                 "admm_rhs": admm_steps.admm_rhs,
                 "admm_update": admm_steps.admm_update,
-                "admm_channel_interval": admm_steps.admm_channel_interval}
+                "admm_channel_interval": admm_steps.admm_channel_interval,
+                "assemble_d": assemble_d.assemble_D_fused}
     launches = dict.fromkeys(counters, 0)
 
     def add(path_launches):
@@ -3518,6 +3631,13 @@ def main():
                      "replaces": "ba_path_planning_tpu/solvers/banded.py:1319 "
                                  "(admm_iter, XLA-fused)",
                      "launches": launches[key], **stats})
+    if launches["assemble_d"] < 1:
+        raise AssertionError("no path launched assemble_d")
+    glue.append({"name": "assemble_D_fused", "route": "cuda",
+                 "source": csrc + "assemble_d.cu",
+                 "replaces": "ba_path_planning_tpu/solvers/banded.py:463 "
+                             "(assemble_D, jnp)",
+                 "launches": launches["assemble_d"], "shapes": astats})
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card)

@@ -6,7 +6,7 @@ the PyTorch port on one GPU.
                                          [--time-only] [--graph] [--bf16]
                                          [--tiers] [--plans] [--seed S]
 
-Each case (form, N, B; K=50, or a fourth field for cases S, X and NS:
+Each case (form, N, B; K=50, or a fourth field for cases S, X, NS and A:
 ``S:1024:1:6``) is built and checked as ``chip_smoke.py`` builds and
 checks it (cases NS and X repeat the inputs of at most DISTINCT
 scenarios, fewer where their assembly would not fit): the NS chain's
@@ -30,7 +30,11 @@ eta's pair terms beside it, where the checkout has both).  Case LAT
 (``LAT:20:64``) runs the bench twin (``bench.measure``) on its headline
 problem at N vehicles, B scenarios in one chunk, and prints the batch's
 wall, the p50 of single ``SolverConfig.latency()`` solves and the slope of
-sequential ones (host time included).
+sequential ones (host time included).  Case A (``A:20:512``, a fourth
+field for K: ``A:1024:1:6``) assembles the QP's diagonal blocks D through
+``chip_smoke.assemble_case``: the one-pass kernel against the plain
+``banded.assemble_D``, checked, timed in turns, beside the bound of D
+written once.
 Each case prints one JSON line: the launch plan, the kernel's ms, its
 stream bound (every block read in both sweeps, ``chip_smoke._bound_ms``)
 and its share of it, and the bound that counts only what the sweeps need
@@ -429,6 +433,12 @@ def main():
             continue
         if form == "LAT":
             print(json.dumps(_latency_case(N, B, card)), flush=True)
+            continue
+        if form == "A":
+            print(json.dumps({"form": "A", **cs.assemble_case(
+                dev, N, K, B, seed=N + args.seed), "card": card}),
+                  flush=True)
+            torch.cuda.empty_cache()
             continue
         if form in ("F", "FR"):
             lane_rho = cs._lane_rho(B, seed=N) if form == "FR" else None

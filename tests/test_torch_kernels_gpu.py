@@ -1469,3 +1469,165 @@ def test_a_production_call_waits_on_the_card_only_where_it_counts(cuda):
             ("mesh.call", None)} <= parents
     assert sum(n.endswith(".host_write") for *_, n in spans) == \
         solver.last_timing["host_writes"]
+
+
+def _assemble_case(B, K, N, dtype, device, *, lane_rho=False, shards=1,
+                   seed=0):
+    """Production rho rows (one rho a lane where ``lane_rho``; about a
+    third of the collision rows on the loose rho, as the solver's disabled
+    rows), unit directions eta (B, K, P, 2) and E, padded to a multiple of
+    ``shards`` (``PaddedPairIndex``), on ``device``."""
+    from ba_path_planning_torch.parallel.pair_sharded import (
+        padded_pair_index)
+    rng = np.random.default_rng(seed)
+    pairs = (padded_pair_index(N, shards, dtype, device) if shards > 1
+             else make_pair_index(N, dtype, device))
+    P = pairs.E.shape[1]
+    scaling = tb.row_scaling_state(K, 0.2, dtype=dtype, device=device)
+    rho = (torch.as_tensor(rng.uniform(0.5, 4.0, size=B), dtype=dtype,
+                           device=device)
+           if lane_rho else torch.tensor(2.6, dtype=dtype, device=device))
+    rows = tb.rho_pattern_masks(
+        scaling, SolverConfig.production().static_part(), rho,
+        torch.tensor(2.5, dtype=dtype, device=device), n_steps=K, n_pairs=P,
+        col_enabled=True, dtype=dtype)
+    loose = torch.as_tensor(rng.uniform(size=(B, K, P)) < 0.3,
+                            device=device)
+    rows = rows._replace(col=torch.where(
+        loose, torch.tensor(tb._LOOSE_RHO, dtype=dtype, device=device),
+        rows.col.expand(B, K, P)).contiguous())
+    eta = rng.normal(size=(B, K, P, 2)).astype(np.float32)
+    eta /= np.linalg.norm(eta, axis=-1, keepdims=True)
+    return rows, torch.as_tensor(eta, dtype=dtype, device=device), pairs.E
+
+
+def _plain_assembly(rho, eta, E, N, sigma, ks=None):
+    """The plain version's D (…, K, 6N, 6N) and C on the card; with ``ks``
+    only the steps ``ks`` of D (the skeleton, plus each step's collision
+    blocks from a window of two steps of eta, so that the dense product
+    fits the card at N = 342 and 1024)."""
+    if ks is None:
+        return tb.assemble_D(rho, eta, E, h=0.2, sigma=sigma, n_vehicles=N)
+    n2 = 2 * N
+    D0, s = tb.assemble_skeleton(rho, h=0.2, sigma=sigma, n_vehicles=N)
+    K = eta.shape[-3]
+    out = D0.expand(eta.shape[:-3] + D0.shape[-3:])[..., ks, :, :].clone()
+    col = rho.col.expand(eta.shape[:-1])
+    for i, k in enumerate(ks):
+        if k + 1 < K:
+            colM = tb.collision_blocks(col[:, k:k + 2], eta[:, k:k + 2], E)
+            out[:, i, n2:2 * n2, n2:2 * n2] += colM[:, 0]
+            del colM
+    return out, tb.b_slot_mats(s)
+
+
+def _pp_diag_mask(N, device):
+    """True on the diagonal vehicle blocks of the p-p slot, (6N, 6N)."""
+    n2, n = 2 * N, 6 * N
+    r = torch.arange(n, device=device)
+    veh = torch.where((r >= n2) & (r < 2 * n2), (r - n2) // 2, -1 - r)
+    return veh[:, None] == veh[None, :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,K,B,dtype,lane_rho,shards", [
+    (20, 50, 512, "f32", False, 1), (20, 50, 128, "f32", False, 1),
+    (20, 50, 1, "f32", False, 1), (40, 50, 128, "f32", False, 1),
+    (40, 50, 32, "f32", False, 1), (21, 50, 8, "f32", False, 1),
+    (20, 50, 64, "f32", True, 1), (20, 50, 16, "f32", False, 4),
+    (30, 20, 6, "f32", True, 7), (20, 50, 16, "f64", False, 1),
+    (20, 50, 8, "f64", True, 3), (268, 9, 1, "f32", False, 1),
+    (342, 50, 2, "f32", False, 1), (1024, 6, 1, "f32", False, 1)])
+def test_assemble_D_kernel_matches_plain(cuda, N, K, B, dtype, lane_rho,
+                                         shards):
+    """``ops.assemble_d.assemble_D_fused`` against the plain
+    ``banded.assemble_D`` on the card, at the production chunks, the
+    fused route's shapes, the short horizon N=268 K=9 and the wide N=342
+    K=50 B=2 and N=1024 K=6 B=1, with one rho a lane and pad pairs, in
+    float32 and float64: C, the skeleton, the shift and the off-diagonal
+    vehicle blocks bit for bit; the diagonal vehicle blocks (a sum in
+    another order) no further from float64 than twice the plain version's
+    own distance (in float64, within N ulps of the largest entry).  Where
+    the plain dense product would not fit the card, steps 0, 1, K/2, K-2
+    and K-1 are compared."""
+    from ba_path_planning_torch.ops import assemble_d
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    rho, eta, E = _assemble_case(B, K, N, dt, cuda, lane_rho=lane_rho,
+                                 shards=shards, seed=N + B)
+    sig = torch.tensor(1e-6, dtype=dt, device=cuda)
+    before = assemble_d.assemble_D_fused.launches
+    D, C = assemble_d.assemble_D_fused(rho, eta, E, h=0.2, sigma=sig,
+                                       n_vehicles=N)
+    torch.cuda.synchronize()
+    assert assemble_d.assemble_D_fused.launches == before + 1
+    P = E.shape[1]
+    dense_bytes = B * K * 2 * N * P * eta.element_size()
+    ks = None if dense_bytes < 2 ** 31 else sorted({0, 1, K // 2, K - 2,
+                                                    K - 1})
+    want, C0 = _plain_assembly(rho, eta, E, N, sig, ks)
+    assert torch.equal(C, C0)
+    got = D if ks is None else D[:, ks]
+    mask = _pp_diag_mask(N, cuda).expand(got.shape)
+    assert torch.equal(got[~mask], want[~mask])
+    d_got, d_want = got[mask], want[mask]
+    del D, got, want
+    f64 = tb.tree_map(lambda t: t.double(), rho)
+    ref, _ = _plain_assembly(f64, eta.double(), E.double(), N, sig.double(),
+                             ks)
+    d_ref = ref[mask]
+    del ref
+    err = float((d_got.double() - d_ref).abs().max())
+    own = float((d_want.double() - d_ref).abs().max())
+    eps = torch.finfo(dt).eps * float(d_ref.abs().max())
+    if dt == torch.float64:     # the plain version is the reference: its
+        assert err <= N * eps   # sums in another order
+    else:
+        assert err <= 2 * own + eps, (err, own)
+
+
+@pytest.mark.gpu
+def test_a_production_call_assembles_once_a_qp(cuda):
+    """A production ``solve_compacted`` (N=20, B=1024, chunk 512) runs the
+    one-pass assembly once a ``grouped_X`` QP (one a dispatch) and never
+    in phase 1, and adds no copy between host and card: the writes stay
+    13 + 14 a dispatch, and torch's sync debug mode finds exactly the
+    counted reads and writes."""
+    import warnings
+
+    from ba_path_planning_torch.ops import assemble_d
+    from ba_path_planning_torch.parallel.mesh import ShardedSCPSolver
+    from ba_path_planning_torch.scenarios.generator import (
+        generate_scenario_batch)
+    problem = ProblemConfig(n_vehicles=20, time_horizon=10.0, time_step=0.2,
+                            min_distance=0.8, stop_mode="feasible",
+                            goal_project=True)
+    cfg = SolverConfig.production(problem=problem)
+    assert tb.qp_route(cfg.static_part(), n_vehicles=20, n_steps=50,
+                       dtype=torch.float32, col_enabled=True) == "grouped_X"
+    solver = ShardedSCPSolver(problem, cfg, dtype=torch.float32, device=cuda)
+    sc = generate_scenario_batch(2 ** 31 + 23, 1024, n_vehicles=20,
+                                 min_distance=0.8, device=cuda)
+    v0 = torch.zeros_like(sc.initial)
+
+    def call():
+        return solver.solve_compacted(sc.initial, v0, sc.final, v0,
+                                      chunk=512)
+    call()
+    torch.cuda.synchronize()
+    before = assemble_d.assemble_D_fused.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    t = solver.last_timing
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert t["loop_dispatches"] >= 2
+    assert assemble_d.assemble_D_fused.launches - before == \
+        t["loop_dispatches"]
+    assert t["host_writes"] == 13 + 14 * t["loop_dispatches"]
+    assert len(syncs) == t["host_reads"] + t["host_writes"]
+    assert int((res.status <= 1).sum()) >= 1000

@@ -17,7 +17,8 @@ decided limit of the grouped routes, N <= 1024.
 import pytest
 import torch
 
-from ba_path_planning_torch.ops import admm_fused, admm_steps, group_solve
+from ba_path_planning_torch.ops import (admm_fused, admm_steps, assemble_d,
+                                        group_solve)
 from ba_path_planning_torch.ops import ns_chain
 from ba_path_planning_torch.solvers import banded as tb
 from ba_path_planning_torch.solvers.scp import REFERENCE_SOLVER
@@ -81,8 +82,11 @@ def _channel_ok(K, N):
 
 
 def _route_ok(route, K, N, esize):
-    """The plan of every kernel ``route`` launches accepts (K, N)."""
+    """The plan of every kernel ``route`` launches accepts (K, N); each
+    route but phase 1's assembles D in one kernel."""
     n = 6 * N
+    for B in SWEEP_BATCHES:        # D in the working dtype
+        assemble_d.assemble_plan(B, K, N, 4)
     if route in ("grouped_X", "fused_X") and K >= 6:     # the NS chain
         for B in SWEEP_BATCHES:
             ns_chain.ns_chain_plan(B, n)
